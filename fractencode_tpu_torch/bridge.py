@@ -1,0 +1,58 @@
+"""Carry encodes and configs across the two packages as plain numpy data.
+
+The JAX package's ``EncodeResult`` becomes this package's (and back) through
+numpy arrays plus its static fields, so either package decodes the other's
+encodes.  Nothing here imports jax: the JAX side is handed over as numpy
+arrays and dicts (``dataclasses.asdict`` of its configs).
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from .encode.encoder import EncodeResult
+from .params import DecoderConfig, EncoderConfig
+
+__all__ = ["ARRAY_FIELDS", "META_FIELDS", "result_from_numpy", "result_to_numpy",
+           "config_from_jax_fields"]
+
+ARRAY_FIELDS = ("domain_idx", "transform", "s", "o", "distance", "valid")
+META_FIELDS = ("width", "height", "source_size", "target_size", "domain_step",
+               "o_is_mean", "num_transforms")
+_DTYPES = dict(domain_idx=np.int32, transform=np.int32, s=np.float32,
+               o=np.float32, distance=np.float32, valid=np.bool_)
+
+# the JAX package's backend names -> this package's
+_BACKENDS = {"auto": "auto", "jnp": "torch", "pallas": "cuda"}
+
+
+def result_from_numpy(arrays, meta, device="cpu") -> EncodeResult:
+    """EncodeResult on ``device`` from per-range arrays (any array-likes,
+    e.g. ``np.asarray`` of the JAX result's fields) and its static fields."""
+    tensors = {name: torch.from_numpy(np.array(arrays[name], dtype=_DTYPES[name]))
+               .to(device) for name in ARRAY_FIELDS}
+    return EncodeResult(**tensors, **{name: meta[name] for name in META_FIELDS
+                                      if name in meta})
+
+
+def result_to_numpy(res: EncodeResult):
+    """(arrays, meta): numpy arrays of the per-range fields and a dict of the
+    static fields, enough to rebuild either package's EncodeResult."""
+    arrays = {name: getattr(res, name).cpu().numpy() for name in ARRAY_FIELDS}
+    meta = {name: getattr(res, name) for name in META_FIELDS}
+    return arrays, meta
+
+
+def config_from_jax_fields(fields):
+    """This package's EncoderConfig or DecoderConfig from the JAX package's
+    config (a dataclass instance or a dict of its fields); the kind follows
+    the field names, and JAX backend names map to this package's."""
+    if dataclasses.is_dataclass(fields):
+        fields = dataclasses.asdict(fields)
+    fields = dict(fields)
+    if "source_size" in fields:
+        fields["backend"] = _BACKENDS[fields.get("backend", "auto")]
+        return EncoderConfig(**fields)
+    return DecoderConfig(**fields)

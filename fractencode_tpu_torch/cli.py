@@ -1,0 +1,181 @@
+"""Command-line entry point of the port (mirrors ``fractencode_tpu/cli.py``).
+
+Encodes one grayscale plane, decodes it and prints the reference CLI's
+statistics plus PSNR, for the flags the port covers.  Flags of parts not
+ported yet are accepted by the parser and refused with exit code 2.
+
+Usage:
+    python -m fractencode_tpu_torch input.png [--device cuda|cpu] [flags]
+"""
+from __future__ import annotations
+
+import argparse
+import sys
+import time
+
+import numpy as np
+import torch
+
+# flag -> the ROADMAP.md item that ports it
+_NOT_PORTED = {
+    "quadtree": "queue 1, Quadtree",
+    "vq_classes": "queue 1, VQ pruning",
+    "out": "queue 1, Codec adapters and bitstream",
+    "decode_file": "queue 1, Codec adapters and bitstream",
+    "color": "queue 1, CLI",
+    "noclassifier": "queue 2, K3",
+    "rms": "queue 2, K1's early-accept frontier",
+    "log": "queue 1, Profiling",
+    "profile": "queue 1, Profiling",
+}
+
+
+def build_parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(prog="fractencode_tpu_torch", description=__doc__)
+    p.add_argument("input", nargs="?", help="input image (png/jpg)")
+    p.add_argument("--device", default="cuda" if torch.cuda.is_available() else "cpu",
+                   help="torch device to run on (cuda or cpu)")
+    p.add_argument("--decode", type=int, default=-1, help="max decode iterations")
+    p.add_argument("--source", type=int, default=16, help="domain block size")
+    p.add_argument("--target", type=int, default=4, help="range block size")
+    p.add_argument("--smax", type=float, default=-1.0, help="|s| clamp (<=0 off)")
+    p.add_argument("--debug_decode", action="store_true", help="dump decode iterates")
+    p.add_argument("--transforms", type=int, default=4, choices=range(1, 9),
+                   help="number of dihedral isometries to search (reference: 4)")
+    p.add_argument("--criterion", choices=["affine", "raw"], default="affine")
+    p.add_argument("--so-mode", choices=["ls", "reference"], default="ls")
+    p.add_argument("--compat", action="store_true",
+                   help="bit-parity with the C++ reference (raw + reference + 4)")
+    p.add_argument("--result", default="result.png", help="decoded output image path")
+    p.add_argument("--decode-rms", type=float, default=1e-5)
+    # not ported yet: parsed so that they are refused by name
+    p.add_argument("--rms", type=float, default=0.0, help=argparse.SUPPRESS)
+    p.add_argument("--color", action="store_true", help=argparse.SUPPRESS)
+    p.add_argument("--noclassifier", action="store_true", help=argparse.SUPPRESS)
+    p.add_argument("--log", action="store_true", help=argparse.SUPPRESS)
+    p.add_argument("--profile", default=None, help=argparse.SUPPRESS)
+    p.add_argument("--quadtree", action="store_true", help=argparse.SUPPRESS)
+    p.add_argument("--vq-classes", type=int, default=0, help=argparse.SUPPRESS)
+    p.add_argument("--out", default=None, help=argparse.SUPPRESS)
+    p.add_argument("--decode-file", default=None, help=argparse.SUPPRESS)
+    return p
+
+
+def _unported_flag(args) -> str | None:
+    for name, item in _NOT_PORTED.items():
+        if getattr(args, name):
+            return f"--{name.replace('_', '-')} is not ported yet (ROADMAP.md {item})"
+    return None
+
+
+def _config_from_args(args):
+    from .params import REFERENCE_COMPAT, EncoderConfig
+
+    kw = dict(source_size=args.source, target_size=args.target, s_max=args.smax)
+    if args.compat:
+        return REFERENCE_COMPAT(**kw)
+    return EncoderConfig(criterion=args.criterion, so_mode=args.so_mode,
+                         num_transforms=args.transforms, **kw)
+
+
+def _sync(device) -> None:
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def _encode_one(plane, args, cfg, dcfg, label=""):
+    """Encode and decode one numpy u8 plane on ``args.device``, printing the
+    reference CLI's statistics; returns (EncodeResult, decoded numpy plane)."""
+    from .core.classify import classify_grid
+    from .core.metrics import psnr
+    from .decode import decode_plane, decode_steps_py
+    from .encode import encode_plane
+    from .encode.encoder import encode_stats
+
+    device = args.device
+    t0 = time.perf_counter()
+    res = encode_plane(plane, cfg, device=device)
+    _sync(device)
+    print(f"encoded{label} in {time.perf_counter() - t0:.4g} s.")
+    print(f"{res.num_ranges} elements.")
+    # classifier rejection statistics (Encoder2.hpp:21-23), O(R + D)
+    plane_t = torch.from_numpy(np.ascontiguousarray(plane, dtype=np.uint8))
+    st = encode_stats(res, classify_grid(plane_t, res.range_grid).numpy(),
+                      classify_grid(plane_t, res.domain_grid).numpy())
+    total, rejected = st["total_mappings"], st["rejected_mappings"]
+    print(f"classifier rejected {rejected} out of {total} comparisons "
+          f"({100.0 * rejected / total:.4g})%")
+
+    if args.debug_decode:
+        from .image import save_plane
+
+        for i, img in decode_steps_py(res, dcfg):
+            save_plane(img.cpu().numpy(), f"decode_debug{i}.png")
+
+    t0 = time.perf_counter()
+    out, iters, mse = decode_plane(res, dcfg)
+    _sync(device)
+    print(f"decoded{label} in {time.perf_counter() - t0:.4g} s.")
+    print(f"decode stats: {iters} steps, rms: {mse:.6g}")
+    print(f"psnr: {float(psnr(plane_t, out.cpu())):.4f} dB")
+    _stats(res)
+    return res, out.cpu().numpy()
+
+
+def _stats(res):
+    """Quantization statistics (cf. encode_data_statistics, main.cpp:106-140)."""
+    from .codec.quantize import DEFAULT_O_BITS, DEFAULT_S_BITS, quantize
+
+    s = res.s.cpu().numpy().astype(np.float64)
+    o = res.o.cpu().numpy().astype(np.float64)
+    print("----")
+    print(f"grid element count: {len(s)}")
+    print(f"contrast: {s.min():.6g}:{s.max():.6g}")
+    print(f"brightness: {o.min():.6g}:{o.max():.6g}")
+    sq = quantize(s, s.min(), s.max(), DEFAULT_S_BITS)
+    oq = quantize(o, o.min(), o.max(), DEFAULT_O_BITS)
+    print("contrast / brightness quantization: "
+          f"{len(np.unique(sq))} {len(np.unique(oq))}")
+    print("----")
+
+
+def main(argv=None) -> int:
+    args = build_parser().parse_args(argv)
+    from .params import DecoderConfig
+
+    refused = _unported_flag(args)
+    if refused:
+        print(f"error: {refused}", file=sys.stderr)
+        return 2
+    if not args.input:
+        print("no input image", file=sys.stderr)
+        return 2
+    # --compat pins the strict reference decode: flat start, no stall exit
+    dcfg = DecoderConfig(
+        max_iterations=args.decode if args.decode > 0 else 300,
+        epsilon=args.decode_rms,
+        pyramid=not args.compat,
+        stall_window=0 if args.compat else DecoderConfig.stall_window,
+    )
+    try:
+        cfg = _config_from_args(args)
+    except ValueError as e:
+        print(f"error: {e}", file=sys.stderr)  # cf. main.cpp:99-102
+        return 2
+
+    from .image import load_planes, save_plane
+
+    total0 = time.perf_counter()
+    y, _, _ = load_planes(args.input)
+    try:
+        _, out = _encode_one(y, args, cfg, dcfg)
+    except NotImplementedError as e:
+        print(f"error: {e}", file=sys.stderr)
+        return 2
+    save_plane(out, args.result)
+    print(f"total time: {time.perf_counter() - total0:.4g} s.")
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

@@ -1,0 +1,3 @@
+from .decoder import decode_plane, decode_steps_py
+
+__all__ = ["decode_plane", "decode_steps_py"]

@@ -1,0 +1,385 @@
+"""Fixed-point PIFS decoder (port of ``fractencode_tpu/decode/decoder.py``).
+
+Reference semantics (``Encoder2.hpp:60-99``, ``DecodeUtils.hpp:9-25``): start
+from a flat gray image and apply the whole map set Jacobi-style until the
+inter-iterate MSE drops below epsilon or 300 iterations.  Per range pixel:
+sample the isometry-mapped domain (2x2 average), apply ``s*v + o``, clamp to
+[0, 255] and truncate to u8.
+
+One step is a gather of every range's K domain samples through static tap
+tables, an affine map and a reshape; ranges tile the image, so there is no
+scatter.  The loops run in Python: the flat loop reads one MSE and one cycle
+flag back per step for its exit tests, the pyramid loop runs a fixed count.
+"""
+from __future__ import annotations
+
+import dataclasses
+import functools
+
+import numpy as np
+import torch
+
+from ..core.sampler import all_tap_tables
+from ..core.transform import NUM_TRANSFORMS
+from ..encode.encoder import EncodeResult
+from ..params import DecoderConfig
+
+__all__ = ["decode_plane", "decode_steps_py", "build_decode_tables",
+           "sample_domains", "half_res_image", "pyramid_factors"]
+
+
+@functools.lru_cache(maxsize=None)
+def _global_tap_tables(source_size: int, target_size: int, stride: int) -> np.ndarray:
+    """[NUM_TRANSFORMS, K, 4] flat *image* offsets of the 4 sample taps for
+    every output pixel of a domain block anchored at flat origin 0."""
+    local = all_tap_tables(source_size, target_size)  # block-flat, stride=sw
+    my, mx = np.divmod(local, source_size)
+    return (my.astype(np.int64) * stride + mx).astype(np.int32)
+
+
+@functools.lru_cache(maxsize=None)
+def _half_res_taps(source_size: int, target_size: int, width: int):
+    """[NUM_TRANSFORMS, K] single-tap flat indices into the [H/2, W/2] half
+    image for a domain anchored at half-image origin 0, or None.
+
+    The 4 taps of every sample are the isometry image of an axis-aligned 2x2
+    cell; when every cell's min corner is even, the 4-tap average is one
+    pixel of the 2x2-box-downsampled image.
+    """
+    sw = source_size
+    if sw % 2:
+        return None
+    local = all_tap_tables(sw, target_size)  # [T, K, 4] block-flat
+    my, mx = np.divmod(local, sw)
+    my0 = my.min(axis=2)
+    mx0 = mx.min(axis=2)
+    cell_ok = ((my.max(axis=2) == my0 + 1) & (mx.max(axis=2) == mx0 + 1)
+               & (my0 % 2 == 0) & (mx0 % 2 == 0))
+    if not cell_ok.all():
+        return None
+    return ((my0 // 2).astype(np.int64) * (width // 2) + mx0 // 2).astype(np.int32)
+
+
+@functools.lru_cache(maxsize=None)
+def _patch_tap_tables(source_size: int, target_size: int, width: int,
+                      max_slices: int = 256):
+    """Tables for the codebook-rows decode path, or None.
+
+    Splits the half-res tap set into the distinct local patch positions U
+    that any isometry samples, and a [T, K] index of every (transform,
+    sample) into U.  Returns (positions tuple[(dy, dx)], tap_idx
+    [NUM_TRANSFORMS, K] i32).
+    """
+    taps = _half_res_taps(source_size, target_size, width)
+    if taps is None:
+        return None
+    w2 = width // 2
+    ys, xs = np.divmod(taps, w2)  # local patch coords (origin-0 anchor)
+    pos = sorted(set(zip(ys.ravel().tolist(), xs.ravel().tolist())))
+    if len(pos) > max_slices:
+        return None
+    index = {p: i for i, p in enumerate(pos)}
+    t_n, k_n = taps.shape
+    tap_idx = np.array(
+        [[index[(int(ys[t, k]), int(xs[t, k]))] for k in range(k_n)]
+         for t in range(t_n)], np.int32)
+    return tuple(pos), tap_idx
+
+
+def build_decode_tables(domain_idx, transform, width, height, source_size,
+                        target_size, domain_step,
+                        num_transforms: int = NUM_TRANSFORMS):
+    """Gather tables for one map-set application, as (kind, tables).
+
+    "cb": sample the whole (domain, isometry) pool from the image's half
+    image, then read each range's K values as one row (the decode-time
+    codebook); its tables are (code, (patch rows, patch columns, extent_y,
+    extent_x), tap_idx, ny, nx, step / 2).  "half": [R, K] single-tap
+    indices into the half image.  "full": [R, K, 4] tap indices into the
+    full image.  The kinds are tried in that order, as the JAX package does;
+    all give the same samples.
+    """
+    dev = domain_idx.device
+    dom = domain_idx.to(torch.int64)
+    tr = transform.to(torch.int64)
+    nx = (width - source_size) // domain_step + 1
+    ox = (dom % nx) * domain_step
+    oy = (dom // nx) * domain_step
+
+    if domain_step % 2 == 0 and domain_step >= 2:
+        patch = _patch_tap_tables(source_size, target_size, width)
+        if patch is not None:
+            pos, tap_idx = patch
+            # only the isometries the search considered
+            tap_idx = torch.as_tensor(tap_idx[:num_transforms], dtype=torch.int64,
+                                      device=dev)
+            ny = (height - source_size) // domain_step + 1
+            code = dom * num_transforms + tr
+            # the U patch positions as index tensors, plus the patch extent
+            pos_yx = (torch.tensor([p[0] for p in pos], dtype=torch.int64, device=dev),
+                      torch.tensor([p[1] for p in pos], dtype=torch.int64, device=dev),
+                      max(p[0] for p in pos) + 1, max(p[1] for p in pos) + 1)
+            return "cb", (code, pos_yx, tap_idx, ny, nx, domain_step // 2)
+
+    half = _half_res_taps(source_size, target_size, width)
+    if half is not None and domain_step % 2 == 0:
+        origin_half = (oy // 2) * (width // 2) + ox // 2
+        taps = torch.as_tensor(half, dtype=torch.int64, device=dev)
+        return "half", origin_half[:, None] + taps[tr]
+
+    taps = torch.as_tensor(_global_tap_tables(source_size, target_size, width),
+                           dtype=torch.int64, device=dev)
+    origin_flat = oy * width + ox
+    return "full", origin_flat[:, None, None] + taps[tr]
+
+
+def _build_indices(result: EncodeResult):
+    return build_decode_tables(
+        result.domain_idx, result.transform, result.width, result.height,
+        result.source_size, result.target_size, result.domain_step,
+        result.num_transforms)
+
+
+def _box2_sums(img: torch.Tensor) -> torch.Tensor:
+    """[H/2, W/2] i32 2x2 box sums (an odd last row or column is dropped)."""
+    h2, w2 = img.shape[0] // 2, img.shape[1] // 2
+    x = img[:2 * h2, :2 * w2].to(torch.int32).reshape(h2, 2, w2, 2)
+    return x.sum(dim=(1, 3), dtype=torch.int32)
+
+
+def half_res_image(img: torch.Tensor) -> torch.Tensor:
+    """[H, W] u8 or u8-valued f32 -> [H/2, W/2] f32 2x2 box averages
+    (multiples of 0.25, exact)."""
+    return _box2_sums(img).to(torch.float32) * 0.25
+
+
+def _half_sums_u16(img_u8: torch.Tensor) -> torch.Tensor:
+    """[H/2, W/2] 2x2 box SUMS (4x the half image, <= 1020, exact).
+
+    The JAX package keeps them in u16; the port uses int32, which PyTorch
+    supports on every operator, with the same values.  Integer planes only.
+    """
+    if img_u8.dtype.is_floating_point:
+        raise TypeError(f"_half_sums_u16 requires an integer (u8) plane, "
+                        f"got {img_u8.dtype}")
+    return _box2_sums(img_u8)
+
+
+def sample_domains(img_u8: torch.Tensor, tables) -> torch.Tensor:
+    """[R, K] f32 sampled (2x2-averaged) domain pixels for every range."""
+    kind, idx = tables
+    if kind == "cb":
+        code, (pys, pxs, extent_y, extent_x), tap_idx, ny, nx, s2 = idx
+        half4 = _half_sums_u16(img_u8).contiguous()
+        w2 = half4.shape[1]
+        # [ny, nx, extent_y, extent_x] view of every domain's patch; the pool
+        # picks the U sampled positions of each: [D, U]
+        patches = half4.as_strided((ny, nx, extent_y, extent_x), (s2 * w2, s2, w2, 1))
+        base = patches[:, :, pys, pxs].reshape(ny * nx, pys.shape[0])
+        t_n, k_n = tap_idx.shape
+        vals = base[:, tap_idx.reshape(-1)].reshape(ny * nx * t_n, k_n)
+        return vals[code].to(torch.float32) * 0.25
+    if kind == "half":
+        return _half_sums_u16(img_u8).reshape(-1)[idx].to(torch.float32) * 0.25
+    flat = img_u8.to(torch.float32).reshape(-1)
+    return flat[idx].sum(-1) * 0.25
+
+
+def _affine_u8(s, v, o):
+    """floor(clip(s*v + o, 0, 255)) as u8, with s*v + o rounded once to f32
+    (the fused multiply-add XLA:CPU emits): s*v is exact in float64 (v is a
+    multiple of 0.25 below 2^8, s has 24 significant bits)."""
+    out = (s.to(torch.float64) * v.to(torch.float64) + o.to(torch.float64))
+    return out.to(torch.float32).clamp(0.0, 255.0).floor().to(torch.uint8)
+
+
+def _decode_step(img_u8, tables, s, o, height, width, target_size, o_is_mean=False):
+    """One application of the full map set: u8 image -> u8 image."""
+    samp = sample_domains(img_u8, tables)  # [R, K]
+    if o_is_mean:
+        samp = samp - samp.mean(-1, keepdim=True)
+    out = _affine_u8(s[:, None], samp, o[:, None])
+    ny = height // target_size
+    nx = width // target_size
+    return (out.reshape(ny, nx, target_size, target_size)
+            .permute(0, 2, 1, 3).reshape(height, width))
+
+
+def _mean_init_image(result: EncodeResult, dcfg: DecoderConfig):
+    """Piecewise-constant start image from the block-mean fixed point, or
+    None when the geometry does not qualify (``initial='means'``).
+
+    A domain's mean is the mean of the (sw/ts)^2 range blocks it covers, so
+    the block means satisfy their own [R]-sized contraction.
+    """
+    h, w = result.height, result.width
+    ts = result.target_size
+    sw = result.source_size
+    step = result.domain_step
+    ny, nxr = h // ts, w // ts
+    s = torch.where(result.valid, result.s, 0.0)
+    o = torch.where(result.valid, result.o, 0.0)
+    if result.o_is_mean:
+        mu = o.clamp(0.0, 255.0)
+    else:
+        if step % ts or sw % ts or step == 0:
+            return None
+        nxd = (w - sw) // step + 1
+        kb = sw // ts
+        dom = result.domain_idx.to(torch.int64)
+        oy = (dom // nxd) * (step // ts)  # domain origin in range-block units
+        ox = (dom % nxd) * (step // ts)
+        di, dj = np.meshgrid(np.arange(kb), np.arange(kb), indexing="ij")
+        offs = torch.as_tensor(di.reshape(-1) * nxr + dj.reshape(-1),
+                               dtype=torch.int64, device=dom.device)
+        gather_idx = (oy * nxr + ox)[:, None] + offs[None, :]
+        mu = torch.full((ny * nxr,), float(dcfg.initial_value), dtype=torch.float32,
+                        device=dom.device)
+        for _ in range(dcfg.mean_init_iters):
+            dm = mu[gather_idx].mean(1)
+            mu = (s.to(torch.float64) * dm.to(torch.float64)
+                  + o.to(torch.float64)).to(torch.float32).clamp(0.0, 255.0)
+    img = mu.floor().to(torch.uint8).reshape(ny, nxr)
+    return img.repeat_interleave(ts, 0).repeat_interleave(ts, 1)
+
+
+def pyramid_factors(height: int, width: int, target_size: int,
+                    source_size: int, domain_step: int,
+                    max_levels: int = 2) -> tuple[int, ...]:
+    """Coarse-to-fine scale factors (coarsest first), possibly empty: f
+    qualifies when the decode geometry divides by f and the scaled image
+    still supports the half-res pool build."""
+    fs = []
+    f = 2
+    while (len(fs) < max_levels and target_size % f == 0
+           and source_size % f == 0 and domain_step % f == 0
+           and height % (2 * f) == 0 and width % (2 * f) == 0
+           and source_size // f >= 2 and domain_step // f >= 1):
+        fs.append(f)
+        f *= 2
+    return tuple(reversed(fs))
+
+
+def _pyramid_init(result: EncodeResult, s, o, dcfg: DecoderConfig):
+    """Coarse-to-fine start image for the full-res loop, or None:
+    ``pyramid_steps`` iterations at the coarsest scale, ``pyramid_refine_steps``
+    at each finer one, upsampling by pixel replication between scales."""
+    h, w = result.height, result.width
+    ts = result.target_size
+    fs = pyramid_factors(h, w, ts, result.source_size, result.domain_step,
+                         max_levels=dcfg.pyramid_levels)
+    if not fs:
+        return None
+    img = None
+    for i, f in enumerate(fs):
+        hf, wf, tsf = h // f, w // f, ts // f
+        tables = build_decode_tables(
+            result.domain_idx, result.transform, wf, hf,
+            result.source_size // f, tsf, result.domain_step // f,
+            result.num_transforms)
+        if img is None:
+            img = torch.full((hf, wf), dcfg.initial_value, dtype=torch.uint8,
+                             device=s.device)
+            n = dcfg.pyramid_steps
+        else:
+            n = dcfg.pyramid_refine_steps
+        for _ in range(n):
+            img = _decode_step(img, tables, s, o, hf, wf, tsf, result.o_is_mean)
+        rep = f // (fs[i + 1] if i + 1 < len(fs) else 1)
+        if rep > 1:
+            img = img.repeat_interleave(rep, 0).repeat_interleave(rep, 1)
+    return img
+
+
+def _step_mse(nxt: torch.Tensor, img: torch.Tensor) -> np.float32:
+    """Inter-iterate MSE as f32: the squared differences summed exactly,
+    rounded once to f32, then multiplied by the f32 reciprocal of the area
+    (XLA:CPU compiles the JAX loop's division by the constant area so)."""
+    d = nxt.to(torch.int32) - img.to(torch.int32)
+    total = int((d * d).sum().item())
+    return np.float32(total) * (np.float32(1.0) / np.float32(nxt.numel()))
+
+
+def _decode_core(result: EncodeResult, dcfg: DecoderConfig):
+    h, w = result.height, result.width
+    tables = _build_indices(result)
+    s = torch.where(result.valid, result.s, 0.0)
+    o = torch.where(result.valid, result.o, 0.0)
+
+    def step(img):
+        return _decode_step(img, tables, s, o, h, w, result.target_size,
+                            result.o_is_mean)
+
+    init = torch.full((h, w), dcfg.initial_value, dtype=torch.uint8, device=s.device)
+    if dcfg.initial == "means":
+        mi = _mean_init_image(result, dcfg)
+        if mi is not None:
+            init = mi
+    if dcfg.pyramid:
+        pi = _pyramid_init(result, s, o, dcfg)
+        if pi is not None:
+            # a fixed count of full-res steps, capped by an explicit
+            # iteration limit (see DecoderConfig.pyramid_full_steps)
+            n_full = min(dcfg.pyramid_full_steps, dcfg.max_iterations)
+            img = prev = pi
+            for _ in range(n_full):
+                img, prev = step(img), img
+            return img, n_full, float(_step_mse(img, prev))
+
+    # Flat loop with the JAX package's exit tests: epsilon, an exact period-2
+    # cycle (u8 truncation can trap a few pixels flip-flopping forever), or a
+    # stall (no improvement by stall_rtol for stall_window steps).
+    eps = np.float32(dcfg.epsilon)
+    keep = np.float32(1.0 - dcfg.stall_rtol)
+    img, prev = init, init ^ 1  # prev differs from any first iterate
+    steps, done, since = 0, False, 0
+    mse = best = np.float32(np.inf)
+    while steps < dcfg.max_iterations and not done:
+        nxt = step(img)
+        mse = _step_mse(nxt, img)
+        cycle = torch.equal(nxt, prev)
+        since = 0 if mse < best * keep else since + 1
+        best = min(best, mse)
+        stalled = dcfg.stall_window > 0 and since >= dcfg.stall_window
+        img, prev = nxt, img
+        steps += 1
+        done = bool(mse < eps) or cycle or stalled
+    return img, (steps - 1 if done else steps), float(mse)
+
+
+def _to_device(result: EncodeResult, device) -> EncodeResult:
+    if device is None or torch.device(device) == result.s.device:
+        return result
+    arrays = {f.name: getattr(result, f.name).to(device)
+              for f in dataclasses.fields(result)
+              if isinstance(getattr(result, f.name), torch.Tensor)}
+    return dataclasses.replace(result, **arrays)
+
+
+def decode_plane(result: EncodeResult, dcfg: DecoderConfig = DecoderConfig(), *,
+                 device: torch.device | str | None = None):
+    """Decode to a fixed point on ``device`` (default: the result's).
+    Returns (plane u8 [H, W] tensor, iterations int, mse float); iterations
+    follow the reference's count (``Encoder2.hpp:76-88``)."""
+    return _decode_core(_to_device(result, device), dcfg)
+
+
+def decode_steps_py(result: EncodeResult, dcfg: DecoderConfig = DecoderConfig()):
+    """Decode yielding every iterate (for --debug_decode dumps, cf.
+    ``Encoder2.hpp:74-82``).  Yields (step_index, u8 image); stops on the
+    epsilon test only, like the reference."""
+    h, w = result.height, result.width
+    tables = _build_indices(result)
+    s = torch.where(result.valid, result.s, 0.0)
+    o = torch.where(result.valid, result.o, 0.0)
+    img = torch.full((h, w), dcfg.initial_value, dtype=torch.uint8, device=s.device)
+    yield 0, img
+    for i in range(dcfg.max_iterations):
+        nxt = _decode_step(img, tables, s, o, h, w, result.target_size,
+                           result.o_is_mean)
+        d = nxt.to(torch.int64) - img.to(torch.int64)
+        mse = float((d * d).sum().item()) / (h * w)
+        yield i + 1, nxt
+        if mse < dcfg.epsilon:
+            return
+        img = nxt

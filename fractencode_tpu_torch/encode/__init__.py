@@ -1,0 +1,15 @@
+from .codebook import Codebook, build_codebook, extract_ranges
+from .matcher import SearchResult, search_classed, solve_so
+from .encoder import EncodeResult, encode_plane, encode_stats
+
+__all__ = [
+    "Codebook",
+    "build_codebook",
+    "extract_ranges",
+    "SearchResult",
+    "search_classed",
+    "solve_so",
+    "EncodeResult",
+    "encode_plane",
+    "encode_stats",
+]

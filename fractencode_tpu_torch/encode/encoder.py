@@ -1,0 +1,134 @@
+"""Plane encoder (port of ``fractencode_tpu/encode/encoder.py``).
+
+Pipeline for one u8 plane: 2x2 box sums (shared by the codebook's half image
+and the classifier's quadrant sums) -> codebook and range blocks -> range and
+domain classes -> class-blocked search (``matcher.search_classed``).  The
+per-range result plays the role of ``grid_encode_data_t``
+(``encode/datatypes.h:8-26``).
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from ..core.classify import classify_grid
+from ..core.grid import Grid, uniform_grid
+from ..core.stats import block_sums_nonoverlapping, integral_image
+from ..params import EncoderConfig
+from .codebook import build_codebook, extract_ranges
+from .matcher import search_classed
+
+__all__ = ["EncodeResult", "encode_plane", "encode_stats"]
+
+
+@dataclasses.dataclass
+class EncodeResult:
+    """Encoded plane: per-range transform parameters (the compressed form).
+
+    Range r covers the block at (x, y) = ((r % nx) * ts, (r // nx) * ts)
+    with nx = width // target_size.
+    """
+
+    domain_idx: torch.Tensor  # [R] i32 row-major domain grid index
+    transform: torch.Tensor  # [R] i32 TransformType
+    s: torch.Tensor  # [R] f32 contrast
+    o: torch.Tensor  # [R] f32 brightness
+    distance: torch.Tensor  # [R] f32 search distance (criterion units)
+    valid: torch.Tensor  # [R] bool
+
+    width: int
+    height: int
+    source_size: int
+    target_size: int
+    domain_step: int
+    # True: ``o`` holds the range's target mean and the decoder applies
+    # ``s*(D - mean(D)) + o`` (the quantized bitstream's parameterization).
+    o_is_mean: bool = False
+    # Isometries the search considered (every stored transform id is below).
+    num_transforms: int = 8
+
+    @property
+    def num_ranges(self) -> int:
+        return (self.width // self.target_size) * (self.height // self.target_size)
+
+    @property
+    def domain_grid(self) -> Grid:
+        return uniform_grid(self.width, self.height, self.source_size, self.domain_step)
+
+    @property
+    def range_grid(self) -> Grid:
+        return uniform_grid(self.width, self.height, self.target_size, self.target_size)
+
+    def domain_origins(self):
+        """([R] x, [R] y) i32 global origins of each range's matched domain."""
+        nx = self.domain_grid.nx
+        ox = (self.domain_idx % nx) * self.domain_step
+        oy = (self.domain_idx // nx) * self.domain_step
+        return ox, oy
+
+
+def _check_config(cfg: EncoderConfig) -> None:
+    if cfg.vq_classes > 0:
+        raise NotImplementedError(
+            "vq_classes > 0 is not ported yet (ROADMAP.md queue 1, VQ pruning)")
+    if not cfg.use_classifier:
+        raise NotImplementedError(
+            "use_classifier=False needs the dense search kernel K3, not ported "
+            "yet (ROADMAP.md queue 2, K3)")
+
+
+def encode_plane(plane, cfg: EncoderConfig | None = None, *,
+                 device: torch.device | str | None = None) -> EncodeResult:
+    """Encode one [H, W] u8 plane (numpy array or tensor) on ``device``
+    (default: the tensor's device, or the CPU for a numpy array)."""
+    cfg = cfg or EncoderConfig()
+    _check_config(cfg)
+    if not isinstance(plane, torch.Tensor):
+        plane = torch.from_numpy(np.ascontiguousarray(plane, dtype=np.uint8))
+    plane = plane.to(device=device or plane.device, dtype=torch.uint8)
+    h, w = plane.shape
+    if h % cfg.target_size or w % cfg.target_size:
+        raise ValueError("image not aligned to range grid")  # partition2.hpp:119
+
+    plane_f32 = plane.to(torch.float32)
+    domain_grid = uniform_grid(w, h, cfg.source_size, cfg.domain_step)
+    range_grid = uniform_grid(w, h, cfg.target_size, cfg.target_size)
+    # one 2x2 box-sum pass feeds both the codebook's half image (x0.25,
+    # exact) and the classifier's quadrant sums
+    if h % 2 == 0 and w % 2 == 0:
+        sums2x2 = block_sums_nonoverlapping(plane, 2)
+        half = sums2x2.to(torch.float32) * 0.25
+    else:
+        sums2x2 = half = None
+
+    cb = build_codebook(plane_f32, domain_grid, cfg.target_size,
+                        cfg.num_transforms, half=half)
+    ranges = extract_ranges(plane_f32, cfg.target_size)
+    sum_a = ranges.sum(-1)
+    sum_a2 = (ranges * ranges).sum(-1)
+    ii = integral_image(plane)
+    domain_classes = classify_grid(plane, domain_grid, ii=ii, sums2x2=sums2x2)
+    range_classes = classify_grid(plane, range_grid, ii=ii, sums2x2=sums2x2)
+
+    res = search_classed(ranges, sum_a, sum_a2, cb, range_classes,
+                         domain_classes, cfg)
+    return EncodeResult(
+        domain_idx=res.domain_idx, transform=res.transform, s=res.s, o=res.o,
+        distance=res.distance, valid=res.valid, width=w, height=h,
+        source_size=cfg.source_size, target_size=cfg.target_size,
+        domain_step=cfg.domain_step, num_transforms=cfg.num_transforms)
+
+
+def encode_stats(result: EncodeResult, range_classes=None, domain_classes=None):
+    """Classifier rejection statistics (cf. ``encode_stats_t``,
+    ``Encoder2.hpp:17-24``): a pair is rejected iff the class bins differ, so
+    ``rejected = R*D - sum_c R_c * D_c`` over the 7 class histograms."""
+    total = result.num_ranges * result.domain_grid.num_items
+    if range_classes is None or domain_classes is None:
+        return dict(total_mappings=total, rejected_mappings=0)
+    rh = np.bincount(np.asarray(range_classes).ravel() + 1, minlength=7)
+    dh = np.bincount(np.asarray(domain_classes).ravel() + 1, minlength=7)
+    rejected = int(total - int((rh.astype(np.int64) * dh.astype(np.int64)).sum()))
+    return dict(total_mappings=total, rejected_mappings=rejected)

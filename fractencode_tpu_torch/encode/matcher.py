@@ -1,0 +1,358 @@
+"""Class-blocked transform matching (port of ``fractencode_tpu/encode/matcher.py``).
+
+The search ranks every (range, domain, isometry) pair by a key built from
+the five sums SumA, SumA2, SumB, SumB2 and SumAB, keeping only pairs whose
+ranges and domains share a brightness class.  ``search_classed`` runs it in
+three stages, as the JAX package's ``search_pallas_classed`` does:
+
+  * ``classed_prep``: a counting sort lays ranges and codebook columns out
+    by class in tile-aligned segments and converts them to the kernel's
+    int8 operands;
+  * ``classed_kernel``: the search over each range tile's class segment
+    (``ops.matcher_kernels``: the CUDA kernel or its plain version);
+  * ``classed_post``: unsorts the winners and solves (s, o) for each.
+
+Search-order columns are ``m = d*T + (T-1-t)`` and ties go to the first
+maximum, which is the reference's tie rule (domain ascending, later
+transform wins, ``transformmatcher.h:57,67``).
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+from ..ops.matcher_kernels import (DEFAULT_BM, DEFAULT_BR, INT8_MAX_K,
+                                   inv_var_b, rank_mode, rank_to_dist,
+                                   search_classed_cuda, search_classed_torch)
+from ..params import EncoderConfig
+from .codebook import Codebook
+
+__all__ = ["SearchResult", "solve_so", "classed_prep", "classed_kernel",
+           "classed_post", "mask_ranges_result", "search_classed"]
+
+_BIG = 3.0e38
+_NUM_CLASS_BINS = 7  # classifier bins -1..5 shifted to 0..6
+
+
+@dataclasses.dataclass
+class SearchResult:
+    """Per-range best match. All tensors [R]."""
+
+    domain_idx: torch.Tensor  # i32, row-major index into the domain grid
+    transform: torch.Tensor  # i32, TransformType value
+    distance: torch.Tensor  # f32, in the configured criterion's units
+    s: torch.Tensor  # f32 contrast
+    o: torch.Tensor  # f32 brightness
+    valid: torch.Tensor  # bool — False if the classifier rejected every domain
+    key: torch.Tensor | None = None  # f32 maximized rank key of the winner
+
+
+def solve_so(sum_a, sum_a2, sum_b, sum_b2, sum_ab, n: float, so_mode: str,
+             s_max: float):
+    """Solve the affine brightness map from the five sums.
+
+    'reference' reproduces ``transformmatcher.h:103-105`` (with its
+    ``(SumA-1)*SumA`` denominator); 'ls' is the least-squares fit of
+    ``range ~ s*domain + o``.  Numerator and denominator are exact i32 (scaled
+    by 4 and 16) for K <= INT8_MAX_K, so ``s`` is one correctly rounded
+    division.  ``o`` is formed with one rounding, as the fused multiply-add
+    that XLA:CPU emits for the JAX package: ``SumA - s*SumB`` is exact in
+    float64 (s has 24 significant bits, the sums are multiples of 0.25 below
+    2^14), then rounded once to f32 and multiplied by the f32 reciprocal of
+    n (XLA:CPU compiles the division by the constant n so; for n a power of
+    two the two agree).
+    """
+    if n > INT8_MAX_K:
+        raise NotImplementedError(
+            f"K = {int(n)} > {INT8_MAX_K}: the f32 solve is not ported yet "
+            "(ROADMAP.md queue 1, quadtree)")
+    ni = int(n)
+    sa_i = sum_a.to(torch.int32)
+    sb4 = (4.0 * sum_b).to(torch.int32)
+    ab4 = (4.0 * sum_ab).to(torch.int32)
+    num4 = (ni * ab4 - sa_i * sb4).to(torch.float32)  # 4*num, exact
+    if so_mode == "reference":
+        sa2_i = sum_a2.to(torch.int32)
+        den = (ni * sa2_i - (sa_i - 1) * sa_i).to(torch.float32)  # exact
+        s = torch.where(den.abs() < 1e-5, 0.0,
+                        (num4 * 0.25) / torch.where(den == 0, 1.0, den))
+    else:
+        sb2_16 = (16.0 * sum_b2).to(torch.int32)
+        den16 = (ni * sb2_16 - sb4 * sb4).to(torch.float32)  # 16*den, exact
+        s = torch.where(den16 == 0, 0.0,
+                        (num4 * 4.0) / torch.where(den16 == 0, 1.0, den16))
+    if s_max > 0.0:
+        s = s.clamp(-s_max, s_max)
+    s64 = s.to(torch.float64)
+    if so_mode == "reference":
+        o = (sum_b.to(torch.float64) - s64 * sum_a.to(torch.float64))
+    else:
+        o = (sum_a.to(torch.float64) - s64 * sum_b.to(torch.float64))
+    return s, o.to(torch.float32) * (1.0 / n)
+
+
+def _round_up(x: int, m: int) -> int:
+    return -(-x // m) * m
+
+
+def _class_layout(classes01: torch.Tensor, block: int,
+                  num_bins: int = _NUM_CLASS_BINS):
+    """Tile-aligned class-sorted layout for items in classes 0..num_bins-1.
+
+    A counting sort: each item's destination is its class segment's start
+    plus its rank within the class (stable).  Segments start on multiples of
+    ``block``.  Returns (pos [n] destination of each item, seg_start
+    [num_bins+1], counts [num_bins+1] — the extra entry is an empty bin —
+    and tile_cum [num_bins] cumulative tile counts).
+    """
+    # [num_bins, n]: the per-class running count is a scan along the long
+    # inner axis (a scan down the 7-wide outer axis of [n, num_bins] took
+    # 46 ms for 262,144 items on an H100)
+    onehot = (classes01[None, :] == torch.arange(
+        num_bins, dtype=classes01.dtype, device=classes01.device)[:, None]).to(torch.int32)
+    csum = torch.cumsum(onehot, 1, dtype=torch.int32)  # inclusive per-class counts
+    counts = csum[:, -1]
+    tiles = -(-counts // block)
+    tile_cum = torch.cumsum(tiles, 0, dtype=torch.int32)
+    seg_start = torch.cat([tile_cum.new_zeros(1), tile_cum[:-1]]) * block
+    rank = (onehot * csum).sum(0, dtype=torch.int32) - 1
+    pos = (onehot * seg_start[:, None]).sum(0, dtype=torch.int32) + rank
+    zero = counts.new_zeros(1)
+    return pos, torch.cat([seg_start, zero]), torch.cat([counts, zero]), tile_cum
+
+
+def _classed_statics(r: int, m: int, masked_domains: bool = False,
+                     masked_ranges: bool = False, block_r: int | None = None,
+                     block_m: int | None = None):
+    """(block_r, block_m, r_pad, m_pad) of the class-sorted layout.
+
+    ``block_r``/``block_m`` default to the port's tiles (``DEFAULT_BR``,
+    ``DEFAULT_BM``); the JAX package uses 512 and 4096.  The padded buffers
+    have room for every class's alignment waste plus one reserved bin for
+    masked domains or ranges.
+    """
+    n_col_bins = _NUM_CLASS_BINS + (1 if masked_domains else 0)
+    n_row_bins = _NUM_CLASS_BINS + (1 if masked_ranges else 0)
+    block_r = min(block_r or DEFAULT_BR, _round_up(r, 8))
+    block_m = min(block_m or DEFAULT_BM, _round_up(m, 128))
+    r_pad = _round_up(r, block_r) + n_row_bins * block_r
+    m_pad = _round_up(m, block_m) + n_col_bins * block_m
+    return block_r, block_m, r_pad, m_pad
+
+
+def classed_prep(ranges, sum_a, sum_a2, cb: Codebook, range_classes,
+                 domain_classes, cfg: EncoderConfig, domain_mask=None,
+                 range_mask=None, block_r: int | None = None,
+                 block_m: int | None = None) -> dict:
+    """Class-sorted layout and int8 operands: every tensor the search takes,
+    plus the inverse maps ``classed_post`` needs.
+
+    ``domain_mask`` ([D] bool) parks geometry-invalid domains in a reserved
+    column bin no range tile visits; ``range_mask`` ([R] bool) parks excluded
+    ranges in a reserved row bin whose tiles visit the empty column bin.
+
+    Returns a dict with ai_s [r_pad, K] i8; ch_s, cl_s [m_pad, K] i8; sb_s,
+    aux_s [m_pad] f32; sa_s, sa2_s [r_pad] f32 (the 'general' key only, else
+    None); tile_class [nrt] i32; col_tile_start, col_tile_count, col_end
+    [n_col_bins+1] i32; rpos [R]; inv_dom [m_pad/T] or inv_col [m_pad]; and
+    b4_cols [m, K] i16 (4x the codebook values in search order).
+    """
+    r, k = ranges.shape
+    if k > INT8_MAX_K:
+        raise NotImplementedError(
+            f"K = {k} > {INT8_MAX_K} needs K1's f32 branch, not ported yet "
+            "(ROADMAP.md queue 2, K1)")
+    d, t, _ = cb.values.shape
+    m = d * t
+    dev = ranges.device
+    masked = domain_mask is not None
+    r_masked = range_mask is not None
+    n_col_bins = _NUM_CLASS_BINS + (1 if masked else 0)
+    n_row_bins = _NUM_CLASS_BINS + (1 if r_masked else 0)
+    block_r, block_m, r_pad, m_pad = _classed_statics(
+        r, m, masked, r_masked, block_r, block_m)
+
+    rcls01 = (range_classes + 1).to(torch.int32)  # bins -1..5 -> 0..6
+    dcls01 = (domain_classes + 1).to(torch.int32)
+    if masked:
+        dcls01 = torch.where(domain_mask, dcls01, _NUM_CLASS_BINS)
+    if r_masked:
+        rcls01 = torch.where(range_mask, rcls01, _NUM_CLASS_BINS)
+
+    rpos, _, _, r_tile_cum = _class_layout(rcls01, block_r, n_row_bins)
+
+    def inverse(pos, size, fill):
+        inv = torch.full((size,), fill, dtype=torch.int64, device=dev)
+        inv[pos.to(torch.int64)] = torch.arange(pos.shape[0], device=dev)
+        return inv
+
+    # int8 operands (matcher_pallas._pair_ab_int8): ai = A - 128 and the
+    # 10-bit b4 = 4B split as ch = b4 >> 3, cl = b4 & 7; columns in search
+    # order m = d*T + (T-1-t)
+    cb_cols = cb.values.flip(1).reshape(m, k)
+    b4_cols = torch.round(cb_cols * 4.0).to(torch.int16)
+    ch = (b4_cols >> 3).to(torch.int8)
+    cl = (b4_cols & 7).to(torch.int8)
+    ai = (ranges.to(torch.int32) - 128).to(torch.int8)
+    inv_r = inverse(rpos, r_pad, r)
+    ai_s = torch.cat([ai, ai.new_zeros(1, k)])[inv_r]
+
+    if block_m % t == 0:
+        # Domain-granularity layout: all T isometries of a domain share its
+        # class and occupy T consecutive columns, and segments are
+        # block_m-aligned, so the column layout is the domain layout expanded
+        # T-fold; one row gather moves both operands.
+        dpos, d_seg_start, d_counts, _ = _class_layout(dcls01, block_m // t, n_col_bins)
+        inv_dom = inverse(dpos, m_pad // t, d)
+        inv_col = None
+        c_seg_start = d_seg_start * t
+        c_counts = d_counts * t
+        packed = torch.cat([ch.reshape(d, t * k), cl.reshape(d, t * k)], 1)
+        packed_s = torch.cat([packed, packed.new_zeros(1, 2 * t * k)])[inv_dom]
+        ch_s = packed_s[:, :t * k].reshape(m_pad, k)
+        cl_s = packed_s[:, t * k:].reshape(m_pad, k)
+    else:
+        ccls01 = torch.repeat_interleave(dcls01, t)
+        cpos, c_seg_start, c_counts, _ = _class_layout(ccls01, block_m, n_col_bins)
+        inv_col = inverse(cpos, m_pad, m)
+        inv_dom = None
+        ch_s = torch.cat([ch, ch.new_zeros(1, k)])[inv_col]
+        cl_s = torch.cat([cl, cl.new_zeros(1, k)])[inv_col]
+
+    # sorted per-column sums from the exact integers behind cb.sum/cb.sum_sq
+    # (padding rows are zero, so their sums are 0)
+    b4_s = 8 * ch_s.to(torch.int32) + cl_s.to(torch.int32)
+    sb_s = b4_s.sum(1, dtype=torch.int32).to(torch.float32) * 0.25
+    sb2_s = (b4_s * b4_s).sum(1, dtype=torch.int32).to(torch.float32) * 0.0625
+    mode = rank_mode(cfg.criterion, cfg.so_mode, cfg.s_max)
+    aux_s = inv_var_b(sb_s, sb2_s, float(k)) if mode == "ls" else sb2_s
+    if mode == "general":
+        zero = sum_a.new_zeros(1)
+        sa_s = torch.cat([sum_a, zero])[inv_r]
+        sa2_s = torch.cat([sum_a2, zero])[inv_r]
+    else:
+        sa_s = sa2_s = None
+
+    # per-range-tile class; tiles past the last class bin (padding, masked
+    # ranges) point at the appended empty column bin
+    nrt = r_pad // block_r
+    tile_ids = torch.arange(nrt, dtype=torch.int32, device=dev)
+    tile_class = torch.searchsorted(r_tile_cum, tile_ids, right=True).to(torch.int32)
+    tile_class = torch.where(tile_class >= _NUM_CLASS_BINS, n_col_bins, tile_class)
+    col_tile_start = (c_seg_start // block_m).to(torch.int32)
+    col_tile_count = (-(-c_counts // block_m)).to(torch.int32)
+    col_end = (c_seg_start + c_counts).to(torch.int32)
+    return dict(ai_s=ai_s, ch_s=ch_s, cl_s=cl_s, sb_s=sb_s, aux_s=aux_s,
+                sa_s=sa_s, sa2_s=sa2_s, b4_cols=b4_cols,
+                tile_class=tile_class, col_tile_start=col_tile_start,
+                col_tile_count=col_tile_count, col_end=col_end,
+                rpos=rpos, inv_col=inv_col, inv_dom=inv_dom,
+                block_r=block_r, block_m=block_m)
+
+
+def classed_kernel(prep: dict, k: int, domain_area: int, cfg: EncoderConfig):
+    """Run the search on prepped tensors; (q_s, idx_s) in the sorted layout.
+
+    ``cfg.backend`` 'torch' forces the plain version; otherwise the CUDA
+    wrapper routes on the device (CPU tensors run the plain version), and
+    'cuda' requires CUDA tensors.
+    """
+    if cfg.backend == "cuda" and prep["ai_s"].device.type != "cuda":
+        raise ValueError("backend='cuda' needs tensors on a CUDA device")
+    search = search_classed_torch if cfg.backend == "torch" else search_classed_cuda
+    return search(
+        prep["ai_s"], prep["ch_s"], prep["cl_s"], prep["sb_s"], prep["aux_s"],
+        prep["tile_class"], prep["col_tile_start"], prep["col_end"],
+        block_r=prep["block_r"], block_m=prep["block_m"],
+        criterion=cfg.criterion, so_mode=cfg.so_mode, s_max=cfg.s_max,
+        inv_norm=1.0 / domain_area if cfg.criterion == "raw" else 1.0 / k,
+        sa_s=prep["sa_s"], sa2_s=prep["sa2_s"])
+
+
+def classed_post(q_s, idx_s, rpos, inv_col, ranges, sum_a, sum_a2, cb: Codebook,
+                 cfg: EncoderConfig, b4_cols=None, inv_dom=None) -> SearchResult:
+    """Map sorted-layout search outputs back to range order and solve (s, o)
+    for the winners.
+
+    The key becomes a distance after unsorting, against the range-order sums
+    (elementwise, so the same values as converting before).  For K <= 16 the
+    winner's SumAB, SumB and SumB2 come exactly from its b4 row; above, from
+    the f32 codebook (16*SumB2 may exceed 2^24 there).
+    """
+    r, k = ranges.shape
+    d, t, _ = cb.values.shape
+    m = d * t
+    m_pad = inv_col.shape[0] if inv_col is not None else inv_dom.shape[0] * t
+    rpos = rpos.to(torch.int64)
+    q_r = q_s[rpos]
+    win_sorted = idx_s[rpos].to(torch.int64)
+    inv_norm = 1.0 / (cb.grid.block_size ** 2) if cfg.criterion == "raw" else 1.0 / k
+    dist = rank_to_dist(q_r, sum_a2, sum_a, criterion=cfg.criterion,
+                        so_mode=cfg.so_mode, s_max=cfg.s_max, inv_norm=inv_norm,
+                        n=float(k))
+    valid = dist < _BIG
+    ws = win_sorted.clamp(0, m_pad - 1)
+    if inv_dom is not None:
+        # column c holds domain inv_dom[c // T], isometry column c % T
+        wd = inv_dom[ws // t]
+        wcol = torch.where(wd == d, m, wd * t + ws % t)
+    else:
+        wcol = inv_col[ws]
+    win_m = torch.where(valid, wcol, 0).clamp(0, m - 1)
+    win_d = win_m // t
+    win_t = (t - 1) - (win_m % t)
+
+    if b4_cols is not None and k <= 16:
+        b4_win = b4_cols[win_m].to(torch.int32)  # [R, k]
+        sum_ab = (ranges.to(torch.int32) * b4_win).sum(-1, dtype=torch.int32)
+        sum_ab = sum_ab.to(torch.float32) * 0.25
+        sb_win = b4_win.sum(-1, dtype=torch.int32).to(torch.float32) * 0.25
+        sb2_win = (b4_win * b4_win).sum(-1, dtype=torch.int32).to(torch.float32) * 0.0625
+    else:
+        win_rows = cb.values.flip(1).reshape(m, k)[win_m]
+        sum_ab = (ranges * win_rows).sum(-1)
+        sb_win = cb.sum.flip(1).reshape(m)[win_m]
+        sb2_win = cb.sum_sq.flip(1).reshape(m)[win_m]
+    s, o = solve_so(sum_a, sum_a2, sb_win, sb2_win, sum_ab, float(k),
+                    cfg.so_mode, cfg.s_max)
+    return SearchResult(
+        domain_idx=win_d.to(torch.int32), transform=win_t.to(torch.int32),
+        distance=dist, s=torch.where(valid, s, 0.0), o=torch.where(valid, o, 0.0),
+        valid=valid, key=q_r)
+
+
+def mask_ranges_result(res: SearchResult, range_mask: torch.Tensor) -> SearchResult:
+    """Canonical fields for ranges excluded by ``range_mask`` (False = out)."""
+    return SearchResult(
+        domain_idx=torch.where(range_mask, res.domain_idx, 0),
+        transform=torch.where(range_mask, res.transform, 0),
+        distance=torch.where(range_mask, res.distance, _BIG),
+        s=torch.where(range_mask, res.s, 0.0),
+        o=torch.where(range_mask, res.o, 0.0),
+        valid=res.valid & range_mask,
+        key=None if res.key is None else torch.where(range_mask, res.key, -_BIG),
+    )
+
+
+def search_classed(ranges, sum_a, sum_a2, cb: Codebook, range_classes,
+                   domain_classes, cfg: EncoderConfig, domain_mask=None,
+                   range_mask=None, block_r: int | None = None,
+                   block_m: int | None = None) -> SearchResult:
+    """Class-blocked search (the counterpart of ``search_pallas_classed``):
+    only same-class pairs compete, with the reference's tie-break order."""
+    if cfg.rms_threshold > 0.0:
+        raise NotImplementedError(
+            "rms_threshold > 0 needs K1's early-accept frontier, not ported "
+            "yet (ROADMAP.md queue 2, K1 _apply_frontier)")
+    k = ranges.shape[1]
+    prep = classed_prep(ranges, sum_a, sum_a2, cb, range_classes, domain_classes,
+                        cfg, domain_mask=domain_mask, range_mask=range_mask,
+                        block_r=block_r, block_m=block_m)
+    q_s, idx_s = classed_kernel(prep, k, cb.grid.block_size ** 2, cfg)
+    res = classed_post(q_s, idx_s, prep["rpos"], prep["inv_col"], ranges, sum_a,
+                       sum_a2, cb, cfg, b4_cols=prep["b4_cols"],
+                       inv_dom=prep["inv_dom"])
+    if range_mask is not None:
+        res = mask_ranges_result(res, range_mask)
+    return res

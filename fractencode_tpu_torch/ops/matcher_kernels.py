@@ -1,0 +1,313 @@
+"""Search kernel K1 of the port: the class-blocked all-pairs search.
+
+Counterpart of ``fractencode_tpu/ops/matcher_pallas.py``.  There the TPU
+kernel ``_pairs_kernel`` (through ``fused_search_pairs``) walks a list of
+(range tile, column tile) pairs.  Here each range tile scans its own class's
+column segment, which ``encode.matcher.classed_prep`` lays out, so there is
+no pair list.  For every class-sorted range row the search returns ``(q,
+idx)``: the first-occurrence argmax of the rank key ``q`` over the row's
+class segment, and its sorted column index.
+
+Two versions compute the same function:
+
+  * ``search_classed_torch``, the plain PyTorch version, for the three rank
+    modes ('ls', 'raw', 'general') without the early-accept frontier.
+  * ``search_classed_cuda``, the wrapper of the hand-written CUDA kernel
+    ``csrc/search_classed.cu``, for the 'ls' mode at K = 16 (the default
+    config's path).  It routes on the tensors' device: CPU tensors run the
+    plain version; CUDA tensors launch the kernel or raise.
+
+The rank-key helpers below keep the JAX package's expression order, so that
+every key is the same f32 value (see ``rank_mode``).
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+__all__ = ["INT8_MAX_K", "DEFAULT_BR", "DEFAULT_BM", "rank_mode", "inv_var_b",
+           "rank_to_dist", "search_classed_torch", "search_classed_cuda"]
+
+# Largest K for which the int8 decomposition of SumAB and the covariance key
+# are exact integers (matcher_pallas.py:41-44).
+INT8_MAX_K = 64
+
+# The port's layout tiles: range rows and codebook columns per class-segment
+# alignment unit.  Results do not depend on them (only the padding does);
+# the CUDA kernel scans each segment only up to its last real column, so a
+# small column tile wastes no work, and 128-row range tiles are one kernel
+# block each.
+DEFAULT_BR = 128
+DEFAULT_BM = 128
+
+_BIG = 3.0e38
+_BIG_I = 2**31 - 1
+
+
+def rank_mode(criterion: str, so_mode: str, s_max: float) -> str:
+    """Which ranking key a (criterion, so_mode, s_max) combo uses.
+
+    'raw'     — q = 2*SumAB - SumB2; dist = (SumA2 - q)*inv_norm.
+    'ls'      — q = cov^2 * inv_var_b; dist = max(var_a - q, 0)*(inv_norm/n).
+    'general' — the full residual with the mode's (s, o); q = -dist.
+    Every key is maximized; ties go to the lowest column.
+    """
+    if criterion == "raw":
+        return "raw"
+    if so_mode == "ls" and s_max <= 0.0:
+        return "ls"
+    return "general"
+
+
+def _require_exact_k(n: float) -> None:
+    if n > INT8_MAX_K:
+        raise NotImplementedError(
+            f"K = {int(n)} > {INT8_MAX_K} needs K1's f32 branch, not ported "
+            "yet (ROADMAP.md queue 2, K1)")
+
+
+def inv_var_b(sb: torch.Tensor, sb2: torch.Tensor, n: float) -> torch.Tensor:
+    """Per-column guarded reciprocal 1/var_b, s = 0 semantics for var_b = 0.
+
+    16*var_b = n*(16*SumB2) - (4*SumB)^2 is an exact i32 for K <= INT8_MAX_K
+    (samples are multiples of 0.25), so the only roundings are the i32 -> f32
+    cast and the division.
+    """
+    _require_exact_k(n)
+    sb4 = (4.0 * sb).to(torch.int32)
+    sb2_16 = (16.0 * sb2).to(torch.int32)
+    var16 = int(n) * sb2_16 - sb4 * sb4
+    var_b = var16.to(torch.float32) * 0.0625
+    zero = var16 == 0
+    return torch.where(zero, 0.0, 1.0 / torch.where(zero, 1.0, var_b))
+
+
+def _cov_exact(ab, sa, sb, n: float):
+    """cov = n*SumAB - SumA*SumB, exact in i32 (scaled by 4) for K <= 64."""
+    _require_exact_k(n)
+    ab4 = (4.0 * ab).to(torch.int32)
+    cov4 = int(n) * ab4 - sa.to(torch.int32) * (4.0 * sb).to(torch.int32)
+    return cov4.to(torch.float32) * 0.25
+
+
+def _rank_tile(ab, sa, sa2, sb, aux, *, criterion, so_mode, s_max, inv_norm, n):
+    """The maximized rank key q for a [rows, cols] block of SumAB values.
+
+    ``aux`` is inv_var_b for mode 'ls', SumB2 otherwise.  'raw' and 'ls' are
+    single IEEE operations on exact operands, so they equal the JAX package's
+    keys bit for bit.  'general' has multiply-adds that XLA:CPU may contract
+    into FMAs, so its keys can differ from the JAX package's in the last bit.
+    """
+    mode = rank_mode(criterion, so_mode, s_max)
+    if mode == "raw":
+        return 2.0 * ab - aux
+    cov = _cov_exact(ab, sa, sb, n)
+    if mode == "ls":
+        return (cov * cov) * aux
+    sb2 = aux
+    var_b = n * sb2 - sb * sb
+    if so_mode == "ls":
+        var_a = n * sa2 - sa * sa
+        s = torch.where(var_b.abs() < 1e-5, 0.0,
+                        cov / torch.where(var_b == 0.0, 1.0, var_b))
+        if s_max > 0.0:
+            s = s.clamp(-s_max, s_max)
+        e = (var_a - 2.0 * s * cov + (s * s) * var_b) * (1.0 / n)
+        return -(e.clamp_min(0.0) * inv_norm)
+    den = n * sa2 - (sa - 1.0) * sa
+    s = torch.where(den.abs() < 1e-5, 0.0, cov / torch.where(den == 0.0, 1.0, den))
+    if s_max > 0.0:
+        s = s.clamp(-s_max, s_max)
+    o = (sb - s * sa) * (1.0 / n)
+    e = (sa2 + (s * s) * sb2 + n * o * o + 2.0 * s * o * sb
+         - 2.0 * s * ab - 2.0 * o * sa)
+    return -(e.clamp_min(0.0) * inv_norm)
+
+
+def _rank_ls_int8(sa_i, dot, sb4, aux16, n: int):
+    """The 'ls' key from the exact integer dot (matcher_pallas._rank_ls_int8).
+
+    cov4 = 4*(n*SumAB - SumA*SumB) = n*dot + (128n - SumA)*sb4 with dot =
+    sum ai*(8ch + cl), exact in i32; q = f32(cov4)^2 * (aux/16).
+    """
+    cov4 = n * dot + (128 * n - sa_i) * sb4
+    c = cov4.to(torch.float32)
+    return (c * c) * aux16
+
+
+def rank_to_dist(q, sa2, sa, *, criterion, so_mode, s_max, inv_norm, n: float):
+    """Convert rank keys back to distances; q <= -_BIG/2 (no column) -> _BIG."""
+    mode = rank_mode(criterion, so_mode, s_max)
+    if mode == "raw":
+        dist = (sa2 - q) * inv_norm
+    elif mode == "ls":
+        _require_exact_k(n)
+        sa_i = sa.to(torch.int32)
+        var_a = (int(n) * sa2.to(torch.int32) - sa_i * sa_i).to(torch.float32)
+        dist = (var_a - q).clamp_min(0.0) * (inv_norm * (1.0 / n))
+    else:
+        dist = -q
+    return torch.where(q <= -_BIG * 0.5, _BIG, dist)
+
+
+def _class_runs(tile_class: torch.Tensor):
+    """[(first tile, end tile, class)] for runs of equal class: range tiles
+    are sorted by class, so each class's rows are one contiguous slice."""
+    tc = tile_class.tolist()
+    runs, t0 = [], 0
+    for t in range(1, len(tc) + 1):
+        if t == len(tc) or tc[t] != tc[t0]:
+            runs.append((t0, t, tc[t0]))
+            t0 = t
+    return runs
+
+
+def search_classed_torch(ai_s, ch_s, cl_s, sb_s, aux_s, tile_class,
+                         col_tile_start, col_end, *, block_r: int, block_m: int,
+                         criterion: str, so_mode: str, s_max: float,
+                         inv_norm: float, sa_s=None, sa2_s=None):
+    """Plain PyTorch version of the class-blocked search.
+
+    ai_s [R_pad, K] i8 (A - 128), ch_s/cl_s [M_pad, K] i8 (4B >> 3, 4B & 7),
+    sb_s/aux_s [M_pad] f32, tile_class [NRT] i32, col_tile_start/col_end
+    [NC] i32; sa_s/sa2_s [R_pad] f32 only for the 'general' mode.  Returns
+    (q [R_pad] f32, idx [R_pad] i32), idx a sorted column index.
+
+    SumAB comes exactly from one matmul of ai against b4 = 8*ch + cl: in
+    float64 on the CPU (integers below 2^53) and in float32 with TF32 off on
+    CUDA (every partial sum is an integer below 2^24 for K <= 64).
+    """
+    r_pad, k = ai_s.shape
+    _require_exact_k(k)
+    dev = ai_s.device
+    mode = rank_mode(criterion, so_mode, s_max)
+    mm_dtype = torch.float32 if dev.type == "cuda" else torch.float64
+    budget = (1 << 26) if dev.type == "cuda" else (1 << 21)
+
+    q_out = torch.full((r_pad,), -_BIG, dtype=torch.float32, device=dev)
+    idx_out = torch.zeros((r_pad,), dtype=torch.int32, device=dev)
+    a_mm = ai_s.to(mm_dtype)
+    b_mm = (8 * ch_s.to(torch.int32) + cl_s.to(torch.int32)).to(mm_dtype)
+    if mode == "ls":
+        sa_i = ai_s.to(torch.int32).sum(1, dtype=torch.int32) + 128 * k
+        sb4 = (4.0 * sb_s).to(torch.int32)
+        aux16 = aux_s * 0.0625
+
+    starts = (col_tile_start.to(torch.int64) * block_m).tolist()
+    ends = col_end.tolist()
+    for t0, t1, c in _class_runs(tile_class):
+        c0, c1 = starts[c], ends[c]
+        if c1 <= c0:
+            continue  # no columns: keep the initial (-_BIG, 0)
+        col_chunk = min(c1 - c0, 16384)
+        row_chunk = max(1, budget // col_chunk)
+        for r0 in range(t0 * block_r, t1 * block_r, row_chunk):
+            r1 = min(r0 + row_chunk, t1 * block_r)
+            best_q = torch.full((r1 - r0,), -_BIG, dtype=torch.float32, device=dev)
+            best_i = torch.zeros((r1 - r0,), dtype=torch.int32, device=dev)
+            for j0 in range(c0, c1, col_chunk):
+                j1 = min(j0 + col_chunk, c1)
+                dot = (a_mm[r0:r1] @ b_mm[j0:j1].T).to(torch.int32)
+                if mode == "ls":
+                    q = _rank_ls_int8(sa_i[r0:r1, None], dot, sb4[None, j0:j1],
+                                      aux16[None, j0:j1], k)
+                else:
+                    ab = dot.to(torch.float32) * 0.25 + 128.0 * sb_s[None, j0:j1]
+                    q = _rank_tile(
+                        ab, None if sa_s is None else sa_s[r0:r1, None],
+                        None if sa2_s is None else sa2_s[r0:r1, None],
+                        sb_s[None, j0:j1], aux_s[None, j0:j1],
+                        criterion=criterion, so_mode=so_mode, s_max=s_max,
+                        inv_norm=inv_norm, n=float(k))
+                # first-occurrence argmax: the lowest column holding the max
+                tile_q = q.amax(1)
+                ids = torch.arange(j1 - j0, dtype=torch.int32, device=dev)
+                tile_arg = torch.where(q == tile_q[:, None], ids, _BIG_I).amin(1) + j0
+                improved = tile_q > best_q
+                best_i = torch.where(improved, tile_arg.to(torch.int32), best_i)
+                best_q = torch.where(improved, tile_q, best_q)
+            q_out[r0:r1] = best_q
+            idx_out[r0:r1] = best_i
+    return q_out, idx_out
+
+
+def _check(name, t, dtype, shape, device):
+    if t.dtype != dtype or tuple(t.shape) != tuple(shape) or t.device != device:
+        raise ValueError(f"{name}: expected {dtype} {tuple(shape)} on {device}, "
+                         f"got {t.dtype} {tuple(t.shape)} on {t.device}")
+    if not t.is_contiguous() or t.data_ptr() % 16:
+        raise ValueError(f"{name}: must be contiguous and 16-byte aligned")
+
+
+def _kernel_fn():
+    """The kernel's C entry point (built and loaded on first use)."""
+    from ._build import load_library
+
+    fn = load_library("search_classed").fe_search_classed_ls16
+    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 3 + [ctypes.c_void_p] * 3
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def search_classed_cuda(ai_s, ch_s, cl_s, sb_s, aux_s, tile_class,
+                        col_tile_start, col_end, *, block_r: int, block_m: int,
+                        criterion: str, so_mode: str, s_max: float,
+                        inv_norm: float, sa_s=None, sa2_s=None):
+    """The hand-written CUDA kernel, with the arguments and result of
+    ``search_classed_torch``.
+
+    CPU tensors run the plain version.  CUDA tensors launch
+    ``csrc/search_classed.cu`` (and add one to ``search_classed_cuda.launches``),
+    or raise ``NotImplementedError`` for a config the kernel does not cover.
+    """
+    if ai_s.device.type == "cpu":
+        return search_classed_torch(
+            ai_s, ch_s, cl_s, sb_s, aux_s, tile_class, col_tile_start, col_end,
+            block_r=block_r, block_m=block_m, criterion=criterion,
+            so_mode=so_mode, s_max=s_max, inv_norm=inv_norm, sa_s=sa_s,
+            sa2_s=sa2_s)
+    if ai_s.device.type != "cuda":
+        raise ValueError(f"unsupported device {ai_s.device}")
+    mode = rank_mode(criterion, so_mode, s_max)
+    if mode != "ls":
+        raise NotImplementedError(
+            f"rank mode '{mode}' (criterion={criterion}, so_mode={so_mode}, "
+            f"s_max={s_max}) has no CUDA kernel yet: ROADMAP.md queue 2, K1's "
+            "generic int8 branches")
+    r_pad, k = ai_s.shape
+    if k != 16:
+        raise NotImplementedError(
+            f"K = {k}: the CUDA kernel covers K = 16 only (ROADMAP.md queue 2, "
+            "K1 at K = 64 and the f32 K = 256 path)")
+    m_pad = ch_s.shape[0]
+    nrt = tile_class.shape[0]
+    nc = col_end.shape[0]
+    dev = ai_s.device
+    if r_pad != nrt * block_r:
+        raise ValueError(f"r_pad {r_pad} != {nrt} tiles x {block_r} rows")
+    _check("ai_s", ai_s, torch.int8, (r_pad, k), dev)
+    _check("ch_s", ch_s, torch.int8, (m_pad, k), dev)
+    _check("cl_s", cl_s, torch.int8, (m_pad, k), dev)
+    _check("sb_s", sb_s, torch.float32, (m_pad,), dev)
+    _check("aux_s", aux_s, torch.float32, (m_pad,), dev)
+    _check("tile_class", tile_class, torch.int32, (nrt,), dev)
+    _check("col_tile_start", col_tile_start, torch.int32, (nc,), dev)
+    _check("col_end", col_end, torch.int32, (nc,), dev)
+
+    fn = _kernel_fn()
+    with torch.cuda.device(dev):
+        q = torch.empty((r_pad,), dtype=torch.float32, device=dev)
+        idx = torch.empty((r_pad,), dtype=torch.int32, device=dev)
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = fn(ai_s.data_ptr(), ch_s.data_ptr(), cl_s.data_ptr(),
+                 sb_s.data_ptr(), aux_s.data_ptr(), tile_class.data_ptr(),
+                 col_tile_start.data_ptr(), col_end.data_ptr(),
+                 nrt, block_r, block_m, q.data_ptr(), idx.data_ptr(), stream)
+    if err != 0:
+        raise RuntimeError(f"search_classed kernel launch failed: CUDA error {err}")
+    search_classed_cuda.launches += 1
+    return q, idx
+
+
+search_classed_cuda.launches = 0
