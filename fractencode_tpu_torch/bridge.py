@@ -1,9 +1,10 @@
 """Carry encodes and configs across the two packages as plain numpy data.
 
-The JAX package's ``EncodeResult`` becomes this package's (and back) through
-numpy arrays plus its static fields, so either package decodes the other's
-encodes.  Nothing here imports jax: the JAX side is handed over as numpy
-arrays and dicts (``dataclasses.asdict`` of its configs).
+The JAX package's ``EncodeResult`` and ``QuadtreeResult`` become this
+package's (and back) through numpy arrays plus their static fields, so
+either package decodes the other's encodes.  Nothing here imports jax: the
+JAX side is handed over as numpy arrays and dicts (``dataclasses.asdict`` of
+its configs).
 """
 from __future__ import annotations
 
@@ -13,16 +14,27 @@ import numpy as np
 import torch
 
 from .encode.encoder import EncodeResult
+from .encode.quadtree import QuadtreeLevel, QuadtreeResult
 from .params import DecoderConfig, EncoderConfig
 
-__all__ = ["ARRAY_FIELDS", "META_FIELDS", "result_from_numpy", "result_to_numpy",
-           "config_from_jax_fields"]
+__all__ = ["ARRAY_FIELDS", "META_FIELDS", "LEVEL_ARRAY_FIELDS",
+           "LEVEL_META_FIELDS", "result_from_numpy", "result_to_numpy",
+           "quadtree_from_numpy", "quadtree_to_numpy", "config_from_jax_fields"]
 
 ARRAY_FIELDS = ("domain_idx", "transform", "s", "o", "distance", "valid")
 META_FIELDS = ("width", "height", "source_size", "target_size", "domain_step",
                "o_is_mean", "num_transforms")
+LEVEL_ARRAY_FIELDS = ("domain_idx", "transform", "s", "o", "error", "accepted")
+LEVEL_META_FIELDS = ("range_size", "domain_size", "domain_step", "o_is_mean",
+                     "num_transforms")
 _DTYPES = dict(domain_idx=np.int32, transform=np.int32, s=np.float32,
-               o=np.float32, distance=np.float32, valid=np.bool_)
+               o=np.float32, distance=np.float32, valid=np.bool_,
+               error=np.float32, accepted=np.bool_)
+
+
+def _tensors(arrays, names, device):
+    return {name: torch.from_numpy(np.array(arrays[name], dtype=_DTYPES[name]))
+            .to(device) for name in names}
 
 # the JAX package's backend names -> this package's
 _BACKENDS = {"auto": "auto", "jnp": "torch", "pallas": "cuda"}
@@ -31,10 +43,8 @@ _BACKENDS = {"auto": "auto", "jnp": "torch", "pallas": "cuda"}
 def result_from_numpy(arrays, meta, device="cpu") -> EncodeResult:
     """EncodeResult on ``device`` from per-range arrays (any array-likes,
     e.g. ``np.asarray`` of the JAX result's fields) and its static fields."""
-    tensors = {name: torch.from_numpy(np.array(arrays[name], dtype=_DTYPES[name]))
-               .to(device) for name in ARRAY_FIELDS}
-    return EncodeResult(**tensors, **{name: meta[name] for name in META_FIELDS
-                                      if name in meta})
+    return EncodeResult(**_tensors(arrays, ARRAY_FIELDS, device),
+                        **{name: meta[name] for name in META_FIELDS if name in meta})
 
 
 def result_to_numpy(res: EncodeResult):
@@ -43,6 +53,28 @@ def result_to_numpy(res: EncodeResult):
     arrays = {name: getattr(res, name).cpu().numpy() for name in ARRAY_FIELDS}
     meta = {name: getattr(res, name) for name in META_FIELDS}
     return arrays, meta
+
+
+def quadtree_from_numpy(levels, width: int, height: int,
+                        device="cpu") -> QuadtreeResult:
+    """QuadtreeResult on ``device`` from one (arrays, meta) pair per level,
+    coarse to fine, as ``quadtree_to_numpy`` gives them (any array-likes,
+    e.g. ``np.asarray`` of the JAX levels' fields)."""
+    return QuadtreeResult(
+        levels=[QuadtreeLevel(**_tensors(arrays, LEVEL_ARRAY_FIELDS, device),
+                              **{name: meta[name] for name in LEVEL_META_FIELDS
+                                 if name in meta})
+                for arrays, meta in levels],
+        width=width, height=height)
+
+
+def quadtree_to_numpy(res: QuadtreeResult):
+    """(levels, width, height): per level, numpy arrays of its fields and a
+    dict of its static fields; enough to rebuild either package's result."""
+    levels = [({name: getattr(l, name).cpu().numpy() for name in LEVEL_ARRAY_FIELDS},
+               {name: getattr(l, name) for name in LEVEL_META_FIELDS})
+              for l in res.levels]
+    return levels, res.width, res.height
 
 
 def config_from_jax_fields(fields):

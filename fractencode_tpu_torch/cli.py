@@ -18,7 +18,6 @@ import torch
 
 # flag -> the ROADMAP.md item that ports it
 _NOT_PORTED = {
-    "quadtree": "queue 1, Quadtree",
     "vq_classes": "queue 1, VQ pruning",
     "out": "queue 1, Codec adapters and bitstream",
     "decode_file": "queue 1, Codec adapters and bitstream",
@@ -48,13 +47,19 @@ def build_parser() -> argparse.ArgumentParser:
                    help="bit-parity with the C++ reference (raw + reference + 4)")
     p.add_argument("--result", default="result.png", help="decoded output image path")
     p.add_argument("--decode-rms", type=float, default=1e-5)
+    p.add_argument("--quadtree", action="store_true",
+                   help="adaptive quadtree ranges (the reference parsed this "
+                        "flag but never implemented it)")
+    p.add_argument("--qt-min", type=int, default=4, help="finest range size")
+    p.add_argument("--qt-max", type=int, default=16, help="coarsest range size")
+    p.add_argument("--qt-threshold", type=float, default=50.0,
+                   help="per-pixel MSE acceptance threshold per level")
     # not ported yet: parsed so that they are refused by name
     p.add_argument("--rms", type=float, default=0.0, help=argparse.SUPPRESS)
     p.add_argument("--color", action="store_true", help=argparse.SUPPRESS)
     p.add_argument("--noclassifier", action="store_true", help=argparse.SUPPRESS)
     p.add_argument("--log", action="store_true", help=argparse.SUPPRESS)
     p.add_argument("--profile", default=None, help=argparse.SUPPRESS)
-    p.add_argument("--quadtree", action="store_true", help=argparse.SUPPRESS)
     p.add_argument("--vq-classes", type=int, default=0, help=argparse.SUPPRESS)
     p.add_argument("--out", default=None, help=argparse.SUPPRESS)
     p.add_argument("--decode-file", default=None, help=argparse.SUPPRESS)
@@ -83,9 +88,40 @@ def _sync(device) -> None:
         torch.cuda.synchronize(device)
 
 
+def _encode_one_quadtree(plane, args, cfg, dcfg, label=""):
+    """Quadtree-encode and decode one numpy u8 plane on ``args.device``,
+    printing the leaves per level and the PSNR as the JAX CLI does; returns
+    (QuadtreeResult, decoded numpy plane)."""
+    from .core.metrics import psnr
+    from .encode.quadtree import (QuadtreeConfig, decode_plane_quadtree,
+                                  encode_plane_quadtree)
+
+    device = args.device
+    qcfg = QuadtreeConfig(min_size=args.qt_min, max_size=args.qt_max,
+                          error_threshold=args.qt_threshold)
+    t0 = time.perf_counter()
+    res = encode_plane_quadtree(plane, cfg, qcfg, device=device)
+    _sync(device)
+    print(f"encoded{label} in {time.perf_counter() - t0:.4g} s.")
+    leaves = [int(l.accepted.sum()) for l in res.levels]
+    print(f"{res.num_leaves} leaves "
+          + " ".join(f"{l.range_size}px:{n}" for l, n in zip(res.levels, leaves)))
+
+    t0 = time.perf_counter()
+    out, iters, mse = decode_plane_quadtree(res, dcfg)
+    _sync(device)
+    print(f"decoded{label} in {time.perf_counter() - t0:.4g} s.")
+    print(f"decode stats: {iters} steps, rms: {mse:.6g}")
+    plane_t = torch.from_numpy(np.ascontiguousarray(plane, dtype=np.uint8))
+    print(f"psnr: {float(psnr(plane_t, out.cpu())):.4f} dB")
+    return res, out.cpu().numpy()
+
+
 def _encode_one(plane, args, cfg, dcfg, label=""):
     """Encode and decode one numpy u8 plane on ``args.device``, printing the
     reference CLI's statistics; returns (EncodeResult, decoded numpy plane)."""
+    if args.quadtree:
+        return _encode_one_quadtree(plane, args, cfg, dcfg, label)
     from .core.classify import classify_grid
     from .core.metrics import psnr
     from .decode import decode_plane, decode_steps_py

@@ -260,35 +260,48 @@ def pyramid_factors(height: int, width: int, target_size: int,
     return tuple(reversed(fs))
 
 
-def _pyramid_init(result: EncodeResult, s, o, dcfg: DecoderConfig):
-    """Coarse-to-fine start image for the full-res loop, or None:
-    ``pyramid_steps`` iterations at the coarsest scale, ``pyramid_refine_steps``
-    at each finer one, upsampling by pixel replication between scales."""
-    h, w = result.height, result.width
-    ts = result.target_size
-    fs = pyramid_factors(h, w, ts, result.source_size, result.domain_step,
-                         max_levels=dcfg.pyramid_levels)
+def _coarse_to_fine(fs, step_at, h: int, w: int, dcfg: DecoderConfig, device):
+    """Start image for the full-res loop from the scale factors ``fs``
+    (coarsest first; ``step_at(f)`` is the decode step at scale 1/f), or
+    None without any: ``pyramid_steps`` iterations at the coarsest scale,
+    ``pyramid_refine_steps`` at each finer one, upsampling by pixel
+    replication between scales."""
     if not fs:
         return None
     img = None
     for i, f in enumerate(fs):
+        step = step_at(f)
+        if img is None:
+            img = torch.full((h // f, w // f), dcfg.initial_value,
+                             dtype=torch.uint8, device=device)
+            n = dcfg.pyramid_steps
+        else:
+            n = dcfg.pyramid_refine_steps
+        for _ in range(n):
+            img = step(img)
+        rep = f // (fs[i + 1] if i + 1 < len(fs) else 1)
+        if rep > 1:
+            img = img.repeat_interleave(rep, 0).repeat_interleave(rep, 1)
+    return img
+
+
+def _pyramid_init(result: EncodeResult, s, o, dcfg: DecoderConfig):
+    """Coarse-to-fine start image for the full-res loop, or None."""
+    h, w = result.height, result.width
+    ts = result.target_size
+
+    def step_at(f):
         hf, wf, tsf = h // f, w // f, ts // f
         tables = build_decode_tables(
             result.domain_idx, result.transform, wf, hf,
             result.source_size // f, tsf, result.domain_step // f,
             result.num_transforms)
-        if img is None:
-            img = torch.full((hf, wf), dcfg.initial_value, dtype=torch.uint8,
-                             device=s.device)
-            n = dcfg.pyramid_steps
-        else:
-            n = dcfg.pyramid_refine_steps
-        for _ in range(n):
-            img = _decode_step(img, tables, s, o, hf, wf, tsf, result.o_is_mean)
-        rep = f // (fs[i + 1] if i + 1 < len(fs) else 1)
-        if rep > 1:
-            img = img.repeat_interleave(rep, 0).repeat_interleave(rep, 1)
-    return img
+        return lambda img: _decode_step(img, tables, s, o, hf, wf, tsf,
+                                        result.o_is_mean)
+
+    fs = pyramid_factors(h, w, ts, result.source_size, result.domain_step,
+                         max_levels=dcfg.pyramid_levels)
+    return _coarse_to_fine(fs, step_at, h, w, dcfg, s.device)
 
 
 def _step_mse(nxt: torch.Tensor, img: torch.Tensor) -> np.float32:
@@ -315,20 +328,27 @@ def _decode_core(result: EncodeResult, dcfg: DecoderConfig):
         mi = _mean_init_image(result, dcfg)
         if mi is not None:
             init = mi
-    if dcfg.pyramid:
-        pi = _pyramid_init(result, s, o, dcfg)
-        if pi is not None:
-            # a fixed count of full-res steps, capped by an explicit
-            # iteration limit (see DecoderConfig.pyramid_full_steps)
-            n_full = min(dcfg.pyramid_full_steps, dcfg.max_iterations)
-            img = prev = pi
-            for _ in range(n_full):
-                img, prev = step(img), img
-            return img, n_full, float(_step_mse(img, prev))
+    start = _pyramid_init(result, s, o, dcfg) if dcfg.pyramid else None
+    return _fixed_point(step, init, start, dcfg)
 
-    # Flat loop with the JAX package's exit tests: epsilon, an exact period-2
-    # cycle (u8 truncation can trap a few pixels flip-flopping forever), or a
-    # stall (no improvement by stall_rtol for stall_window steps).
+
+def _fixed_point(step, init, start, dcfg: DecoderConfig):
+    """The decode loop, as (image, iterations, mse).
+
+    From a pyramid ``start`` image: a fixed count of full-res steps, capped
+    by an explicit iteration limit (see DecoderConfig.pyramid_full_steps).
+    Without one (None), from ``init``: the flat loop with the JAX package's
+    exit tests: epsilon, an exact period-2 cycle (u8 truncation can trap a
+    few pixels flip-flopping forever), or a stall (no improvement by
+    stall_rtol for stall_window steps).
+    """
+    if start is not None:
+        n_full = min(dcfg.pyramid_full_steps, dcfg.max_iterations)
+        img = prev = start
+        for _ in range(n_full):
+            img, prev = step(img), img
+        return img, n_full, float(_step_mse(img, prev))
+
     eps = np.float32(dcfg.epsilon)
     keep = np.float32(1.0 - dcfg.stall_rtol)
     img, prev = init, init ^ 1  # prev differs from any first iterate
@@ -347,7 +367,9 @@ def _decode_core(result: EncodeResult, dcfg: DecoderConfig):
     return img, (steps - 1 if done else steps), float(mse)
 
 
-def _to_device(result: EncodeResult, device) -> EncodeResult:
+def _to_device(result, device):
+    """A copy of the dataclass ``result`` (an EncodeResult or a quadtree
+    level) with its tensors on ``device``; itself when they lie there."""
     if device is None or torch.device(device) == result.s.device:
         return result
     arrays = {f.name: getattr(result, f.name).to(device)

@@ -1,6 +1,8 @@
 from .codebook import Codebook, build_codebook, extract_ranges
 from .matcher import SearchResult, search_classed, solve_so
 from .encoder import EncodeResult, encode_plane, encode_stats
+from .quadtree import (QuadtreeConfig, QuadtreeResult, decode_plane_quadtree,
+                       encode_plane_quadtree)
 
 __all__ = [
     "Codebook",
@@ -12,4 +14,8 @@ __all__ = [
     "EncodeResult",
     "encode_plane",
     "encode_stats",
+    "QuadtreeConfig",
+    "QuadtreeResult",
+    "encode_plane_quadtree",
+    "decode_plane_quadtree",
 ]

@@ -2,7 +2,10 @@
 
 Every (domain, isometry) is sampled once per image into ``C[D, T, K]`` plus
 its per-vector sums.  Values are multiples of 0.25 in [0, 255], exact in
-f32, and for K <= 16 their sums and sums of squares are exact in any order.
+f32.  The sums come from the exact integers sum(4B) and sum((4B)^2), each
+rounded once: SumB is exact in f32 up to K = 256, SumB2 only up to K = 16,
+so above that it is the correctly rounded value, the same on every device
+and in every summation order.
 """
 from __future__ import annotations
 
@@ -13,7 +16,7 @@ import torch
 
 from ..core.grid import Grid
 from ..core.sampler import all_tap_tables
-from ..ops.matcher_kernels import inv_var_b
+from ..ops.matcher_kernels import inv_var_b, key_sum_sq
 
 __all__ = ["Codebook", "build_codebook", "extract_ranges"]
 
@@ -75,10 +78,13 @@ def build_codebook(plane_f32: torch.Tensor, domain_grid: Grid, target_size: int,
             acc = acc + blocks[:, taps[:, :, j]]
         values = acc * 0.25  # [D, T, K]
 
-    sums = values.sum(-1)
-    sums_sq = (values * values).sum(-1)
-    return Codebook(values=values, sum=sums, sum_sq=sums_sq, grid=domain_grid,
-                    inv_var=inv_var_b(sums, sums_sq, float(target_size * target_size)))
+    n = float(target_size * target_size)
+    b4 = torch.round(values * 4.0).to(torch.int32)  # exact integers 4B <= 1020
+    sums = b4.sum(-1, dtype=torch.int32).to(torch.float32) * 0.25
+    sb2_16 = (b4 * b4).sum(-1, dtype=torch.int32)  # <= 256 * 1020^2 < 2^31
+    return Codebook(values=values, sum=sums,
+                    sum_sq=sb2_16.to(torch.float32) * 0.0625, grid=domain_grid,
+                    inv_var=inv_var_b(sums, key_sum_sq(sb2_16, n), n))
 
 
 def extract_ranges(plane_f32: torch.Tensor, target_size: int) -> torch.Tensor:

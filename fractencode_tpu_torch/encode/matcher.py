@@ -23,8 +23,10 @@ import dataclasses
 import torch
 
 from ..ops.matcher_kernels import (DEFAULT_BM, DEFAULT_BR, INT8_MAX_K,
-                                   inv_var_b, rank_mode, rank_to_dist,
-                                   search_classed_cuda, search_classed_torch)
+                                   _require_exact_k, _require_exact_sums,
+                                   inv_var_b, key_sum_sq, rank_mode,
+                                   rank_to_dist, search_classed_cuda,
+                                   search_classed_torch)
 from ..params import EncoderConfig
 from .codebook import Codebook
 
@@ -54,32 +56,34 @@ def solve_so(sum_a, sum_a2, sum_b, sum_b2, sum_ab, n: float, so_mode: str,
 
     'reference' reproduces ``transformmatcher.h:103-105`` (with its
     ``(SumA-1)*SumA`` denominator); 'ls' is the least-squares fit of
-    ``range ~ s*domain + o``.  Numerator and denominator are exact i32 (scaled
-    by 4 and 16) for K <= INT8_MAX_K, so ``s`` is one correctly rounded
-    division.  ``o`` is formed with one rounding, as the fused multiply-add
-    that XLA:CPU emits for the JAX package: ``SumA - s*SumB`` is exact in
-    float64 (s has 24 significant bits, the sums are multiples of 0.25 below
-    2^14), then rounded once to f32 and multiplied by the f32 reciprocal of
-    n (XLA:CPU compiles the division by the constant n so; for n a power of
-    two the two agree).
+    ``range ~ s*domain + o``.  Numerator and denominator are integers (scaled
+    by 4 and 16), formed in int64 and rounded once to f32, so ``s`` is one
+    correctly rounded division of them.  For K <= INT8_MAX_K the integers
+    are rebuilt from the f32 sums, as the JAX package does (16*SumB2 from
+    the rounded f32 SumB2 at K = 64); above, ``sum_ab`` and ``sum_b2`` must
+    be the exact float64 sums (the port's exact rule for K = 256, where the
+    JAX package solves in f32).  ``o`` is formed with one rounding, as the
+    fused multiply-add that XLA:CPU emits for the JAX package:
+    ``SumA - s*SumB`` is exact in float64 (s has 24 significant bits, the
+    sums are multiples of 0.25 below 2^16), then rounded once to f32 and
+    multiplied by the f32 reciprocal of n (XLA:CPU compiles the division by
+    the constant n so; for n a power of two the two agree).
     """
-    if n > INT8_MAX_K:
-        raise NotImplementedError(
-            f"K = {int(n)} > {INT8_MAX_K}: the f32 solve is not ported yet "
-            "(ROADMAP.md queue 1, quadtree)")
+    _require_exact_k(n)
+    _require_exact_sums(n, sum_ab=sum_ab, sum_b2=sum_b2)
     ni = int(n)
-    sa_i = sum_a.to(torch.int32)
-    sb4 = (4.0 * sum_b).to(torch.int32)
-    ab4 = (4.0 * sum_ab).to(torch.int32)
+    sa_i = sum_a.to(torch.int64)
+    sb4 = (4.0 * sum_b).to(torch.int64)
+    ab4 = (4.0 * sum_ab).to(torch.int64)
     num4 = (ni * ab4 - sa_i * sb4).to(torch.float32)  # 4*num, exact
     if so_mode == "reference":
-        sa2_i = sum_a2.to(torch.int32)
+        sa2_i = sum_a2.to(torch.int64)
         den = (ni * sa2_i - (sa_i - 1) * sa_i).to(torch.float32)  # exact
         s = torch.where(den.abs() < 1e-5, 0.0,
                         (num4 * 0.25) / torch.where(den == 0, 1.0, den))
     else:
-        sb2_16 = (16.0 * sum_b2).to(torch.int32)
-        den16 = (ni * sb2_16 - sb4 * sb4).to(torch.float32)  # 16*den, exact
+        sb2_16 = (16.0 * sum_b2).to(torch.int64)
+        den16 = (ni * sb2_16 - sb4 * sb4).to(torch.float32)  # 16*den
         s = torch.where(den16 == 0, 0.0,
                         (num4 * 4.0) / torch.where(den16 == 0, 1.0, den16))
     if s_max > 0.0:
@@ -159,10 +163,7 @@ def classed_prep(ranges, sum_a, sum_a2, cb: Codebook, range_classes,
     b4_cols [m, K] i16 (4x the codebook values in search order).
     """
     r, k = ranges.shape
-    if k > INT8_MAX_K:
-        raise NotImplementedError(
-            f"K = {k} > {INT8_MAX_K} needs K1's f32 branch, not ported yet "
-            "(ROADMAP.md queue 2, K1)")
+    _require_exact_k(k)
     d, t, _ = cb.values.shape
     m = d * t
     dev = ranges.device
@@ -224,9 +225,12 @@ def classed_prep(ranges, sum_a, sum_a2, cb: Codebook, range_classes,
     # (padding rows are zero, so their sums are 0)
     b4_s = 8 * ch_s.to(torch.int32) + cl_s.to(torch.int32)
     sb_s = b4_s.sum(1, dtype=torch.int32).to(torch.float32) * 0.25
-    sb2_s = (b4_s * b4_s).sum(1, dtype=torch.int32).to(torch.float32) * 0.0625
+    sb2_16_s = (b4_s * b4_s).sum(1, dtype=torch.int32)
     mode = rank_mode(cfg.criterion, cfg.so_mode, cfg.s_max)
-    aux_s = inv_var_b(sb_s, sb2_s, float(k)) if mode == "ls" else sb2_s
+    if mode == "ls":
+        aux_s = inv_var_b(sb_s, key_sum_sq(sb2_16_s, float(k)), float(k))
+    else:
+        aux_s = sb2_16_s.to(torch.float32) * 0.0625
     if mode == "general":
         zero = sum_a.new_zeros(1)
         sa_s = torch.cat([sum_a, zero])[inv_r]
@@ -271,14 +275,16 @@ def classed_kernel(prep: dict, k: int, domain_area: int, cfg: EncoderConfig):
 
 
 def classed_post(q_s, idx_s, rpos, inv_col, ranges, sum_a, sum_a2, cb: Codebook,
-                 cfg: EncoderConfig, b4_cols=None, inv_dom=None) -> SearchResult:
+                 cfg: EncoderConfig, b4_cols, inv_dom=None) -> SearchResult:
     """Map sorted-layout search outputs back to range order and solve (s, o)
     for the winners.
 
     The key becomes a distance after unsorting, against the range-order sums
-    (elementwise, so the same values as converting before).  For K <= 16 the
-    winner's SumAB, SumB and SumB2 come exactly from its b4 row; above, from
-    the f32 codebook (16*SumB2 may exceed 2^24 there).
+    (elementwise, so the same values as converting before).  The winner's
+    SumAB, SumB and SumB2 come from the exact integer sums over its b4 row
+    (``b4_cols``: 4x the codebook values in search order): as the f32
+    values of the JAX package's codebook for K <= INT8_MAX_K (SumB2 rounded
+    once, as ``cb.sum_sq``), exact in float64 above (see ``solve_so``).
     """
     r, k = ranges.shape
     d, t, _ = cb.values.shape
@@ -303,17 +309,12 @@ def classed_post(q_s, idx_s, rpos, inv_col, ranges, sum_a, sum_a2, cb: Codebook,
     win_d = win_m // t
     win_t = (t - 1) - (win_m % t)
 
-    if b4_cols is not None and k <= 16:
-        b4_win = b4_cols[win_m].to(torch.int32)  # [R, k]
-        sum_ab = (ranges.to(torch.int32) * b4_win).sum(-1, dtype=torch.int32)
-        sum_ab = sum_ab.to(torch.float32) * 0.25
-        sb_win = b4_win.sum(-1, dtype=torch.int32).to(torch.float32) * 0.25
-        sb2_win = (b4_win * b4_win).sum(-1, dtype=torch.int32).to(torch.float32) * 0.0625
-    else:
-        win_rows = cb.values.flip(1).reshape(m, k)[win_m]
-        sum_ab = (ranges * win_rows).sum(-1)
-        sb_win = cb.sum.flip(1).reshape(m)[win_m]
-        sb2_win = cb.sum_sq.flip(1).reshape(m)[win_m]
+    # every sum is an exact i32: 4*SumAB <= 256*255*1020, 16*SumB2 <= 256*1020^2
+    b4_win = b4_cols[win_m].to(torch.int32)  # [R, k]
+    ab4 = (ranges.to(torch.int32) * b4_win).sum(-1, dtype=torch.int32)
+    sum_ab = ab4.to(torch.float32 if k <= INT8_MAX_K else torch.float64) * 0.25
+    sb_win = b4_win.sum(-1, dtype=torch.int32).to(torch.float32) * 0.25
+    sb2_win = key_sum_sq((b4_win * b4_win).sum(-1, dtype=torch.int32), float(k))
     s, o = solve_so(sum_a, sum_a2, sb_win, sb2_win, sum_ab, float(k),
                     cfg.so_mode, cfg.s_max)
     return SearchResult(

@@ -14,11 +14,23 @@ Two versions compute the same function:
     modes ('ls', 'raw', 'general') without the early-accept frontier.
   * ``search_classed_cuda``, the wrapper of the hand-written CUDA kernel
     ``csrc/search_classed.cu``, for the 'ls' mode at K = 16 (the default
-    config's path).  It routes on the tensors' device: CPU tensors run the
-    plain version; CUDA tensors launch the kernel or raise.
+    config), 64 and 256 (the quadtree's 8 and 16 px levels).  It routes on
+    the tensors' device: CPU tensors run the plain version; CUDA tensors
+    launch the kernel or raise.
 
 The rank-key helpers below keep the JAX package's expression order, so that
-every key is the same f32 value (see ``rank_mode``).
+every key is the same f32 value (see ``rank_mode``).  One rule per K:
+
+  * K <= INT8_MAX_K: the JAX package's expressions on the same f32 sums.
+    Its integers (4*SumB, 16*SumB2, 4*SumAB) are rebuilt from those f32
+    values, so where an f32 sum is rounded (SumB2 at K = 64) the rounded
+    value is what enters the key, as in the JAX package.
+  * INT8_MAX_K < K <= MAX_K: exact integers, each rounded once.  The JAX
+    package computes these keys in f32, where their value depends on the
+    summation order and on FMA contraction; the port departs from it on
+    purpose (ROADMAP.md, parity contract).  The sums f32 cannot hold
+    exactly there (SumAB, SumB2) are passed as float64, which holds them
+    exactly; all integer arithmetic is int64.
 """
 from __future__ import annotations
 
@@ -26,12 +38,18 @@ import ctypes
 
 import torch
 
-__all__ = ["INT8_MAX_K", "DEFAULT_BR", "DEFAULT_BM", "rank_mode", "inv_var_b",
-           "rank_to_dist", "search_classed_torch", "search_classed_cuda"]
+__all__ = ["INT8_MAX_K", "MAX_K", "KERNEL_K", "DEFAULT_BR", "DEFAULT_BM",
+           "rank_mode", "inv_var_b", "key_sum_sq", "rank_to_dist",
+           "search_classed_torch", "search_classed_cuda"]
 
-# Largest K for which the int8 decomposition of SumAB and the covariance key
-# are exact integers (matcher_pallas.py:41-44).
+# Largest K for which the JAX package's keys are exact integers in i32 and
+# it searches with int8 operands (matcher_pallas.py:41-44).
 INT8_MAX_K = 64
+# Largest K the port searches: the int8 operands hold up to it (4B <= 1020,
+# so ch = 4B >> 3 <= 127) and the dot sum(ai * b4) stays below 2^31.
+MAX_K = 256
+# The K of each CUDA kernel instantiation (csrc/search_classed.cu).
+KERNEL_K = (16, 64, 256)
 
 # The port's layout tiles: range rows and codebook columns per class-segment
 # alignment unit.  Results do not depend on them (only the padding does);
@@ -61,22 +79,44 @@ def rank_mode(criterion: str, so_mode: str, s_max: float) -> str:
 
 
 def _require_exact_k(n: float) -> None:
-    if n > INT8_MAX_K:
+    if n > MAX_K:
         raise NotImplementedError(
-            f"K = {int(n)} > {INT8_MAX_K} needs K1's f32 branch, not ported "
-            "yet (ROADMAP.md queue 2, K1)")
+            f"K = {int(n)} > {MAX_K} (ranges above 16x16) is not ported yet "
+            "(ROADMAP.md queue 2, K1 beyond K = 256)")
+
+
+def _require_exact_sums(n: float, **sums) -> None:
+    """Above INT8_MAX_K, SumAB and SumB2 must come exact, as float64."""
+    if n > INT8_MAX_K:
+        for name, x in sums.items():
+            if x.dtype != torch.float64:
+                raise TypeError(f"K = {int(n)} > {INT8_MAX_K}: {name} must be "
+                                f"the exact float64 sum, got {x.dtype}")
+
+
+def key_sum_sq(sb2_16: torch.Tensor, n: float) -> torch.Tensor:
+    """SumB2 as the keys and the solve read it, from the exact integer
+    16*SumB2: rounded once to f32 for K <= INT8_MAX_K (the JAX package's f32
+    sum, which is exact for K <= 16), exact float64 above."""
+    if n <= INT8_MAX_K:
+        return sb2_16.to(torch.float32) * 0.0625
+    return sb2_16.to(torch.float64) * 0.0625
 
 
 def inv_var_b(sb: torch.Tensor, sb2: torch.Tensor, n: float) -> torch.Tensor:
     """Per-column guarded reciprocal 1/var_b, s = 0 semantics for var_b = 0.
 
-    16*var_b = n*(16*SumB2) - (4*SumB)^2 is an exact i32 for K <= INT8_MAX_K
-    (samples are multiples of 0.25), so the only roundings are the i32 -> f32
-    cast and the division.
+    16*var_b = n*(16*SumB2) - (4*SumB)^2 is an integer (samples are
+    multiples of 0.25), formed here in int64, so the only roundings are the
+    int -> f32 cast and the division.  For K <= INT8_MAX_K, 16*SumB2 is
+    rebuilt from the f32 ``sb2`` as the JAX package does (its i32 products
+    wrap at K = 64, its difference does not); above, ``sb2`` is the exact
+    float64 sum.
     """
     _require_exact_k(n)
-    sb4 = (4.0 * sb).to(torch.int32)
-    sb2_16 = (16.0 * sb2).to(torch.int32)
+    _require_exact_sums(n, sb2=sb2)
+    sb4 = (4.0 * sb).to(torch.int64)
+    sb2_16 = (16.0 * sb2).to(torch.int64)
     var16 = int(n) * sb2_16 - sb4 * sb4
     var_b = var16.to(torch.float32) * 0.0625
     zero = var16 == 0
@@ -84,10 +124,11 @@ def inv_var_b(sb: torch.Tensor, sb2: torch.Tensor, n: float) -> torch.Tensor:
 
 
 def _cov_exact(ab, sa, sb, n: float):
-    """cov = n*SumAB - SumA*SumB, exact in i32 (scaled by 4) for K <= 64."""
+    """cov = n*SumAB - SumA*SumB from the integers 4*cov, one rounding."""
     _require_exact_k(n)
-    ab4 = (4.0 * ab).to(torch.int32)
-    cov4 = int(n) * ab4 - sa.to(torch.int32) * (4.0 * sb).to(torch.int32)
+    _require_exact_sums(n, ab=ab)
+    ab4 = (4.0 * ab).to(torch.int64)
+    cov4 = int(n) * ab4 - sa.to(torch.int64) * (4.0 * sb).to(torch.int64)
     return cov4.to(torch.float32) * 0.25
 
 
@@ -129,8 +170,12 @@ def _rank_ls_int8(sa_i, dot, sb4, aux16, n: int):
     """The 'ls' key from the exact integer dot (matcher_pallas._rank_ls_int8).
 
     cov4 = 4*(n*SumAB - SumA*SumB) = n*dot + (128n - SumA)*sb4 with dot =
-    sum ai*(8ch + cl), exact in i32; q = f32(cov4)^2 * (aux/16).
+    sum ai*(8ch + cl), exact in i32; q = f32(cov4)^2 * (aux/16).  cov4 is
+    formed in i32 for K <= INT8_MAX_K, as the JAX package does, and in int64
+    above (it reaches ~9e9 at K = 256).
     """
+    if n > INT8_MAX_K:
+        dot, sa_i, sb4 = dot.to(torch.int64), sa_i.to(torch.int64), sb4.to(torch.int64)
     cov4 = n * dot + (128 * n - sa_i) * sb4
     c = cov4.to(torch.float32)
     return (c * c) * aux16
@@ -142,9 +187,11 @@ def rank_to_dist(q, sa2, sa, *, criterion, so_mode, s_max, inv_norm, n: float):
     if mode == "raw":
         dist = (sa2 - q) * inv_norm
     elif mode == "ls":
+        # SumA and SumA2 are exact in f32 up to K = 256 (SumA2 <= 256*255^2
+        # < 2^24); var_a is formed exactly in int64 and rounded once
         _require_exact_k(n)
-        sa_i = sa.to(torch.int32)
-        var_a = (int(n) * sa2.to(torch.int32) - sa_i * sa_i).to(torch.float32)
+        sa_i = sa.to(torch.int64)
+        var_a = (int(n) * sa2.to(torch.int64) - sa_i * sa_i).to(torch.float32)
         dist = (var_a - q).clamp_min(0.0) * (inv_norm * (1.0 / n))
     else:
         dist = -q
@@ -174,21 +221,40 @@ def search_classed_torch(ai_s, ch_s, cl_s, sb_s, aux_s, tile_class,
     [NC] i32; sa_s/sa2_s [R_pad] f32 only for the 'general' mode.  Returns
     (q [R_pad] f32, idx [R_pad] i32), idx a sorted column index.
 
-    SumAB comes exactly from one matmul of ai against b4 = 8*ch + cl: in
-    float64 on the CPU (integers below 2^53) and in float32 with TF32 off on
-    CUDA (every partial sum is an integer below 2^24 for K <= 64).
+    The dot sum(ai * (8*ch + cl)) comes exactly from matmuls: one of ai
+    against b4 = 8*ch + cl in float64 on the CPU (integers below 2^53); in
+    float32 with TF32 off on CUDA, one against b4 for K <= INT8_MAX_K (every
+    partial sum is an integer below 2^24) and one each against ch and cl
+    above (|sum| <= 256*128*127 < 2^24), combined in int32.  K above
+    INT8_MAX_K takes the 'ls' key only.
     """
     r_pad, k = ai_s.shape
     _require_exact_k(k)
     dev = ai_s.device
     mode = rank_mode(criterion, so_mode, s_max)
+    if k > INT8_MAX_K and mode != "ls":
+        raise NotImplementedError(
+            f"rank mode '{mode}' at K = {k} > {INT8_MAX_K} is not ported yet "
+            "(ROADMAP.md queue 2, K1's raw and general keys above K = 64)")
     mm_dtype = torch.float32 if dev.type == "cuda" else torch.float64
     budget = (1 << 26) if dev.type == "cuda" else (1 << 21)
+    split = dev.type == "cuda" and k > INT8_MAX_K
 
     q_out = torch.full((r_pad,), -_BIG, dtype=torch.float32, device=dev)
     idx_out = torch.zeros((r_pad,), dtype=torch.int32, device=dev)
     a_mm = ai_s.to(mm_dtype)
-    b_mm = (8 * ch_s.to(torch.int32) + cl_s.to(torch.int32)).to(mm_dtype)
+    if split:
+        bh_mm, bl_mm = ch_s.to(mm_dtype), cl_s.to(mm_dtype)
+    else:
+        b_mm = (8 * ch_s.to(torch.int32) + cl_s.to(torch.int32)).to(mm_dtype)
+
+    def dot_of(r0, r1, j0, j1):
+        a = a_mm[r0:r1]
+        if split:
+            return (8 * (a @ bh_mm[j0:j1].T).to(torch.int32)
+                    + (a @ bl_mm[j0:j1].T).to(torch.int32))
+        return (a @ b_mm[j0:j1].T).to(torch.int32)
+
     if mode == "ls":
         sa_i = ai_s.to(torch.int32).sum(1, dtype=torch.int32) + 128 * k
         sb4 = (4.0 * sb_s).to(torch.int32)
@@ -208,7 +274,7 @@ def search_classed_torch(ai_s, ch_s, cl_s, sb_s, aux_s, tile_class,
             best_i = torch.zeros((r1 - r0,), dtype=torch.int32, device=dev)
             for j0 in range(c0, c1, col_chunk):
                 j1 = min(j0 + col_chunk, c1)
-                dot = (a_mm[r0:r1] @ b_mm[j0:j1].T).to(torch.int32)
+                dot = dot_of(r0, r1, j0, j1)
                 if mode == "ls":
                     q = _rank_ls_int8(sa_i[r0:r1, None], dot, sb4[None, j0:j1],
                                       aux16[None, j0:j1], k)
@@ -240,11 +306,12 @@ def _check(name, t, dtype, shape, device):
         raise ValueError(f"{name}: must be contiguous and 16-byte aligned")
 
 
-def _kernel_fn():
-    """The kernel's C entry point (built and loaded on first use)."""
+def _kernel_fn(k: int):
+    """The C entry point of the kernel for K = k (built and loaded on first
+    use)."""
     from ._build import load_library
 
-    fn = load_library("search_classed").fe_search_classed_ls16
+    fn = getattr(load_library("search_classed"), f"fe_search_classed_ls{k}")
     fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 3 + [ctypes.c_void_p] * 3
     fn.restype = ctypes.c_int
     return fn
@@ -258,8 +325,9 @@ def search_classed_cuda(ai_s, ch_s, cl_s, sb_s, aux_s, tile_class,
     ``search_classed_torch``.
 
     CPU tensors run the plain version.  CUDA tensors launch
-    ``csrc/search_classed.cu`` (and add one to ``search_classed_cuda.launches``),
-    or raise ``NotImplementedError`` for a config the kernel does not cover.
+    ``csrc/search_classed.cu`` (and add one to
+    ``search_classed_cuda.launches[K]``), or raise ``NotImplementedError``
+    for a config the kernel does not cover.
     """
     if ai_s.device.type == "cpu":
         return search_classed_torch(
@@ -274,12 +342,12 @@ def search_classed_cuda(ai_s, ch_s, cl_s, sb_s, aux_s, tile_class,
         raise NotImplementedError(
             f"rank mode '{mode}' (criterion={criterion}, so_mode={so_mode}, "
             f"s_max={s_max}) has no CUDA kernel yet: ROADMAP.md queue 2, K1's "
-            "generic int8 branches")
+            "raw and general keys")
     r_pad, k = ai_s.shape
-    if k != 16:
+    if k not in KERNEL_K:
         raise NotImplementedError(
-            f"K = {k}: the CUDA kernel covers K = 16 only (ROADMAP.md queue 2, "
-            "K1 at K = 64 and the f32 K = 256 path)")
+            f"K = {k}: the CUDA kernel covers K in {KERNEL_K} only (ROADMAP.md "
+            "queue 2, K1 at other range sizes)")
     m_pad = ch_s.shape[0]
     nrt = tile_class.shape[0]
     nc = col_end.shape[0]
@@ -295,7 +363,7 @@ def search_classed_cuda(ai_s, ch_s, cl_s, sb_s, aux_s, tile_class,
     _check("col_tile_start", col_tile_start, torch.int32, (nc,), dev)
     _check("col_end", col_end, torch.int32, (nc,), dev)
 
-    fn = _kernel_fn()
+    fn = _kernel_fn(k)
     with torch.cuda.device(dev):
         q = torch.empty((r_pad,), dtype=torch.float32, device=dev)
         idx = torch.empty((r_pad,), dtype=torch.int32, device=dev)
@@ -306,8 +374,8 @@ def search_classed_cuda(ai_s, ch_s, cl_s, sb_s, aux_s, tile_class,
                  nrt, block_r, block_m, q.data_ptr(), idx.data_ptr(), stream)
     if err != 0:
         raise RuntimeError(f"search_classed kernel launch failed: CUDA error {err}")
-    search_classed_cuda.launches += 1
+    search_classed_cuda.launches[k] += 1
     return q, idx
 
 
-search_classed_cuda.launches = 0
+search_classed_cuda.launches = {k: 0 for k in KERNEL_K}

@@ -77,7 +77,7 @@ def test_cli_psnr_matches_jax_cli(tmp_path, flags):
                           np.asarray(Image.open(tmp_path / "j.png")))
 
 
-@pytest.mark.parametrize("flag", [["--quadtree"], ["--vq-classes", "3"],
+@pytest.mark.parametrize("flag", [["--quadtree", "--noclassifier"], ["--vq-classes", "3"],
                                   ["--out", "x.ftc"], ["--decode-file", "x.ftc"],
                                   ["--color"], ["--noclassifier"], ["--rms", "10"],
                                   ["--log"], ["--profile", "p"]])

@@ -210,7 +210,7 @@ def test_general_rank_mode(cfg_kw):
 
 @pytest.mark.parametrize("cfg_kw", [
     dict(rms_threshold=10.0), dict(use_classifier=False), dict(vq_classes=3),
-    dict(source_size=32, target_size=16),
+    dict(criterion="raw", so_mode="reference", source_size=32, target_size=16),
 ])
 def test_unported_configs_raise(cfg_kw):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
@@ -221,7 +221,7 @@ def test_cpu_routing_and_launch_count():
     """CPU tensors route the CUDA wrapper to the plain version (no launch);
     backend='cuda' refuses CPU tensors."""
     img = random_plane(64, 4)
-    before = mk.search_classed_cuda.launches
+    before = dict(mk.search_classed_cuda.launches)
     auto = T.encode_plane(img, T.EncoderConfig())
     plain = T.encode_plane(img, T.EncoderConfig(backend="torch"))
     assert mk.search_classed_cuda.launches == before
