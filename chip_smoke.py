@@ -4,8 +4,10 @@
     python3 chip_smoke.py
 
 Phases, each of which must pass (any failure exits non-zero):
-  1. build the CUDA kernels from csrc/ (into build/kernels/) and print the
-     card's name and power limit;
+  1. build the CUDA kernels from csrc/ (search_classed.cu, K1, and
+     search_dense.cu, K3: one nvcc each, in parallel, into build/kernels/),
+     print each instantiation's registers and spills from ptxas' report,
+     and the card's name and power limit;
   2. K1 parity at K = 16: the search kernel against its plain PyTorch
      version on the same class-sorted tensors at 512^2 and 2048^2, (q, idx)
      bitwise equal, with both times (CUDA events, median of 5 after a
@@ -21,14 +23,46 @@ Phases, each of which must pass (any failure exits non-zero):
      512^2 on the card, every level and the decoded pixels bitwise equal to
      the same call on the CPU;
   7. the quadtree path at 2048^2 on the card, with each K's launch count,
-     the leaves per level, the encode and decode wall times and the PSNR.
+     the leaves per level, the encode and decode wall times and the PSNR;
+  8. K3 parity: the dense search kernel against its plain version, (q, idx)
+     bitwise equal, with both times: K = 16 'ls', 'raw' and 'general' at
+     512^2, 'ls' with the class mask at 512^2; K = 64 and 256 'ls' on the
+     quadtree level inputs of the 2048^2 plane; then at 2048^2 under the
+     very configs that phases 10, 11 and 13 parse from their flags:
+     --noclassifier, config 1, and each path of KEY_PATHS;
+  9. K1 'raw' and 'general' parity: so_mode 'reference' at 2048^2 and every
+     key on the 8 px quadtree level (K = 64), then at 2048^2 under the
+     configs that phase 13 parses from each path of KEY_PATHS;
+ 10. --noclassifier through cli._encode_one: at 512^2 card == CPU bitwise;
+     at 2048^2 the launch counts, times and PSNR, and the dense search's key
+     at least the class-blocked search's for every range;
+ 11. BASELINE config 1 (--source 16 --target 8 --transforms 8
+     --noclassifier): at 256^2 card == CPU bitwise, times at 2048^2;
+ 12. --noclassifier --quadtree: at 512^2 card == CPU bitwise, times and
+     leaves at 2048^2;
+ 13. the paths of KEY_PATHS (--compat and --smax 0.9, with 4x4 ranges and
+     with config 1's 8x8 ranges), with and without the classifier: card ==
+     CPU bitwise at 256^2, then at 2048^2 each with its launch counts;
+ 14. the C++ reference goldens (default, --noclassifier, --smax 0.9) on the
+     in-repo Lenna crop through the port on the card, against the reference
+     encoder's dumps and decoded PNGs to the tolerances of
+     tests/test_reference_parity.py.
+Every path is driven with the launch counts set to 0 just before it and
+read just after; each must launch the kernels it names.  Each kernel's
+record keeps the times of its last parity check, which is at the shape of
+a path that launches it.  Plain timings at
+2048^2 are one run each (after the parity run), to keep the script short.
 The planes are natural-like synthetic textures made with numpy from a seed.
 The last two lines are the kernels' JSON record and the device JSON line.
 Without a CUDA device it exits non-zero and prints no result.
 """
 from __future__ import annotations
 
+import dataclasses
+import gzip
 import json
+import os
+import re
 import statistics
 import subprocess
 import sys
@@ -37,13 +71,33 @@ import time
 import numpy as np
 
 SEED = 20240611
-KERNEL_SOURCE = "fractencode_tpu_torch/csrc/search_classed.cu"
-# _pairs_kernel; at K = 64 its ls_fast int8 branch, at K = 256 its f32 branch
-REPLACES = {16: "fractencode_tpu/ops/matcher_pallas.py:508",
-            64: "fractencode_tpu/ops/matcher_pallas.py:556",
-            256: "fractencode_tpu/ops/matcher_pallas.py:568"}
+SOURCES = {"search_classed": "fractencode_tpu_torch/csrc/search_classed.cu",
+           "search_dense": "fractencode_tpu_torch/csrc/search_dense.cu"}
+# The line of the TPU kernel each kernel key replaces: _pairs_kernel (K1)
+# and _search_kernel (K3); 'ls' at K = 64 is their ls_fast int8 branch,
+# 'raw' and 'general' their generic int8 branch, K = 256 their f32 branch.
+_LINES = {"search_classed": {"ls16": 508, "ls64": 556, "ls256": 568, "raw": 560,
+                             "general": 560},
+          "search_dense": {"ls16": 163, "ls64": 203, "ls256": 211, "raw": 206,
+                           "general": 206}}
 # (domain, range) sizes of the quadtree's levels by K (CLI defaults)
 LEVELS = {16: (16, 4), 64: (32, 8), 256: (64, 16)}
+CONFIG1 = ["--source", "16", "--target", "8", "--transforms", "8"]
+# the CLI paths of the 'raw' and 'general' keys by (key, K), driven in phase
+# 13 with and without --noclassifier; phases 8 and 9 check the kernels at
+# the configs these flags parse to (--compat keeps 4 isometries, as in the
+# JAX CLI, so its config 1 path has 260,100 columns)
+KEY_PATHS = {("raw", 16): ["--compat"],
+             ("raw", 64): [*CONFIG1, "--compat"],
+             ("general", 16): ["--smax", "0.9"],
+             ("general", 64): [*CONFIG1, "--smax", "0.9"]}
+GOLDEN = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests", "golden")
+# the C++ reference's goldens on the Lenna crop: CLI flags, encode dump, result
+GOLDENS = {"default": ([], "lenna128_cpp_encode.txt.gz", "lenna128_cpp_result.png"),
+           "nocls": (["--noclassifier"], "lenna128_cpp_nocls.txt.gz",
+                     "lenna128_cpp_result_nocls.png"),
+           "smax09": (["--smax", "0.9"], "lenna128_cpp_smax09.txt.gz",
+                      "lenna128_cpp_result_smax09.png")}
 
 
 def check(cond, msg):
@@ -70,11 +124,39 @@ def natural_plane(n: int, seed: int) -> np.ndarray:
     return img.astype(np.uint8)
 
 
+def ptxas_report(text):
+    """One line per kernel instantiation in an ``nvcc -Xptxas -v`` log: its
+    name, template arguments (K, key, and for K3 the class mask), registers
+    and spills."""
+    lines, name, spill = [], None, ("?", "?")
+    for line in text.splitlines():
+        m = re.search(r"Compiling entry function '_ZN?(\w+)'", line)
+        if m:  # a (nested) mangled name: length-prefixed parts, then <K, M, ...>
+            rest = m.group(1)
+            while d := re.match(r"\d+", rest):
+                end = d.end() + int(d.group())
+                name, rest = rest[d.end():end], rest[end:]
+            k, mode, *masked = re.findall(r"L[ib](\d+)E", rest)[:3]
+            name += (f" K={k} {('ls', 'raw', 'general')[int(mode)]}"
+                     + (" masked" if masked == ["1"] else ""))
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m:
+            spill = m.groups()
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name:
+            lines.append(f"{name}: {m.group(1)} registers, {spill[0]} B spill "
+                         f"stores, {spill[1]} B spill loads")
+            name, spill = None, ("?", "?")
+    return lines
+
+
 def cuda_ms(fn, reps=5):
-    """Median device time of fn() in ms (CUDA events), after one warmup."""
+    """Median device time of fn() in ms (CUDA events); one warmup first
+    when there is more than one repetition."""
     import torch
 
-    fn()
+    if reps > 1:
+        fn()
     times = []
     for _ in range(reps):
         start = torch.cuda.Event(enable_timing=True)
@@ -87,14 +169,23 @@ def cuda_ms(fn, reps=5):
     return statistics.median(times)
 
 
-def prep_on_card(img, cfg):
-    """Class-sorted search inputs of one plane, built on the card."""
+def bitwise(a, b) -> bool:
+    import torch
+
+    a, b = a.cpu(), b.cpu()
+    if a.dtype == torch.float32:
+        return torch.equal(a.view(torch.int32), b.view(torch.int32))
+    return torch.equal(a, b)
+
+
+def level_inputs(img, cfg):
+    """(ranges, SumA, SumA2, codebook, range classes, domain classes) of one
+    plane's uniform grid, built on the card."""
     import torch
 
     from fractencode_tpu_torch.core.classify import classify_grid
     from fractencode_tpu_torch.core.grid import uniform_grid
     from fractencode_tpu_torch.encode.codebook import build_codebook, extract_ranges
-    from fractencode_tpu_torch.encode.matcher import classed_prep
 
     n = img.shape[0]
     p = torch.from_numpy(img).cuda()
@@ -103,30 +194,167 @@ def prep_on_card(img, cfg):
     rg = uniform_grid(n, n, cfg.target_size, cfg.target_size)
     cb = build_codebook(pf, dg, cfg.target_size, cfg.num_transforms)
     ranges = extract_ranges(pf, cfg.target_size)
-    return classed_prep(ranges, ranges.sum(-1), (ranges * ranges).sum(-1), cb,
-                        classify_grid(p, rg), classify_grid(p, dg), cfg)
+    return (ranges, ranges.sum(-1), (ranges * ranges).sum(-1), cb,
+            classify_grid(p, rg), classify_grid(p, dg))
 
 
-def k1_parity(prep, k, domain_area, cfg, plain_cfg, what):
-    """Kernel against plain version on one prepped input: (q, idx) bitwise;
-    returns (max_abs_err, kernel ms, plain ms)."""
+class Kernels:
+    """The kernels' records and launch counts, by (kernel, mode, K)."""
+
+    def __init__(self):
+        from fractencode_tpu_torch.ops import matcher_kernels as mk
+
+        self.wrappers = {"search_classed": mk.search_classed_cuda,
+                         "search_dense": mk.search_dense_cuda}
+        self.records = {}
+        for kernel in self.wrappers:
+            for mode, ks in mk.KERNEL_KEYS.items():
+                for k in ks:
+                    lines = _LINES[kernel]
+                    line = lines.get(f"{mode}{k}", lines.get(mode))
+                    self.records[(kernel, mode, k)] = dict(
+                        name=f"{kernel}_{mode}{k}", route="cuda", source=SOURCES[kernel],
+                        replaces=f"fractencode_tpu/ops/matcher_pallas.py:{line}",
+                        launches=0, max_abs_err=0.0, launches_by_path={})
+
+    def zero(self):
+        for w in self.wrappers.values():
+            for key in w.launches:
+                w.launches[key] = 0
+
+    def read(self, path, expect):
+        """Add the counts since ``zero`` to the records under ``path``;
+        every key in ``expect`` must have launched."""
+        counts = {(kernel, *key): n for kernel, w in self.wrappers.items()
+                  for key, n in w.launches.items()}
+        for key in expect:
+            check(counts[key] > 0, f"the {path} path launched no {self.records[key]['name']}")
+        for key, n in counts.items():
+            if n:
+                self.records[key]["launches"] += n
+                self.records[key]["launches_by_path"][path] = n
+        return {self.records[key]["name"]: n for key, n in counts.items() if n}
+
+    def parity(self, key, run, plain, what, plain_reps=5):
+        """Kernel ``run()`` against plain ``plain()``: (q, idx) bitwise; both
+        times go into the record of ``key``."""
+        import torch
+
+        q_k, i_k = run()
+        q_p, i_p = plain()
+        torch.cuda.synchronize()
+        err = float((q_k.double() - q_p.double()).abs().max())
+        name = self.records[key]["name"]
+        check(bitwise(q_k, q_p), f"{name} q differs from the plain version at {what} "
+                                 f"(max abs {err})")
+        check(bitwise(i_k, i_p), f"{name} idx differs from the plain version at {what}")
+        ms = cuda_ms(run)
+        plain_ms = cuda_ms(plain, reps=plain_reps)
+        print(f"    {name} at {what}: {q_k.shape[0]} rows, (q, idx) bitwise equal; "
+              f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms"
+              + ("" if plain_reps > 1 else " (one run)"))
+        rec = self.records[key]
+        rec.update(max_abs_err=max(rec["max_abs_err"], err), ms=ms, plain_ms=plain_ms)
+
+
+def parse(argv):
+    from fractencode_tpu_torch import cli
+
+    args = cli.build_parser().parse_args(argv)
+    return args, cli._config_from_args(args), cli._decoder_config(args)
+
+
+def card_equals_cpu(img, argv, label):
+    """One CLI path on the card and on the CPU: every result field and the
+    decoded pixels bitwise equal."""
+    from fractencode_tpu_torch import cli
+
+    args_g, cfg, dcfg = parse(["--device", "cuda", *argv])
+    args_c, _, _ = parse(["--device", "cpu", *argv])
+    res_g, out_g = cli._encode_one(img, args_g, cfg, dcfg, label=f" [{label} cuda]")
+    res_c, out_c = cli._encode_one(img, args_c, cfg, dcfg, label=f" [{label} cpu]")
+    if args_g.quadtree:
+        pairs = [(f"{lg.range_size} px ", lg, lc)
+                 for lg, lc in zip(res_g.levels, res_c.levels, strict=True)]
+        fields = ("domain_idx", "transform", "s", "o", "error", "accepted")
+    else:
+        pairs = [("", res_g, res_c)]
+        fields = ("domain_idx", "transform", "valid", "distance", "s", "o")
+    for what, g, c in pairs:
+        for f in fields:
+            check(bitwise(getattr(g, f), getattr(c, f)),
+                  f"{label} {what}{f}: card differs from CPU")
+    check(np.array_equal(out_g, out_c), f"{label} decoded pixels: card differs from CPU")
+
+
+def drive(kernels, path, img, argv, expect, label):
+    """One CLI path on the card (cli._encode_one), the launch counts set to 0
+    just before and read just after; (result, pixels, counts)."""
+    from fractencode_tpu_torch import cli
+
+    args, cfg, dcfg = parse(["--device", "cuda", *argv])
+    kernels.zero()
+    res, out = cli._encode_one(img, args, cfg, dcfg, label=f" [{label}]")
+    return res, out, kernels.read(path, expect)
+
+
+def wall_times(encode, decode, reps=3):
+    """Median host-clock ms of encode() and decode(result), each ending in a
+    synchronize, over ``reps`` warm runs; and the last decode's output."""
     import torch
 
-    from fractencode_tpu_torch.encode.matcher import classed_kernel
+    enc_s, dec_s = [], []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        e = encode()
+        torch.cuda.synchronize()
+        enc_s.append(time.perf_counter() - t0)
+        t0 = time.perf_counter()
+        d = decode(e)
+        torch.cuda.synchronize()
+        dec_s.append(time.perf_counter() - t0)
+    return 1e3 * statistics.median(enc_s), 1e3 * statistics.median(dec_s), d
 
-    q_k, i_k = classed_kernel(prep, k, domain_area, cfg)
-    q_p, i_p = classed_kernel(prep, k, domain_area, plain_cfg)
-    torch.cuda.synchronize()
-    err = float((q_k.double() - q_p.double()).abs().max())
-    check(torch.equal(q_k.view(torch.int32), q_p.view(torch.int32)),
-          f"K1 q differs from the plain version at {what} (max abs {err})")
-    check(torch.equal(i_k, i_p), f"K1 idx differs from the plain version at {what}")
-    ms = cuda_ms(lambda: classed_kernel(prep, k, domain_area, cfg))
-    plain_ms = cuda_ms(lambda: classed_kernel(prep, k, domain_area, plain_cfg))
-    print(f"    K1 K={k} at {what}: {prep['ai_s'].shape[0]} sorted rows x "
-          f"{prep['ch_s'].shape[0]} sorted columns, (q, idx) bitwise equal; "
-          f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
-    return err, ms, plain_ms
+
+def check_uniform(res, out, n, what):
+    import torch
+
+    r = (n // res.range_grid.block_size) ** 2
+    check(out.shape == (n, n) and out.dtype == np.uint8, f"{what} decoded shape")
+    for f in ("s", "o", "distance"):
+        t = getattr(res, f)
+        check(t.shape == (r,) and bool(torch.isfinite(t).all()), f"{what} {f} finite [R]")
+
+
+def check_quadtree(qres, qout, n, qcfg, what):
+    import torch
+
+    check(qout.shape == (n, n) and qout.dtype == np.uint8, f"{what} decoded shape")
+    area = 0
+    for l in qres.levels:
+        r = (n // l.range_size) ** 2
+        for f in ("s", "o"):
+            t = getattr(l, f)
+            check(t.shape == (r,) and bool(torch.isfinite(t).all()),
+                  f"{what} {l.range_size} px {f} finite [R]")
+        area += int(l.accepted.sum()) * l.range_size ** 2
+    for l in qres.levels[:-1]:  # the finest level takes every block left over
+        check(bool((l.error[l.accepted] <= qcfg.error_threshold).all()),
+              f"{what} {l.range_size} px leaves above the error threshold")
+    check(area == n * n, f"{what} leaves cover {area} pixels, not the plane")
+
+
+def cpp_golden(name):
+    """(config flags, dump rows in range order, result.png) of a C++ golden."""
+    from PIL import Image
+
+    flags, dump_name, result_name = GOLDENS[name]
+    with gzip.open(os.path.join(GOLDEN, dump_name), "rt") as f:
+        dump = np.loadtxt(f)
+    out = np.zeros_like(dump)
+    out[(dump[:, 1] // 4).astype(int) * 32 + (dump[:, 0] // 4).astype(int)] = dump
+    ref = np.asarray(Image.open(os.path.join(GOLDEN, result_name)).convert("L"))
+    return flags, out, ref
 
 
 def main() -> int:
@@ -135,188 +363,268 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("error: no CUDA device; this script needs one card", file=sys.stderr)
         return 1
-    import dataclasses
 
-    from fractencode_tpu_torch import cli
+    from fractencode_tpu_torch.core.classify import classify_grid
     from fractencode_tpu_torch.core.metrics import psnr
     from fractencode_tpu_torch.decode import decode_plane
     from fractencode_tpu_torch.encode import encode_plane
+    from fractencode_tpu_torch.encode import matcher as tm
     from fractencode_tpu_torch.encode.quadtree import (QuadtreeConfig,
                                                        decode_plane_quadtree,
                                                        encode_plane_quadtree)
+    from fractencode_tpu_torch.image import load_gray
     from fractencode_tpu_torch.ops import _build
-    from fractencode_tpu_torch.ops import matcher_kernels as mk
-    from fractencode_tpu_torch.params import DecoderConfig
+    from fractencode_tpu_torch.params import REFERENCE_COMPAT
 
     print(f"python {sys.version.split()[0]}, torch {torch.__version__}, "
           f"CUDA {torch.version.cuda}")
 
     # -- 1. build
     t0 = time.perf_counter()
-    _build.load_library("search_classed")
-    print(f"[1] built search_classed (K = 16, 64, 256) in "
-          f"{time.perf_counter() - t0:.3f} s")
-    for log in sorted(_build.BUILD_DIR.glob("libsearch_classed-*.log")):
-        for line in log.read_text().splitlines():
-            if "registers" in line or "spill" in line:
-                print(f"    {line.strip()}")
+    _build.build(*SOURCES)
+    for name in SOURCES:
+        _build.load_library(name)
+    print(f"[1] built {', '.join(SOURCES)} in {time.perf_counter() - t0:.3f} s")
+    for name in SOURCES:
+        for line in ptxas_report(_build._library(name).with_suffix(".so.log").read_text()):
+            print(f"    {line}")
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True,
                          check=True).stdout.strip().splitlines()[0]
     print(smi)
 
-    args_gpu = cli.build_parser().parse_args(["--device", "cuda"])
-    args_cpu = cli.build_parser().parse_args(["--device", "cpu"])
-    cfg = cli._config_from_args(args_gpu)
+    kernels = Kernels()
+    _, cfg, dcfg = parse(["--device", "cuda"])
     plain_cfg = dataclasses.replace(cfg, backend="torch")
-    dcfg = DecoderConfig(pyramid=True)  # what cli.main runs without --compat
-    planes = {n: natural_plane(n, SEED + n) for n in (512, 2048)}
+    planes = {n: natural_plane(n, SEED + n) for n in (256, 512, 2048)}
+    big = planes[2048]
 
-    records = {k: dict(name=f"search_classed_ls{k}", route="cuda",
-                       source=KERNEL_SOURCE, replaces=REPLACES[k], launches=0,
-                       max_abs_err=0.0) for k in LEVELS}
+    def k1_parity(img, c, what, plain_reps=5):
+        """K1 on one plane's class-sorted inputs under config c."""
+        k = c.target_size ** 2
+        prep = tm.classed_prep(*level_inputs(img, c), c)
+        pc = dataclasses.replace(c, backend="torch")
+        kernels.parity(
+            ("search_classed", tm.rank_mode(c.criterion, c.so_mode, c.s_max), k),
+            lambda: tm.classed_kernel(prep, k, c.source_size ** 2, c),
+            lambda: tm.classed_kernel(prep, k, c.source_size ** 2, pc),
+            f"{what}, {prep['ai_s'].shape[0]} sorted rows x {prep['ch_s'].shape[0]} "
+            "sorted columns", plain_reps)
+
+    def k3_parity(img, c, what, masked=False, plain_reps=5):
+        """K3 on one plane's search-order inputs under config c."""
+        k = c.target_size ** 2
+        ranges, sa, sa2, cb, rcls, dcls = level_inputs(img, c)
+        if not masked:
+            rcls = dcls = None
+        prep = tm.dense_prep(ranges, sa, sa2, cb, rcls, dcls, c)
+        check((prep["rcls"] is not None) == masked, "class mask")
+        pc = dataclasses.replace(c, backend="torch")
+        kernels.parity(
+            ("search_dense", tm.rank_mode(c.criterion, c.so_mode, c.s_max), k),
+            lambda: tm.dense_kernel(prep, k, c.source_size ** 2, c),
+            lambda: tm.dense_kernel(prep, k, c.source_size ** 2, pc),
+            f"{what}, {prep['ch'].shape[0]} columns"
+            + (", class mask" if masked else ""), plain_reps)
 
     # -- 2. K1 parity and times at K = 16
     print("[2] K1 at K = 16 (default path), kernel vs plain")
-    for n, img in planes.items():
-        err, ms, plain_ms = k1_parity(prep_on_card(img, cfg), 16, 256, cfg,
-                                      plain_cfg, f"{n}^2")
-        records[16].update(max_abs_err=max(records[16]["max_abs_err"], err),
-                           ms=ms, plain_ms=plain_ms)
+    for n in (512, 2048):
+        k1_parity(planes[n], cfg, f"{n}^2")
 
     # -- 3. main path at 512^2: card == CPU, bitwise
-    img = planes[512]
-    res_g, out_g = cli._encode_one(img, args_gpu, cfg, dcfg, label=" [512 cuda]")
-    res_c, out_c = cli._encode_one(img, args_cpu, cfg, dcfg, label=" [512 cpu]")
-    for f in ("domain_idx", "transform", "valid", "distance", "s", "o"):
-        a, b = getattr(res_g, f).cpu(), getattr(res_c, f)
-        same = torch.equal(a.view(torch.int32), b.view(torch.int32)) \
-            if a.dtype == torch.float32 else torch.equal(a, b)
-        check(same, f"512^2 EncodeResult.{f}: card differs from CPU")
-    check(np.array_equal(out_g, out_c), "512^2 decoded pixels: card differs from CPU")
+    card_equals_cpu(planes[512], [], "512")
     print("[3] 512^2 main path: card and CPU EncodeResult and pixels bitwise equal")
 
     # -- 4. main path at 2048^2 on the card
-    img = planes[2048]
-    for k in mk.KERNEL_K:
-        mk.search_classed_cuda.launches[k] = 0
-    res, out = cli._encode_one(img, args_gpu, cfg, dcfg, label=" [2048 cuda]")
-    launches = mk.search_classed_cuda.launches[16]
-    check(launches > 0, "the 2048^2 main path launched no search kernel")
-    records[16]["launches"] = launches
-    records[16]["launches_by_path"] = {"default": launches}
-    r = (2048 // 4) ** 2
-    check(out.shape == (2048, 2048) and out.dtype == np.uint8, "decoded shape")
-    for f in ("s", "o", "distance"):
-        t = getattr(res, f)
-        check(t.shape == (r,) and bool(torch.isfinite(t).all()), f"{f} finite [R]")
+    res, out, counts = drive(kernels, "default", big, [],
+                             [("search_classed", "ls", 16)], "2048 cuda")
+    check_uniform(res, out, 2048, "2048^2")
     # valid is False exactly where no domain shares the range's class
-    from fractencode_tpu_torch.core.classify import classify_grid
-
-    plane_t = torch.from_numpy(img)
+    plane_t = torch.from_numpy(big)
     rcls = classify_grid(plane_t, res.range_grid)
     dh = torch.bincount(classify_grid(plane_t, res.domain_grid) + 1, minlength=7)
     check(torch.equal(res.valid.cpu(), dh[rcls + 1] > 0), "valid flags")
-
-    def encode():
-        e = encode_plane(img, cfg, device="cuda")
-        torch.cuda.synchronize()
-        return e
-
-    enc_s, dec_s = [], []
-    for _ in range(3):
-        t0 = time.perf_counter()
-        e = encode()
-        enc_s.append(time.perf_counter() - t0)
-        t0 = time.perf_counter()
-        d, iters, _ = decode_plane(e, dcfg)
-        torch.cuda.synchronize()
-        dec_s.append(time.perf_counter() - t0)
-    db = float(psnr(torch.from_numpy(img), d.cpu()))
+    enc_ms, dec_ms, (d, iters, _) = wall_times(
+        lambda: encode_plane(big, cfg, device="cuda"), lambda e: decode_plane(e, dcfg))
+    db = float(psnr(plane_t, d.cpu()))
+    db_classed = db
     check(np.array_equal(d.cpu().numpy(), out), "repeat decode differs")
     check(db > 20.0, f"2048^2 PSNR {db:.4f} dB is implausibly low")
-    print(f"[4] 2048^2 main path: {launches} K1 launches; encode "
-          f"{1e3 * statistics.median(enc_s):.3f} ms, decode "
-          f"{1e3 * statistics.median(dec_s):.3f} ms ({iters} full-res steps, "
-          f"median of 3 warm runs, host clock); PSNR {db:.4f} dB")
+    print(f"[4] 2048^2 main path: launches {counts}; encode {enc_ms:.3f} ms, decode "
+          f"{dec_ms:.3f} ms ({iters} full-res steps, median of 3 warm runs, host "
+          f"clock); PSNR {db:.4f} dB")
 
     # -- 5. K1 parity and times at K = 64 and 256 (quadtree level inputs)
     print("[5] K1 at K = 64 and 256 (quadtree 8 and 16 px levels), kernel vs plain")
     for k in (64, 256):
         ds, rs = LEVELS[k]
-        lcfg = dataclasses.replace(cfg, source_size=ds, target_size=rs, lattice=2)
-        err, ms, plain_ms = k1_parity(
-            prep_on_card(planes[2048], lcfg), k, ds * ds, lcfg,
-            dataclasses.replace(lcfg, backend="torch"), f"2048^2, {rs} px level")
-        records[k].update(max_abs_err=err, ms=ms, plain_ms=plain_ms)
+        k1_parity(big, dataclasses.replace(cfg, source_size=ds, target_size=rs),
+                  f"2048^2, {rs} px level")
 
     # -- 6. quadtree path at 512^2: card == CPU, bitwise
-    qargs_gpu = cli.build_parser().parse_args(["--device", "cuda", "--quadtree"])
-    qargs_cpu = cli.build_parser().parse_args(["--device", "cpu", "--quadtree"])
-    img = planes[512]
-    qres_g, qout_g = cli._encode_one_quadtree(img, qargs_gpu, cfg, dcfg,
-                                              label=" [512 quadtree cuda]")
-    qres_c, qout_c = cli._encode_one_quadtree(img, qargs_cpu, cfg, dcfg,
-                                              label=" [512 quadtree cpu]")
-    for lg, lc in zip(qres_g.levels, qres_c.levels, strict=True):
-        for f in ("domain_idx", "transform", "s", "o", "error", "accepted"):
-            a, b = getattr(lg, f).cpu(), getattr(lc, f)
-            same = torch.equal(a.view(torch.int32), b.view(torch.int32)) \
-                if a.dtype == torch.float32 else torch.equal(a, b)
-            check(same, f"512^2 quadtree {lg.range_size} px {f}: card differs from CPU")
-    check(np.array_equal(qout_g, qout_c),
-          "512^2 quadtree decoded pixels: card differs from CPU")
+    card_equals_cpu(planes[512], ["--quadtree"], "512 quadtree")
     print("[6] 512^2 quadtree path: card and CPU levels and pixels bitwise equal")
 
     # -- 7. quadtree path at 2048^2 on the card
-    img = planes[2048]
     qcfg = QuadtreeConfig()  # what the CLI's --qt-* defaults give
-    for k in mk.KERNEL_K:
-        mk.search_classed_cuda.launches[k] = 0
-    qres, qout = cli._encode_one_quadtree(img, qargs_gpu, cfg, dcfg,
-                                          label=" [2048 quadtree cuda]")
-    qlaunch = dict(mk.search_classed_cuda.launches)
-    for k in mk.KERNEL_K:
-        check(qlaunch[k] > 0, f"the 2048^2 quadtree path launched no K = {k} kernel")
-    records[16]["launches"] += qlaunch[16]
-    records[16]["launches_by_path"]["quadtree"] = qlaunch[16]
-    for k in (64, 256):
-        records[k]["launches"] = qlaunch[k]
-        records[k]["launches_by_path"] = {"quadtree": qlaunch[k]}
-    check(qout.shape == (2048, 2048) and qout.dtype == np.uint8, "quadtree decoded shape")
-    area = 0
-    for l in qres.levels:
-        r = (2048 // l.range_size) ** 2
-        for f in ("s", "o"):
-            t = getattr(l, f)
-            check(t.shape == (r,) and bool(torch.isfinite(t).all()),
-                  f"{l.range_size} px {f} finite [R]")
-        area += int(l.accepted.sum()) * l.range_size ** 2
-    for l in qres.levels[:-1]:  # the finest level takes every block left over
-        check(bool((l.error[l.accepted] <= qcfg.error_threshold).all()),
-              f"{l.range_size} px leaves above the error threshold")
-    check(area == 2048 * 2048, f"quadtree leaves cover {area} pixels, not the plane")
-
-    enc_s, dec_s = [], []
-    for _ in range(3):
-        t0 = time.perf_counter()
-        e = encode_plane_quadtree(img, cfg, qcfg, device="cuda")
-        torch.cuda.synchronize()
-        enc_s.append(time.perf_counter() - t0)
-        t0 = time.perf_counter()
-        d, iters, _ = decode_plane_quadtree(e, dcfg)
-        torch.cuda.synchronize()
-        dec_s.append(time.perf_counter() - t0)
-    db = float(psnr(torch.from_numpy(img), d.cpu()))
+    qres, qout, counts = drive(kernels, "quadtree", big, ["--quadtree"],
+                               [("search_classed", "ls", k) for k in LEVELS],
+                               "2048 quadtree cuda")
+    check_quadtree(qres, qout, 2048, qcfg, "2048^2 quadtree")
+    enc_ms, dec_ms, (d, iters, _) = wall_times(
+        lambda: encode_plane_quadtree(big, cfg, qcfg, device="cuda"),
+        lambda e: decode_plane_quadtree(e, dcfg))
+    db = float(psnr(plane_t, d.cpu()))
     check(np.array_equal(d.cpu().numpy(), qout), "repeat quadtree decode differs")
     check(db > 20.0, f"2048^2 quadtree PSNR {db:.4f} dB is implausibly low")
-    leaves = " ".join(f"{l.range_size}px:{int(l.accepted.sum())}" for l in e.levels)
-    print(f"[7] 2048^2 quadtree path: K1 launches {qlaunch}; leaves {leaves}; "
-          f"encode {1e3 * statistics.median(enc_s):.3f} ms, decode "
-          f"{1e3 * statistics.median(dec_s):.3f} ms ({iters} full-res steps, "
+    leaves = " ".join(f"{l.range_size}px:{int(l.accepted.sum())}" for l in qres.levels)
+    print(f"[7] 2048^2 quadtree path: launches {counts}; leaves {leaves}; encode "
+          f"{enc_ms:.3f} ms, decode {dec_ms:.3f} ms ({iters} full-res steps, median "
+          f"of 3 warm runs, host clock); PSNR {db:.4f} dB")
+
+    # -- 8. K3 parity and times
+    print("[8] K3 (dense search), kernel vs plain")
+    nocls = dataclasses.replace(cfg, use_classifier=False)
+    compat = REFERENCE_COMPAT(use_classifier=False)
+    k3_parity(planes[512], cfg, "512^2", masked=True)  # classifier on: the mask
+    for c in (nocls, compat):
+        k3_parity(planes[512], c, "512^2")
+    k3_parity(planes[512], dataclasses.replace(nocls, so_mode="reference"),
+              "512^2, so_mode reference")
+    for k in (256, 64):
+        ds, rs = LEVELS[k]
+        k3_parity(big, dataclasses.replace(nocls, source_size=ds, target_size=rs),
+                  f"2048^2, {rs} px level", plain_reps=1)
+    _, c1, _ = parse(["--device", "cuda", *CONFIG1, "--noclassifier"])
+    k3_parity(big, nocls, "2048^2", plain_reps=1)
+    k3_parity(big, c1, "2048^2, config 1", plain_reps=1)
+
+    def path_config(key, argv):
+        """The config the CLI parses from ``argv``; it must select ``key``."""
+        _, c, _ = parse(["--device", "cuda", *argv])
+        check((tm.rank_mode(c.criterion, c.so_mode, c.s_max), c.target_size ** 2) == key,
+              f"{' '.join(argv)} does not select the {key} kernel")
+        return c
+
+    for key, argv in KEY_PATHS.items():
+        argv = [*argv, "--noclassifier"]
+        k3_parity(big, path_config(key, argv), f"2048^2, {' '.join(argv)}", plain_reps=1)
+
+    # -- 9. K1's raw and general keys
+    print("[9] K1 'raw' and 'general' keys, kernel vs plain")
+    so_ref = dataclasses.replace(cfg, so_mode="reference")
+    k1_parity(big, so_ref, "2048^2, so_mode reference", plain_reps=1)
+    for base in (REFERENCE_COMPAT(), so_ref, dataclasses.replace(cfg, s_max=0.9)):
+        k1_parity(big, dataclasses.replace(base, source_size=32, target_size=8),
+                  "2048^2, 8 px level", plain_reps=1)
+    for key, argv in KEY_PATHS.items():
+        k1_parity(big, path_config(key, argv), f"2048^2, {' '.join(argv)}", plain_reps=1)
+
+    # -- 10. --noclassifier: 512^2 card == CPU, then 2048^2
+    card_equals_cpu(planes[512], ["--noclassifier"], "512 noclassifier")
+    print("[10] 512^2 --noclassifier: card and CPU EncodeResult and pixels bitwise equal")
+    res, out, counts = drive(kernels, "noclassifier", big, ["--noclassifier"],
+                             [("search_dense", "ls", 16)], "2048 noclassifier cuda")
+    check_uniform(res, out, 2048, "2048^2 --noclassifier")
+    check(bool(res.valid.all()), "--noclassifier: every range valid")
+    enc_ms, dec_ms, (d, iters, _) = wall_times(
+        lambda: encode_plane(big, nocls, device="cuda"), lambda e: decode_plane(e, dcfg))
+    db = float(psnr(plane_t, d.cpu()))
+    check(np.array_equal(d.cpu().numpy(), out), "repeat --noclassifier decode differs")
+    check(db > 20.0, f"2048^2 --noclassifier PSNR {db:.4f} dB is implausibly low")
+    ranges, sa, sa2, cb, rcls, dcls = level_inputs(big, cfg)
+    q_dense = tm.search_dense(ranges, sa, sa2, cb, None, None, nocls).key
+    q_classed = tm.search_classed(ranges, sa, sa2, cb, rcls, dcls, cfg).key
+    check(bool((q_dense >= q_classed).all()), "dense key below the class-blocked key")
+    better = int((q_dense > q_classed).sum())
+    print(f"     2048^2 --noclassifier: launches {counts}; encode {enc_ms:.3f} ms, "
+          f"decode {dec_ms:.3f} ms ({iters} full-res steps, median of 3 warm runs, "
+          f"host clock); PSNR {db:.4f} dB (classifier: {db_classed:.4f} dB); dense "
+          f"key >= class-blocked key for all {q_dense.shape[0]} ranges, > for {better}")
+
+    # -- 11. BASELINE config 1
+    card_equals_cpu(planes[256], [*CONFIG1, "--noclassifier"], "256 config 1")
+    print("[11] 256^2 config 1: card and CPU EncodeResult and pixels bitwise equal")
+    res, out, counts = drive(kernels, "config1", big, [*CONFIG1, "--noclassifier"],
+                             [("search_dense", "ls", 64)], "2048 config 1 cuda")
+    check_uniform(res, out, 2048, "2048^2 config 1")
+    enc_ms, dec_ms, (d, iters, _) = wall_times(
+        lambda: encode_plane(big, c1, device="cuda"), lambda e: decode_plane(e, dcfg))
+    db = float(psnr(plane_t, d.cpu()))
+    check(np.array_equal(d.cpu().numpy(), out), "repeat config 1 decode differs")
+    check(db > 20.0, f"2048^2 config 1 PSNR {db:.4f} dB is implausibly low")
+    print(f"     2048^2 config 1: launches {counts}; encode {enc_ms:.3f} ms, decode "
+          f"{dec_ms:.3f} ms ({iters} full-res steps, median of 3 warm runs, host "
+          f"clock); PSNR {db:.4f} dB")
+
+    # -- 12. --noclassifier --quadtree
+    qflags = ["--quadtree", "--noclassifier"]
+    card_equals_cpu(planes[512], qflags, "512 noclassifier quadtree")
+    print("[12] 512^2 --noclassifier --quadtree: card and CPU levels and pixels "
+          "bitwise equal")
+    qres, qout, counts = drive(kernels, "noclassifier_quadtree", big, qflags,
+                               [("search_dense", "ls", k) for k in LEVELS],
+                               "2048 noclassifier quadtree cuda")
+    check_quadtree(qres, qout, 2048, qcfg, "2048^2 --noclassifier --quadtree")
+    enc_ms, dec_ms, (d, iters, _) = wall_times(
+        lambda: encode_plane_quadtree(big, nocls, qcfg, device="cuda"),
+        lambda e: decode_plane_quadtree(e, dcfg))
+    db = float(psnr(plane_t, d.cpu()))
+    check(np.array_equal(d.cpu().numpy(), qout), "repeat quadtree decode differs")
+    check(db > 20.0, f"2048^2 --noclassifier --quadtree PSNR {db:.4f} dB is too low")
+    leaves = " ".join(f"{l.range_size}px:{int(l.accepted.sum())}" for l in qres.levels)
+    print(f"     2048^2 --noclassifier --quadtree: launches {counts}; leaves {leaves}; "
+          f"encode {enc_ms:.3f} ms, decode {dec_ms:.3f} ms ({iters} full-res steps, "
           f"median of 3 warm runs, host clock); PSNR {db:.4f} dB")
 
-    print(json.dumps({"kernels": [records[k] for k in sorted(records)]}))
+    # -- 13. the other keys' paths at 2048^2
+    print("[13] the raw and general keys' paths: card == CPU at 256^2, then 2048^2")
+    for kernel, nocls_flag in (("search_classed", []), ("search_dense", ["--noclassifier"])):
+        for (mode, k), key_argv in KEY_PATHS.items():
+            argv = [*key_argv, *nocls_flag]
+            path = " ".join(argv)
+            card_equals_cpu(planes[256], argv, f"256 {path}")
+            print(f"     256^2 {path}: card and CPU EncodeResult and pixels bitwise equal")
+            res, out, counts = drive(kernels, path, big, argv, [(kernel, mode, k)],
+                                     f"2048 {path} cuda")
+            check_uniform(res, out, 2048, f"2048^2 {path}")
+            db = float(psnr(plane_t, torch.from_numpy(out)))
+            check(db > 20.0, f"2048^2 {path} PSNR {db:.4f} dB is implausibly low")
+            print(f"     2048^2 {path}: launches {counts}; PSNR {db:.4f} dB")
+
+    # -- 14. the C++ reference goldens on the card
+    lenna = load_gray(os.path.join(GOLDEN, "lenna128_input.png"))
+    nx = (128 - 16) // 8 + 1
+    for name in GOLDENS:
+        flags, dump, ref = cpp_golden(name)
+        _, gcfg, _ = parse(["--device", "cuda", "--compat", *flags])
+        kernel = "search_dense" if "--noclassifier" in flags else "search_classed"
+        kernels.zero()
+        res = encode_plane(lenna, gcfg, device="cuda")
+        out, _, _ = decode_plane(res)  # the reference's flat decode
+        kernels.read(f"golden {name}", [(kernel, "raw", 16)])
+        dom = (dump[:, 5] // 8).astype(int) * nx + (dump[:, 4] // 8).astype(int)
+        check(np.array_equal(res.domain_idx.cpu().numpy(), dom), f"{name}: domains")
+        check(np.array_equal(res.transform.cpu().numpy(), dump[:, 8].astype(int)),
+              f"{name}: isometries")
+        for f, col, atol in (("distance", 11, 1e-6), ("s", 9, 5e-4), ("o", 10, 0.1)):
+            err = np.abs(getattr(res, f).cpu().numpy() - dump[:, col]).max()
+            check(err <= atol, f"{name}: {f} off the C++ dump by {err}")
+        diff = np.abs(out.cpu().numpy().astype(int) - ref.astype(int))
+        off = int((diff > 0).sum())
+        if name == "smax09":  # the reference clamps in double when decoding
+            check(off <= 2 and diff.max() <= 1, f"{name}: {off} pixels off the C++ result")
+        else:
+            check(off == 0, f"{name}: {off} pixels off the C++ result")
+        print(f"[14] C++ golden {name}: winners equal, s/o/distance within tolerance, "
+              f"{off} decoded pixels off the C++ result.png")
+
+    records = list(kernels.records.values())
+    for rec in records:
+        check(rec["launches"] > 0, f"{rec['name']} was launched by no path")
+        check("ms" in rec, f"{rec['name']} was not timed")
+    print(json.dumps({"kernels": records}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

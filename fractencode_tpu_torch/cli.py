@@ -22,8 +22,7 @@ _NOT_PORTED = {
     "out": "queue 1, Codec adapters and bitstream",
     "decode_file": "queue 1, Codec adapters and bitstream",
     "color": "queue 1, CLI",
-    "noclassifier": "queue 2, K3",
-    "rms": "queue 2, K1's early-accept frontier",
+    "rms": "queue 2, the early-accept frontier",
     "log": "queue 1, Profiling",
     "profile": "queue 1, Profiling",
 }
@@ -54,10 +53,11 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--qt-max", type=int, default=16, help="coarsest range size")
     p.add_argument("--qt-threshold", type=float, default=50.0,
                    help="per-pixel MSE acceptance threshold per level")
+    p.add_argument("--noclassifier", action="store_true",
+                   help="search every (range, domain) pair, with no class prune")
     # not ported yet: parsed so that they are refused by name
     p.add_argument("--rms", type=float, default=0.0, help=argparse.SUPPRESS)
     p.add_argument("--color", action="store_true", help=argparse.SUPPRESS)
-    p.add_argument("--noclassifier", action="store_true", help=argparse.SUPPRESS)
     p.add_argument("--log", action="store_true", help=argparse.SUPPRESS)
     p.add_argument("--profile", default=None, help=argparse.SUPPRESS)
     p.add_argument("--vq-classes", type=int, default=0, help=argparse.SUPPRESS)
@@ -76,7 +76,8 @@ def _unported_flag(args) -> str | None:
 def _config_from_args(args):
     from .params import REFERENCE_COMPAT, EncoderConfig
 
-    kw = dict(source_size=args.source, target_size=args.target, s_max=args.smax)
+    kw = dict(source_size=args.source, target_size=args.target, s_max=args.smax,
+              use_classifier=not args.noclassifier)
     if args.compat:
         return REFERENCE_COMPAT(**kw)
     return EncoderConfig(criterion=args.criterion, so_mode=args.so_mode,
@@ -134,13 +135,14 @@ def _encode_one(plane, args, cfg, dcfg, label=""):
     _sync(device)
     print(f"encoded{label} in {time.perf_counter() - t0:.4g} s.")
     print(f"{res.num_ranges} elements.")
-    # classifier rejection statistics (Encoder2.hpp:21-23), O(R + D)
     plane_t = torch.from_numpy(np.ascontiguousarray(plane, dtype=np.uint8))
-    st = encode_stats(res, classify_grid(plane_t, res.range_grid).numpy(),
-                      classify_grid(plane_t, res.domain_grid).numpy())
-    total, rejected = st["total_mappings"], st["rejected_mappings"]
-    print(f"classifier rejected {rejected} out of {total} comparisons "
-          f"({100.0 * rejected / total:.4g})%")
+    if cfg.use_classifier:
+        # classifier rejection statistics (Encoder2.hpp:21-23), O(R + D)
+        st = encode_stats(res, classify_grid(plane_t, res.range_grid).numpy(),
+                          classify_grid(plane_t, res.domain_grid).numpy())
+        total, rejected = st["total_mappings"], st["rejected_mappings"]
+        print(f"classifier rejected {rejected} out of {total} comparisons "
+              f"({100.0 * rejected / total:.4g})%")
 
     if args.debug_decode:
         from .image import save_plane
@@ -175,10 +177,20 @@ def _stats(res):
     print("----")
 
 
-def main(argv=None) -> int:
-    args = build_parser().parse_args(argv)
+def _decoder_config(args):
     from .params import DecoderConfig
 
+    # --compat pins the strict reference decode: flat start, no stall exit
+    return DecoderConfig(
+        max_iterations=args.decode if args.decode > 0 else 300,
+        epsilon=args.decode_rms,
+        pyramid=not args.compat,
+        stall_window=0 if args.compat else DecoderConfig.stall_window,
+    )
+
+
+def main(argv=None) -> int:
+    args = build_parser().parse_args(argv)
     refused = _unported_flag(args)
     if refused:
         print(f"error: {refused}", file=sys.stderr)
@@ -186,13 +198,7 @@ def main(argv=None) -> int:
     if not args.input:
         print("no input image", file=sys.stderr)
         return 2
-    # --compat pins the strict reference decode: flat start, no stall exit
-    dcfg = DecoderConfig(
-        max_iterations=args.decode if args.decode > 0 else 300,
-        epsilon=args.decode_rms,
-        pyramid=not args.compat,
-        stall_window=0 if args.compat else DecoderConfig.stall_window,
-    )
+    dcfg = _decoder_config(args)
     try:
         cfg = _config_from_args(args)
     except ValueError as e:

@@ -2,8 +2,9 @@
 
 Pipeline for one u8 plane: 2x2 box sums (shared by the codebook's half image
 and the classifier's quadrant sums) -> codebook and range blocks -> range and
-domain classes -> class-blocked search (``matcher.search_classed``).  The
-per-range result plays the role of ``grid_encode_data_t``
+domain classes -> class-blocked search (``matcher.search_classed``); without
+the classifier, no classes and the dense search (``matcher.search_dense``).
+The per-range result plays the role of ``grid_encode_data_t``
 (``encode/datatypes.h:8-26``).
 """
 from __future__ import annotations
@@ -18,7 +19,7 @@ from ..core.grid import Grid, uniform_grid
 from ..core.stats import block_sums_nonoverlapping, integral_image
 from ..params import EncoderConfig
 from .codebook import build_codebook, extract_ranges
-from .matcher import search_classed
+from .matcher import search_classed, search_dense
 
 __all__ = ["EncodeResult", "encode_plane", "encode_stats"]
 
@@ -73,10 +74,6 @@ def _check_config(cfg: EncoderConfig) -> None:
     if cfg.vq_classes > 0:
         raise NotImplementedError(
             "vq_classes > 0 is not ported yet (ROADMAP.md queue 1, VQ pruning)")
-    if not cfg.use_classifier:
-        raise NotImplementedError(
-            "use_classifier=False needs the dense search kernel K3, not ported "
-            "yet (ROADMAP.md queue 2, K3)")
 
 
 def encode_plane(plane, cfg: EncoderConfig | None = None, *,
@@ -108,12 +105,14 @@ def encode_plane(plane, cfg: EncoderConfig | None = None, *,
     ranges = extract_ranges(plane_f32, cfg.target_size)
     sum_a = ranges.sum(-1)
     sum_a2 = (ranges * ranges).sum(-1)
-    ii = integral_image(plane)
-    domain_classes = classify_grid(plane, domain_grid, ii=ii, sums2x2=sums2x2)
-    range_classes = classify_grid(plane, range_grid, ii=ii, sums2x2=sums2x2)
-
-    res = search_classed(ranges, sum_a, sum_a2, cb, range_classes,
-                         domain_classes, cfg)
+    if cfg.use_classifier:
+        ii = integral_image(plane)
+        domain_classes = classify_grid(plane, domain_grid, ii=ii, sums2x2=sums2x2)
+        range_classes = classify_grid(plane, range_grid, ii=ii, sums2x2=sums2x2)
+        res = search_classed(ranges, sum_a, sum_a2, cb, range_classes,
+                             domain_classes, cfg)
+    else:
+        res = search_dense(ranges, sum_a, sum_a2, cb, None, None, cfg)
     return EncodeResult(
         domain_idx=res.domain_idx, transform=res.transform, s=res.s, o=res.o,
         distance=res.distance, valid=res.valid, width=w, height=h,

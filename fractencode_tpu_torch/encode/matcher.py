@@ -1,16 +1,22 @@
-"""Class-blocked transform matching (port of ``fractencode_tpu/encode/matcher.py``).
+"""Transform matching (port of ``fractencode_tpu/encode/matcher.py``).
 
 The search ranks every (range, domain, isometry) pair by a key built from
-the five sums SumA, SumA2, SumB, SumB2 and SumAB, keeping only pairs whose
-ranges and domains share a brightness class.  ``search_classed`` runs it in
-three stages, as the JAX package's ``search_pallas_classed`` does:
+the five sums SumA, SumA2, SumB, SumB2 and SumAB.  Two searches:
+
+``search_classed`` keeps only pairs whose ranges and domains share a
+brightness class, in three stages, as the JAX package's
+``search_pallas_classed`` does:
 
   * ``classed_prep``: a counting sort lays ranges and codebook columns out
     by class in tile-aligned segments and converts them to the kernel's
     int8 operands;
   * ``classed_kernel``: the search over each range tile's class segment
-    (``ops.matcher_kernels``: the CUDA kernel or its plain version);
+    (``ops.matcher_kernels``, K1: the CUDA kernel or its plain version);
   * ``classed_post``: unsorts the winners and solves (s, o) for each.
+
+``search_dense`` (the JAX package's ``search_pallas``) ranks every pair, for
+the search without the classifier: the int8 operands in search order, the
+dense search (K3) and the same winner solve.
 
 Search-order columns are ``m = d*T + (T-1-t)`` and ties go to the first
 maximum, which is the reference's tie rule (domain ascending, later
@@ -26,12 +32,14 @@ from ..ops.matcher_kernels import (DEFAULT_BM, DEFAULT_BR, INT8_MAX_K,
                                    _require_exact_k, _require_exact_sums,
                                    inv_var_b, key_sum_sq, rank_mode,
                                    rank_to_dist, search_classed_cuda,
-                                   search_classed_torch)
+                                   search_classed_torch, search_dense_cuda,
+                                   search_dense_torch)
 from ..params import EncoderConfig
 from .codebook import Codebook
 
 __all__ = ["SearchResult", "solve_so", "classed_prep", "classed_kernel",
-           "classed_post", "mask_ranges_result", "search_classed"]
+           "classed_post", "mask_ranges_result", "search_classed", "dense_prep",
+           "dense_kernel", "search_dense"]
 
 _BIG = 3.0e38
 _NUM_CLASS_BINS = 7  # classifier bins -1..5 shifted to 0..6
@@ -126,6 +134,27 @@ def _class_layout(classes01: torch.Tensor, block: int,
     return pos, torch.cat([seg_start, zero]), torch.cat([counts, zero]), tile_cum
 
 
+def _int8_operands(ranges, cb: Codebook):
+    """The int8 operands (matcher_pallas._int8_operands) in search order
+    m = d*T + (T-1-t): ai = A - 128 [R, K]; the 10-bit b4 = 4B [m, K] i16
+    and its split ch = b4 >> 3, cl = b4 & 7 [m, K] i8."""
+    d, t, k = cb.values.shape
+    b4_cols = torch.round(cb.values.flip(1).reshape(d * t, k) * 4.0).to(torch.int16)
+    ai = (ranges.to(torch.int32) - 128).to(torch.int8)
+    return ai, (b4_cols >> 3).to(torch.int8), (b4_cols & 7).to(torch.int8), b4_cols
+
+
+def _column_sums(b4, mode: str):
+    """Per-column SumB and the key's aux (inv_var_b for 'ls', SumB2
+    otherwise) of the integer columns b4 = 4B [M, K] i32: every sum is an
+    exact integer, rounded once, as the JAX package's cb.sum and cb.sum_sq
+    (see ``key_sum_sq`` for SumB2)."""
+    k = float(b4.shape[1])
+    sb = b4.sum(1, dtype=torch.int32).to(torch.float32) * 0.25
+    sb2 = key_sum_sq((b4 * b4).sum(1, dtype=torch.int32), k)
+    return sb, inv_var_b(sb, sb2, k) if mode == "ls" else sb2
+
+
 def _classed_statics(r: int, m: int, masked_domains: bool = False,
                      masked_ranges: bool = False, block_r: int | None = None,
                      block_m: int | None = None):
@@ -188,14 +217,7 @@ def classed_prep(ranges, sum_a, sum_a2, cb: Codebook, range_classes,
         inv[pos.to(torch.int64)] = torch.arange(pos.shape[0], device=dev)
         return inv
 
-    # int8 operands (matcher_pallas._pair_ab_int8): ai = A - 128 and the
-    # 10-bit b4 = 4B split as ch = b4 >> 3, cl = b4 & 7; columns in search
-    # order m = d*T + (T-1-t)
-    cb_cols = cb.values.flip(1).reshape(m, k)
-    b4_cols = torch.round(cb_cols * 4.0).to(torch.int16)
-    ch = (b4_cols >> 3).to(torch.int8)
-    cl = (b4_cols & 7).to(torch.int8)
-    ai = (ranges.to(torch.int32) - 128).to(torch.int8)
+    ai, ch, cl, b4_cols = _int8_operands(ranges, cb)
     inv_r = inverse(rpos, r_pad, r)
     ai_s = torch.cat([ai, ai.new_zeros(1, k)])[inv_r]
 
@@ -221,16 +243,9 @@ def classed_prep(ranges, sum_a, sum_a2, cb: Codebook, range_classes,
         ch_s = torch.cat([ch, ch.new_zeros(1, k)])[inv_col]
         cl_s = torch.cat([cl, cl.new_zeros(1, k)])[inv_col]
 
-    # sorted per-column sums from the exact integers behind cb.sum/cb.sum_sq
-    # (padding rows are zero, so their sums are 0)
-    b4_s = 8 * ch_s.to(torch.int32) + cl_s.to(torch.int32)
-    sb_s = b4_s.sum(1, dtype=torch.int32).to(torch.float32) * 0.25
-    sb2_16_s = (b4_s * b4_s).sum(1, dtype=torch.int32)
+    # sorted per-column sums (padding rows are zero, so their sums are 0)
     mode = rank_mode(cfg.criterion, cfg.so_mode, cfg.s_max)
-    if mode == "ls":
-        aux_s = inv_var_b(sb_s, key_sum_sq(sb2_16_s, float(k)), float(k))
-    else:
-        aux_s = sb2_16_s.to(torch.float32) * 0.0625
+    sb_s, aux_s = _column_sums(8 * ch_s.to(torch.int32) + cl_s.to(torch.int32), mode)
     if mode == "general":
         zero = sum_a.new_zeros(1)
         sa_s = torch.cat([sum_a, zero])[inv_r]
@@ -271,22 +286,18 @@ def classed_kernel(prep: dict, k: int, domain_area: int, cfg: EncoderConfig):
         block_r=prep["block_r"], block_m=prep["block_m"],
         criterion=cfg.criterion, so_mode=cfg.so_mode, s_max=cfg.s_max,
         inv_norm=1.0 / domain_area if cfg.criterion == "raw" else 1.0 / k,
-        sa_s=prep["sa_s"], sa2_s=prep["sa2_s"])
+        sa_s=prep["sa_s"], sa2_s=prep["sa2_s"], threshold=cfg.rms_threshold)
 
 
 def classed_post(q_s, idx_s, rpos, inv_col, ranges, sum_a, sum_a2, cb: Codebook,
                  cfg: EncoderConfig, b4_cols, inv_dom=None) -> SearchResult:
     """Map sorted-layout search outputs back to range order and solve (s, o)
-    for the winners.
+    for the winners (``_winners``).
 
     The key becomes a distance after unsorting, against the range-order sums
-    (elementwise, so the same values as converting before).  The winner's
-    SumAB, SumB and SumB2 come from the exact integer sums over its b4 row
-    (``b4_cols``: 4x the codebook values in search order): as the f32
-    values of the JAX package's codebook for K <= INT8_MAX_K (SumB2 rounded
-    once, as ``cb.sum_sq``), exact in float64 above (see ``solve_so``).
+    (elementwise, so the same values as converting before).
     """
-    r, k = ranges.shape
+    k = ranges.shape[1]
     d, t, _ = cb.values.shape
     m = d * t
     m_pad = inv_col.shape[0] if inv_col is not None else inv_dom.shape[0] * t
@@ -306,9 +317,18 @@ def classed_post(q_s, idx_s, rpos, inv_col, ranges, sum_a, sum_a2, cb: Codebook,
     else:
         wcol = inv_col[ws]
     win_m = torch.where(valid, wcol, 0).clamp(0, m - 1)
-    win_d = win_m // t
-    win_t = (t - 1) - (win_m % t)
+    return _winners(ranges, sum_a, sum_a2, b4_cols, win_m, t, dist, q_r, cfg)
 
+
+def _winners(ranges, sum_a, sum_a2, b4_cols, win_m, t: int, dist, key,
+             cfg: EncoderConfig) -> SearchResult:
+    """The SearchResult of search-order winners ``win_m`` (i64 [R]), with
+    (s, o) solved from the exact integer sums over each winner's b4 row
+    (``b4_cols``: 4x the codebook values in search order): as the f32
+    values of the JAX package's codebook for K <= INT8_MAX_K (SumB2 rounded
+    once, as ``cb.sum_sq``), exact in float64 above (see ``solve_so``)."""
+    k = ranges.shape[1]
+    valid = dist < _BIG
     # every sum is an exact i32: 4*SumAB <= 256*255*1020, 16*SumB2 <= 256*1020^2
     b4_win = b4_cols[win_m].to(torch.int32)  # [R, k]
     ab4 = (ranges.to(torch.int32) * b4_win).sum(-1, dtype=torch.int32)
@@ -318,9 +338,10 @@ def classed_post(q_s, idx_s, rpos, inv_col, ranges, sum_a, sum_a2, cb: Codebook,
     s, o = solve_so(sum_a, sum_a2, sb_win, sb2_win, sum_ab, float(k),
                     cfg.so_mode, cfg.s_max)
     return SearchResult(
-        domain_idx=win_d.to(torch.int32), transform=win_t.to(torch.int32),
+        domain_idx=(win_m // t).to(torch.int32),
+        transform=((t - 1) - win_m % t).to(torch.int32),
         distance=dist, s=torch.where(valid, s, 0.0), o=torch.where(valid, o, 0.0),
-        valid=valid, key=q_r)
+        valid=valid, key=key)
 
 
 def mask_ranges_result(res: SearchResult, range_mask: torch.Tensor) -> SearchResult:
@@ -342,10 +363,6 @@ def search_classed(ranges, sum_a, sum_a2, cb: Codebook, range_classes,
                    block_m: int | None = None) -> SearchResult:
     """Class-blocked search (the counterpart of ``search_pallas_classed``):
     only same-class pairs compete, with the reference's tie-break order."""
-    if cfg.rms_threshold > 0.0:
-        raise NotImplementedError(
-            "rms_threshold > 0 needs K1's early-accept frontier, not ported "
-            "yet (ROADMAP.md queue 2, K1 _apply_frontier)")
     k = ranges.shape[1]
     prep = classed_prep(ranges, sum_a, sum_a2, cb, range_classes, domain_classes,
                         cfg, domain_mask=domain_mask, range_mask=range_mask,
@@ -357,3 +374,63 @@ def search_classed(ranges, sum_a, sum_a2, cb: Codebook, range_classes,
     if range_mask is not None:
         res = mask_ranges_result(res, range_mask)
     return res
+
+
+def dense_prep(ranges, sum_a, sum_a2, cb: Codebook, range_classes,
+               domain_classes, cfg: EncoderConfig) -> dict:
+    """The dense search's operands, columns in search order: ai [R, K] i8;
+    ch, cl [M, K] i8; sb, aux [M] f32; sa, sa2 [R] f32 (the 'general' key
+    only, else None); rcls [R], ccls [M] i32, the class mask, with
+    ``cfg.use_classifier`` and both class arrays given (else None); and
+    b4_cols [M, K] i16 (4x the codebook values)."""
+    _require_exact_k(ranges.shape[1])
+    t = cb.values.shape[1]
+    ai, ch, cl, b4_cols = _int8_operands(ranges, cb)
+    mode = rank_mode(cfg.criterion, cfg.so_mode, cfg.s_max)
+    sb, aux = _column_sums(b4_cols.to(torch.int32), mode)
+    if cfg.use_classifier and range_classes is not None:
+        rcls = range_classes.to(torch.int32)
+        ccls = torch.repeat_interleave(domain_classes.to(torch.int32), t)
+    else:
+        rcls = ccls = None
+    general = mode == "general"
+    return dict(ai=ai, ch=ch, cl=cl, sb=sb, aux=aux, rcls=rcls, ccls=ccls,
+                sa=sum_a if general else None, sa2=sum_a2 if general else None,
+                b4_cols=b4_cols)
+
+
+def dense_kernel(prep: dict, k: int, domain_area: int, cfg: EncoderConfig):
+    """Run the dense search on ``dense_prep``'s tensors: (q, idx) per range,
+    idx a search-order column.  ``cfg.backend`` routes as in
+    ``classed_kernel``."""
+    if cfg.backend == "cuda" and prep["ai"].device.type != "cuda":
+        raise ValueError("backend='cuda' needs tensors on a CUDA device")
+    search = search_dense_torch if cfg.backend == "torch" else search_dense_cuda
+    return search(
+        prep["ai"], prep["ch"], prep["cl"], prep["sb"], prep["aux"],
+        m_valid=prep["ch"].shape[0], criterion=cfg.criterion, so_mode=cfg.so_mode,
+        s_max=cfg.s_max,
+        inv_norm=1.0 / domain_area if cfg.criterion == "raw" else 1.0 / k,
+        sa=prep["sa"], sa2=prep["sa2"], rcls=prep["rcls"], ccls=prep["ccls"],
+        threshold=cfg.rms_threshold)
+
+
+def search_dense(ranges, sum_a, sum_a2, cb: Codebook, range_classes,
+                 domain_classes, cfg: EncoderConfig) -> SearchResult:
+    """Dense search (the counterpart of ``search_pallas``): every range
+    against every (domain, isometry) column in search order, with the
+    reference's tie-break order.  With ``cfg.use_classifier`` and both class
+    arrays given, only same-class pairs compete (K3's per-element mask);
+    otherwise every range is valid.  Winners come straight from the
+    search-order index: domain ``m // T``, isometry ``(T-1) - m % T``.
+    """
+    k = ranges.shape[1]
+    area = cb.grid.block_size ** 2
+    prep = dense_prep(ranges, sum_a, sum_a2, cb, range_classes, domain_classes, cfg)
+    q, idx = dense_kernel(prep, k, area, cfg)
+    dist = rank_to_dist(q, sum_a2, sum_a, criterion=cfg.criterion,
+                        so_mode=cfg.so_mode, s_max=cfg.s_max,
+                        inv_norm=1.0 / area if cfg.criterion == "raw" else 1.0 / k,
+                        n=float(k))
+    return _winners(ranges, sum_a, sum_a2, prep["b4_cols"], idx.to(torch.int64),
+                    cb.values.shape[1], dist, q, cfg)

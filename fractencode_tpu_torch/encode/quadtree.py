@@ -29,7 +29,7 @@ from ..core.grid import uniform_grid
 from ..core.stats import block_sums_nonoverlapping, integral_image
 from ..params import DecoderConfig, EncoderConfig
 from .codebook import build_codebook, extract_ranges
-from .matcher import search_classed
+from .matcher import mask_ranges_result, search_classed, search_dense
 
 __all__ = ["QuadtreeConfig", "QuadtreeLevel", "QuadtreeResult",
            "encode_plane_quadtree", "decode_plane_quadtree"]
@@ -105,8 +105,11 @@ def _per_pixel_error(res, k: int, criterion: str, domain_area: int):
 
 def _encode_level(plane, plane_f32, cfg: EncoderConfig, range_size: int,
                   domain_size: int, domain_step: int, range_mask=None):
-    """One level's uniform-grid encode (classifier route): (SearchResult,
-    per-pixel error, inf where no domain shares the range's class)."""
+    """One level's uniform-grid encode: (SearchResult, per-pixel error, inf
+    where no domain shares the range's class).  With the classifier the
+    class-blocked search skips the ranges ``range_mask`` excludes; the dense
+    search has no pair list to shrink, so it searches them all and masks
+    them after, as the JAX package does."""
     h, w = plane.shape
     domain_grid = uniform_grid(w, h, domain_size, domain_step)
     range_grid = uniform_grid(w, h, range_size, range_size)
@@ -118,11 +121,17 @@ def _encode_level(plane, plane_f32, cfg: EncoderConfig, range_size: int,
     cb = build_codebook(plane_f32, domain_grid, range_size, cfg.num_transforms,
                         half=half)
     ranges = extract_ranges(plane_f32, range_size)
-    ii = integral_image(plane)
-    dcls = classify_grid(plane, domain_grid, ii=ii, sums2x2=sums2x2)
-    rcls = classify_grid(plane, range_grid, ii=ii, sums2x2=sums2x2)
-    res = search_classed(ranges, ranges.sum(-1), (ranges * ranges).sum(-1), cb,
-                         rcls, dcls, cfg, range_mask=range_mask)
+    sum_a, sum_a2 = ranges.sum(-1), (ranges * ranges).sum(-1)
+    if cfg.use_classifier:
+        ii = integral_image(plane)
+        dcls = classify_grid(plane, domain_grid, ii=ii, sums2x2=sums2x2)
+        rcls = classify_grid(plane, range_grid, ii=ii, sums2x2=sums2x2)
+        res = search_classed(ranges, sum_a, sum_a2, cb, rcls, dcls, cfg,
+                             range_mask=range_mask)
+    else:
+        res = search_dense(ranges, sum_a, sum_a2, cb, None, None, cfg)
+        if range_mask is not None:
+            res = mask_ranges_result(res, range_mask)
     err = _per_pixel_error(res, range_size * range_size, cfg.criterion,
                            domain_size * domain_size)
     return res, torch.where(res.valid, err, torch.inf)
@@ -142,10 +151,6 @@ def encode_plane_quadtree(plane, cfg: EncoderConfig | None = None,
     coarse blocks where they fit, fine where needed."""
     cfg = cfg or EncoderConfig()
     qcfg = qcfg or QuadtreeConfig()
-    if not cfg.use_classifier:
-        raise NotImplementedError(
-            "the quadtree without a classifier needs the dense search kernel "
-            "K3, not ported yet (ROADMAP.md queue 2, K3)")
     if not isinstance(plane, torch.Tensor):
         plane = torch.from_numpy(np.ascontiguousarray(plane, dtype=np.uint8))
     plane = plane.to(device=device or plane.device, dtype=torch.uint8)

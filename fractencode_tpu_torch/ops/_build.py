@@ -2,9 +2,10 @@
 
 Each ``csrc/<name>.cu`` is compiled on first use by ``nvcc`` for Hopper
 (``sm_90a``) into ``build/kernels/`` at the repository root, named by a hash
-of its source and flags so an edited source rebuilds, and loaded with
-``ctypes``.  The sources include no PyTorch headers, so a build takes seconds.
-Nothing here runs at import time.
+of its source, the headers it includes from ``csrc/`` and the flags, so an
+edited source or header rebuilds; it is loaded with ``ctypes``.  The sources
+include no PyTorch headers, so a build takes seconds.  Nothing here runs at
+import time.
 """
 from __future__ import annotations
 
@@ -12,16 +13,18 @@ import ctypes
 import functools
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 from pathlib import Path
 
-__all__ = ["BUILD_DIR", "NVCC_FLAGS", "load_library"]
+__all__ = ["BUILD_DIR", "NVCC_FLAGS", "build", "load_library"]
 
 _CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+_LOCAL_INCLUDE = re.compile(rb'^\s*#\s*include\s+"([^"]+)"', re.M)
 
 
 def _nvcc() -> str:
@@ -36,24 +39,51 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: put it on PATH or set CUDA_HOME")
 
 
-@functools.lru_cache(maxsize=None)
-def load_library(name: str) -> ctypes.CDLL:
-    """Compile ``csrc/<name>.cu`` if its build is missing, then load it.
+def _library(name: str) -> Path:
+    """The library's path: a hash of the source, every header it includes
+    from ``csrc/`` (transitively) and the flags."""
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    todo, seen = [f"{name}.cu"], set()
+    while todo:
+        path = todo.pop()
+        if path in seen:
+            continue
+        seen.add(path)
+        text = (_CSRC / path).read_bytes()
+        digest.update(path.encode() + b"\0" + text)
+        todo += [m.decode() for m in _LOCAL_INCLUDE.findall(text)]
+    return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so"
 
-    The compiler's report (registers, shared memory, spills) is kept beside
-    the library as ``<library>.log``.
-    """
-    src = _CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
-    lib = BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so"
-    if not lib.exists():
+
+def build(*names: str) -> None:
+    """Compile the named sources whose builds are missing, one ``nvcc`` each,
+    all at once.  The compiler's report (registers, shared memory, spills) is
+    kept beside each library as ``<library>.log``."""
+    jobs = []
+    for name in names:
+        lib = _library(name)
+        if lib.exists():
+            continue
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")
+        src = _CSRC / f"{name}.cu"
         cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)]
-        proc = subprocess.run(cmd, capture_output=True, text=True)
+        jobs.append((src, lib, tmp, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+    failed = []
+    for src, lib, tmp, proc in jobs:
+        out, _ = proc.communicate()
         if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({proc.returncode}) on {src}:\n"
-                               f"{proc.stdout}{proc.stderr}")
-        lib.with_name(lib.name + ".log").write_text(proc.stdout + proc.stderr)
+            failed.append(f"nvcc failed ({proc.returncode}) on {src}:\n{out}")
+            continue
+        lib.with_name(lib.name + ".log").write_text(out)
         os.replace(tmp, lib)  # atomic: a concurrent loader sees all or nothing
-    return ctypes.CDLL(str(lib))
+    if failed:
+        raise RuntimeError("\n".join(failed))
+
+
+@functools.lru_cache(maxsize=None)
+def load_library(name: str) -> ctypes.CDLL:
+    """Compile ``csrc/<name>.cu`` if its build is missing, then load it."""
+    build(name)
+    return ctypes.CDLL(str(_library(name)))

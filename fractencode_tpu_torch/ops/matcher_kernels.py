@@ -1,22 +1,30 @@
-"""Search kernel K1 of the port: the class-blocked all-pairs search.
+"""The port's search kernels, K1 (class-blocked) and K3 (dense).
 
-Counterpart of ``fractencode_tpu/ops/matcher_pallas.py``.  There the TPU
-kernel ``_pairs_kernel`` (through ``fused_search_pairs``) walks a list of
-(range tile, column tile) pairs.  Here each range tile scans its own class's
-column segment, which ``encode.matcher.classed_prep`` lays out, so there is
-no pair list.  For every class-sorted range row the search returns ``(q,
-idx)``: the first-occurrence argmax of the rank key ``q`` over the row's
-class segment, and its sorted column index.
+Counterpart of ``fractencode_tpu/ops/matcher_pallas.py``.  For every range
+row a search returns ``(q, idx)``: the first-occurrence argmax of the rank
+key ``q`` over the row's columns, and its column index.
 
-Two versions compute the same function:
+  * K1, the class-blocked search.  There the TPU kernel ``_pairs_kernel``
+    (through ``fused_search_pairs``) walks a list of (range tile, column
+    tile) pairs.  Here each range tile scans its own class's column segment,
+    which ``encode.matcher.classed_prep`` lays out, so there is no pair list.
+  * K3, the dense search (the TPU kernel ``_search_kernel``, through
+    ``fused_search``): every row against the columns ``[0, m_valid)`` in
+    search order, optionally masked by a per-element class compare.  It
+    serves the search without the classifier.
 
-  * ``search_classed_torch``, the plain PyTorch version, for the three rank
-    modes ('ls', 'raw', 'general') without the early-accept frontier.
-  * ``search_classed_cuda``, the wrapper of the hand-written CUDA kernel
-    ``csrc/search_classed.cu``, for the 'ls' mode at K = 16 (the default
-    config), 64 and 256 (the quadtree's 8 and 16 px levels).  It routes on
-    the tensors' device: CPU tensors run the plain version; CUDA tensors
-    launch the kernel or raise.
+Each has two versions of the same function:
+
+  * the plain PyTorch version (``search_classed_torch``,
+    ``search_dense_torch``), for the three rank modes ('ls', 'raw',
+    'general') at K <= INT8_MAX_K and 'ls' up to MAX_K;
+  * the wrapper of the hand-written CUDA kernel (``search_classed_cuda`` on
+    ``csrc/search_classed.cu``, ``search_dense_cuda`` on
+    ``csrc/search_dense.cu``), for the (mode, K) pairs in ``KERNEL_KEYS``.
+    It routes on the tensors' device: CPU tensors run the plain version;
+    CUDA tensors launch the kernel or raise.
+
+Neither has the early-accept frontier (``threshold > 0``) yet.
 
 The rank-key helpers below keep the JAX package's expression order, so that
 every key is the same f32 value (see ``rank_mode``).  One rule per K:
@@ -38,9 +46,10 @@ import ctypes
 
 import torch
 
-__all__ = ["INT8_MAX_K", "MAX_K", "KERNEL_K", "DEFAULT_BR", "DEFAULT_BM",
+__all__ = ["INT8_MAX_K", "MAX_K", "KERNEL_KEYS", "DEFAULT_BR", "DEFAULT_BM",
            "rank_mode", "inv_var_b", "key_sum_sq", "rank_to_dist",
-           "search_classed_torch", "search_classed_cuda"]
+           "search_classed_torch", "search_classed_cuda", "search_dense_torch",
+           "search_dense_cuda"]
 
 # Largest K for which the JAX package's keys are exact integers in i32 and
 # it searches with int8 operands (matcher_pallas.py:41-44).
@@ -48,8 +57,9 @@ INT8_MAX_K = 64
 # Largest K the port searches: the int8 operands hold up to it (4B <= 1020,
 # so ch = 4B >> 3 <= 127) and the dot sum(ai * b4) stays below 2^31.
 MAX_K = 256
-# The K of each CUDA kernel instantiation (csrc/search_classed.cu).
-KERNEL_K = (16, 64, 256)
+# The K of each CUDA kernel instantiation by rank mode (csrc/search_classed.cu
+# and csrc/search_dense.cu): 'raw' and 'general' need an exact f32 SumAB.
+KERNEL_KEYS = {"ls": (16, 64, 256), "raw": (16, 64), "general": (16, 64)}
 
 # The port's layout tiles: range rows and codebook columns per class-segment
 # alignment unit.  Results do not depend on them (only the padding does);
@@ -198,6 +208,101 @@ def rank_to_dist(q, sa2, sa, *, criterion, so_mode, s_max, inv_norm, n: float):
     return torch.where(q <= -_BIG * 0.5, _BIG, dist)
 
 
+def _require_no_frontier(threshold: float) -> None:
+    if threshold > 0.0:
+        raise NotImplementedError(
+            "rms_threshold > 0 needs the early-accept frontier of K1 and K3 "
+            "(_apply_frontier), not ported yet (ROADMAP.md queue 2, the "
+            "early-accept frontier)")
+
+
+def _require_key(mode: str, k: int) -> None:
+    if k > INT8_MAX_K and mode != "ls":
+        raise NotImplementedError(
+            f"rank mode '{mode}' at K = {k} > {INT8_MAX_K} is not ported yet "
+            "(ROADMAP.md queue 2, the raw and general keys above K = 64)")
+
+
+def _plain_search(ai, ch, cl, sb, aux, segments, *, criterion: str, so_mode: str,
+                  s_max: float, inv_norm: float, sa=None, sa2=None, rcls=None,
+                  ccls=None):
+    """The plain search: for each (r0, r1, c0, c1) in ``segments``, rows
+    [r0, r1) of ``ai`` against columns [c0, c1), with the class mask
+    ``rcls[r] == ccls[j]`` when both are given.  Rows no segment covers, and
+    rows with no admissible column, keep (-_BIG, 0).
+
+    The dot sum(ai * (8*ch + cl)) comes exactly from matmuls: one of ai
+    against b4 = 8*ch + cl in float64 on the CPU (integers below 2^53); in
+    float32 with TF32 off on CUDA, one against b4 for K <= INT8_MAX_K (every
+    partial sum is an integer below 2^24) and one each against ch and cl
+    above (|sum| <= 256*128*127 < 2^24), combined in int32.
+    """
+    r_pad, k = ai.shape
+    _require_exact_k(k)
+    dev = ai.device
+    mode = rank_mode(criterion, so_mode, s_max)
+    _require_key(mode, k)
+    mm_dtype = torch.float32 if dev.type == "cuda" else torch.float64
+    budget = (1 << 26) if dev.type == "cuda" else (1 << 21)
+    split = dev.type == "cuda" and k > INT8_MAX_K
+
+    q_out = torch.full((r_pad,), -_BIG, dtype=torch.float32, device=dev)
+    idx_out = torch.zeros((r_pad,), dtype=torch.int32, device=dev)
+    a_mm = ai.to(mm_dtype)
+    if split:
+        bh_mm, bl_mm = ch.to(mm_dtype), cl.to(mm_dtype)
+    else:
+        b_mm = (8 * ch.to(torch.int32) + cl.to(torch.int32)).to(mm_dtype)
+
+    def dot_of(r0, r1, j0, j1):
+        a = a_mm[r0:r1]
+        if split:
+            return (8 * (a @ bh_mm[j0:j1].T).to(torch.int32)
+                    + (a @ bl_mm[j0:j1].T).to(torch.int32))
+        return (a @ b_mm[j0:j1].T).to(torch.int32)
+
+    if mode == "ls":
+        sa_i = ai.to(torch.int32).sum(1, dtype=torch.int32) + 128 * k
+        sb4 = (4.0 * sb).to(torch.int32)
+        aux16 = aux * 0.0625
+
+    for r0_, r1_, c0, c1 in segments:
+        if c1 <= c0:
+            continue  # no columns: keep the initial (-_BIG, 0)
+        col_chunk = min(c1 - c0, 16384)
+        row_chunk = max(1, budget // col_chunk)
+        for r0 in range(r0_, r1_, row_chunk):
+            r1 = min(r0 + row_chunk, r1_)
+            best_q = torch.full((r1 - r0,), -_BIG, dtype=torch.float32, device=dev)
+            best_i = torch.zeros((r1 - r0,), dtype=torch.int32, device=dev)
+            for j0 in range(c0, c1, col_chunk):
+                j1 = min(j0 + col_chunk, c1)
+                dot = dot_of(r0, r1, j0, j1)
+                if mode == "ls":
+                    q = _rank_ls_int8(sa_i[r0:r1, None], dot, sb4[None, j0:j1],
+                                      aux16[None, j0:j1], k)
+                else:
+                    ab = dot.to(torch.float32) * 0.25 + 128.0 * sb[None, j0:j1]
+                    q = _rank_tile(
+                        ab, None if sa is None else sa[r0:r1, None],
+                        None if sa2 is None else sa2[r0:r1, None],
+                        sb[None, j0:j1], aux[None, j0:j1],
+                        criterion=criterion, so_mode=so_mode, s_max=s_max,
+                        inv_norm=inv_norm, n=float(k))
+                if rcls is not None:
+                    q = torch.where(rcls[r0:r1, None] == ccls[None, j0:j1], q, -_BIG)
+                # first-occurrence argmax: the lowest column holding the max
+                tile_q = q.amax(1)
+                ids = torch.arange(j1 - j0, dtype=torch.int32, device=dev)
+                tile_arg = torch.where(q == tile_q[:, None], ids, _BIG_I).amin(1) + j0
+                improved = tile_q > best_q
+                best_i = torch.where(improved, tile_arg.to(torch.int32), best_i)
+                best_q = torch.where(improved, tile_q, best_q)
+            q_out[r0:r1] = best_q
+            idx_out[r0:r1] = best_i
+    return q_out, idx_out
+
+
 def _class_runs(tile_class: torch.Tensor):
     """[(first tile, end tile, class)] for runs of equal class: range tiles
     are sorted by class, so each class's rows are one contiguous slice."""
@@ -213,89 +318,43 @@ def _class_runs(tile_class: torch.Tensor):
 def search_classed_torch(ai_s, ch_s, cl_s, sb_s, aux_s, tile_class,
                          col_tile_start, col_end, *, block_r: int, block_m: int,
                          criterion: str, so_mode: str, s_max: float,
-                         inv_norm: float, sa_s=None, sa2_s=None):
-    """Plain PyTorch version of the class-blocked search.
+                         inv_norm: float, sa_s=None, sa2_s=None,
+                         threshold: float = 0.0):
+    """Plain PyTorch version of K1, the class-blocked search.
 
     ai_s [R_pad, K] i8 (A - 128), ch_s/cl_s [M_pad, K] i8 (4B >> 3, 4B & 7),
     sb_s/aux_s [M_pad] f32, tile_class [NRT] i32, col_tile_start/col_end
     [NC] i32; sa_s/sa2_s [R_pad] f32 only for the 'general' mode.  Returns
-    (q [R_pad] f32, idx [R_pad] i32), idx a sorted column index.
-
-    The dot sum(ai * (8*ch + cl)) comes exactly from matmuls: one of ai
-    against b4 = 8*ch + cl in float64 on the CPU (integers below 2^53); in
-    float32 with TF32 off on CUDA, one against b4 for K <= INT8_MAX_K (every
-    partial sum is an integer below 2^24) and one each against ch and cl
-    above (|sum| <= 256*128*127 < 2^24), combined in int32.  K above
+    (q [R_pad] f32, idx [R_pad] i32), idx a sorted column index.  K above
     INT8_MAX_K takes the 'ls' key only.
     """
-    r_pad, k = ai_s.shape
-    _require_exact_k(k)
-    dev = ai_s.device
-    mode = rank_mode(criterion, so_mode, s_max)
-    if k > INT8_MAX_K and mode != "ls":
-        raise NotImplementedError(
-            f"rank mode '{mode}' at K = {k} > {INT8_MAX_K} is not ported yet "
-            "(ROADMAP.md queue 2, K1's raw and general keys above K = 64)")
-    mm_dtype = torch.float32 if dev.type == "cuda" else torch.float64
-    budget = (1 << 26) if dev.type == "cuda" else (1 << 21)
-    split = dev.type == "cuda" and k > INT8_MAX_K
-
-    q_out = torch.full((r_pad,), -_BIG, dtype=torch.float32, device=dev)
-    idx_out = torch.zeros((r_pad,), dtype=torch.int32, device=dev)
-    a_mm = ai_s.to(mm_dtype)
-    if split:
-        bh_mm, bl_mm = ch_s.to(mm_dtype), cl_s.to(mm_dtype)
-    else:
-        b_mm = (8 * ch_s.to(torch.int32) + cl_s.to(torch.int32)).to(mm_dtype)
-
-    def dot_of(r0, r1, j0, j1):
-        a = a_mm[r0:r1]
-        if split:
-            return (8 * (a @ bh_mm[j0:j1].T).to(torch.int32)
-                    + (a @ bl_mm[j0:j1].T).to(torch.int32))
-        return (a @ b_mm[j0:j1].T).to(torch.int32)
-
-    if mode == "ls":
-        sa_i = ai_s.to(torch.int32).sum(1, dtype=torch.int32) + 128 * k
-        sb4 = (4.0 * sb_s).to(torch.int32)
-        aux16 = aux_s * 0.0625
-
+    _require_no_frontier(threshold)
     starts = (col_tile_start.to(torch.int64) * block_m).tolist()
     ends = col_end.tolist()
-    for t0, t1, c in _class_runs(tile_class):
-        c0, c1 = starts[c], ends[c]
-        if c1 <= c0:
-            continue  # no columns: keep the initial (-_BIG, 0)
-        col_chunk = min(c1 - c0, 16384)
-        row_chunk = max(1, budget // col_chunk)
-        for r0 in range(t0 * block_r, t1 * block_r, row_chunk):
-            r1 = min(r0 + row_chunk, t1 * block_r)
-            best_q = torch.full((r1 - r0,), -_BIG, dtype=torch.float32, device=dev)
-            best_i = torch.zeros((r1 - r0,), dtype=torch.int32, device=dev)
-            for j0 in range(c0, c1, col_chunk):
-                j1 = min(j0 + col_chunk, c1)
-                dot = dot_of(r0, r1, j0, j1)
-                if mode == "ls":
-                    q = _rank_ls_int8(sa_i[r0:r1, None], dot, sb4[None, j0:j1],
-                                      aux16[None, j0:j1], k)
-                else:
-                    ab = dot.to(torch.float32) * 0.25 + 128.0 * sb_s[None, j0:j1]
-                    q = _rank_tile(
-                        ab, None if sa_s is None else sa_s[r0:r1, None],
-                        None if sa2_s is None else sa2_s[r0:r1, None],
-                        sb_s[None, j0:j1], aux_s[None, j0:j1],
-                        criterion=criterion, so_mode=so_mode, s_max=s_max,
-                        inv_norm=inv_norm, n=float(k))
-                # first-occurrence argmax: the lowest column holding the max
-                tile_q = q.amax(1)
-                ids = torch.arange(j1 - j0, dtype=torch.int32, device=dev)
-                tile_arg = torch.where(q == tile_q[:, None], ids, _BIG_I).amin(1) + j0
-                improved = tile_q > best_q
-                best_i = torch.where(improved, tile_arg.to(torch.int32), best_i)
-                best_q = torch.where(improved, tile_q, best_q)
-            q_out[r0:r1] = best_q
-            idx_out[r0:r1] = best_i
-    return q_out, idx_out
+    segments = [(t0 * block_r, t1 * block_r, starts[c], ends[c])
+                for t0, t1, c in _class_runs(tile_class)]
+    return _plain_search(ai_s, ch_s, cl_s, sb_s, aux_s, segments,
+                         criterion=criterion, so_mode=so_mode, s_max=s_max,
+                         inv_norm=inv_norm, sa=sa_s, sa2=sa2_s)
+
+
+def search_dense_torch(ai, ch, cl, sb, aux, *, m_valid: int, criterion: str,
+                       so_mode: str, s_max: float, inv_norm: float, sa=None,
+                       sa2=None, rcls=None, ccls=None, threshold: float = 0.0):
+    """Plain PyTorch version of K3, the dense search (``fused_search``).
+
+    ai [R, K] i8 (A - 128), ch/cl [M, K] i8 (4B >> 3, 4B & 7) and sb/aux [M]
+    f32 for columns in search order (aux is inv_var_b for 'ls', SumB2
+    otherwise), M >= m_valid; sa/sa2 [R] f32 only for the 'general' mode;
+    rcls [R] and ccls [M] i32 for the class mask (``use_classes``), or None.
+    Returns (q [R] f32, idx [R] i32): the first-occurrence argmax over the
+    columns [0, m_valid) (of the row's class, with the mask).  K above
+    INT8_MAX_K takes the 'ls' key only.
+    """
+    _require_no_frontier(threshold)
+    return _plain_search(ai, ch, cl, sb, aux, [(0, ai.shape[0], 0, m_valid)],
+                         criterion=criterion, so_mode=so_mode, s_max=s_max,
+                         inv_norm=inv_norm, sa=sa, sa2=sa2, rcls=rcls, ccls=ccls)
 
 
 def _check(name, t, dtype, shape, device):
@@ -306,51 +365,93 @@ def _check(name, t, dtype, shape, device):
         raise ValueError(f"{name}: must be contiguous and 16-byte aligned")
 
 
-def _kernel_fn(k: int):
-    """The C entry point of the kernel for K = k (built and loaded on first
-    use)."""
+def _launch_mode(kernel: str, ai, criterion: str, so_mode: str, s_max: float,
+                 threshold: float):
+    """(mode, K) of a launch on CUDA tensors, or raise for what the kernel
+    does not cover."""
+    _require_no_frontier(threshold)
+    if ai.device.type != "cuda":
+        raise ValueError(f"unsupported device {ai.device}")
+    mode = rank_mode(criterion, so_mode, s_max)
+    k = ai.shape[1]
+    if k not in KERNEL_KEYS[mode]:
+        item = ("the raw and general keys above K = 64"
+                if mode != "ls" and k > INT8_MAX_K else "K1 and K3 at other range sizes")
+        raise NotImplementedError(
+            f"rank mode '{mode}' at K = {k}: the {kernel} CUDA kernel covers K in "
+            f"{KERNEL_KEYS[mode]} only (ROADMAP.md queue 2, {item})")
+    return mode, k
+
+
+def _key_args(mode, k, sa, sa2, rows, dev, *, so_mode, s_max, inv_norm):
+    """The kernels' trailing key arguments, read by 'general' only: the sa
+    and sa2 pointers, s_max, 1/n and inv_norm (ctypes.c_float rounds the
+    Python doubles to the f32 values torch computes with), and the so_mode
+    flag."""
+    if mode == "general":
+        _check("sa", sa, torch.float32, (rows,), dev)
+        _check("sa2", sa2, torch.float32, (rows,), dev)
+        ptrs = (sa.data_ptr(), sa2.data_ptr())
+    else:
+        ptrs = (None, None)
+    return (*ptrs, s_max, 1.0 / k, inv_norm, int(so_mode == "reference"))
+
+
+_KEY_ARGTYPES = [ctypes.c_void_p] * 2 + [ctypes.c_float] * 3 + [ctypes.c_int]
+
+
+def _kernel_fn(kernel: str, mode: str, k: int):
+    """The C entry point ``fe_<kernel>_<mode><k>`` (its library built and
+    loaded on first use)."""
     from ._build import load_library
 
-    fn = getattr(load_library("search_classed"), f"fe_search_classed_ls{k}")
-    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 3 + [ctypes.c_void_p] * 3
+    fn = getattr(load_library(kernel), f"fe_{kernel}_{mode}{k}")
+    if kernel == "search_classed":
+        head = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 3
+    else:
+        head = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 2
+    fn.argtypes = head + _KEY_ARGTYPES + [ctypes.c_void_p] * 3
     fn.restype = ctypes.c_int
     return fn
+
+
+def _launch(kernel: str, mode: str, k: int, rows: int, dev, *args):
+    """Allocate (q, idx) of ``rows`` entries and launch the kernel on the
+    current stream with ``args`` before them; raise on a refused launch."""
+    fn = _kernel_fn(kernel, mode, k)
+    with torch.cuda.device(dev):
+        q = torch.empty((rows,), dtype=torch.float32, device=dev)
+        idx = torch.empty((rows,), dtype=torch.int32, device=dev)
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = fn(*args, q.data_ptr(), idx.data_ptr(), stream)
+    if err != 0:
+        raise RuntimeError(f"{kernel} kernel launch failed: CUDA error {err}")
+    return q, idx
 
 
 def search_classed_cuda(ai_s, ch_s, cl_s, sb_s, aux_s, tile_class,
                         col_tile_start, col_end, *, block_r: int, block_m: int,
                         criterion: str, so_mode: str, s_max: float,
-                        inv_norm: float, sa_s=None, sa2_s=None):
-    """The hand-written CUDA kernel, with the arguments and result of
+                        inv_norm: float, sa_s=None, sa2_s=None,
+                        threshold: float = 0.0):
+    """K1's hand-written CUDA kernel, with the arguments and result of
     ``search_classed_torch``.
 
     CPU tensors run the plain version.  CUDA tensors launch
     ``csrc/search_classed.cu`` (and add one to
-    ``search_classed_cuda.launches[K]``), or raise ``NotImplementedError``
-    for a config the kernel does not cover.
+    ``search_classed_cuda.launches[(mode, K)]``), or raise
+    ``NotImplementedError`` for a config the kernel does not cover.
     """
+    kw = dict(block_r=block_r, block_m=block_m, criterion=criterion,
+              so_mode=so_mode, s_max=s_max, inv_norm=inv_norm, sa_s=sa_s,
+              sa2_s=sa2_s, threshold=threshold)
     if ai_s.device.type == "cpu":
-        return search_classed_torch(
-            ai_s, ch_s, cl_s, sb_s, aux_s, tile_class, col_tile_start, col_end,
-            block_r=block_r, block_m=block_m, criterion=criterion,
-            so_mode=so_mode, s_max=s_max, inv_norm=inv_norm, sa_s=sa_s,
-            sa2_s=sa2_s)
-    if ai_s.device.type != "cuda":
-        raise ValueError(f"unsupported device {ai_s.device}")
-    mode = rank_mode(criterion, so_mode, s_max)
-    if mode != "ls":
-        raise NotImplementedError(
-            f"rank mode '{mode}' (criterion={criterion}, so_mode={so_mode}, "
-            f"s_max={s_max}) has no CUDA kernel yet: ROADMAP.md queue 2, K1's "
-            "raw and general keys")
-    r_pad, k = ai_s.shape
-    if k not in KERNEL_K:
-        raise NotImplementedError(
-            f"K = {k}: the CUDA kernel covers K in {KERNEL_K} only (ROADMAP.md "
-            "queue 2, K1 at other range sizes)")
-    m_pad = ch_s.shape[0]
-    nrt = tile_class.shape[0]
-    nc = col_end.shape[0]
+        return search_classed_torch(ai_s, ch_s, cl_s, sb_s, aux_s, tile_class,
+                                    col_tile_start, col_end, **kw)
+    mode, k = _launch_mode("search_classed", ai_s, criterion, so_mode, s_max,
+                           threshold)
+    r_pad, m_pad = ai_s.shape[0], ch_s.shape[0]
+    nrt, nc = tile_class.shape[0], col_end.shape[0]
     dev = ai_s.device
     if r_pad != nrt * block_r:
         raise ValueError(f"r_pad {r_pad} != {nrt} tiles x {block_r} rows")
@@ -362,20 +463,59 @@ def search_classed_cuda(ai_s, ch_s, cl_s, sb_s, aux_s, tile_class,
     _check("tile_class", tile_class, torch.int32, (nrt,), dev)
     _check("col_tile_start", col_tile_start, torch.int32, (nc,), dev)
     _check("col_end", col_end, torch.int32, (nc,), dev)
-
-    fn = _kernel_fn(k)
-    with torch.cuda.device(dev):
-        q = torch.empty((r_pad,), dtype=torch.float32, device=dev)
-        idx = torch.empty((r_pad,), dtype=torch.int32, device=dev)
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = fn(ai_s.data_ptr(), ch_s.data_ptr(), cl_s.data_ptr(),
-                 sb_s.data_ptr(), aux_s.data_ptr(), tile_class.data_ptr(),
-                 col_tile_start.data_ptr(), col_end.data_ptr(),
-                 nrt, block_r, block_m, q.data_ptr(), idx.data_ptr(), stream)
-    if err != 0:
-        raise RuntimeError(f"search_classed kernel launch failed: CUDA error {err}")
-    search_classed_cuda.launches[k] += 1
-    return q, idx
+    key = _key_args(mode, k, sa_s, sa2_s, r_pad, dev, so_mode=so_mode,
+                    s_max=s_max, inv_norm=inv_norm)
+    out = _launch("search_classed", mode, k, r_pad, dev,
+                  ai_s.data_ptr(), ch_s.data_ptr(), cl_s.data_ptr(), sb_s.data_ptr(),
+                  aux_s.data_ptr(), tile_class.data_ptr(), col_tile_start.data_ptr(),
+                  col_end.data_ptr(), nrt, block_r, block_m, *key)
+    search_classed_cuda.launches[(mode, k)] += 1
+    return out
 
 
-search_classed_cuda.launches = {k: 0 for k in KERNEL_K}
+def search_dense_cuda(ai, ch, cl, sb, aux, *, m_valid: int, criterion: str,
+                      so_mode: str, s_max: float, inv_norm: float, sa=None,
+                      sa2=None, rcls=None, ccls=None, threshold: float = 0.0):
+    """K3's hand-written CUDA kernel, with the arguments and result of
+    ``search_dense_torch``.
+
+    CPU tensors run the plain version.  CUDA tensors launch
+    ``csrc/search_dense.cu`` (and add one to
+    ``search_dense_cuda.launches[(mode, K)]``), or raise
+    ``NotImplementedError`` for a config the kernel does not cover.
+    """
+    kw = dict(m_valid=m_valid, criterion=criterion, so_mode=so_mode,
+              s_max=s_max, inv_norm=inv_norm, sa=sa, sa2=sa2, rcls=rcls,
+              ccls=ccls, threshold=threshold)
+    if ai.device.type == "cpu":
+        return search_dense_torch(ai, ch, cl, sb, aux, **kw)
+    mode, k = _launch_mode("search_dense", ai, criterion, so_mode, s_max, threshold)
+    rows, m = ai.shape[0], ch.shape[0]
+    dev = ai.device
+    if not 0 <= m_valid <= m:
+        raise ValueError(f"m_valid {m_valid} outside [0, {m}]")
+    if (rcls is None) != (ccls is None):
+        raise ValueError("the class mask needs both rcls and ccls")
+    _check("ai", ai, torch.int8, (rows, k), dev)
+    _check("ch", ch, torch.int8, (m, k), dev)
+    _check("cl", cl, torch.int8, (m, k), dev)
+    _check("sb", sb, torch.float32, (m,), dev)
+    _check("aux", aux, torch.float32, (m,), dev)
+    if rcls is not None:
+        _check("rcls", rcls, torch.int32, (rows,), dev)
+        _check("ccls", ccls, torch.int32, (m,), dev)
+        cls = (rcls.data_ptr(), ccls.data_ptr())
+    else:
+        cls = (None, None)
+    key = _key_args(mode, k, sa, sa2, rows, dev, so_mode=so_mode, s_max=s_max,
+                    inv_norm=inv_norm)
+    out = _launch("search_dense", mode, k, rows, dev,
+                  ai.data_ptr(), ch.data_ptr(), cl.data_ptr(), sb.data_ptr(),
+                  aux.data_ptr(), *cls, rows, m_valid, *key)
+    search_dense_cuda.launches[(mode, k)] += 1
+    return out
+
+
+search_classed_cuda.launches = {(mode, k): 0 for mode, ks in KERNEL_KEYS.items()
+                                for k in ks}
+search_dense_cuda.launches = dict(search_classed_cuda.launches)

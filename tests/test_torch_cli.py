@@ -55,7 +55,8 @@ def _psnr(stdout):
     return float(m.group(1))
 
 
-@pytest.mark.parametrize("flags", [[], ["--compat"]])
+@pytest.mark.parametrize("flags", [[], ["--compat"], ["--noclassifier"],
+                                   ["--noclassifier", "--compat"]])
 def test_cli_psnr_matches_jax_cli(tmp_path, flags):
     """The port's CLI on the CPU prints the JAX CLI's PSNR and statistics."""
     port, ref = _run_both(
@@ -77,9 +78,10 @@ def test_cli_psnr_matches_jax_cli(tmp_path, flags):
                           np.asarray(Image.open(tmp_path / "j.png")))
 
 
-@pytest.mark.parametrize("flag", [["--quadtree", "--noclassifier"], ["--vq-classes", "3"],
+@pytest.mark.parametrize("flag", [["--quadtree", "--compat"], ["--vq-classes", "3"],
                                   ["--out", "x.ftc"], ["--decode-file", "x.ftc"],
-                                  ["--color"], ["--noclassifier"], ["--rms", "10"],
+                                  ["--color"], ["--noclassifier", "--rms", "10"],
+                                  ["--rms", "10"],
                                   ["--log"], ["--profile", "p"]])
 def test_cli_refuses_unported_flags(flag, capsys):
     from fractencode_tpu_torch.cli import main

@@ -26,7 +26,8 @@ def cuda():
     return torch.device("cuda")
 
 
-def _prep(img, cfg, device, **blocks):
+def _inputs(img, cfg, device):
+    """(ranges, SumA, SumA2, codebook, range classes, domain classes)."""
     from fractencode_tpu_torch.core.classify import classify_grid
     from fractencode_tpu_torch.core.grid import uniform_grid
     from fractencode_tpu_torch.encode.codebook import build_codebook, extract_ranges
@@ -38,8 +39,27 @@ def _prep(img, cfg, device, **blocks):
     rg = uniform_grid(n, n, cfg.target_size, cfg.target_size)
     cb = build_codebook(pf, dg, cfg.target_size, cfg.num_transforms)
     ranges = extract_ranges(pf, cfg.target_size)
-    return tm.classed_prep(ranges, ranges.sum(-1), (ranges * ranges).sum(-1), cb,
-                           classify_grid(p, rg), classify_grid(p, dg), cfg, **blocks)
+    return (ranges, ranges.sum(-1), (ranges * ranges).sum(-1), cb,
+            classify_grid(p, rg), classify_grid(p, dg))
+
+
+def _prep(img, cfg, device, **blocks):
+    return tm.classed_prep(*_inputs(img, cfg, device), cfg, **blocks)
+
+
+# one config per kernel key: (mode, K) -> overrides; 'general' twice, for
+# each of its so_modes.  K = 64 is BASELINE config 1's geometry (8 px ranges,
+# 16 px domains, 8 isometries), K = 256 the quadtree's 16 px level.
+GEOMETRY = {16: {}, 64: dict(target_size=8, num_transforms=8),
+            256: dict(source_size=64, target_size=16)}
+KEYS = {"ls": {}, "raw": dict(criterion="raw", so_mode="reference"),
+        "general-ls": dict(s_max=1.0), "general-reference": dict(so_mode="reference")}
+CASES = [(key, k) for key in KEYS for k in (16, 64, 256)
+         if k in mk.KERNEL_KEYS[key.split("-")[0]]]
+
+
+def _case_cfg(key, k, **kw):
+    return T.EncoderConfig(**GEOMETRY[k], **KEYS[key], **kw)
 
 
 @pytest.mark.parametrize("blocks", [{}, dict(block_r=512, block_m=4096),
@@ -51,9 +71,9 @@ def test_kernel_matches_plain(cuda, n, blocks):
     img = random_plane(n, 5)
     cfg = T.EncoderConfig()
     prep = _prep(img, cfg, cuda, **blocks)
-    before = mk.search_classed_cuda.launches[16]
+    before = mk.search_classed_cuda.launches[("ls", 16)]
     q_k, i_k = tm.classed_kernel(prep, 16, 256, cfg)
-    assert mk.search_classed_cuda.launches[16] == before + 1
+    assert mk.search_classed_cuda.launches[("ls", 16)] == before + 1
     q_p, i_p = tm.classed_kernel(prep, 16, 256, T.EncoderConfig(backend="torch"))
     torch.cuda.synchronize()
     assert_bitwise(q_k, q_p, "q")
@@ -70,9 +90,9 @@ def test_kernel_matches_plain_quadtree_levels(cuda, k, blocks):
     img = random_plane(256, 7)
     cfg = T.EncoderConfig(source_size=ds, target_size=rs)
     prep = _prep(img, cfg, cuda, **blocks)
-    before = mk.search_classed_cuda.launches[k]
+    before = mk.search_classed_cuda.launches[("ls", k)]
     q_k, i_k = tm.classed_kernel(prep, k, ds * ds, cfg)
-    assert mk.search_classed_cuda.launches[k] == before + 1
+    assert mk.search_classed_cuda.launches[("ls", k)] == before + 1
     q_p, i_p = tm.classed_kernel(prep, k, ds * ds,
                                  T.EncoderConfig(source_size=ds, target_size=rs,
                                                  backend="torch"))
@@ -121,19 +141,108 @@ def test_encode_decode_cuda_equals_cpu(cuda):
     assert ig == ic
 
 
-@pytest.mark.parametrize("cfg", [T.REFERENCE_COMPAT(), T.EncoderConfig(s_max=1.0),
+@pytest.mark.parametrize("case", [c for c in CASES if c[1] <= 64],
+                         ids=lambda c: f"{c[0]}{c[1]}")
+def test_classed_keys_match_plain(cuda, case):
+    """K1's 'raw' and 'general' keys (and 'ls') at K = 16 and 64: (q, idx)
+    of every sorted row bitwise against the plain version."""
+    key, k = case
+    cfg = _case_cfg(key, k)
+    prep = _prep(random_plane(128, 10), cfg, cuda)
+    mode = key.split("-")[0]
+    before = mk.search_classed_cuda.launches[(mode, k)]
+    area = cfg.source_size ** 2
+    q_k, i_k = tm.classed_kernel(prep, k, area, cfg)
+    assert mk.search_classed_cuda.launches[(mode, k)] == before + 1
+    q_p, i_p = tm.classed_kernel(prep, k, area, _case_cfg(key, k, backend="torch"))
+    torch.cuda.synchronize()
+    assert_bitwise(q_k, q_p, "q")
+    assert_bitwise(i_k, i_p, "idx")
+
+
+@pytest.mark.parametrize("masked", [False, True])
+@pytest.mark.parametrize("case", CASES, ids=lambda c: f"{c[0]}{c[1]}")
+def test_dense_kernel_matches_plain(cuda, case, masked):
+    """K3 at every (mode, K) it covers, with and without the class mask:
+    (q, idx) of every range bitwise against the plain version."""
+    key, k = case
+    cfg = _case_cfg(key, k)
+    ranges, sa, sa2, cb, rcls, dcls = _inputs(random_plane(128, 11), cfg, cuda)
+    if not masked:
+        rcls = dcls = None
+    prep = tm.dense_prep(ranges, sa, sa2, cb, rcls, dcls, cfg)
+    assert (prep["rcls"] is None) != masked
+    mode = key.split("-")[0]
+    before = mk.search_dense_cuda.launches[(mode, k)]
+    area = cfg.source_size ** 2
+    q_k, i_k = tm.dense_kernel(prep, k, area, cfg)
+    assert mk.search_dense_cuda.launches[(mode, k)] == before + 1
+    q_p, i_p = tm.dense_kernel(prep, k, area, _case_cfg(key, k, backend="torch"))
+    torch.cuda.synchronize()
+    assert_bitwise(q_k, q_p, "q")
+    assert_bitwise(i_k, i_p, "idx")
+    if masked:  # some rows' best column lies outside their class
+        unmasked = tm.dense_kernel(dict(prep, rcls=None, ccls=None), k, area, cfg)
+        assert bool((unmasked[0] > q_k).any())
+
+
+@pytest.mark.parametrize("cfg", [
+    T.EncoderConfig(use_classifier=False), T.REFERENCE_COMPAT(),
+    T.EncoderConfig(s_max=0.9), T.EncoderConfig(so_mode="reference"),
+    T.REFERENCE_COMPAT(use_classifier=False),
+    T.EncoderConfig(use_classifier=False, target_size=8, num_transforms=8),
+], ids=["nocls", "compat", "smax", "so_reference", "compat_nocls", "config1"])
+def test_encode_cuda_equals_cpu_keys(cuda, cfg):
+    """--noclassifier, --compat, --smax, --so-mode reference and BASELINE
+    config 1: the encode on the card (a kernel launch) equals the CPU's,
+    every field bitwise, and so do the decoded pixels."""
+    img = random_plane(128, 12)
+    total = lambda: sum(mk.search_dense_cuda.launches.values()) + \
+        sum(mk.search_classed_cuda.launches.values())
+    before = total()
+    rg = T.encode_plane(img, cfg, device=cuda)
+    assert total() == before + 1
+    rc = T.encode_plane(img, cfg)
+    for f in ("domain_idx", "transform", "s", "o", "distance", "valid"):
+        assert_bitwise(getattr(rg, f), getattr(rc, f), f)
+    og, ig, mg = T.decode_plane(rg)
+    oc, ic, mc = T.decode_plane(rc)
+    assert_bitwise(og, oc, "pixels")
+    assert (ig, mg) == (ic, mc)
+
+
+def test_quadtree_noclassifier_cuda_equals_cpu(cuda):
+    """The quadtree without the classifier (K3 at K = 16, 64 and 256, then
+    the coverage post-mask): every level bitwise, card against CPU."""
+    from fractencode_tpu_torch.encode import quadtree as tq
+
+    yy, xx = np.mgrid[0:128, 0:128]
+    img = (60 + 40 * np.sin(xx / 19.0) * np.cos(yy / 23.0)
+           + np.random.default_rng(8).integers(0, 20, (128, 128))).astype(np.uint8)
+    cfg = T.EncoderConfig(use_classifier=False)
+    rg = tq.encode_plane_quadtree(img, cfg, device=cuda)
+    rc = tq.encode_plane_quadtree(img, cfg)
+    for lg, lc in zip(rg.levels, rc.levels, strict=True):
+        for f in ("domain_idx", "transform", "s", "o", "error", "accepted"):
+            assert_bitwise(getattr(lg, f), getattr(lc, f), f"{lg.range_size} px {f}")
+
+
+@pytest.mark.parametrize("cfg", [T.REFERENCE_COMPAT(source_size=8, target_size=2),
+                                 T.EncoderConfig(s_max=1.0, source_size=8, target_size=2),
                                  T.EncoderConfig(source_size=8, target_size=2)])
 def test_uncovered_configs_raise_on_cuda(cuda, cfg):
-    """Configs the kernel does not cover (the raw and general keys, K = 4)
-    raise on CUDA (no fallback), and run there with backend='torch' like on
-    the CPU.  Winners, validity and distances come from exact integer
-    keys."""
+    """Configs no kernel covers (K = 4, under each key, with and without
+    the classifier) raise on CUDA (no fallback), and run there with
+    backend='torch' like on the CPU.  Winners, validity and distances come
+    from exact integer keys."""
     import dataclasses
 
     img = random_plane(64)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        T.encode_plane(img, cfg, device=cuda)
-    rg = T.encode_plane(img, dataclasses.replace(cfg, backend="torch"), device=cuda)
-    rc = T.encode_plane(img, cfg)
-    for f in ("domain_idx", "transform", "valid", "distance"):
-        assert_bitwise(getattr(rg, f), getattr(rc, f), f)
+    for use_classifier in (True, False):
+        c = dataclasses.replace(cfg, use_classifier=use_classifier)
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            T.encode_plane(img, c, device=cuda)
+        rg = T.encode_plane(img, dataclasses.replace(c, backend="torch"), device=cuda)
+        rc = T.encode_plane(img, c)
+        for f in ("domain_idx", "transform", "valid", "distance"):
+            assert_bitwise(getattr(rg, f), getattr(rc, f), f)

@@ -120,8 +120,8 @@ def test_decode_table_kinds(geom, kind):
 # --- the C++ reference goldens (tests/test_reference_parity.py), for the port
 
 
-def _cpp_dump():
-    with gzip.open(os.path.join(GOLDEN, "lenna128_cpp_encode.txt.gz"), "rt") as f:
+def _cpp_dump(name="lenna128_cpp_encode.txt.gz"):
+    with gzip.open(os.path.join(GOLDEN, name), "rt") as f:
         dump = np.loadtxt(f)
     rx = (dump[:, 0] // 4).astype(int)
     ry = (dump[:, 1] // 4).astype(int)
@@ -130,14 +130,36 @@ def _cpp_dump():
     return out
 
 
-def _cpp_result_png():
-    path = os.path.join(GOLDEN, "lenna128_cpp_result.png")
+def _cpp_result_png(name="lenna128_cpp_result.png"):
+    path = os.path.join(GOLDEN, name)
     return np.asarray(Image.open(path).convert("L"))
 
 
+# the reference's non-default flags (tests/test_reference_parity.py):
+# config overrides, encode dump, result.png
+_CPP_FLAGS = {
+    "nocls": (dict(use_classifier=False), "lenna128_cpp_nocls.txt.gz",
+              "lenna128_cpp_result_nocls.png"),
+    "smax09": (dict(s_max=0.9), "lenna128_cpp_smax09.txt.gz",
+               "lenna128_cpp_result_smax09.png"),
+}
+
+
 def test_encoder_parity_with_cpp():
-    dump = _cpp_dump()
-    res = T.encode_plane(lenna128(), T.REFERENCE_COMPAT())
+    _assert_cpp_encode(T.encode_plane(lenna128(), T.REFERENCE_COMPAT()), _cpp_dump())
+
+
+@pytest.mark.parametrize("name", sorted(_CPP_FLAGS))
+def test_encoder_parity_with_cpp_flags(name):
+    """--noclassifier (the dense search) and --smax 0.9 against the C++
+    encoder's dumps, to test_reference_parity.py's tolerances."""
+    overrides, dump_name, _ = _CPP_FLAGS[name]
+    res = T.encode_plane(lenna128(), T.REFERENCE_COMPAT(**overrides))
+    assert bool(res.valid.all())
+    _assert_cpp_encode(res, _cpp_dump(dump_name))
+
+
+def _assert_cpp_encode(res, dump):
     nx = (128 - 16) // 8 + 1
     dom_idx_cpp = (dump[:, 5] // 8).astype(int) * nx + (dump[:, 4] // 8).astype(int)
     assert np.array_equal(res.domain_idx.numpy(), dom_idx_cpp)
@@ -167,6 +189,22 @@ def test_end_to_end_parity():
     res = T.encode_plane(lenna128(), T.REFERENCE_COMPAT())
     out, _, _ = T.decode_plane(res)
     assert np.array_equal(out.numpy(), _cpp_result_png())
+
+
+@pytest.mark.parametrize("name", sorted(_CPP_FLAGS))
+def test_end_to_end_parity_flags(name):
+    """The port's encode + decode under each flag == the C++ result.png:
+    exact without the classifier; with --smax 0.9, at most 2 pixels off by
+    one gray level (the reference's decoder applies the clamp in double,
+    test_reference_parity.py::test_decode_parity_flag_matrix)."""
+    overrides, _, result_name = _CPP_FLAGS[name]
+    res = T.encode_plane(lenna128(), T.REFERENCE_COMPAT(**overrides))
+    out, _, _ = T.decode_plane(res)
+    diff = np.abs(out.numpy().astype(int) - _cpp_result_png(result_name).astype(int))
+    if name == "smax09":
+        assert (diff > 0).sum() <= 2 and diff.max() <= 1, ((diff > 0).sum(), diff.max())
+    else:
+        assert not diff.any(), (diff > 0).sum()
 
 
 @pytest.mark.parametrize("shape,cfg_kw", [

@@ -209,7 +209,8 @@ def test_general_rank_mode(cfg_kw):
 
 
 @pytest.mark.parametrize("cfg_kw", [
-    dict(rms_threshold=10.0), dict(use_classifier=False), dict(vq_classes=3),
+    dict(rms_threshold=10.0), dict(use_classifier=False, rms_threshold=10.0),
+    dict(vq_classes=3),
     dict(criterion="raw", so_mode="reference", source_size=32, target_size=16),
 ])
 def test_unported_configs_raise(cfg_kw):

@@ -190,9 +190,9 @@ def test_jax_decodes_port_encode():
 
 
 def test_quadtree_refuses_unported_options():
-    with pytest.raises(NotImplementedError, match="ROADMAP.*K3"):
+    with pytest.raises(NotImplementedError, match="ROADMAP.*above K = 64"):
         tq.encode_plane_quadtree(PLANES["smooth64"],
-                                 T.EncoderConfig(use_classifier=False))
+                                 T.REFERENCE_COMPAT(use_classifier=False))
     with pytest.raises(ValueError, match="aligned"):
         tq.encode_plane_quadtree(PLANES["smooth64"][:56, :56])
 
