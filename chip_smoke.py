@@ -43,15 +43,32 @@ Phases, each of which must pass (any failure exits non-zero):
  13. the paths of KEY_PATHS (--compat and --smax 0.9, with 4x4 ranges and
      with config 1's 8x8 ranges), with and without the classifier: card ==
      CPU bitwise at 256^2, then at 2048^2 each with its launch counts;
- 14. the C++ reference goldens (default, --noclassifier, --smax 0.9) on the
-     in-repo Lenna crop through the port on the card, against the reference
-     encoder's dumps and decoded PNGs to the tolerances of
-     tests/test_reference_parity.py.
+ 14. the C++ reference goldens (default, --noclassifier, --smax 0.9,
+     --rms 10) on the in-repo Lenna crop through the port on the card,
+     against the reference encoder's dumps and decoded PNGs to the
+     tolerances of tests/test_reference_parity.py;
+ 15. the early-accept frontier: every `_thr` instance of K1 and K3 against
+     its plain version, (q, idx) bitwise, with both times, at 512^2 and then
+     at 2048^2 under the config the --rms path that runs it parses to (at
+     K = 256 also on a smooth 512^2 plane, where 16 px ranges hit), with
+     the share of ranges that hit, which must be above 0 in one of the
+     checks of each instance, and the pairs scanned up to each row's
+     frontier;
+ 16. the --rms paths (RMS_PATHS: --rms 10 alone and with --compat,
+     --noclassifier, config 1, --quadtree, --noclassifier --quadtree and the
+     KEY_PATHS flags): card == CPU bitwise at 256^2 (512^2 for --rms 10),
+     then at 2048^2 each with its launch counts (only `_thr` instances),
+     PSNR and hit share, and the wall times of the first six.
 Every path is driven with the launch counts set to 0 just before it and
 read just after; each must launch the kernels it names.  Each kernel's
 record keeps the times of its last parity check, which is at the shape of
-a path that launches it.  Plain timings at
-2048^2 are one run each (after the parity run), to keep the script short.
+a path that launches it, and its bound there: the larger of 2K int8
+operations per (range, column) pair the search needs (the data's own count
+with the frontier; the class layout's padding rows and columns are not
+counted) over the H100 SXM's 1,979 TOP/s and the bytes of its ranges,
+columns and results (``search_bytes``) over 3.35 TB/s.
+No single PyTorch call gives (q, idx), so library_ms is null.  Plain timings
+at 2048^2 are one run each (after the parity run), to keep the script short.
 The planes are natural-like synthetic textures made with numpy from a seed.
 The last two lines are the kernels' JSON record and the device JSON line.
 Without a CUDA device it exits non-zero and prints no result.
@@ -75,11 +92,12 @@ SOURCES = {"search_classed": "fractencode_tpu_torch/csrc/search_classed.cu",
            "search_dense": "fractencode_tpu_torch/csrc/search_dense.cu"}
 # The line of the TPU kernel each kernel key replaces: _pairs_kernel (K1)
 # and _search_kernel (K3); 'ls' at K = 64 is their ls_fast int8 branch,
-# 'raw' and 'general' their generic int8 branch, K = 256 their f32 branch.
+# 'raw' and 'general' their generic int8 branch, K = 256 their f32 branch;
+# 'thr' (the `_thr` instances) their call of _apply_frontier.
 _LINES = {"search_classed": {"ls16": 508, "ls64": 556, "ls256": 568, "raw": 560,
-                             "general": 560},
+                             "general": 560, "thr": 581},
           "search_dense": {"ls16": 163, "ls64": 203, "ls256": 211, "raw": 206,
-                           "general": 206}}
+                           "general": 206, "thr": 227}}
 # (domain, range) sizes of the quadtree's levels by K (CLI defaults)
 LEVELS = {16: (16, 4), 64: (32, 8), 256: (64, 16)}
 CONFIG1 = ["--source", "16", "--target", "8", "--transforms", "8"]
@@ -97,7 +115,31 @@ GOLDENS = {"default": ([], "lenna128_cpp_encode.txt.gz", "lenna128_cpp_result.pn
            "nocls": (["--noclassifier"], "lenna128_cpp_nocls.txt.gz",
                      "lenna128_cpp_result_nocls.png"),
            "smax09": (["--smax", "0.9"], "lenna128_cpp_smax09.txt.gz",
-                      "lenna128_cpp_result_smax09.png")}
+                      "lenna128_cpp_result_smax09.png"),
+           "rms10": (["--rms", "10"], "lenna128_cpp_rms10.txt.gz",
+                     "lenna128_cpp_result_rms10.png")}
+RMS = ["--rms", "10"]
+# the --rms paths (phase 16) and the `_thr` instances (kernel, key, K) each
+# runs; phase 15 checks each instance at the config of the first path here
+# that runs it (the quadtree levels at their level geometry)
+RMS_PATHS = {
+    "--rms 10": (RMS, [("search_classed", "ls", 16)]),
+    "--compat --rms 10": (["--compat", *RMS], [("search_classed", "raw", 16)]),
+    "--noclassifier --rms 10": (["--noclassifier", *RMS], [("search_dense", "ls", 16)]),
+    "config 1 --rms 10": ([*CONFIG1, "--noclassifier", *RMS], [("search_dense", "ls", 64)]),
+    "--quadtree --rms 10": (["--quadtree", *RMS],
+                            [("search_classed", "ls", k) for k in LEVELS]),
+    "--noclassifier --quadtree --rms 10": (["--noclassifier", "--quadtree", *RMS],
+                                           [("search_dense", "ls", k) for k in LEVELS]),
+    **{f"{' '.join(argv)}{nocls} --rms 10": ([*argv, *nocls.split(), *RMS], [(kernel, *key)])
+       for kernel, nocls in (("search_classed", ""), ("search_dense", " --noclassifier"))
+       for key, argv in KEY_PATHS.items() if (kernel, key) != ("search_classed", ("raw", 16))},
+}
+# the H100 SXM's dense int8 tensor-core rate and HBM3 rate (NVIDIA's data
+# sheet, 700 W): the bound of a search is the larger of its 2K int8
+# operations per pair over the first and its bytes over the second
+PEAK_INT8_OPS = 1979e12
+PEAK_BYTES = 3.35e12
 
 
 def check(cond, msg):
@@ -126,8 +168,8 @@ def natural_plane(n: int, seed: int) -> np.ndarray:
 
 def ptxas_report(text):
     """One line per kernel instantiation in an ``nvcc -Xptxas -v`` log: its
-    name, template arguments (K, key, and for K3 the class mask), registers
-    and spills."""
+    name, template arguments (K, key, for K3 the class mask, and the
+    frontier), registers and spills."""
     lines, name, spill = [], None, ("?", "?")
     for line in text.splitlines():
         m = re.search(r"Compiling entry function '_ZN?(\w+)'", line)
@@ -136,9 +178,11 @@ def ptxas_report(text):
             while d := re.match(r"\d+", rest):
                 end = d.end() + int(d.group())
                 name, rest = rest[d.end():end], rest[end:]
-            k, mode, *masked = re.findall(r"L[ib](\d+)E", rest)[:3]
+            k, mode, *flags = re.findall(r"L[ib](\d+)E", rest)
+            masked, frontier = flags[:2] if name.startswith("search_dense") else ("0", *flags[:1])
             name += (f" K={k} {('ls', 'raw', 'general')[int(mode)]}"
-                     + (" masked" if masked == ["1"] else ""))
+                     + (" masked" if masked == "1" else "")
+                     + (" frontier" if frontier == "1" else ""))
         m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
         if m:
             spill = m.groups()
@@ -198,8 +242,36 @@ def level_inputs(img, cfg):
             classify_grid(p, rg), classify_grid(p, dg))
 
 
+def smooth_plane(n: int, seed: int) -> np.ndarray:
+    """A smooth wave plus uniform noise in [0, 10): most but not all of its
+    16 px ranges meet the --rms 10 frontier, which few of a natural plane's
+    do."""
+    yy, xx = np.mgrid[0:n, 0:n]
+    return (70 + 30 * np.sin(xx / 23.0) * np.cos(yy / 31.0)
+            + np.random.default_rng(seed).integers(0, 10, (n, n))).astype(np.uint8)
+
+
+def search_bytes(rows: int, cols: int, k: int, sums: bool, masked: bool = False) -> int:
+    """The bytes a search must move, each input read once and each output
+    written once: per range its K int8 values, its (q, idx), and its SumA
+    and SumA2 (``sums``: the 'general' key or the frontier) and class (the
+    class mask); per column its 2K int8 values, SumB and the key's aux, and
+    its class (the class mask)."""
+    cls = 4 if masked else 0
+    return rows * (k + 8 + (8 if sums else 0) + cls) + cols * (2 * k + 8 + cls)
+
+
+def bound(pairs: int, k: int, nbytes: int):
+    """(ms, 'operations' or 'bytes'): the least time the card could take for
+    ``pairs`` (range, column) pairs of 2K int8 operations each, moving
+    ``nbytes`` (each input read once, each output written once)."""
+    ops_ms = 2 * k * pairs / PEAK_INT8_OPS * 1e3
+    bytes_ms = nbytes / PEAK_BYTES * 1e3
+    return (ops_ms, "operations") if ops_ms >= bytes_ms else (bytes_ms, "bytes")
+
+
 class Kernels:
-    """The kernels' records and launch counts, by (kernel, mode, K)."""
+    """The kernels' records and launch counts, by (kernel, mode, K, frontier)."""
 
     def __init__(self):
         from fractencode_tpu_torch.ops import matcher_kernels as mk
@@ -210,12 +282,16 @@ class Kernels:
         for kernel in self.wrappers:
             for mode, ks in mk.KERNEL_KEYS.items():
                 for k in ks:
-                    lines = _LINES[kernel]
-                    line = lines.get(f"{mode}{k}", lines.get(mode))
-                    self.records[(kernel, mode, k)] = dict(
-                        name=f"{kernel}_{mode}{k}", route="cuda", source=SOURCES[kernel],
-                        replaces=f"fractencode_tpu/ops/matcher_pallas.py:{line}",
-                        launches=0, max_abs_err=0.0, launches_by_path={})
+                    for thr in (False, True):
+                        lines = _LINES[kernel]
+                        line = (lines["thr"] if thr else
+                                lines.get(f"{mode}{k}", lines.get(mode)))
+                        self.records[(kernel, mode, k, thr)] = dict(
+                            name=f"{kernel}_{mode}{k}" + ("_thr" if thr else ""),
+                            route="cuda", source=SOURCES[kernel],
+                            replaces=f"fractencode_tpu/ops/matcher_pallas.py:{line}",
+                            launches=0, max_abs_err=0.0, library_ms=None,
+                            launches_by_path={})
 
     def zero(self):
         for w in self.wrappers.values():
@@ -235,13 +311,17 @@ class Kernels:
                 self.records[key]["launches_by_path"][path] = n
         return {self.records[key]["name"]: n for key, n in counts.items() if n}
 
-    def parity(self, key, run, plain, what, plain_reps=5):
-        """Kernel ``run()`` against plain ``plain()``: (q, idx) bitwise; both
-        times go into the record of ``key``."""
+    def parity(self, key, run, plain, what, nbytes, plain_reps=5, real=None):
+        """Kernel ``run()`` against plain ``plain(scanned)``: (q, idx)
+        bitwise; both times, and the bound from ``nbytes`` and the pairs the
+        plain version counts in ``scanned`` for the rows ``real`` (the rows
+        that hold a range; all rows when None), go into the record of
+        ``key``.  Returns the kernel's (q, idx) and the pairs."""
         import torch
 
         q_k, i_k = run()
-        q_p, i_p = plain()
+        scanned = torch.zeros(q_k.shape[0], dtype=torch.int64, device=q_k.device)
+        q_p, i_p = plain(scanned)
         torch.cuda.synchronize()
         err = float((q_k.double() - q_p.double()).abs().max())
         name = self.records[key]["name"]
@@ -250,11 +330,21 @@ class Kernels:
         check(bitwise(i_k, i_p), f"{name} idx differs from the plain version at {what}")
         ms = cuda_ms(run)
         plain_ms = cuda_ms(plain, reps=plain_reps)
+        pairs = int((scanned if real is None else scanned[real]).sum())
+        bound_ms, bound_by = bound(pairs, key[2], nbytes)
         print(f"    {name} at {what}: {q_k.shape[0]} rows, (q, idx) bitwise equal; "
               f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms"
-              + ("" if plain_reps > 1 else " (one run)"))
+              + ("" if plain_reps > 1 else " (one run)")
+              + f"; {pairs} pairs, bound {bound_ms:.4f} ms ({bound_by})")
         rec = self.records[key]
-        rec.update(max_abs_err=max(rec["max_abs_err"], err), ms=ms, plain_ms=plain_ms)
+        rec.update(max_abs_err=max(rec["max_abs_err"], err), ms=ms, plain_ms=plain_ms,
+                   bound_ms=bound_ms, bound_by=bound_by)
+        return q_k, i_k, pairs
+
+    def hits(self, key, share):
+        """Keep the largest hit share of the frontier instance ``key``."""
+        rec = self.records[key]
+        rec["max_hit_share"] = max(rec.get("max_hit_share", 0.0), share)
 
 
 def parse(argv):
@@ -374,6 +464,7 @@ def main() -> int:
                                                        encode_plane_quadtree)
     from fractencode_tpu_torch.image import load_gray
     from fractencode_tpu_torch.ops import _build
+    from fractencode_tpu_torch.ops import matcher_kernels as mk
     from fractencode_tpu_torch.params import REFERENCE_COMPAT
 
     print(f"python {sys.version.split()[0]}, torch {torch.__version__}, "
@@ -395,37 +486,65 @@ def main() -> int:
 
     kernels = Kernels()
     _, cfg, dcfg = parse(["--device", "cuda"])
-    plain_cfg = dataclasses.replace(cfg, backend="torch")
     planes = {n: natural_plane(n, SEED + n) for n in (256, 512, 2048)}
     big = planes[2048]
 
-    def k1_parity(img, c, what, plain_reps=5):
-        """K1 on one plane's class-sorted inputs under config c."""
+    def hit_share(q, sa, sa2, c):
+        """Share of ranges whose winner meets the threshold: exactly the rows
+        that hit (a row that hits wins at or above its hit column's key)."""
         k = c.target_size ** 2
-        prep = tm.classed_prep(*level_inputs(img, c), c)
-        pc = dataclasses.replace(c, backend="torch")
-        kernels.parity(
-            ("search_classed", tm.rank_mode(c.criterion, c.so_mode, c.s_max), k),
-            lambda: tm.classed_kernel(prep, k, c.source_size ** 2, c),
-            lambda: tm.classed_kernel(prep, k, c.source_size ** 2, pc),
+        dist = mk.rank_to_dist(q, sa2, sa, criterion=c.criterion, so_mode=c.so_mode,
+                               s_max=c.s_max, inv_norm=tm.inv_norm(c, k, c.source_size ** 2),
+                               n=float(k))
+        return float((dist <= torch.tensor(c.rms_threshold, dtype=torch.float32)).double()
+                     .mean())
+
+    def report_frontier(key, c, q, sa, sa2, pairs, what):
+        if c.rms_threshold > 0:
+            share = hit_share(q, sa, sa2, c)
+            kernels.hits(key, share)
+            print(f"      {what}: {share:.4f} of the ranges hit; "
+                  f"{pairs} pairs scanned up to each row's frontier")
+
+    def k1_parity(img, c, what, plain_reps=5):
+        """K1 on one plane's class-sorted inputs under config c, through the
+        encoder's own call (matcher.classed_kernel)."""
+        k, area = c.target_size ** 2, c.source_size ** 2
+        ranges, sa, sa2, cb, rcls, dcls = level_inputs(img, c)
+        prep = tm.classed_prep(ranges, sa, sa2, cb, rcls, dcls, c)
+        plain_c = dataclasses.replace(c, backend="torch")
+        key = ("search_classed", tm.rank_mode(c.criterion, c.so_mode, c.s_max), k,
+               c.rms_threshold > 0)
+        nbytes = search_bytes(ranges.shape[0], cb.values.shape[0] * cb.values.shape[1], k,
+                              prep["sa_s"] is not None)
+        rows = prep["rpos"].long()
+        q, _, pairs = kernels.parity(
+            key, lambda: tm.classed_kernel(prep, k, area, c),
+            lambda scanned=None: tm.classed_kernel(prep, k, area, plain_c, scanned=scanned),
             f"{what}, {prep['ai_s'].shape[0]} sorted rows x {prep['ch_s'].shape[0]} "
-            "sorted columns", plain_reps)
+            "sorted columns", nbytes, plain_reps, real=rows)
+        report_frontier(key, c, q[rows], sa, sa2, pairs, what)
 
     def k3_parity(img, c, what, masked=False, plain_reps=5):
-        """K3 on one plane's search-order inputs under config c."""
-        k = c.target_size ** 2
+        """K3 on one plane's search-order inputs under config c, through the
+        encoder's own call (matcher.dense_kernel)."""
+        k, area = c.target_size ** 2, c.source_size ** 2
         ranges, sa, sa2, cb, rcls, dcls = level_inputs(img, c)
         if not masked:
             rcls = dcls = None
         prep = tm.dense_prep(ranges, sa, sa2, cb, rcls, dcls, c)
         check((prep["rcls"] is not None) == masked, "class mask")
-        pc = dataclasses.replace(c, backend="torch")
-        kernels.parity(
-            ("search_dense", tm.rank_mode(c.criterion, c.so_mode, c.s_max), k),
-            lambda: tm.dense_kernel(prep, k, c.source_size ** 2, c),
-            lambda: tm.dense_kernel(prep, k, c.source_size ** 2, pc),
+        plain_c = dataclasses.replace(c, backend="torch")
+        key = ("search_dense", tm.rank_mode(c.criterion, c.so_mode, c.s_max), k,
+               c.rms_threshold > 0)
+        nbytes = search_bytes(ranges.shape[0], prep["ch"].shape[0], k,
+                              prep["sa"] is not None, masked)
+        q, _, pairs = kernels.parity(
+            key, lambda: tm.dense_kernel(prep, k, area, c),
+            lambda scanned=None: tm.dense_kernel(prep, k, area, plain_c, scanned=scanned),
             f"{what}, {prep['ch'].shape[0]} columns"
-            + (", class mask" if masked else ""), plain_reps)
+            + (", class mask" if masked else ""), nbytes, plain_reps)
+        report_frontier(key, c, q, sa, sa2, pairs, what)
 
     # -- 2. K1 parity and times at K = 16
     print("[2] K1 at K = 16 (default path), kernel vs plain")
@@ -438,7 +557,7 @@ def main() -> int:
 
     # -- 4. main path at 2048^2 on the card
     res, out, counts = drive(kernels, "default", big, [],
-                             [("search_classed", "ls", 16)], "2048 cuda")
+                             [("search_classed", "ls", 16, False)], "2048 cuda")
     check_uniform(res, out, 2048, "2048^2")
     # valid is False exactly where no domain shares the range's class
     plane_t = torch.from_numpy(big)
@@ -469,7 +588,7 @@ def main() -> int:
     # -- 7. quadtree path at 2048^2 on the card
     qcfg = QuadtreeConfig()  # what the CLI's --qt-* defaults give
     qres, qout, counts = drive(kernels, "quadtree", big, ["--quadtree"],
-                               [("search_classed", "ls", k) for k in LEVELS],
+                               [("search_classed", "ls", k, False) for k in LEVELS],
                                "2048 quadtree cuda")
     check_quadtree(qres, qout, 2048, qcfg, "2048^2 quadtree")
     enc_ms, dec_ms, (d, iters, _) = wall_times(
@@ -525,7 +644,7 @@ def main() -> int:
     card_equals_cpu(planes[512], ["--noclassifier"], "512 noclassifier")
     print("[10] 512^2 --noclassifier: card and CPU EncodeResult and pixels bitwise equal")
     res, out, counts = drive(kernels, "noclassifier", big, ["--noclassifier"],
-                             [("search_dense", "ls", 16)], "2048 noclassifier cuda")
+                             [("search_dense", "ls", 16, False)], "2048 noclassifier cuda")
     check_uniform(res, out, 2048, "2048^2 --noclassifier")
     check(bool(res.valid.all()), "--noclassifier: every range valid")
     enc_ms, dec_ms, (d, iters, _) = wall_times(
@@ -547,7 +666,7 @@ def main() -> int:
     card_equals_cpu(planes[256], [*CONFIG1, "--noclassifier"], "256 config 1")
     print("[11] 256^2 config 1: card and CPU EncodeResult and pixels bitwise equal")
     res, out, counts = drive(kernels, "config1", big, [*CONFIG1, "--noclassifier"],
-                             [("search_dense", "ls", 64)], "2048 config 1 cuda")
+                             [("search_dense", "ls", 64, False)], "2048 config 1 cuda")
     check_uniform(res, out, 2048, "2048^2 config 1")
     enc_ms, dec_ms, (d, iters, _) = wall_times(
         lambda: encode_plane(big, c1, device="cuda"), lambda e: decode_plane(e, dcfg))
@@ -564,7 +683,7 @@ def main() -> int:
     print("[12] 512^2 --noclassifier --quadtree: card and CPU levels and pixels "
           "bitwise equal")
     qres, qout, counts = drive(kernels, "noclassifier_quadtree", big, qflags,
-                               [("search_dense", "ls", k) for k in LEVELS],
+                               [("search_dense", "ls", k, False) for k in LEVELS],
                                "2048 noclassifier quadtree cuda")
     check_quadtree(qres, qout, 2048, qcfg, "2048^2 --noclassifier --quadtree")
     enc_ms, dec_ms, (d, iters, _) = wall_times(
@@ -586,7 +705,7 @@ def main() -> int:
             path = " ".join(argv)
             card_equals_cpu(planes[256], argv, f"256 {path}")
             print(f"     256^2 {path}: card and CPU EncodeResult and pixels bitwise equal")
-            res, out, counts = drive(kernels, path, big, argv, [(kernel, mode, k)],
+            res, out, counts = drive(kernels, path, big, argv, [(kernel, mode, k, False)],
                                      f"2048 {path} cuda")
             check_uniform(res, out, 2048, f"2048^2 {path}")
             db = float(psnr(plane_t, torch.from_numpy(out)))
@@ -603,7 +722,7 @@ def main() -> int:
         kernels.zero()
         res = encode_plane(lenna, gcfg, device="cuda")
         out, _, _ = decode_plane(res)  # the reference's flat decode
-        kernels.read(f"golden {name}", [(kernel, "raw", 16)])
+        kernels.read(f"golden {name}", [(kernel, "raw", 16, "--rms" in flags)])
         dom = (dump[:, 5] // 8).astype(int) * nx + (dump[:, 4] // 8).astype(int)
         check(np.array_equal(res.domain_idx.cpu().numpy(), dom), f"{name}: domains")
         check(np.array_equal(res.transform.cpu().numpy(), dump[:, 8].astype(int)),
@@ -620,10 +739,80 @@ def main() -> int:
         print(f"[14] C++ golden {name}: winners equal, s/o/distance within tolerance, "
               f"{off} decoded pixels off the C++ result.png")
 
+    # -- 15. the frontier instances against their plain versions
+    print("[15] the early-accept frontier (_thr instances), kernel vs plain")
+
+    def rms_config(name, mode, k):
+        """The config the --rms path ``name`` parses to, at its level's
+        geometry for K on the quadtree."""
+        argv = RMS_PATHS[name][0]
+        _, c, _ = parse(["--device", "cuda", *argv])
+        if "--quadtree" in argv:
+            c = dataclasses.replace(c, source_size=LEVELS[k][0], target_size=LEVELS[k][1])
+        check((tm.rank_mode(c.criterion, c.so_mode, c.s_max), c.target_size ** 2)
+              == (mode, k) and c.rms_threshold == 10.0, f"{name} does not select {mode}{k}")
+        return c
+
+    smooth = smooth_plane(512, SEED)
+    checked = set()
+    for name, (_, insts) in RMS_PATHS.items():
+        for kernel, mode, k in insts:
+            if (kernel, mode, k) in checked:
+                continue
+            checked.add((kernel, mode, k))
+            c = rms_config(name, mode, k)
+            parity = k1_parity if kernel == "search_classed" else k3_parity
+            parity(planes[512], c, f"512^2, {name}")
+            if k == 256:  # few 16 px ranges of a natural plane hit
+                parity(smooth, c, f"512^2 smooth plane, {name}")
+            parity(big, c, f"2048^2, {name}", plain_reps=1)
+            share = kernels.records[(kernel, mode, k, True)].get("max_hit_share", 0.0)
+            check(share > 0, f"{kernel} {mode}{k}_thr: no range hit in any check")
+
+    # -- 16. the --rms paths: card == CPU, then 2048^2
+    print("[16] the --rms paths: card == CPU, then 2048^2 with launch counts")
+    thr32 = torch.tensor(10.0, dtype=torch.float32)
+    for i, (name, (argv, insts)) in enumerate(RMS_PATHS.items()):
+        n_eq = 512 if name == "--rms 10" else 256
+        card_equals_cpu(planes[n_eq], argv, f"{n_eq} {name}")
+        print(f"     {n_eq}^2 {name}: card and CPU results and pixels bitwise equal")
+        res, out, counts = drive(kernels, name, big, argv,
+                                 [(kernel, mode, k, True) for kernel, mode, k in insts],
+                                 f"2048 {name}")
+        plain = [n for n in counts if not n.endswith("_thr")]
+        check(not plain, f"{name} launched instances without the frontier: {plain}")
+        args, c, dcfg_p = parse(["--device", "cuda", *argv])
+        if args.quadtree:
+            check_quadtree(res, out, 2048, qcfg, f"2048^2 {name}")
+            shares = []
+            for l in res.levels:  # the affine criterion: error is the distance
+                err = l.error[torch.isfinite(l.error)].cpu()
+                shares.append(f"{l.range_size}px:{float((err <= thr32).double().mean()):.4f}")
+            what = ("leaves " + " ".join(f"{l.range_size}px:{int(l.accepted.sum())}"
+                                         for l in res.levels)
+                    + "; hit share of the searched ranges " + " ".join(shares))
+            encode = lambda: encode_plane_quadtree(big, c, qcfg, device="cuda")
+            decode = lambda e: decode_plane_quadtree(e, dcfg_p)
+        else:
+            check_uniform(res, out, 2048, f"2048^2 {name}")
+            hit = float((res.distance[res.valid].cpu() <= thr32).double().mean())
+            what = f"hit share {hit:.4f}"
+            encode = lambda: encode_plane(big, c, device="cuda")
+            decode = lambda e: decode_plane(e, dcfg_p)
+        db = float(psnr(plane_t, torch.from_numpy(out)))
+        check(db > 20.0, f"2048^2 {name} PSNR {db:.4f} dB is implausibly low")
+        timing = ""
+        if i < 6:
+            enc_ms, dec_ms, (d, iters, _) = wall_times(encode, decode)
+            check(np.array_equal(d.cpu().numpy(), out), f"repeat {name} decode differs")
+            timing = (f"; encode {enc_ms:.3f} ms, decode {dec_ms:.3f} ms ({iters} "
+                      "full-res steps, median of 3 warm runs, host clock)")
+        print(f"     2048^2 {name}: launches {counts}; {what}; PSNR {db:.4f} dB{timing}")
+
     records = list(kernels.records.values())
     for rec in records:
         check(rec["launches"] > 0, f"{rec['name']} was launched by no path")
-        check("ms" in rec, f"{rec['name']} was not timed")
+        check("ms" in rec and "bound_ms" in rec, f"{rec['name']} was not timed")
     print(json.dumps({"kernels": records}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -13,7 +13,7 @@ import dataclasses
 import numpy as np
 import torch
 
-from .encode.encoder import EncodeResult
+from .encode.encoder import EncodeResult, default_device
 from .encode.quadtree import QuadtreeLevel, QuadtreeResult
 from .params import DecoderConfig, EncoderConfig
 
@@ -33,6 +33,7 @@ _DTYPES = dict(domain_idx=np.int32, transform=np.int32, s=np.float32,
 
 
 def _tensors(arrays, names, device):
+    device = default_device(device)
     return {name: torch.from_numpy(np.array(arrays[name], dtype=_DTYPES[name]))
             .to(device) for name in names}
 
@@ -40,9 +41,10 @@ def _tensors(arrays, names, device):
 _BACKENDS = {"auto": "auto", "jnp": "torch", "pallas": "cuda"}
 
 
-def result_from_numpy(arrays, meta, device="cpu") -> EncodeResult:
-    """EncodeResult on ``device`` from per-range arrays (any array-likes,
-    e.g. ``np.asarray`` of the JAX result's fields) and its static fields."""
+def result_from_numpy(arrays, meta, device=None) -> EncodeResult:
+    """EncodeResult on ``device`` (default: the card, see
+    ``encoder.default_device``) from per-range arrays (any array-likes, e.g.
+    ``np.asarray`` of the JAX result's fields) and its static fields."""
     return EncodeResult(**_tensors(arrays, ARRAY_FIELDS, device),
                         **{name: meta[name] for name in META_FIELDS if name in meta})
 
@@ -56,8 +58,9 @@ def result_to_numpy(res: EncodeResult):
 
 
 def quadtree_from_numpy(levels, width: int, height: int,
-                        device="cpu") -> QuadtreeResult:
-    """QuadtreeResult on ``device`` from one (arrays, meta) pair per level,
+                        device=None) -> QuadtreeResult:
+    """QuadtreeResult on ``device`` (default: the card, see
+    ``encoder.default_device``) from one (arrays, meta) pair per level,
     coarse to fine, as ``quadtree_to_numpy`` gives them (any array-likes,
     e.g. ``np.asarray`` of the JAX levels' fields)."""
     return QuadtreeResult(

@@ -22,7 +22,6 @@ _NOT_PORTED = {
     "out": "queue 1, Codec adapters and bitstream",
     "decode_file": "queue 1, Codec adapters and bitstream",
     "color": "queue 1, CLI",
-    "rms": "queue 2, the early-accept frontier",
     "log": "queue 1, Profiling",
     "profile": "queue 1, Profiling",
 }
@@ -31,11 +30,13 @@ _NOT_PORTED = {
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(prog="fractencode_tpu_torch", description=__doc__)
     p.add_argument("input", nargs="?", help="input image (png/jpg)")
-    p.add_argument("--device", default="cuda" if torch.cuda.is_available() else "cpu",
-                   help="torch device to run on (cuda or cpu)")
+    p.add_argument("--device", default="cuda",
+                   help="torch device to run on: cuda (the default) or cpu")
     p.add_argument("--decode", type=int, default=-1, help="max decode iterations")
     p.add_argument("--source", type=int, default=16, help="domain block size")
     p.add_argument("--target", type=int, default=4, help="range block size")
+    p.add_argument("--rms", type=float, default=0.0,
+                   help="early-accept MSE threshold (0 = off)")
     p.add_argument("--smax", type=float, default=-1.0, help="|s| clamp (<=0 off)")
     p.add_argument("--debug_decode", action="store_true", help="dump decode iterates")
     p.add_argument("--transforms", type=int, default=4, choices=range(1, 9),
@@ -56,7 +57,6 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--noclassifier", action="store_true",
                    help="search every (range, domain) pair, with no class prune")
     # not ported yet: parsed so that they are refused by name
-    p.add_argument("--rms", type=float, default=0.0, help=argparse.SUPPRESS)
     p.add_argument("--color", action="store_true", help=argparse.SUPPRESS)
     p.add_argument("--log", action="store_true", help=argparse.SUPPRESS)
     p.add_argument("--profile", default=None, help=argparse.SUPPRESS)
@@ -76,7 +76,8 @@ def _unported_flag(args) -> str | None:
 def _config_from_args(args):
     from .params import REFERENCE_COMPAT, EncoderConfig
 
-    kw = dict(source_size=args.source, target_size=args.target, s_max=args.smax,
+    kw = dict(source_size=args.source, target_size=args.target,
+              rms_threshold=args.rms, s_max=args.smax,
               use_classifier=not args.noclassifier)
     if args.compat:
         return REFERENCE_COMPAT(**kw)
@@ -197,6 +198,10 @@ def main(argv=None) -> int:
         return 2
     if not args.input:
         print("no input image", file=sys.stderr)
+        return 2
+    if torch.device(args.device).type == "cuda" and not torch.cuda.is_available():
+        print("error: no CUDA device; pass --device cpu to run on the CPU",
+              file=sys.stderr)
         return 2
     dcfg = _decoder_config(args)
     try:

@@ -1,6 +1,6 @@
 // Class-blocked all-pairs search with int8 operands: the 'ls' key at K = 16,
 // 64 and 256 (4x4, 8x8 and 16x16 range blocks), the 'raw' and 'general' keys
-// at K = 16 and 64.
+// at K = 16 and 64; each with and without the early-accept frontier.
 //
 // Replaces the TPU kernel `_pairs_kernel` (fractencode_tpu/ops/matcher_pallas.py,
 // reached through `fused_search_pairs`): its `ls_fast` int8 branch ('ls' at
@@ -15,7 +15,18 @@
 // kernel computes the key in f32 (ROADMAP.md, parity contract).  The int8
 // operands serve K = 256 too: 4B <= 1020 keeps ch = 4B >> 3 <= 127, and
 // |dot| <= 256 * 128 * 1020 < 2^31.  A row whose class has no columns gets
-// q = -3e38, idx = 0, the TPU kernel's initial value.
+// q = -3e38, idx = 0, the TPU kernel's initial value.  Without the frontier
+// every row of a tile is searched, the layout's padding rows too, as the TPU
+// kernel does; with it only the rows below row_end[c] (class c's real rows),
+// so the padding rows keep that initial value and never hold a block's scan
+// open.
+//
+// The `_thr` entry points add the TPU kernel's early-accept frontier
+// (`_apply_frontier` at matcher_pallas.py:581-585 and the per-row freeze
+// after it; search_common.cuh): groups of t_n columns counted from the class
+// segment's start, which is also where the TPU kernel's groups start when
+// block_m % t_n == 0, and which keeps a domain's columns together in the
+// per-column layout (block_m % t_n != 0) that the TPU kernel refuses.
 //
 // What bounds it on the card: arithmetic issue, not memory.  Each (row,
 // column) pair costs K/2 dp4a plus about a dozen integer and float operations
@@ -33,7 +44,7 @@ namespace {
 
 using namespace fe;
 
-template <int K, int M>
+template <int K, int M, bool Frontier>
 __global__ void __launch_bounds__(kRows)
 search_classed_kernel(const int4* __restrict__ ai,      // [r_pad] rows of K int8
                       const int4* __restrict__ ch,      // [m_pad] rows of K int8
@@ -43,66 +54,77 @@ search_classed_kernel(const int4* __restrict__ ai,      // [r_pad] rows of K int
                       const int* __restrict__ tile_class,      // [nrt]
                       const int* __restrict__ col_tile_start,  // [nc]
                       const int* __restrict__ col_end,         // [nc]
+                      const int* __restrict__ row_end,         // [nc]
                       int block_r, int block_m, KeyParams p,
                       float* __restrict__ q_out,        // [r_pad]
                       int* __restrict__ idx_out) {      // [r_pad]
   __shared__ Chunk<K, M, false> s;
   const int tile = blockIdx.x;
   const int local = blockIdx.y * kRows + threadIdx.x;
-  const bool active = local < block_r;
+  const bool in_tile = local < block_r;
   const long long row = (long long)tile * block_r + local;
   const int cls = tile_class[tile];
-  const Row<K> r = load_row<K, M>(ai, row, active, p);
+  const bool active = in_tile && (!Frontier || row < row_end[cls]);
+  const Row<K> r = load_row<K, M, Frontier>(ai, row, active, p);
   float best_q = kInitQ;
   int best_idx = 0;
-  scan_columns<K, M, false>(s, r, active, 0, ch, cl, sb, aux, nullptr,
+  scan_columns<K, M, false, Frontier>(s, r, active, 0, ch, cl, sb, aux, nullptr,
                             col_tile_start[cls] * block_m, col_end[cls], p, best_q,
                             best_idx);
-  if (active) {
+  if (in_tile) {
     q_out[row] = best_q;
     idx_out[row] = best_idx;
   }
 }
 
-template <int K, int M>
+template <int K, int M, bool Frontier>
 int launch(const void* ai, const void* ch, const void* cl, const void* sb,
            const void* aux, const void* tile_class, const void* col_tile_start,
-           const void* col_end, int nrt, int block_r, int block_m, const KeyParams& p,
+           const void* col_end, const void* row_end, int nrt, int block_r, int block_m, const KeyParams& p,
            void* q_out, void* idx_out, void* stream) {
   if (nrt <= 0 || block_r <= 0) return 0;
   const dim3 grid(nrt, (block_r + kRows - 1) / kRows);
-  search_classed_kernel<K, M><<<grid, kRows, 0, static_cast<cudaStream_t>(stream)>>>(
+  search_classed_kernel<K, M, Frontier><<<grid, kRows, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int4*>(ai), static_cast<const int4*>(ch),
       static_cast<const int4*>(cl), static_cast<const float*>(sb),
       static_cast<const float*>(aux), static_cast<const int*>(tile_class),
       static_cast<const int*>(col_tile_start), static_cast<const int*>(col_end),
-      block_r, block_m, p, static_cast<float*>(q_out), static_cast<int*>(idx_out));
+      static_cast<const int*>(row_end), block_r, block_m, p, static_cast<float*>(q_out),
+      static_cast<int*>(idx_out));
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-// One entry point per (key, K), all with one signature.  sa, sa2 [r_pad],
-// s_max, inv_n, inv_norm and so_reference are read by the 'general' key only.
+// Two entry points per (key, K), `fe_search_classed_<key><K>` and its `_thr`
+// form with the frontier, all with one signature.  sa, sa2 [r_pad] are read
+// by the 'general' key and by the frontier; s_max, inv_n, inv_norm and
+// so_reference by 'general'; row_end, threshold, dist_scale and t_n by the
+// frontier.
 // Each launches on `stream` and returns cudaGetLastError() (0 on success).
-#define FE_SEARCH_CLASSED_ENTRY(NAME, MODE, K)                                          \
-  extern "C" int fe_search_classed_##NAME##K(                                           \
+#define FE_SEARCH_CLASSED_ENTRY(NAME, MODE, K, SUFFIX, FRONTIER)                        \
+  extern "C" int fe_search_classed_##NAME##K##SUFFIX(                                   \
       const void* ai, const void* ch, const void* cl, const void* sb, const void* aux,  \
       const void* tile_class, const void* col_tile_start, const void* col_end,          \
-      int nrt, int block_r, int block_m, const void* sa, const void* sa2, float s_max,  \
-      float inv_n, float inv_norm, int so_reference, void* q_out, void* idx_out,        \
+      const void* row_end, int nrt, int block_r, int block_m, const void* sa,           \
+      const void* sa2, float s_max, float inv_n, float inv_norm, int so_reference,      \
+      float threshold, float dist_scale, int t_n, void* q_out, void* idx_out,           \
       void* stream) {                                                                   \
     const fe::KeyParams p{static_cast<const float*>(sa),                                \
                           static_cast<const float*>(sa2), s_max, inv_n, inv_norm,       \
-                          so_reference};                                                \
-    return launch<K, MODE>(ai, ch, cl, sb, aux, tile_class, col_tile_start, col_end,    \
-                           nrt, block_r, block_m, p, q_out, idx_out, stream);           \
+                          so_reference, threshold, dist_scale, t_n};                    \
+    return launch<K, MODE, FRONTIER>(ai, ch, cl, sb, aux, tile_class, col_tile_start,   \
+                                     col_end, row_end, nrt, block_r, block_m, p, q_out, \
+                                     idx_out, stream);                                  \
   }
+#define FE_SEARCH_CLASSED_ENTRIES(NAME, MODE, K)   \
+  FE_SEARCH_CLASSED_ENTRY(NAME, MODE, K, , false) \
+  FE_SEARCH_CLASSED_ENTRY(NAME, MODE, K, _thr, true)
 
-FE_SEARCH_CLASSED_ENTRY(ls, fe::kLs, 16)
-FE_SEARCH_CLASSED_ENTRY(ls, fe::kLs, 64)
-FE_SEARCH_CLASSED_ENTRY(ls, fe::kLs, 256)
-FE_SEARCH_CLASSED_ENTRY(raw, fe::kRaw, 16)
-FE_SEARCH_CLASSED_ENTRY(raw, fe::kRaw, 64)
-FE_SEARCH_CLASSED_ENTRY(general, fe::kGeneral, 16)
-FE_SEARCH_CLASSED_ENTRY(general, fe::kGeneral, 64)
+FE_SEARCH_CLASSED_ENTRIES(ls, fe::kLs, 16)
+FE_SEARCH_CLASSED_ENTRIES(ls, fe::kLs, 64)
+FE_SEARCH_CLASSED_ENTRIES(ls, fe::kLs, 256)
+FE_SEARCH_CLASSED_ENTRIES(raw, fe::kRaw, 16)
+FE_SEARCH_CLASSED_ENTRIES(raw, fe::kRaw, 64)
+FE_SEARCH_CLASSED_ENTRIES(general, fe::kGeneral, 16)
+FE_SEARCH_CLASSED_ENTRIES(general, fe::kGeneral, 64)

@@ -26,6 +26,20 @@
 //           q = 2 ab - SumB2, aux = SumB2;
 //   general q = -(max(e, 0) * inv_norm), e the residual under the mode's
 //           (s, o) with the |s| clamp, aux = SumB2 (matcher_pallas._rank_tile).
+//
+// The early-accept frontier (the `Frontier` instantiations; the TPU kernels'
+// `_apply_frontier`, matcher_pallas.py:103-129): columns come in groups of
+// t_n, one domain's isometries, counted from the start of the scan.  A column
+// hits when its distance (rank_to_dist's expression: 'ls'
+// max(var_a - q, 0) * f32(inv_norm / n), var_a exact; 'raw'
+// (SumA2 - q) * f32(inv_norm); 'general' -q) is <= f32(threshold).  In the
+// first group with a hit, the winner is the first-occurrence argmax over the
+// columns before the group and those from its LAST hit column on; nothing
+// after the group is scanned.  The scan keeps that without a second pass: a
+// group-local best restarts at every hit column (so it ranges over the
+// columns from the group's last hit on, or the whole group without one) and
+// merges into the running best at the group's end with a strict '>' (the
+// earlier groups hold the lower columns).
 #pragma once
 
 #include <cuda_runtime.h>
@@ -43,14 +57,17 @@ enum Mode : int { kLs = 0, kRaw = 1, kGeneral = 2 };
 template <int K>
 constexpr int kChunkCols = K == 16 ? 512 : (K == 64 ? 256 : 64);
 
-// Per-call inputs of the 'general' key (unused by the other keys).
+// Per-call inputs of the 'general' key and of the frontier (unused otherwise).
 struct KeyParams {
-  const float* sa;   // [rows] SumA
-  const float* sa2;  // [rows] SumA2
+  const float* sa;   // [rows] SumA ('general', frontier)
+  const float* sa2;  // [rows] SumA2 ('general', frontier)
   float s_max;       // |s| clamp; <= 0 is off
   float inv_n;       // f32(1 / n)
   float inv_norm;    // f32(inv_norm)
   int so_reference;  // 1: so_mode 'reference' ((SumA - 1) SumA denominator)
+  float threshold;   // frontier: f32(rms_threshold)
+  float dist_scale;  // frontier: 'ls' f32(inv_norm / n), 'raw' f32(inv_norm)
+  int t_n;           // frontier: columns per group (isometries per domain)
 };
 
 // One shared-memory chunk of columns; arrays a key does not read shrink to 1.
@@ -71,14 +88,62 @@ template <int K>
 struct Row {
   int4 a[K / 16];
   int base;                   // 128 n - SumA ('ls', 'general')
-  float sa, sa2, var_a, den;  // 'general' only
+  float sa, sa2, var_a, den;  // 'general' (sa, sa2 also for the frontier)
+  float hit_a;                // frontier: 'ls' f32(exact var_a), 'raw' SumA2
+  float hit_q;                // frontier: the least key that hits (hit_key)
 };
 
-// Loads one range row.  SumA is the row's byte sum (dp4a against 0x01010101)
-// plus 128 n for 'ls'; 'general' reads SumA and SumA2 from its inputs, as
-// the plain version does (they differ on the layout's padding rows, whose
-// ai is 0 but whose sums are 0).
+// The frontier's hit test: rank_to_dist's distance of key q, <= threshold.
 template <int K, int M>
+__device__ __forceinline__ bool hits(float q, const Row<K>& r, const KeyParams& p) {
+  float dist;
+  if constexpr (M == kLs) {
+    dist = __fmul_rn(fmaxf(__fsub_rn(r.hit_a, q), 0.0f), p.dist_scale);
+  } else if constexpr (M == kRaw) {
+    dist = __fmul_rn(__fsub_rn(r.hit_a, q), p.dist_scale);
+  } else {
+    dist = -q;
+  }
+  return dist <= p.threshold;
+}
+
+// The least key that hits.  rank_to_dist's distance is a chain of correctly
+// rounded operations, each monotone in q, so it never increases with q: the
+// hit test is q >= hit_key, one compare per pair.  'general' hits where
+// -q <= t, i.e. q >= -t (negation is exact); the other keys find the key by
+// bisection over the f32 values in order (their bit patterns mapped to
+// ordered integers; +0 and -0 give the same distance).  At q = FLT_MAX the
+// distance is <= 0 < threshold, so the search always ends on a hit.
+template <int K, int M>
+__device__ __forceinline__ float hit_key(const Row<K>& r, const KeyParams& p) {
+  if constexpr (M == kGeneral) {
+    return -p.threshold;
+  } else {
+    auto ordered = [](float x) {
+      const unsigned u = __float_as_uint(x);
+      return (u & 0x80000000u) ? ~u : (u | 0x80000000u);
+    };
+    auto value = [](unsigned o) {
+      return __uint_as_float((o & 0x80000000u) ? (o & 0x7fffffffu) : ~o);
+    };
+    unsigned lo = ordered(-3.4028234663852886e38f), hi = ordered(3.4028234663852886e38f);
+    while (lo < hi) {
+      const unsigned mid = lo + (hi - lo) / 2;
+      if (hits<K, M>(value(mid), r, p)) {
+        hi = mid;
+      } else {
+        lo = mid + 1;
+      }
+    }
+    return value(lo);
+  }
+}
+
+// Loads one range row.  SumA is the row's byte sum (dp4a against 0x01010101)
+// plus 128 n for 'ls'; 'general' and the frontier read SumA and SumA2 from
+// their inputs, as the plain version does (they differ on the layout's
+// padding rows, whose ai is 0 but whose sums are 0).
+template <int K, int M, bool Frontier>
 __device__ __forceinline__ Row<K> load_row(const int4* __restrict__ ai, long long row,
                                            bool active, const KeyParams& p) {
   constexpr int kW = K / 16;
@@ -94,10 +159,22 @@ __device__ __forceinline__ Row<K> load_row(const int4* __restrict__ ai, long lon
     rowsum = __dp4a(r.a[w].w, 0x01010101, rowsum);
   }
   r.base = 128 * K - (rowsum + 128 * K);
-  r.sa = r.sa2 = r.var_a = r.den = 0.0f;
-  if constexpr (M == kGeneral) {
+  r.sa = r.sa2 = r.var_a = r.den = r.hit_a = 0.0f;
+  if constexpr (M == kGeneral || Frontier) {
     r.sa = active ? p.sa[row] : 0.0f;
     r.sa2 = active ? p.sa2[row] : 0.0f;
+  }
+  if constexpr (Frontier) {
+    if constexpr (M == kLs) {  // var_a = n*SumA2 - SumA^2, exact in int64, one rounding
+      const long long sa = static_cast<long long>(r.sa);
+      r.hit_a = __ll2float_rn(K * static_cast<long long>(r.sa2) - sa * sa);
+    } else if constexpr (M == kRaw) {
+      r.hit_a = r.sa2;
+    }
+  }
+  r.hit_q = 0.0f;
+  if constexpr (Frontier) r.hit_q = hit_key<K, M>(r, p);
+  if constexpr (M == kGeneral) {
     r.base = 128 * K - static_cast<int>(r.sa);
     // var_a = n*sa2 - sa*sa;  den = n*sa2 - (sa - 1.0)*sa
     r.var_a = __fsub_rn(__fmul_rn(n, r.sa2), __fmul_rn(r.sa, r.sa));
@@ -166,20 +243,33 @@ __device__ __forceinline__ float rank_key(int dot, int j, const Chunk<K, M, Mask
 // row `r`, updating (best_q, best_idx) with a strict '>'.  With Masked, only
 // columns whose class equals `row_cls` compete: the TPU kernel gives the
 // others q = -3e38, which can never pass the strict '>' against a best that
-// starts there, so skipping them is the same.
-template <int K, int M, bool Masked>
+// starts there, so skipping them is the same.  With Frontier, the groups of
+// p.t_n columns start at `start` and every chunk holds whole groups; a row
+// stops after its first group with a hit, and the block stops loading chunks
+// once all its rows have (inactive rows, past the block's end or, in K1, the
+// class layout's padding rows, count as stopped).
+template <int K, int M, bool Masked, bool Frontier>
 __device__ __forceinline__ void scan_columns(
     Chunk<K, M, Masked>& s, const Row<K>& r, bool active, int row_cls,
     const int4* __restrict__ ch, const int4* __restrict__ cl,
     const float* __restrict__ sb, const float* __restrict__ aux,
     const int* __restrict__ ccls, int start, int end, const KeyParams& p,
     float& best_q, int& best_idx) {
+  static_assert(!(Masked && Frontier), "the frontier has no class-masked scan");
   constexpr int kW = K / 16;
   constexpr int kN = kChunkCols<K>;
   constexpr float n = static_cast<float>(K);
-  for (int c0 = start; c0 < end; c0 += kN) {
-    const int n_cols = min(kN, end - c0);
-    __syncthreads();  // the previous chunk is no longer being read
+  const int step = Frontier ? kN - kN % p.t_n : kN;
+  bool done = !active;
+  for (int c0 = start; c0 < end; c0 += step) {
+    const int n_cols = min(step, end - c0);
+    // the previous chunk is no longer being read; with the frontier the
+    // same block-wide barrier tells whether any row still scans
+    if constexpr (Frontier) {
+      if (!__syncthreads_or(!done)) break;
+    } else {
+      __syncthreads();
+    }
     for (int j = threadIdx.x; j < n_cols * kW; j += kRows) {
       s.ch[j] = ch[(long long)c0 * kW + j];
       s.cl[j] = cl[(long long)c0 * kW + j];
@@ -199,7 +289,12 @@ __device__ __forceinline__ void scan_columns(
       if constexpr (Masked) s.cls[j] = ccls[c0 + j];
     }
     __syncthreads();
-    if (!active) continue;
+    if (done) continue;
+    // Frontier: the group-local best, whether the group hit, columns left
+    float group_q = kInitQ;
+    int group_idx = 0;
+    bool group_hit = false;
+    int left = p.t_n;
     // Four columns in flight per thread: the scan is one thread's serial
     // chain, so where few warps share an SM (the quadtree's levels) it is
     // latency-bound.  On an H100 80GB HBM3 (700 W) this took K1 at K = 256 on the 2048^2 16 px
@@ -230,7 +325,27 @@ __device__ __forceinline__ void scan_columns(
       }
       const int dot = 8 * (dh[0] + dh[1]) + (dl[0] + dl[1]);
       const float q = rank_key<K, M, Masked>(dot, j, s, r, p);
-      if (q > best_q) {  // strict: the first occurrence of the max wins
+      if constexpr (Frontier) {
+        // predicated, with no exit from the unrolled loop and a per-column
+        // chain as short as the plain scan's, so that nvcc still overlaps
+        // four columns; a row that is done idles to the chunk's end
+        const bool hit = q >= r.hit_q;
+        if (hit || q > group_q) {  // a hit restarts the group-local best
+          group_q = q;
+          group_idx = c0 + j;
+        }
+        group_hit |= hit;
+        if (--left == 0) {  // the group ends here
+          if (!done && group_q > best_q) {
+            best_q = group_q;
+            best_idx = group_idx;
+          }
+          done |= group_hit;
+          group_q = kInitQ;
+          group_hit = false;
+          left = p.t_n;
+        }
+      } else if (q > best_q) {  // strict: the first occurrence of the max wins
         best_q = q;
         best_idx = c0 + j;
       }

@@ -21,7 +21,8 @@ from ..params import EncoderConfig
 from .codebook import build_codebook, extract_ranges
 from .matcher import search_classed, search_dense
 
-__all__ = ["EncodeResult", "encode_plane", "encode_stats"]
+__all__ = ["EncodeResult", "encode_plane", "encode_stats", "default_device",
+           "plane_on_device"]
 
 
 @dataclasses.dataclass
@@ -76,15 +77,37 @@ def _check_config(cfg: EncoderConfig) -> None:
             "vq_classes > 0 is not ported yet (ROADMAP.md queue 1, VQ pruning)")
 
 
+def default_device(device=None):
+    """``device``, or the card when it is None: the CPU runs only where the
+    caller asks for it.  Raises when no card is there to default to."""
+    if device is not None:
+        return device
+    if not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device: pass device='cpu' to run on the CPU")
+    return "cuda"
+
+
+def plane_on_device(plane, device=None) -> torch.Tensor:
+    """The [H, W] u8 plane (numpy array or tensor) as a tensor on ``device``.
+    By default a tensor stays where it is and a numpy array goes to the
+    card (``default_device``): the CPU runs only where the caller asks for
+    it, with a CPU tensor or ``device='cpu'``."""
+    if device is None and isinstance(plane, torch.Tensor):
+        device = plane.device
+    device = default_device(device)
+    if not isinstance(plane, torch.Tensor):
+        plane = torch.from_numpy(np.ascontiguousarray(plane, dtype=np.uint8))
+    return plane.to(device=device, dtype=torch.uint8)
+
+
 def encode_plane(plane, cfg: EncoderConfig | None = None, *,
                  device: torch.device | str | None = None) -> EncodeResult:
     """Encode one [H, W] u8 plane (numpy array or tensor) on ``device``
-    (default: the tensor's device, or the CPU for a numpy array)."""
+    (default: the tensor's device, or the card for a numpy array; see
+    ``plane_on_device``)."""
     cfg = cfg or EncoderConfig()
     _check_config(cfg)
-    if not isinstance(plane, torch.Tensor):
-        plane = torch.from_numpy(np.ascontiguousarray(plane, dtype=np.uint8))
-    plane = plane.to(device=device or plane.device, dtype=torch.uint8)
+    plane = plane_on_device(plane, device)
     h, w = plane.shape
     if h % cfg.target_size or w % cfg.target_size:
         raise ValueError("image not aligned to range grid")  # partition2.hpp:119

@@ -18,6 +18,12 @@ brightness class, in three stages, as the JAX package's
 the search without the classifier: the int8 operands in search order, the
 dense search (K3) and the same winner solve.
 
+``search`` is the dense oracle (the JAX package's ``search``): every pair's
+distance, key and (s, o) as plain tensors, the winner picked by
+``select_best``, which applies the early-accept frontier in the reference's
+own terms (first hit domain, first hit isometry).  It is a second,
+independent form of the frontier that the kernels' paths do not use.
+
 Search-order columns are ``m = d*T + (T-1-t)`` and ties go to the first
 maximum, which is the reference's tie rule (domain ascending, later
 transform wins, ``transformmatcher.h:57,67``).
@@ -29,17 +35,17 @@ import dataclasses
 import torch
 
 from ..ops.matcher_kernels import (DEFAULT_BM, DEFAULT_BR, INT8_MAX_K,
-                                   _require_exact_k, _require_exact_sums,
-                                   inv_var_b, key_sum_sq, rank_mode,
-                                   rank_to_dist, search_classed_cuda,
-                                   search_classed_torch, search_dense_cuda,
-                                   search_dense_torch)
+                                   _rank_tile, _require_exact_k,
+                                   _require_exact_sums, _require_key, inv_var_b,
+                                   key_sum_sq, rank_mode, rank_to_dist,
+                                   search_classed_cuda, search_classed_torch,
+                                   search_dense_cuda, search_dense_torch)
 from ..params import EncoderConfig
 from .codebook import Codebook
 
-__all__ = ["SearchResult", "solve_so", "classed_prep", "classed_kernel",
-           "classed_post", "mask_ranges_result", "search_classed", "dense_prep",
-           "dense_kernel", "search_dense"]
+__all__ = ["SearchResult", "solve_so", "inv_norm", "select_best", "search", "classed_prep",
+           "classed_kernel", "classed_post", "mask_ranges_result", "search_classed",
+           "dense_prep", "dense_kernel", "search_dense"]
 
 _BIG = 3.0e38
 _NUM_CLASS_BINS = 7  # classifier bins -1..5 shifted to 0..6
@@ -102,6 +108,12 @@ def solve_so(sum_a, sum_a2, sum_b, sum_b2, sum_ab, n: float, so_mode: str,
     else:
         o = (sum_a.to(torch.float64) - s64 * sum_b.to(torch.float64))
     return s, o.to(torch.float32) * (1.0 / n)
+
+
+def inv_norm(cfg: EncoderConfig, k: int, domain_area: int) -> float:
+    """The distance's normalisation: 1/(domain area) for the 'raw'
+    criterion, 1/K otherwise."""
+    return 1.0 / domain_area if cfg.criterion == "raw" else 1.0 / k
 
 
 def _round_up(x: int, m: int) -> int:
@@ -186,8 +198,9 @@ def classed_prep(ranges, sum_a, sum_a2, cb: Codebook, range_classes,
     ranges in a reserved row bin whose tiles visit the empty column bin.
 
     Returns a dict with ai_s [r_pad, K] i8; ch_s, cl_s [m_pad, K] i8; sb_s,
-    aux_s [m_pad] f32; sa_s, sa2_s [r_pad] f32 (the 'general' key only, else
-    None); tile_class [nrt] i32; col_tile_start, col_tile_count, col_end
+    aux_s [m_pad] f32; sa_s, sa2_s [r_pad] f32 (for the 'general' key and the
+    frontier, else None); tile_class [nrt] i32; col_tile_start, col_tile_count, col_end
+    and row_end (the end of each class's real rows, 0 past the classes)
     [n_col_bins+1] i32; rpos [R]; inv_dom [m_pad/T] or inv_col [m_pad]; and
     b4_cols [m, K] i16 (4x the codebook values in search order).
     """
@@ -210,7 +223,7 @@ def classed_prep(ranges, sum_a, sum_a2, cb: Codebook, range_classes,
     if r_masked:
         rcls01 = torch.where(range_mask, rcls01, _NUM_CLASS_BINS)
 
-    rpos, _, _, r_tile_cum = _class_layout(rcls01, block_r, n_row_bins)
+    rpos, r_seg_start, r_counts, r_tile_cum = _class_layout(rcls01, block_r, n_row_bins)
 
     def inverse(pos, size, fill):
         inv = torch.full((size,), fill, dtype=torch.int64, device=dev)
@@ -246,7 +259,7 @@ def classed_prep(ranges, sum_a, sum_a2, cb: Codebook, range_classes,
     # sorted per-column sums (padding rows are zero, so their sums are 0)
     mode = rank_mode(cfg.criterion, cfg.so_mode, cfg.s_max)
     sb_s, aux_s = _column_sums(8 * ch_s.to(torch.int32) + cl_s.to(torch.int32), mode)
-    if mode == "general":
+    if mode == "general" or cfg.rms_threshold > 0.0:
         zero = sum_a.new_zeros(1)
         sa_s = torch.cat([sum_a, zero])[inv_r]
         sa2_s = torch.cat([sum_a2, zero])[inv_r]
@@ -262,31 +275,46 @@ def classed_prep(ranges, sum_a, sum_a2, cb: Codebook, range_classes,
     col_tile_start = (c_seg_start // block_m).to(torch.int32)
     col_tile_count = (-(-c_counts // block_m)).to(torch.int32)
     col_end = (c_seg_start + c_counts).to(torch.int32)
+    row_end = torch.zeros_like(col_end)
+    row_end[:_NUM_CLASS_BINS] = (r_seg_start + r_counts)[:_NUM_CLASS_BINS]
     return dict(ai_s=ai_s, ch_s=ch_s, cl_s=cl_s, sb_s=sb_s, aux_s=aux_s,
                 sa_s=sa_s, sa2_s=sa2_s, b4_cols=b4_cols,
                 tile_class=tile_class, col_tile_start=col_tile_start,
-                col_tile_count=col_tile_count, col_end=col_end,
+                col_tile_count=col_tile_count, col_end=col_end, row_end=row_end,
                 rpos=rpos, inv_col=inv_col, inv_dom=inv_dom,
                 block_r=block_r, block_m=block_m)
 
 
-def classed_kernel(prep: dict, k: int, domain_area: int, cfg: EncoderConfig):
+def _plain_only(cfg: EncoderConfig, scanned) -> dict:
+    """The plain version's ``scanned`` keyword, which only backend 'torch'
+    takes (it counts the pairs each row needs, for a kernel's bound)."""
+    if scanned is None:
+        return {}
+    if cfg.backend != "torch":
+        raise ValueError("scanned is counted by the plain version: backend='torch'")
+    return dict(scanned=scanned)
+
+
+def classed_kernel(prep: dict, k: int, domain_area: int, cfg: EncoderConfig,
+                   scanned=None):
     """Run the search on prepped tensors; (q_s, idx_s) in the sorted layout.
 
     ``cfg.backend`` 'torch' forces the plain version; otherwise the CUDA
     wrapper routes on the device (CPU tensors run the plain version), and
-    'cuda' requires CUDA tensors.
+    'cuda' requires CUDA tensors.  ``scanned`` (backend 'torch' only): see
+    ``ops.matcher_kernels._plain_search``.
     """
     if cfg.backend == "cuda" and prep["ai_s"].device.type != "cuda":
         raise ValueError("backend='cuda' needs tensors on a CUDA device")
     search = search_classed_torch if cfg.backend == "torch" else search_classed_cuda
     return search(
         prep["ai_s"], prep["ch_s"], prep["cl_s"], prep["sb_s"], prep["aux_s"],
-        prep["tile_class"], prep["col_tile_start"], prep["col_end"],
+        prep["tile_class"], prep["col_tile_start"], prep["col_end"], prep["row_end"],
         block_r=prep["block_r"], block_m=prep["block_m"],
         criterion=cfg.criterion, so_mode=cfg.so_mode, s_max=cfg.s_max,
-        inv_norm=1.0 / domain_area if cfg.criterion == "raw" else 1.0 / k,
-        sa_s=prep["sa_s"], sa2_s=prep["sa2_s"], threshold=cfg.rms_threshold)
+        inv_norm=inv_norm(cfg, k, domain_area), sa_s=prep["sa_s"],
+        sa2_s=prep["sa2_s"], threshold=cfg.rms_threshold, t_n=cfg.num_transforms,
+        **_plain_only(cfg, scanned))
 
 
 def classed_post(q_s, idx_s, rpos, inv_col, ranges, sum_a, sum_a2, cb: Codebook,
@@ -304,10 +332,9 @@ def classed_post(q_s, idx_s, rpos, inv_col, ranges, sum_a, sum_a2, cb: Codebook,
     rpos = rpos.to(torch.int64)
     q_r = q_s[rpos]
     win_sorted = idx_s[rpos].to(torch.int64)
-    inv_norm = 1.0 / (cb.grid.block_size ** 2) if cfg.criterion == "raw" else 1.0 / k
     dist = rank_to_dist(q_r, sum_a2, sum_a, criterion=cfg.criterion,
-                        so_mode=cfg.so_mode, s_max=cfg.s_max, inv_norm=inv_norm,
-                        n=float(k))
+                        so_mode=cfg.so_mode, s_max=cfg.s_max,
+                        inv_norm=inv_norm(cfg, k, cb.grid.block_size ** 2), n=float(k))
     valid = dist < _BIG
     ws = win_sorted.clamp(0, m_pad - 1)
     if inv_dom is not None:
@@ -379,8 +406,8 @@ def search_classed(ranges, sum_a, sum_a2, cb: Codebook, range_classes,
 def dense_prep(ranges, sum_a, sum_a2, cb: Codebook, range_classes,
                domain_classes, cfg: EncoderConfig) -> dict:
     """The dense search's operands, columns in search order: ai [R, K] i8;
-    ch, cl [M, K] i8; sb, aux [M] f32; sa, sa2 [R] f32 (the 'general' key
-    only, else None); rcls [R], ccls [M] i32, the class mask, with
+    ch, cl [M, K] i8; sb, aux [M] f32; sa, sa2 [R] f32 (for the 'general' key
+    and the frontier, else None); rcls [R], ccls [M] i32, the class mask, with
     ``cfg.use_classifier`` and both class arrays given (else None); and
     b4_cols [M, K] i16 (4x the codebook values)."""
     _require_exact_k(ranges.shape[1])
@@ -393,26 +420,27 @@ def dense_prep(ranges, sum_a, sum_a2, cb: Codebook, range_classes,
         ccls = torch.repeat_interleave(domain_classes.to(torch.int32), t)
     else:
         rcls = ccls = None
-    general = mode == "general"
+    sums = mode == "general" or cfg.rms_threshold > 0.0
     return dict(ai=ai, ch=ch, cl=cl, sb=sb, aux=aux, rcls=rcls, ccls=ccls,
-                sa=sum_a if general else None, sa2=sum_a2 if general else None,
+                sa=sum_a if sums else None, sa2=sum_a2 if sums else None,
                 b4_cols=b4_cols)
 
 
-def dense_kernel(prep: dict, k: int, domain_area: int, cfg: EncoderConfig):
+def dense_kernel(prep: dict, k: int, domain_area: int, cfg: EncoderConfig,
+                 scanned=None):
     """Run the dense search on ``dense_prep``'s tensors: (q, idx) per range,
-    idx a search-order column.  ``cfg.backend`` routes as in
-    ``classed_kernel``."""
+    idx a search-order column.  ``cfg.backend`` routes, and ``scanned`` is
+    taken, as in ``classed_kernel``."""
     if cfg.backend == "cuda" and prep["ai"].device.type != "cuda":
         raise ValueError("backend='cuda' needs tensors on a CUDA device")
     search = search_dense_torch if cfg.backend == "torch" else search_dense_cuda
     return search(
         prep["ai"], prep["ch"], prep["cl"], prep["sb"], prep["aux"],
         m_valid=prep["ch"].shape[0], criterion=cfg.criterion, so_mode=cfg.so_mode,
-        s_max=cfg.s_max,
-        inv_norm=1.0 / domain_area if cfg.criterion == "raw" else 1.0 / k,
+        s_max=cfg.s_max, inv_norm=inv_norm(cfg, k, domain_area),
         sa=prep["sa"], sa2=prep["sa2"], rcls=prep["rcls"], ccls=prep["ccls"],
-        threshold=cfg.rms_threshold)
+        threshold=cfg.rms_threshold, t_n=cfg.num_transforms,
+        **_plain_only(cfg, scanned))
 
 
 def search_dense(ranges, sum_a, sum_a2, cb: Codebook, range_classes,
@@ -430,7 +458,102 @@ def search_dense(ranges, sum_a, sum_a2, cb: Codebook, range_classes,
     q, idx = dense_kernel(prep, k, area, cfg)
     dist = rank_to_dist(q, sum_a2, sum_a, criterion=cfg.criterion,
                         so_mode=cfg.so_mode, s_max=cfg.s_max,
-                        inv_norm=1.0 / area if cfg.criterion == "raw" else 1.0 / k,
-                        n=float(k))
+                        inv_norm=inv_norm(cfg, k, area), n=float(k))
     return _winners(ranges, sum_a, sum_a2, prep["b4_cols"], idx.to(torch.int64),
                     cb.values.shape[1], dist, q, cfg)
+
+
+def _pair_scores(ranges, sum_a, sum_a2, cb: Codebook, cfg: EncoderConfig):
+    """(dist, key, s, o) of a chunk of ranges against the whole codebook,
+    each [RC, D, T] (the JAX package's ``_pair_scores``).  ``key`` is the
+    minimized rank key, the negated key of the kernels; ``dist`` its
+    distance.  SumAB comes exact from a float64 matmul (integers times
+    multiples of 0.25), in f32 for K <= INT8_MAX_K and float64 above (the
+    port's rule for K = 256), as do the codebook's SumB2 (``key_sum_sq``)."""
+    k = ranges.shape[-1]
+    n = float(k)
+    d, t, _ = cb.values.shape
+    _require_exact_k(n)
+    mode = rank_mode(cfg.criterion, cfg.so_mode, cfg.s_max)
+    _require_key(mode, k)
+    exact = torch.float32 if k <= INT8_MAX_K else torch.float64
+    flat_cb = cb.values.reshape(d * t, k).to(torch.float64)
+    sum_ab = (ranges.to(torch.float64) @ flat_cb.T).to(exact).reshape(-1, d, t)
+    b4 = torch.round(cb.values * 4.0).to(torch.int32)
+    sb2 = key_sum_sq((b4 * b4).sum(-1, dtype=torch.int32), n)[None]
+    sa, sa2, sb = sum_a[:, None, None], sum_a2[:, None, None], cb.sum[None]
+    s, o = solve_so(sa, sa2, sb, sb2, sum_ab, n, cfg.so_mode, cfg.s_max)
+    mode_kw = dict(criterion=cfg.criterion, so_mode=cfg.so_mode, s_max=cfg.s_max,
+                   inv_norm=inv_norm(cfg, k, cb.grid.block_size ** 2), n=n)
+    aux = cb.inv_var[None] if mode == "ls" else sb2
+    q = _rank_tile(sum_ab, sa, sa2, sb, aux, **mode_kw)
+    return rank_to_dist(q, sa2, sa, **mode_kw), -q, s, o
+
+
+def select_best(dist, threshold: float, key=None):
+    """Per-range winner with the reference's tie and early-accept rules
+    (the JAX package's ``select_best``).
+
+    dist [RC, D, T]; ``key`` (same shape, optional) is the minimized rank
+    key that ranks and breaks ties, while the frontier reads ``dist``.  Let
+    d* be the first domain whose best distance is <= f32(threshold) and t*
+    its first isometry that is: the reference's scan never looks past (d*,
+    t*), so every (d, t) beyond it is masked out, and the winner is the
+    argmin of the key with ties to the lower domain, then the later
+    isometry.  Returns (win_d, win_t) i32 [RC].
+    """
+    if key is None:
+        key = dist
+    rc, d, t = dist.shape
+    dev = dist.device
+    thr = torch.tensor(threshold, dtype=torch.float32, device=dev)
+    hit = dist.amin(2) <= thr  # [RC, D]
+    has_hit = hit.any(1)
+    dstar = hit.to(torch.uint8).argmax(1)  # first hit domain (0 if none)
+    thit = dist[torch.arange(rc, device=dev), dstar] <= thr  # [RC, T]
+    tstar = thit.to(torch.uint8).argmax(1)  # first hit isometry
+    d_ids = torch.arange(d, device=dev)[None, :, None]
+    t_ids = torch.arange(t, device=dev)[None, None, :]
+    dstar, tstar = dstar[:, None, None], tstar[:, None, None]
+    beyond = (d_ids > dstar) | ((d_ids == dstar) & (t_ids > tstar))
+    masked = torch.where(has_hit[:, None, None] & beyond, _BIG, key)
+    # argmin in (domain asc, isometry desc) order: the first minimum wins
+    flat_rev = masked.flip(2).reshape(rc, d * t).argmin(1)
+    win_d = torch.div(flat_rev, t, rounding_mode="floor")
+    win_t = (t - 1) - flat_rev % t
+    return win_d.to(torch.int32), win_t.to(torch.int32)
+
+
+def search(ranges, sum_a, sum_a2, cb: Codebook, range_classes, domain_classes,
+           cfg: EncoderConfig, domain_mask=None, range_mask=None) -> SearchResult:
+    """Best (domain, isometry, s, o) per range from every pair's scores (the
+    JAX package's dense oracle ``search``), ``cfg.range_chunk`` ranges at a
+    time.  With ``cfg.use_classifier`` and both class arrays given, only
+    same-class pairs compete; ``domain_mask`` ([D] bool) rules domains out;
+    ``range_mask`` ([R] bool) is applied after the search
+    (``mask_ranges_result``)."""
+    r = ranges.shape[0]
+    use_classes = range_classes is not None and cfg.use_classifier
+    parts = []
+    for r0 in range(0, r, min(cfg.range_chunk, r)):
+        rows = slice(r0, r0 + cfg.range_chunk)
+        dist, key, s, o = _pair_scores(ranges[rows], sum_a[rows], sum_a2[rows], cb, cfg)
+        out = torch.zeros(dist.shape[:2], dtype=torch.bool, device=dist.device)
+        if use_classes:
+            out |= range_classes[rows, None] != domain_classes[None, :]
+        if domain_mask is not None:
+            out |= ~domain_mask[None, :]
+        dist = torch.where(out[:, :, None], _BIG, dist)
+        key = torch.where(out[:, :, None], _BIG, key)
+        win_d, win_t = select_best(dist, cfg.rms_threshold, key)
+        at = (torch.arange(dist.shape[0], device=dist.device), win_d.long(), win_t.long())
+        best = dist[at]
+        valid = best < _BIG
+        parts.append((win_d, win_t, best, torch.where(valid, s[at], 0.0),
+                      torch.where(valid, o[at], 0.0), valid, -key[at]))
+    win_d, win_t, best, s, o, valid, q = (torch.cat(x) for x in zip(*parts))
+    res = SearchResult(domain_idx=win_d, transform=win_t, distance=best, s=s, o=o,
+                       valid=valid, key=q)
+    if range_mask is not None:
+        res = mask_ranges_result(res, range_mask)
+    return res

@@ -21,7 +21,6 @@ from __future__ import annotations
 
 import dataclasses
 
-import numpy as np
 import torch
 
 from ..core.classify import classify_grid
@@ -29,6 +28,7 @@ from ..core.grid import uniform_grid
 from ..core.stats import block_sums_nonoverlapping, integral_image
 from ..params import DecoderConfig, EncoderConfig
 from .codebook import build_codebook, extract_ranges
+from .encoder import plane_on_device
 from .matcher import mask_ranges_result, search_classed, search_dense
 
 __all__ = ["QuadtreeConfig", "QuadtreeLevel", "QuadtreeResult",
@@ -147,13 +147,13 @@ def encode_plane_quadtree(plane, cfg: EncoderConfig | None = None,
                           device: torch.device | str | None = None
                           ) -> QuadtreeResult:
     """Adaptive-depth encode of one [H, W] u8 plane (numpy array or tensor)
-    on ``device`` (default: the tensor's, or the CPU for a numpy array):
-    coarse blocks where they fit, fine where needed."""
+    on ``device`` (default: the tensor's, or the card for a numpy array; see
+    ``encoder.plane_on_device``): coarse blocks where they fit, fine where
+    needed.  ``cfg`` (its ``rms_threshold`` among the rest) applies at every
+    level."""
     cfg = cfg or EncoderConfig()
     qcfg = qcfg or QuadtreeConfig()
-    if not isinstance(plane, torch.Tensor):
-        plane = torch.from_numpy(np.ascontiguousarray(plane, dtype=np.uint8))
-    plane = plane.to(device=device or plane.device, dtype=torch.uint8)
+    plane = plane_on_device(plane, device)
     h, w = plane.shape
     if h % qcfg.max_size or w % qcfg.max_size:
         raise ValueError("image not aligned to the coarsest range size")

@@ -24,7 +24,17 @@ Each has two versions of the same function:
     It routes on the tensors' device: CPU tensors run the plain version;
     CUDA tensors launch the kernel or raise.
 
-Neither has the early-accept frontier (``threshold > 0``) yet.
+Both take the early-accept frontier (``threshold > 0``, the TPU kernels'
+``_apply_frontier``), the reference's scan exits
+(``TransformEstimator2.hpp:40-41``, ``transformmatcher.h:55-56``).  Columns
+come in groups of ``t_n``, the isometries of one domain, counted from the
+start of the row's scan (its class segment, or column 0).  A column *hits*
+when its distance (``rank_to_dist`` of its key) is ``<= f32(threshold)``.
+In a row's first group g that holds a hit, let c* be its last hit column
+(the first hit isometry in ascending order); the row's winner is then the
+first-occurrence argmax over the columns before g and those of g from c* on,
+and the row scans nothing after g.  A row with no hit takes the plain
+argmax.  The definition does not depend on how the scan is tiled.
 
 The rank-key helpers below keep the JAX package's expression order, so that
 every key is the same f32 value (see ``rank_mode``).  One rule per K:
@@ -208,14 +218,6 @@ def rank_to_dist(q, sa2, sa, *, criterion, so_mode, s_max, inv_norm, n: float):
     return torch.where(q <= -_BIG * 0.5, _BIG, dist)
 
 
-def _require_no_frontier(threshold: float) -> None:
-    if threshold > 0.0:
-        raise NotImplementedError(
-            "rms_threshold > 0 needs the early-accept frontier of K1 and K3 "
-            "(_apply_frontier), not ported yet (ROADMAP.md queue 2, the "
-            "early-accept frontier)")
-
-
 def _require_key(mode: str, k: int) -> None:
     if k > INT8_MAX_K and mode != "ls":
         raise NotImplementedError(
@@ -223,25 +225,53 @@ def _require_key(mode: str, k: int) -> None:
             "(ROADMAP.md queue 2, the raw and general keys above K = 64)")
 
 
+def _frontier_mask(hit, t_n: int):
+    """Within one chunk of whole groups (chunk-local ids, groups of ``t_n``
+    from id 0): (the columns a row keeps, whether the row hit, the end of
+    its frontier group or the chunk's width).  The TPU kernels'
+    ``_apply_frontier`` with the prefix mask as a boolean."""
+    ids = torch.arange(hit.shape[1], dtype=torch.int64, device=hit.device)
+    first = torch.where(hit, ids, _BIG_I).amin(1, keepdim=True)
+    any_hit = first < _BIG_I
+    g_start = torch.div(first, t_n, rounding_mode="floor") * t_n
+    in_g = (ids >= g_start) & (ids < g_start + t_n)
+    c_star = torch.where(hit & in_g, ids, -1).amax(1, keepdim=True)
+    keep = ~any_hit | (ids < g_start) | (in_g & (ids >= c_star))
+    end = torch.where(any_hit, g_start + t_n, hit.shape[1]).squeeze(1)
+    return keep, any_hit.squeeze(1), end
+
+
 def _plain_search(ai, ch, cl, sb, aux, segments, *, criterion: str, so_mode: str,
                   s_max: float, inv_norm: float, sa=None, sa2=None, rcls=None,
-                  ccls=None):
+                  ccls=None, threshold: float = 0.0, t_n: int = 4, scanned=None):
     """The plain search: for each (r0, r1, c0, c1) in ``segments``, rows
     [r0, r1) of ``ai`` against columns [c0, c1), with the class mask
-    ``rcls[r] == ccls[j]`` when both are given.  Rows no segment covers, and
-    rows with no admissible column, keep (-_BIG, 0).
+    ``rcls[r] == ccls[j]`` when both are given, and the early-accept
+    frontier when ``threshold > 0`` (groups of ``t_n`` columns from c0; the
+    hit test reads ``sa`` and ``sa2`` for every key).  Rows no segment
+    covers, and rows with no admissible column, keep (-_BIG, 0).
+    ``scanned`` (int64 [rows], optional) receives each row's count of
+    admissible columns up to the end of its frontier group (or of its
+    segment): the pairs the search needs.
 
     The dot sum(ai * (8*ch + cl)) comes exactly from matmuls: one of ai
     against b4 = 8*ch + cl in float64 on the CPU (integers below 2^53); in
     float32 with TF32 off on CUDA, one against b4 for K <= INT8_MAX_K (every
     partial sum is an integer below 2^24) and one each against ch and cl
-    above (|sum| <= 256*128*127 < 2^24), combined in int32.
+    above (|sum| <= 256*128*127 < 2^24), combined in int32.  With the
+    frontier, columns go in chunks of whole groups, as in the CUDA kernels,
+    and rows that are done leave the chunks that follow.
     """
     r_pad, k = ai.shape
     _require_exact_k(k)
     dev = ai.device
     mode = rank_mode(criterion, so_mode, s_max)
     _require_key(mode, k)
+    frontier = threshold > 0.0
+    if frontier and (sa is None or sa2 is None or t_n < 1):
+        raise ValueError("the frontier needs the per-row sa and sa2, and t_n >= 1")
+    # the kernels compare with f32(threshold), as the JAX package does
+    thr = torch.tensor(threshold, dtype=torch.float32, device=dev)
     mm_dtype = torch.float32 if dev.type == "cuda" else torch.float64
     budget = (1 << 26) if dev.type == "cuda" else (1 << 21)
     split = dev.type == "cuda" and k > INT8_MAX_K
@@ -254,8 +284,8 @@ def _plain_search(ai, ch, cl, sb, aux, segments, *, criterion: str, so_mode: str
     else:
         b_mm = (8 * ch.to(torch.int32) + cl.to(torch.int32)).to(mm_dtype)
 
-    def dot_of(r0, r1, j0, j1):
-        a = a_mm[r0:r1]
+    def dot_of(rows, j0, j1):
+        a = a_mm[rows]
         if split:
             return (8 * (a @ bh_mm[j0:j1].T).to(torch.int32)
                     + (a @ bl_mm[j0:j1].T).to(torch.int32))
@@ -265,39 +295,64 @@ def _plain_search(ai, ch, cl, sb, aux, segments, *, criterion: str, so_mode: str
         sa_i = ai.to(torch.int32).sum(1, dtype=torch.int32) + 128 * k
         sb4 = (4.0 * sb).to(torch.int32)
         aux16 = aux * 0.0625
+    col = lambda x, rows: None if x is None else x[rows].unsqueeze(1)
 
     for r0_, r1_, c0, c1 in segments:
         if c1 <= c0:
             continue  # no columns: keep the initial (-_BIG, 0)
         col_chunk = min(c1 - c0, 16384)
+        if frontier:
+            col_chunk = max(t_n, col_chunk - col_chunk % t_n)  # whole groups
         row_chunk = max(1, budget // col_chunk)
         for r0 in range(r0_, r1_, row_chunk):
             r1 = min(r0 + row_chunk, r1_)
             best_q = torch.full((r1 - r0,), -_BIG, dtype=torch.float32, device=dev)
             best_i = torch.zeros((r1 - r0,), dtype=torch.int32, device=dev)
+            done = torch.zeros((r1 - r0,), dtype=torch.bool, device=dev)
             for j0 in range(c0, c1, col_chunk):
                 j1 = min(j0 + col_chunk, c1)
-                dot = dot_of(r0, r1, j0, j1)
+                loc = slice(None)  # the rows of [r0, r1) still scanning
+                if frontier and bool(done.any()):
+                    loc = (~done).nonzero().squeeze(1)
+                    if loc.numel() == 0:
+                        break
+                rows = slice(r0, r1) if isinstance(loc, slice) else loc + r0
+                dot = dot_of(rows, j0, j1)
                 if mode == "ls":
-                    q = _rank_ls_int8(sa_i[r0:r1, None], dot, sb4[None, j0:j1],
+                    q = _rank_ls_int8(col(sa_i, rows), dot, sb4[None, j0:j1],
                                       aux16[None, j0:j1], k)
                 else:
                     ab = dot.to(torch.float32) * 0.25 + 128.0 * sb[None, j0:j1]
-                    q = _rank_tile(
-                        ab, None if sa is None else sa[r0:r1, None],
-                        None if sa2 is None else sa2[r0:r1, None],
-                        sb[None, j0:j1], aux[None, j0:j1],
-                        criterion=criterion, so_mode=so_mode, s_max=s_max,
-                        inv_norm=inv_norm, n=float(k))
+                    q = _rank_tile(ab, col(sa, rows), col(sa2, rows), sb[None, j0:j1],
+                                   aux[None, j0:j1], criterion=criterion,
+                                   so_mode=so_mode, s_max=s_max, inv_norm=inv_norm,
+                                   n=float(k))
+                admit = None
                 if rcls is not None:
-                    q = torch.where(rcls[r0:r1, None] == ccls[None, j0:j1], q, -_BIG)
+                    admit = col(rcls, rows) == ccls[None, j0:j1]
+                    q = torch.where(admit, q, -_BIG)
+                end = None
+                if frontier:
+                    dist = rank_to_dist(q, col(sa2, rows), col(sa, rows),
+                                        criterion=criterion, so_mode=so_mode,
+                                        s_max=s_max, inv_norm=inv_norm, n=float(k))
+                    keep, hit, end = _frontier_mask(dist <= thr, t_n)
+                    q = torch.where(keep, q, -_BIG)
+                if scanned is not None:
+                    within = (torch.ones_like(q, dtype=torch.bool) if end is None else
+                              torch.arange(j1 - j0, device=dev) < end[:, None])
+                    if admit is not None:
+                        within = within & admit
+                    scanned[rows] += within.sum(1)
                 # first-occurrence argmax: the lowest column holding the max
                 tile_q = q.amax(1)
                 ids = torch.arange(j1 - j0, dtype=torch.int32, device=dev)
                 tile_arg = torch.where(q == tile_q[:, None], ids, _BIG_I).amin(1) + j0
-                improved = tile_q > best_q
-                best_i = torch.where(improved, tile_arg.to(torch.int32), best_i)
-                best_q = torch.where(improved, tile_q, best_q)
+                improved = tile_q > best_q[loc]
+                best_i[loc] = torch.where(improved, tile_arg.to(torch.int32), best_i[loc])
+                best_q[loc] = torch.where(improved, tile_q, best_q[loc])
+                if frontier:
+                    done[loc] = hit
             q_out[r0:r1] = best_q
             idx_out[r0:r1] = best_i
     return q_out, idx_out
@@ -316,45 +371,56 @@ def _class_runs(tile_class: torch.Tensor):
 
 
 def search_classed_torch(ai_s, ch_s, cl_s, sb_s, aux_s, tile_class,
-                         col_tile_start, col_end, *, block_r: int, block_m: int,
-                         criterion: str, so_mode: str, s_max: float,
+                         col_tile_start, col_end, row_end, *, block_r: int,
+                         block_m: int, criterion: str, so_mode: str, s_max: float,
                          inv_norm: float, sa_s=None, sa2_s=None,
-                         threshold: float = 0.0):
+                         threshold: float = 0.0, t_n: int = 4, scanned=None):
     """Plain PyTorch version of K1, the class-blocked search.
 
     ai_s [R_pad, K] i8 (A - 128), ch_s/cl_s [M_pad, K] i8 (4B >> 3, 4B & 7),
-    sb_s/aux_s [M_pad] f32, tile_class [NRT] i32, col_tile_start/col_end
-    [NC] i32; sa_s/sa2_s [R_pad] f32 only for the 'general' mode.  Returns
-    (q [R_pad] f32, idx [R_pad] i32), idx a sorted column index.  K above
-    INT8_MAX_K takes the 'ls' key only.
+    sb_s/aux_s [M_pad] f32, tile_class [NRT] i32, col_tile_start/col_end/
+    row_end [NC] i32; sa_s/sa2_s [R_pad] f32 for the 'general' mode and for
+    the frontier (``threshold > 0``, groups of ``t_n`` columns from each
+    class segment's start).  Returns (q [R_pad] f32, idx [R_pad] i32), idx a
+    sorted column index.  Without the frontier every row of a class's tiles
+    is searched, the layout's padding rows too (as the TPU kernel does);
+    with it only the rows below ``row_end[c]``, and the padding rows keep
+    (-_BIG, 0).  K above INT8_MAX_K takes the 'ls' key only.  ``scanned``:
+    see ``_plain_search``.
     """
-    _require_no_frontier(threshold)
     starts = (col_tile_start.to(torch.int64) * block_m).tolist()
     ends = col_end.tolist()
-    segments = [(t0 * block_r, t1 * block_r, starts[c], ends[c])
+    row_ends = row_end.tolist()
+    frontier = threshold > 0.0
+    segments = [(t0 * block_r,
+                 max(t0 * block_r, row_ends[c]) if frontier else t1 * block_r,
+                 starts[c], ends[c])
                 for t0, t1, c in _class_runs(tile_class)]
     return _plain_search(ai_s, ch_s, cl_s, sb_s, aux_s, segments,
                          criterion=criterion, so_mode=so_mode, s_max=s_max,
-                         inv_norm=inv_norm, sa=sa_s, sa2=sa2_s)
+                         inv_norm=inv_norm, sa=sa_s, sa2=sa2_s, threshold=threshold,
+                         t_n=t_n, scanned=scanned)
 
 
 def search_dense_torch(ai, ch, cl, sb, aux, *, m_valid: int, criterion: str,
                        so_mode: str, s_max: float, inv_norm: float, sa=None,
-                       sa2=None, rcls=None, ccls=None, threshold: float = 0.0):
+                       sa2=None, rcls=None, ccls=None, threshold: float = 0.0,
+                       t_n: int = 4, scanned=None):
     """Plain PyTorch version of K3, the dense search (``fused_search``).
 
     ai [R, K] i8 (A - 128), ch/cl [M, K] i8 (4B >> 3, 4B & 7) and sb/aux [M]
     f32 for columns in search order (aux is inv_var_b for 'ls', SumB2
-    otherwise), M >= m_valid; sa/sa2 [R] f32 only for the 'general' mode;
-    rcls [R] and ccls [M] i32 for the class mask (``use_classes``), or None.
-    Returns (q [R] f32, idx [R] i32): the first-occurrence argmax over the
-    columns [0, m_valid) (of the row's class, with the mask).  K above
-    INT8_MAX_K takes the 'ls' key only.
+    otherwise), M >= m_valid; sa/sa2 [R] f32 for the 'general' mode and for
+    the frontier (``threshold > 0``, groups of ``t_n`` columns from column
+    0); rcls [R] and ccls [M] i32 for the class mask (``use_classes``), or
+    None.  Returns (q [R] f32, idx [R] i32): the first-occurrence argmax over
+    the columns [0, m_valid) (of the row's class, with the mask).  K above
+    INT8_MAX_K takes the 'ls' key only.  ``scanned``: see ``_plain_search``.
     """
-    _require_no_frontier(threshold)
     return _plain_search(ai, ch, cl, sb, aux, [(0, ai.shape[0], 0, m_valid)],
                          criterion=criterion, so_mode=so_mode, s_max=s_max,
-                         inv_norm=inv_norm, sa=sa, sa2=sa2, rcls=rcls, ccls=ccls)
+                         inv_norm=inv_norm, sa=sa, sa2=sa2, rcls=rcls, ccls=ccls,
+                         threshold=threshold, t_n=t_n, scanned=scanned)
 
 
 def _check(name, t, dtype, shape, device):
@@ -365,11 +431,9 @@ def _check(name, t, dtype, shape, device):
         raise ValueError(f"{name}: must be contiguous and 16-byte aligned")
 
 
-def _launch_mode(kernel: str, ai, criterion: str, so_mode: str, s_max: float,
-                 threshold: float):
+def _launch_mode(kernel: str, ai, criterion: str, so_mode: str, s_max: float):
     """(mode, K) of a launch on CUDA tensors, or raise for what the kernel
     does not cover."""
-    _require_no_frontier(threshold)
     if ai.device.type != "cuda":
         raise ValueError(f"unsupported device {ai.device}")
     mode = rank_mode(criterion, so_mode, s_max)
@@ -383,31 +447,40 @@ def _launch_mode(kernel: str, ai, criterion: str, so_mode: str, s_max: float,
     return mode, k
 
 
-def _key_args(mode, k, sa, sa2, rows, dev, *, so_mode, s_max, inv_norm):
-    """The kernels' trailing key arguments, read by 'general' only: the sa
-    and sa2 pointers, s_max, 1/n and inv_norm (ctypes.c_float rounds the
-    Python doubles to the f32 values torch computes with), and the so_mode
-    flag."""
-    if mode == "general":
+def _key_args(mode, k, sa, sa2, rows, dev, *, so_mode, s_max, inv_norm, threshold,
+              t_n):
+    """The kernels' trailing key and frontier arguments: the sa and sa2
+    pointers (read by 'general' and by the frontier), s_max, 1/n and
+    inv_norm (ctypes.c_float rounds the Python doubles to the f32 values
+    torch computes with), the so_mode flag; then f32(threshold), the hit
+    test's distance scale (rank_to_dist's: inv_norm/n formed in double, then
+    rounded once, for 'ls'; inv_norm for 'raw') and t_n."""
+    frontier = threshold > 0.0
+    if mode == "general" or frontier:
         _check("sa", sa, torch.float32, (rows,), dev)
         _check("sa2", sa2, torch.float32, (rows,), dev)
         ptrs = (sa.data_ptr(), sa2.data_ptr())
     else:
         ptrs = (None, None)
-    return (*ptrs, s_max, 1.0 / k, inv_norm, int(so_mode == "reference"))
+    if frontier and t_n < 1:
+        raise ValueError(f"t_n {t_n} < 1")
+    scale = inv_norm * (1.0 / k) if mode == "ls" else inv_norm
+    return (*ptrs, s_max, 1.0 / k, inv_norm, int(so_mode == "reference"),
+            threshold, scale, t_n)
 
 
-_KEY_ARGTYPES = [ctypes.c_void_p] * 2 + [ctypes.c_float] * 3 + [ctypes.c_int]
+_KEY_ARGTYPES = ([ctypes.c_void_p] * 2 + [ctypes.c_float] * 3 + [ctypes.c_int]
+                 + [ctypes.c_float] * 2 + [ctypes.c_int])
 
 
-def _kernel_fn(kernel: str, mode: str, k: int):
-    """The C entry point ``fe_<kernel>_<mode><k>`` (its library built and
-    loaded on first use)."""
+def _kernel_fn(kernel: str, mode: str, k: int, frontier: bool):
+    """The C entry point ``fe_<kernel>_<mode><k>``, ``..._thr`` with the
+    frontier (its library built and loaded on first use)."""
     from ._build import load_library
 
-    fn = getattr(load_library(kernel), f"fe_{kernel}_{mode}{k}")
+    fn = getattr(load_library(kernel), f"fe_{kernel}_{mode}{k}" + ("_thr" if frontier else ""))
     if kernel == "search_classed":
-        head = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 3
+        head = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 3
     else:
         head = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 2
     fn.argtypes = head + _KEY_ARGTYPES + [ctypes.c_void_p] * 3
@@ -415,10 +488,11 @@ def _kernel_fn(kernel: str, mode: str, k: int):
     return fn
 
 
-def _launch(kernel: str, mode: str, k: int, rows: int, dev, *args):
-    """Allocate (q, idx) of ``rows`` entries and launch the kernel on the
-    current stream with ``args`` before them; raise on a refused launch."""
-    fn = _kernel_fn(kernel, mode, k)
+def _launch(kernel: str, key: tuple, rows: int, dev, *args):
+    """Allocate (q, idx) of ``rows`` entries and launch the kernel of
+    ``key`` = (mode, K, frontier) on the current stream with ``args`` before
+    them; raise on a refused launch."""
+    fn = _kernel_fn(kernel, *key)
     with torch.cuda.device(dev):
         q = torch.empty((rows,), dtype=torch.float32, device=dev)
         idx = torch.empty((rows,), dtype=torch.int32, device=dev)
@@ -430,26 +504,25 @@ def _launch(kernel: str, mode: str, k: int, rows: int, dev, *args):
 
 
 def search_classed_cuda(ai_s, ch_s, cl_s, sb_s, aux_s, tile_class,
-                        col_tile_start, col_end, *, block_r: int, block_m: int,
-                        criterion: str, so_mode: str, s_max: float,
+                        col_tile_start, col_end, row_end, *, block_r: int,
+                        block_m: int, criterion: str, so_mode: str, s_max: float,
                         inv_norm: float, sa_s=None, sa2_s=None,
-                        threshold: float = 0.0):
+                        threshold: float = 0.0, t_n: int = 4):
     """K1's hand-written CUDA kernel, with the arguments and result of
     ``search_classed_torch``.
 
     CPU tensors run the plain version.  CUDA tensors launch
     ``csrc/search_classed.cu`` (and add one to
-    ``search_classed_cuda.launches[(mode, K)]``), or raise
+    ``search_classed_cuda.launches[(mode, K, frontier)]``), or raise
     ``NotImplementedError`` for a config the kernel does not cover.
     """
     kw = dict(block_r=block_r, block_m=block_m, criterion=criterion,
               so_mode=so_mode, s_max=s_max, inv_norm=inv_norm, sa_s=sa_s,
-              sa2_s=sa2_s, threshold=threshold)
+              sa2_s=sa2_s, threshold=threshold, t_n=t_n)
     if ai_s.device.type == "cpu":
         return search_classed_torch(ai_s, ch_s, cl_s, sb_s, aux_s, tile_class,
-                                    col_tile_start, col_end, **kw)
-    mode, k = _launch_mode("search_classed", ai_s, criterion, so_mode, s_max,
-                           threshold)
+                                    col_tile_start, col_end, row_end, **kw)
+    mode, k = _launch_mode("search_classed", ai_s, criterion, so_mode, s_max)
     r_pad, m_pad = ai_s.shape[0], ch_s.shape[0]
     nrt, nc = tile_class.shape[0], col_end.shape[0]
     dev = ai_s.device
@@ -463,39 +536,47 @@ def search_classed_cuda(ai_s, ch_s, cl_s, sb_s, aux_s, tile_class,
     _check("tile_class", tile_class, torch.int32, (nrt,), dev)
     _check("col_tile_start", col_tile_start, torch.int32, (nc,), dev)
     _check("col_end", col_end, torch.int32, (nc,), dev)
-    key = _key_args(mode, k, sa_s, sa2_s, r_pad, dev, so_mode=so_mode,
-                    s_max=s_max, inv_norm=inv_norm)
-    out = _launch("search_classed", mode, k, r_pad, dev,
+    _check("row_end", row_end, torch.int32, (nc,), dev)
+    key = (mode, k, threshold > 0.0)
+    args = _key_args(mode, k, sa_s, sa2_s, r_pad, dev, so_mode=so_mode, s_max=s_max,
+                     inv_norm=inv_norm, threshold=threshold, t_n=t_n)
+    out = _launch("search_classed", key, r_pad, dev,
                   ai_s.data_ptr(), ch_s.data_ptr(), cl_s.data_ptr(), sb_s.data_ptr(),
                   aux_s.data_ptr(), tile_class.data_ptr(), col_tile_start.data_ptr(),
-                  col_end.data_ptr(), nrt, block_r, block_m, *key)
-    search_classed_cuda.launches[(mode, k)] += 1
+                  col_end.data_ptr(), row_end.data_ptr(), nrt, block_r, block_m, *args)
+    search_classed_cuda.launches[key] += 1
     return out
 
 
 def search_dense_cuda(ai, ch, cl, sb, aux, *, m_valid: int, criterion: str,
                       so_mode: str, s_max: float, inv_norm: float, sa=None,
-                      sa2=None, rcls=None, ccls=None, threshold: float = 0.0):
+                      sa2=None, rcls=None, ccls=None, threshold: float = 0.0,
+                      t_n: int = 4):
     """K3's hand-written CUDA kernel, with the arguments and result of
     ``search_dense_torch``.
 
     CPU tensors run the plain version.  CUDA tensors launch
     ``csrc/search_dense.cu`` (and add one to
-    ``search_dense_cuda.launches[(mode, K)]``), or raise
-    ``NotImplementedError`` for a config the kernel does not cover.
+    ``search_dense_cuda.launches[(mode, K, frontier)]``), or raise
+    ``NotImplementedError`` for a config the kernel does not cover (the
+    frontier with the class mask among them).
     """
     kw = dict(m_valid=m_valid, criterion=criterion, so_mode=so_mode,
               s_max=s_max, inv_norm=inv_norm, sa=sa, sa2=sa2, rcls=rcls,
-              ccls=ccls, threshold=threshold)
+              ccls=ccls, threshold=threshold, t_n=t_n)
     if ai.device.type == "cpu":
         return search_dense_torch(ai, ch, cl, sb, aux, **kw)
-    mode, k = _launch_mode("search_dense", ai, criterion, so_mode, s_max, threshold)
+    mode, k = _launch_mode("search_dense", ai, criterion, so_mode, s_max)
     rows, m = ai.shape[0], ch.shape[0]
     dev = ai.device
     if not 0 <= m_valid <= m:
         raise ValueError(f"m_valid {m_valid} outside [0, {m}]")
     if (rcls is None) != (ccls is None):
         raise ValueError("the class mask needs both rcls and ccls")
+    if rcls is not None and threshold > 0.0:
+        raise NotImplementedError(
+            "the search_dense CUDA kernel has no frontier with the class mask "
+            "(ROADMAP.md queue 2, K3's class mask)")
     _check("ai", ai, torch.int8, (rows, k), dev)
     _check("ch", ch, torch.int8, (m, k), dev)
     _check("cl", cl, torch.int8, (m, k), dev)
@@ -507,15 +588,17 @@ def search_dense_cuda(ai, ch, cl, sb, aux, *, m_valid: int, criterion: str,
         cls = (rcls.data_ptr(), ccls.data_ptr())
     else:
         cls = (None, None)
-    key = _key_args(mode, k, sa, sa2, rows, dev, so_mode=so_mode, s_max=s_max,
-                    inv_norm=inv_norm)
-    out = _launch("search_dense", mode, k, rows, dev,
+    key = (mode, k, threshold > 0.0)
+    args = _key_args(mode, k, sa, sa2, rows, dev, so_mode=so_mode, s_max=s_max,
+                     inv_norm=inv_norm, threshold=threshold, t_n=t_n)
+    out = _launch("search_dense", key, rows, dev,
                   ai.data_ptr(), ch.data_ptr(), cl.data_ptr(), sb.data_ptr(),
-                  aux.data_ptr(), *cls, rows, m_valid, *key)
-    search_dense_cuda.launches[(mode, k)] += 1
+                  aux.data_ptr(), *cls, rows, m_valid, *args)
+    search_dense_cuda.launches[key] += 1
     return out
 
 
-search_classed_cuda.launches = {(mode, k): 0 for mode, ks in KERNEL_KEYS.items()
-                                for k in ks}
+# launch counts by (mode, K, frontier)
+search_classed_cuda.launches = {(mode, k, thr): 0 for mode, ks in KERNEL_KEYS.items()
+                                for k in ks for thr in (False, True)}
 search_dense_cuda.launches = dict(search_classed_cuda.launches)

@@ -44,7 +44,7 @@ class EncoderConfig:
     vq_seed: int = 0
 
     # Execution
-    range_chunk: int = 2048  # kept for field parity; the port does not read it
+    range_chunk: int = 2048  # ranges per chunk of the dense oracle matcher.search
     backend: str = "auto"  # 'auto' | 'torch' | 'cuda'
     # Kept for field parity.  The port always searches with the exact int8
     # decomposition for K <= INT8_MAX_K, which the JAX package documents as

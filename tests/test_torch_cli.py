@@ -1,6 +1,7 @@
 """The port's package boundary and CLI: no jax import anywhere in the port,
 the CLI's output against the JAX CLI's on the in-repo Lenna crop, refused
-flags, and chip_smoke.py's behaviour without a card."""
+flags, the card as the default device, and chip_smoke.py's behaviour without
+a card."""
 import os
 import re
 import shutil
@@ -8,6 +9,7 @@ import subprocess
 import sys
 from concurrent.futures import ThreadPoolExecutor
 
+import numpy as np
 import pytest
 
 from _torch_parity import GOLDEN
@@ -56,7 +58,8 @@ def _psnr(stdout):
 
 
 @pytest.mark.parametrize("flags", [[], ["--compat"], ["--noclassifier"],
-                                   ["--noclassifier", "--compat"]])
+                                   ["--noclassifier", "--compat"], ["--rms", "10"],
+                                   ["--compat", "--rms", "10"]])
 def test_cli_psnr_matches_jax_cli(tmp_path, flags):
     """The port's CLI on the CPU prints the JAX CLI's PSNR and statistics."""
     port, ref = _run_both(
@@ -72,7 +75,6 @@ def test_cli_psnr_matches_jax_cli(tmp_path, flags):
     lines = lambda out: [l for l in out.splitlines() if l.startswith(keep)]
     assert lines(port.stdout) == lines(ref.stdout)
     from PIL import Image
-    import numpy as np
 
     assert np.array_equal(np.asarray(Image.open(tmp_path / "t.png")),
                           np.asarray(Image.open(tmp_path / "j.png")))
@@ -80,15 +82,67 @@ def test_cli_psnr_matches_jax_cli(tmp_path, flags):
 
 @pytest.mark.parametrize("flag", [["--quadtree", "--compat"], ["--vq-classes", "3"],
                                   ["--out", "x.ftc"], ["--decode-file", "x.ftc"],
-                                  ["--color"], ["--noclassifier", "--rms", "10"],
-                                  ["--rms", "10"],
-                                  ["--log"], ["--profile", "p"]])
+                                  ["--color"], ["--log"], ["--profile", "p"]])
 def test_cli_refuses_unported_flags(flag, capsys):
     from fractencode_tpu_torch.cli import main
 
     assert main([LENNA, "--device", "cpu", *flag]) == 2
     err = capsys.readouterr().err
     assert "not ported yet" in err and "ROADMAP.md" in err
+
+
+def test_cli_needs_a_card_unless_asked_for_the_cpu(capsys):
+    """--device defaults to cuda: with no card the CLI exits non-zero and
+    names --device cpu, and never falls back to the CPU by itself."""
+    import torch
+
+    from fractencode_tpu_torch.cli import main
+
+    if torch.cuda.is_available():
+        pytest.skip("this machine has a card")
+    assert main([LENNA]) != 0
+    assert "--device cpu" in capsys.readouterr().err
+
+
+def test_encode_plane_needs_a_card_for_numpy():
+    """A numpy plane with no device goes to the card; with none, the entry
+    points raise rather than run on the CPU."""
+    import torch
+
+    import fractencode_tpu_torch as T
+    from fractencode_tpu_torch.encode.quadtree import encode_plane_quadtree
+
+    if torch.cuda.is_available():
+        pytest.skip("this machine has a card")
+    plane = np.zeros((64, 64), np.uint8)
+    for encode in (T.encode_plane, encode_plane_quadtree):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            encode(plane)
+    res = T.encode_plane(torch.from_numpy(plane))  # a CPU tensor asks for the CPU
+    assert res.s.device.type == "cpu"
+
+
+def test_bridge_needs_a_card_unless_asked_for_the_cpu():
+    """The bridge's imports default to the card too: with none they raise,
+    and device='cpu' asks for the CPU."""
+    import torch
+
+    import fractencode_tpu_torch as T
+    from fractencode_tpu_torch.bridge import (quadtree_from_numpy, quadtree_to_numpy,
+                                              result_from_numpy, result_to_numpy)
+    from fractencode_tpu_torch.encode.quadtree import encode_plane_quadtree
+
+    if torch.cuda.is_available():
+        pytest.skip("this machine has a card")
+    plane = np.random.default_rng(3).integers(0, 256, (64, 64), dtype=np.uint8)
+    arrays, meta = result_to_numpy(T.encode_plane(plane, device="cpu"))
+    levels, w, h = quadtree_to_numpy(encode_plane_quadtree(plane, device="cpu"))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        result_from_numpy(arrays, meta)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        quadtree_from_numpy(levels, w, h)
+    assert result_from_numpy(arrays, meta, "cpu").s.device.type == "cpu"
+    assert quadtree_from_numpy(levels, w, h, "cpu").levels[0].s.device.type == "cpu"
 
 
 def test_cli_debug_decode_and_bad_config(tmp_path, capsys, monkeypatch):

@@ -6,6 +6,11 @@ version against the JAX package).  Run on a machine with a card, where jax
 may be absent (tests/conftest.py imports it): ``python -m pytest
 tests/test_torch_cuda.py -q --noconftest``.
 """
+import dataclasses
+import os
+import subprocess
+import sys
+
 import numpy as np
 import pytest
 import torch
@@ -71,9 +76,9 @@ def test_kernel_matches_plain(cuda, n, blocks):
     img = random_plane(n, 5)
     cfg = T.EncoderConfig()
     prep = _prep(img, cfg, cuda, **blocks)
-    before = mk.search_classed_cuda.launches[("ls", 16)]
+    before = mk.search_classed_cuda.launches[("ls", 16, False)]
     q_k, i_k = tm.classed_kernel(prep, 16, 256, cfg)
-    assert mk.search_classed_cuda.launches[("ls", 16)] == before + 1
+    assert mk.search_classed_cuda.launches[("ls", 16, False)] == before + 1
     q_p, i_p = tm.classed_kernel(prep, 16, 256, T.EncoderConfig(backend="torch"))
     torch.cuda.synchronize()
     assert_bitwise(q_k, q_p, "q")
@@ -90,9 +95,9 @@ def test_kernel_matches_plain_quadtree_levels(cuda, k, blocks):
     img = random_plane(256, 7)
     cfg = T.EncoderConfig(source_size=ds, target_size=rs)
     prep = _prep(img, cfg, cuda, **blocks)
-    before = mk.search_classed_cuda.launches[("ls", k)]
+    before = mk.search_classed_cuda.launches[("ls", k, False)]
     q_k, i_k = tm.classed_kernel(prep, k, ds * ds, cfg)
-    assert mk.search_classed_cuda.launches[("ls", k)] == before + 1
+    assert mk.search_classed_cuda.launches[("ls", k, False)] == before + 1
     q_p, i_p = tm.classed_kernel(prep, k, ds * ds,
                                  T.EncoderConfig(source_size=ds, target_size=rs,
                                                  backend="torch"))
@@ -111,7 +116,7 @@ def test_quadtree_cuda_equals_cpu(cuda):
     img = (60 + 40 * np.sin(xx / 19.0) * np.cos(yy / 23.0)
            + np.random.default_rng(8).integers(0, 20, (128, 128))).astype(np.uint8)
     rg = tq.encode_plane_quadtree(img, device=cuda)
-    rc = tq.encode_plane_quadtree(img)
+    rc = tq.encode_plane_quadtree(img, device="cpu")
     for lg, lc in zip(rg.levels, rc.levels):
         for f in ("domain_idx", "transform", "s", "o", "error", "accepted"):
             assert_bitwise(getattr(lg, f), getattr(lc, f), f"{lg.range_size} px {f}")
@@ -127,7 +132,7 @@ def test_encode_decode_cuda_equals_cpu(cuda):
     img = random_plane(128, 6)
     dcfg = T.DecoderConfig(pyramid=True)
     rg = T.encode_plane(img, device=cuda)
-    rc = T.encode_plane(img)
+    rc = T.encode_plane(img, device="cpu")
     for f in ("domain_idx", "transform", "s", "o", "distance", "valid"):
         assert_bitwise(getattr(rg, f), getattr(rc, f), f)
     og, ig, mg = T.decode_plane(rg, dcfg)
@@ -150,10 +155,10 @@ def test_classed_keys_match_plain(cuda, case):
     cfg = _case_cfg(key, k)
     prep = _prep(random_plane(128, 10), cfg, cuda)
     mode = key.split("-")[0]
-    before = mk.search_classed_cuda.launches[(mode, k)]
+    before = mk.search_classed_cuda.launches[(mode, k, False)]
     area = cfg.source_size ** 2
     q_k, i_k = tm.classed_kernel(prep, k, area, cfg)
-    assert mk.search_classed_cuda.launches[(mode, k)] == before + 1
+    assert mk.search_classed_cuda.launches[(mode, k, False)] == before + 1
     q_p, i_p = tm.classed_kernel(prep, k, area, _case_cfg(key, k, backend="torch"))
     torch.cuda.synchronize()
     assert_bitwise(q_k, q_p, "q")
@@ -173,10 +178,10 @@ def test_dense_kernel_matches_plain(cuda, case, masked):
     prep = tm.dense_prep(ranges, sa, sa2, cb, rcls, dcls, cfg)
     assert (prep["rcls"] is None) != masked
     mode = key.split("-")[0]
-    before = mk.search_dense_cuda.launches[(mode, k)]
+    before = mk.search_dense_cuda.launches[(mode, k, False)]
     area = cfg.source_size ** 2
     q_k, i_k = tm.dense_kernel(prep, k, area, cfg)
-    assert mk.search_dense_cuda.launches[(mode, k)] == before + 1
+    assert mk.search_dense_cuda.launches[(mode, k, False)] == before + 1
     q_p, i_p = tm.dense_kernel(prep, k, area, _case_cfg(key, k, backend="torch"))
     torch.cuda.synchronize()
     assert_bitwise(q_k, q_p, "q")
@@ -202,7 +207,7 @@ def test_encode_cuda_equals_cpu_keys(cuda, cfg):
     before = total()
     rg = T.encode_plane(img, cfg, device=cuda)
     assert total() == before + 1
-    rc = T.encode_plane(img, cfg)
+    rc = T.encode_plane(img, cfg, device="cpu")
     for f in ("domain_idx", "transform", "s", "o", "distance", "valid"):
         assert_bitwise(getattr(rg, f), getattr(rc, f), f)
     og, ig, mg = T.decode_plane(rg)
@@ -221,7 +226,7 @@ def test_quadtree_noclassifier_cuda_equals_cpu(cuda):
            + np.random.default_rng(8).integers(0, 20, (128, 128))).astype(np.uint8)
     cfg = T.EncoderConfig(use_classifier=False)
     rg = tq.encode_plane_quadtree(img, cfg, device=cuda)
-    rc = tq.encode_plane_quadtree(img, cfg)
+    rc = tq.encode_plane_quadtree(img, cfg, device="cpu")
     for lg, lc in zip(rg.levels, rc.levels, strict=True):
         for f in ("domain_idx", "transform", "s", "o", "error", "accepted"):
             assert_bitwise(getattr(lg, f), getattr(lc, f), f"{lg.range_size} px {f}")
@@ -235,14 +240,83 @@ def test_uncovered_configs_raise_on_cuda(cuda, cfg):
     the classifier) raise on CUDA (no fallback), and run there with
     backend='torch' like on the CPU.  Winners, validity and distances come
     from exact integer keys."""
-    import dataclasses
-
     img = random_plane(64)
     for use_classifier in (True, False):
         c = dataclasses.replace(cfg, use_classifier=use_classifier)
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             T.encode_plane(img, c, device=cuda)
         rg = T.encode_plane(img, dataclasses.replace(c, backend="torch"), device=cuda)
-        rc = T.encode_plane(img, c)
+        rc = T.encode_plane(img, c, device="cpu")
         for f in ("domain_idx", "transform", "valid", "distance"):
             assert_bitwise(getattr(rg, f), getattr(rc, f), f)
+
+
+@pytest.mark.parametrize("t_n", [4, 3])
+@pytest.mark.parametrize("kernel", ["classed", "dense"])
+@pytest.mark.parametrize("case", CASES, ids=lambda c: f"{c[0]}{c[1]}")
+def test_frontier_kernels_match_plain(cuda, case, kernel, t_n):
+    """Every `_thr` instance (K1 and K3, each key and K) with the early-accept
+    frontier at 10.0 on a smooth 256^2 plane, at 4 isometries and at 3 (the
+    groups then straddle K1's column tiles and the kernels' chunks): (q, idx)
+    of every row bitwise against the plain version, and the frontier active
+    (it changes some rows' keys)."""
+    key, k = case
+    cfg = _case_cfg(key, k, rms_threshold=10.0)
+    if t_n == 3:
+        cfg = dataclasses.replace(cfg, num_transforms=3)
+    yy, xx = np.mgrid[0:256, 0:256]
+    img = (70 + 30 * np.sin(xx / 23.0) * np.cos(yy / 31.0)
+           + np.random.default_rng(13).integers(0, 6, (256, 256))).astype(np.uint8)
+    inputs = _inputs(img, cfg, cuda)
+    mode = key.split("-")[0]
+    area = cfg.source_size ** 2
+    off = dataclasses.replace(cfg, rms_threshold=0.0)
+    if kernel == "classed":
+        prep = tm.classed_prep(*inputs, cfg)
+        run, launches = (lambda c: tm.classed_kernel(prep, k, area, c)), \
+            mk.search_classed_cuda.launches
+    else:
+        prep = tm.dense_prep(*inputs[:4], None, None, cfg)
+        run, launches = (lambda c: tm.dense_kernel(prep, k, area, c)), \
+            mk.search_dense_cuda.launches
+    before = launches[(mode, k, True)]
+    q_k, i_k = run(cfg)
+    assert launches[(mode, k, True)] == before + 1
+    q_p, i_p = run(dataclasses.replace(cfg, backend="torch"))
+    torch.cuda.synchronize()
+    assert_bitwise(q_k, q_p, "q")
+    assert_bitwise(i_k, i_p, "idx")
+    assert bool((run(off)[0] != q_k).any()), "vacuous: the frontier changed no key"
+
+
+def test_frontier_launch_never_runs_plain(cuda, monkeypatch):
+    """With rms_threshold > 0 on CUDA tensors, the encode launches the `_thr`
+    kernels and never the plain version (it is made to raise here)."""
+    def refuse(*_, **__):
+        raise AssertionError("the plain version ran on CUDA tensors")
+
+    monkeypatch.setattr(mk, "search_classed_torch", refuse)
+    monkeypatch.setattr(mk, "search_dense_torch", refuse)
+    monkeypatch.setattr(mk, "_plain_search", refuse)
+    img = random_plane(128, 14)
+    for cfg, launches, key in (
+            (T.EncoderConfig(rms_threshold=10.0), mk.search_classed_cuda.launches,
+             ("ls", 16, True)),
+            (T.REFERENCE_COMPAT(rms_threshold=10.0, use_classifier=False),
+             mk.search_dense_cuda.launches, ("raw", 16, True))):
+        before = launches[key]
+        T.encode_plane(img, cfg, device=cuda)
+        assert launches[key] == before + 1
+
+
+def test_cli_without_a_card_exits_nonzero(cuda, tmp_path):
+    """With the card hidden, the CLI's default --device cuda exits non-zero
+    and names --device cpu; it does not run on the CPU by itself."""
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    lenna = os.path.join(repo, "tests", "golden", "lenna128_input.png")
+    env = {**os.environ, "PYTHONPATH": repo, "CUDA_VISIBLE_DEVICES": ""}
+    proc = subprocess.run([sys.executable, "-m", "fractencode_tpu_torch", lenna,
+                           "--result", str(tmp_path / "r.png")], cwd=tmp_path, env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode != 0 and "--device cpu" in proc.stderr
+    assert not (tmp_path / "r.png").exists()

@@ -60,7 +60,7 @@ def test_jax_decodes_port_encode():
     from fractencode_tpu.encode.encoder import EncodeResult as JaxResult
 
     img = random_plane(64, 9)
-    rt = T.encode_plane(img)
+    rt = T.encode_plane(img, device="cpu")
     arrays, meta = result_to_numpy(rt)
     rj = JaxResult(**{k: jax.numpy.asarray(v) for k, v in arrays.items()}, **meta)
     dcfg = J.DecoderConfig(pyramid=True)
@@ -68,7 +68,7 @@ def test_jax_decodes_port_encode():
     ot, it, _ = T.decode_plane(rt, config_from_jax_fields(dcfg))
     assert_bitwise(oj, ot, "pixels")
     assert int(ij) == it
-    back = result_from_numpy(*result_to_numpy(rt))
+    back = result_from_numpy(*result_to_numpy(rt), device="cpu")
     for f in RESULT_ARRAYS:
         assert_bitwise(getattr(rt, f), getattr(back, f), f)
 
@@ -138,6 +138,8 @@ def _cpp_result_png(name="lenna128_cpp_result.png"):
 # the reference's non-default flags (tests/test_reference_parity.py):
 # config overrides, encode dump, result.png
 _CPP_FLAGS = {
+    "rms10": (dict(rms_threshold=10.0), "lenna128_cpp_rms10.txt.gz",
+              "lenna128_cpp_result_rms10.png"),
     "nocls": (dict(use_classifier=False), "lenna128_cpp_nocls.txt.gz",
               "lenna128_cpp_result_nocls.png"),
     "smax09": (dict(s_max=0.9), "lenna128_cpp_smax09.txt.gz",
@@ -146,15 +148,17 @@ _CPP_FLAGS = {
 
 
 def test_encoder_parity_with_cpp():
-    _assert_cpp_encode(T.encode_plane(lenna128(), T.REFERENCE_COMPAT()), _cpp_dump())
+    _assert_cpp_encode(T.encode_plane(lenna128(), T.REFERENCE_COMPAT(), device="cpu"),
+                       _cpp_dump())
 
 
 @pytest.mark.parametrize("name", sorted(_CPP_FLAGS))
 def test_encoder_parity_with_cpp_flags(name):
-    """--noclassifier (the dense search) and --smax 0.9 against the C++
-    encoder's dumps, to test_reference_parity.py's tolerances."""
+    """--rms 10 (the early-accept frontier), --noclassifier (the dense
+    search) and --smax 0.9 against the C++ encoder's dumps, to
+    test_reference_parity.py's tolerances."""
     overrides, dump_name, _ = _CPP_FLAGS[name]
-    res = T.encode_plane(lenna128(), T.REFERENCE_COMPAT(**overrides))
+    res = T.encode_plane(lenna128(), T.REFERENCE_COMPAT(**overrides), device="cpu")
     assert bool(res.valid.all())
     _assert_cpp_encode(res, _cpp_dump(dump_name))
 
@@ -178,7 +182,8 @@ def test_decode_parity_from_cpp_encode():
     res = result_from_numpy(
         dict(domain_idx=dom_idx, transform=dump[:, 8].astype(int), s=dump[:, 9],
              o=dump[:, 10], distance=dump[:, 11], valid=np.ones(len(dump), bool)),
-        dict(width=128, height=128, source_size=16, target_size=4, domain_step=8))
+        dict(width=128, height=128, source_size=16, target_size=4, domain_step=8),
+        device="cpu")
     out, iters, _ = T.decode_plane(res)
     assert np.array_equal(out.numpy(), _cpp_result_png())
     assert iters == 16  # reference printed "decode stats: 16 steps"
@@ -186,7 +191,7 @@ def test_decode_parity_from_cpp_encode():
 
 def test_end_to_end_parity():
     """Compat encode + decode fully in the port == C++ result.png."""
-    res = T.encode_plane(lenna128(), T.REFERENCE_COMPAT())
+    res = T.encode_plane(lenna128(), T.REFERENCE_COMPAT(), device="cpu")
     out, _, _ = T.decode_plane(res)
     assert np.array_equal(out.numpy(), _cpp_result_png())
 
@@ -198,7 +203,7 @@ def test_end_to_end_parity_flags(name):
     one gray level (the reference's decoder applies the clamp in double,
     test_reference_parity.py::test_decode_parity_flag_matrix)."""
     overrides, _, result_name = _CPP_FLAGS[name]
-    res = T.encode_plane(lenna128(), T.REFERENCE_COMPAT(**overrides))
+    res = T.encode_plane(lenna128(), T.REFERENCE_COMPAT(**overrides), device="cpu")
     out, _, _ = T.decode_plane(res)
     diff = np.abs(out.numpy().astype(int) - _cpp_result_png(result_name).astype(int))
     if name == "smax09":
@@ -222,7 +227,7 @@ def test_other_geometries(shape, cfg_kw):
     img = np.random.default_rng(sum(shape)).integers(0, 256, shape, dtype=np.uint8)
     jcfg = J.EncoderConfig(backend="jnp", **cfg_kw)
     rj = J.encode_plane(img, jcfg)
-    assert_results_equal(rj, T.encode_plane(img, conv(jcfg)))
+    assert_results_equal(rj, T.encode_plane(img, conv(jcfg), device="cpu"))
     for dcfg in (J.DecoderConfig(), J.DecoderConfig(pyramid=True),
                  J.DecoderConfig(initial="means")):
         oj, ij, mj = J.decode_plane(rj, dcfg)

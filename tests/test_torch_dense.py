@@ -39,9 +39,10 @@ def _round_up(x, m):
     return -(-x // m) * m
 
 
-def _jax_dense(img, jcfg, use_classes):
+def _jax_dense(img, jcfg, use_classes, **search_kw):
     """(q, idx) of JAX's K3 on one plane's search-order columns, padded and
-    called as search_pallas does (the tail past m_valid included)."""
+    called as search_pallas does (the tail past m_valid included);
+    ``search_kw`` (threshold, t_n) goes to fused_search."""
     ranges, sum_a, sum_a2, cb, rcls, dcls = _jax_inputs(jnp.asarray(img), jcfg)
     r, k = ranges.shape
     d, t, _ = cb.values.shape
@@ -63,13 +64,13 @@ def _jax_dense(img, jcfg, use_classes):
         so_mode=jcfg.so_mode, s_max=jcfg.s_max,
         inv_norm=1.0 / cb.grid.block_size ** 2 if jcfg.criterion == "raw" else 1.0 / k,
         use_classes=use_classes, m_valid=m, block_r=block_r, block_m=block_m,
-        use_int8=k <= mk.INT8_MAX_K, interpret=True)
+        use_int8=k <= mk.INT8_MAX_K, interpret=True, **search_kw)
     return np.asarray(q)[:r], np.asarray(idx)[:r]
 
 
-def _port_dense(img, tcfg, use_classes):
+def _port_dense(img, tcfg, use_classes, **search_kw):
     """(q, idx) of the plain K3 on the same plane, from the port's own
-    operands."""
+    operands; ``search_kw`` (threshold, t_n) goes to search_dense_torch."""
     ranges, sum_a, sum_a2, cb, rcls, dcls = _port_inputs(img, tcfg)
     d, t, k = cb.values.shape
     ai, ch, cl, _ = tm._int8_operands(ranges, cb)
@@ -82,7 +83,8 @@ def _port_dense(img, tcfg, use_classes):
         inv_norm=1.0 / cb.grid.block_size ** 2 if tcfg.criterion == "raw" else 1.0 / k,
         sa=sum_a, sa2=sum_a2,
         rcls=rcls.to(torch.int32) if use_classes else None,
-        ccls=torch.repeat_interleave(dcls.to(torch.int32), t) if use_classes else None)
+        ccls=torch.repeat_interleave(dcls.to(torch.int32), t) if use_classes else None,
+        **search_kw)
 
 
 # (key, num_transforms, target_size): K = 16 with 4 and 8 isometries, and
@@ -129,7 +131,7 @@ def test_general_rank_mode(cfg_kw):
     distances to 1e-3), every range valid."""
     img = lenna128()
     rj = J.encode_plane(img, J.EncoderConfig(backend="jnp", use_classifier=False, **cfg_kw))
-    rt = T.encode_plane(img, T.EncoderConfig(use_classifier=False, **cfg_kw))
+    rt = T.encode_plane(img, T.EncoderConfig(use_classifier=False, **cfg_kw), device="cpu")
     same = (np.asarray(rj.domain_idx) == rt.domain_idx.numpy()) & \
         (np.asarray(rj.transform) == rt.transform.numpy())
     assert same.mean() > 0.99 and rt.valid.all()
@@ -161,13 +163,12 @@ def test_dense_keys_dominate_classed(pname):
 def test_dense_refusals():
     """Uncovered configs raise naming their ROADMAP item (no fallback)."""
     img = random_plane(64)
-    with pytest.raises(NotImplementedError, match="ROADMAP.*frontier"):
-        T.encode_plane(img, T.EncoderConfig(use_classifier=False, rms_threshold=10.0))
     with pytest.raises(NotImplementedError, match="ROADMAP.*raw and general keys"):
         T.encode_plane(img, T.REFERENCE_COMPAT(use_classifier=False, source_size=32,
-                                               target_size=16))
+                                               target_size=16), device="cpu")
     with pytest.raises(ValueError, match="CUDA"):
-        T.encode_plane(img, T.EncoderConfig(use_classifier=False, backend="cuda"))
+        T.encode_plane(img, T.EncoderConfig(use_classifier=False, backend="cuda"),
+                       device="cpu")
     before = dict(mk.search_dense_cuda.launches)
-    T.encode_plane(img, T.EncoderConfig(use_classifier=False))
+    T.encode_plane(img, T.EncoderConfig(use_classifier=False), device="cpu")
     assert mk.search_dense_cuda.launches == before  # CPU tensors: no launch

@@ -72,7 +72,7 @@ def test_encode_matches_jax(pname, cname):
     jcfg = _jcfg(cname, backend="jnp")
     img = PLANES[pname]
     rj = J.encode_plane(img, jcfg)
-    rt = T.encode_plane(img, config_from_jax_fields(jcfg))
+    rt = T.encode_plane(img, config_from_jax_fields(jcfg), device="cpu")
     assert rt.valid.all()
     _assert_encode_parity(img, rj, rt, jcfg)
 
@@ -85,7 +85,8 @@ def test_encode_matches_jax_pallas(cname):
     jcfg = _jcfg(cname, backend="pallas")
     img = PLANES["lenna128"]
     rj = J.encode_plane(img, jcfg)
-    rt = T.encode_plane(img, config_from_jax_fields(_jcfg(cname, backend="jnp")))
+    rt = T.encode_plane(img, config_from_jax_fields(_jcfg(cname, backend="jnp")),
+                        device="cpu")
     _assert_encode_parity(img, rj, rt, jcfg)
     for pyramid in (False, True):
         oj, ij, mj = J.decode_plane(rj, J.DecoderConfig(pyramid=pyramid))
@@ -104,7 +105,7 @@ def _quadtrees(pname):
     rj = jq.encode_plane_quadtree(QT_PLANES[pname], J.EncoderConfig(**cfg),
                                   jq.QuadtreeConfig(), reporter=_LevelByLevel())
     rt = tq.encode_plane_quadtree(QT_PLANES[pname], T.EncoderConfig(**cfg),
-                                  tq.QuadtreeConfig())
+                                  tq.QuadtreeConfig(), device="cpu")
     return rj, rt
 
 

@@ -174,7 +174,7 @@ def test_encode_matches_jax(pname, cname):
     (the dense oracle), with the port's own block sizes."""
     jcfg, tcfg = CONFIGS[cname]
     img = PLANES[pname]
-    assert_results_equal(J.encode_plane(img, jcfg), T.encode_plane(img, tcfg))
+    assert_results_equal(J.encode_plane(img, jcfg), T.encode_plane(img, tcfg, device="cpu"))
 
 
 @pytest.mark.parametrize("cname", ["default", "compat"])
@@ -200,7 +200,7 @@ def test_general_rank_mode(cfg_kw):
     this plane)."""
     img = lenna128()
     rj = J.encode_plane(img, J.EncoderConfig(backend="jnp", **cfg_kw))
-    rt = T.encode_plane(img, T.EncoderConfig(**cfg_kw))
+    rt = T.encode_plane(img, T.EncoderConfig(**cfg_kw), device="cpu")
     same = (np.asarray(rj.domain_idx) == rt.domain_idx.numpy()) & \
         (np.asarray(rj.transform) == rt.transform.numpy())
     assert same.mean() > 0.99
@@ -209,13 +209,12 @@ def test_general_rank_mode(cfg_kw):
 
 
 @pytest.mark.parametrize("cfg_kw", [
-    dict(rms_threshold=10.0), dict(use_classifier=False, rms_threshold=10.0),
     dict(vq_classes=3),
     dict(criterion="raw", so_mode="reference", source_size=32, target_size=16),
 ])
 def test_unported_configs_raise(cfg_kw):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        T.encode_plane(random_plane(64), T.EncoderConfig(**cfg_kw))
+        T.encode_plane(random_plane(64), T.EncoderConfig(**cfg_kw), device="cpu")
 
 
 def test_cpu_routing_and_launch_count():
@@ -223,13 +222,13 @@ def test_cpu_routing_and_launch_count():
     backend='cuda' refuses CPU tensors."""
     img = random_plane(64, 4)
     before = dict(mk.search_classed_cuda.launches)
-    auto = T.encode_plane(img, T.EncoderConfig())
-    plain = T.encode_plane(img, T.EncoderConfig(backend="torch"))
+    auto = T.encode_plane(img, T.EncoderConfig(), device="cpu")
+    plain = T.encode_plane(img, T.EncoderConfig(backend="torch"), device="cpu")
     assert mk.search_classed_cuda.launches == before
     for f in ("domain_idx", "transform", "s", "o", "distance", "valid"):
         assert_bitwise(getattr(auto, f), getattr(plain, f), f)
     with pytest.raises(ValueError, match="CUDA"):
-        T.encode_plane(img, T.EncoderConfig(backend="cuda"))
+        T.encode_plane(img, T.EncoderConfig(backend="cuda"), device="cpu")
 
 
 @pytest.mark.parametrize("cname", ["default", "compat"])

@@ -84,7 +84,8 @@ def _jax_quadtree(pname: str, threshold: float):
 @functools.lru_cache(maxsize=None)
 def _port_quadtree(pname: str, threshold: float):
     return tq.encode_plane_quadtree(PLANES[pname], T.EncoderConfig(),
-                                    tq.QuadtreeConfig(error_threshold=threshold))
+                                    tq.QuadtreeConfig(error_threshold=threshold),
+                                    device="cpu")
 
 
 def _jax_levels_numpy(rj):
@@ -147,10 +148,10 @@ def test_coverage_mask_leaves_bit_identical(pname):
     """Masking covered blocks changes no accepted leaf: the masks and every
     stored field of the accepted entries equal the full per-level search."""
     qcfg = tq.QuadtreeConfig()
-    r_on = tq.encode_plane_quadtree(PLANES[pname], T.EncoderConfig(), qcfg)
+    r_on = tq.encode_plane_quadtree(PLANES[pname], T.EncoderConfig(), qcfg, device="cpu")
     r_off = tq.encode_plane_quadtree(
         PLANES[pname], T.EncoderConfig(),
-        dataclasses.replace(qcfg, mask_covered=False))
+        dataclasses.replace(qcfg, mask_covered=False), device="cpu")
     assert int(r_on.levels[0].accepted.sum()) > 0, "vacuous: no 16 px leaf"
     assert r_on.num_leaves == r_off.num_leaves
     for lon, loff in zip(r_on.levels, r_off.levels):
@@ -166,7 +167,7 @@ def test_decode_jax_encode(pyramid):
     JAX decoder's pixels, iteration count and MSE."""
     rj = _jax_quadtree("lenna128", 50.0)
     oj, ij, mj = jq.decode_plane_quadtree(rj, J.DecoderConfig(pyramid=pyramid))
-    rx = quadtree_from_numpy(_jax_levels_numpy(rj), rj.width, rj.height)
+    rx = quadtree_from_numpy(_jax_levels_numpy(rj), rj.width, rj.height, "cpu")
     ot, it, mt = tq.decode_plane_quadtree(rx, T.DecoderConfig(pyramid=pyramid))
     assert_bitwise(np.asarray(oj), ot, "pixels")
     assert (int(ij), float(mj)) == (it, mt)
@@ -177,7 +178,7 @@ def test_jax_decodes_port_encode():
     package to the port decoder's pixels; the bridge round trip is lossless."""
     rt = _port_quadtree("lenna128", 50.0)
     levels, w, h = quadtree_to_numpy(rt)
-    back = quadtree_from_numpy(levels, w, h)
+    back = quadtree_from_numpy(levels, w, h, "cpu")
     for lt, lb in zip(rt.levels, back.levels):
         for f in LEVEL_FIELDS:
             assert_bitwise(getattr(lt, f), getattr(lb, f), f)
@@ -192,9 +193,9 @@ def test_jax_decodes_port_encode():
 def test_quadtree_refuses_unported_options():
     with pytest.raises(NotImplementedError, match="ROADMAP.*above K = 64"):
         tq.encode_plane_quadtree(PLANES["smooth64"],
-                                 T.REFERENCE_COMPAT(use_classifier=False))
+                                 T.REFERENCE_COMPAT(use_classifier=False), device="cpu")
     with pytest.raises(ValueError, match="aligned"):
-        tq.encode_plane_quadtree(PLANES["smooth64"][:56, :56])
+        tq.encode_plane_quadtree(PLANES["smooth64"][:56, :56], device="cpu")
 
 
 def test_cli_quadtree_matches_jax_cli(tmp_path, capsys):
