@@ -29,7 +29,8 @@ Phases, each of which must pass (any failure exits non-zero):
      512^2, 'ls' with the class mask at 512^2; K = 64 and 256 'ls' on the
      quadtree level inputs of the 2048^2 plane; then at 2048^2 under the
      very configs that phases 10, 11 and 13 parse from their flags:
-     --noclassifier, config 1, and each path of KEY_PATHS;
+     --noclassifier, config 1, and each path of KEY_PATHS (a quadtree path
+     at its 16 px level's geometry: raw256 and general256);
   9. K1 'raw' and 'general' parity: so_mode 'reference' at 2048^2 and every
      key on the 8 px quadtree level (K = 64), then at 2048^2 under the
      configs that phase 13 parses from each path of KEY_PATHS;
@@ -40,9 +41,10 @@ Phases, each of which must pass (any failure exits non-zero):
      --noclassifier): at 256^2 card == CPU bitwise, times at 2048^2;
  12. --noclassifier --quadtree: at 512^2 card == CPU bitwise, times and
      leaves at 2048^2;
- 13. the paths of KEY_PATHS (--compat and --smax 0.9, with 4x4 ranges and
-     with config 1's 8x8 ranges), with and without the classifier: card ==
-     CPU bitwise at 256^2, then at 2048^2 each with its launch counts;
+ 13. the paths of KEY_PATHS (--compat and --smax 0.9, with 4x4 ranges, with
+     config 1's 8x8 ranges and on the quadtree), with and without the
+     classifier: card == CPU bitwise at 256^2 (every quadtree level), then
+     at 2048^2 each with its launch counts (and the quadtree's leaves);
  14. the C++ reference goldens (default, --noclassifier, --smax 0.9,
      --rms 10) on the in-repo Lenna crop through the port on the card,
      against the reference encoder's dumps and decoded PNGs to the
@@ -58,7 +60,14 @@ Phases, each of which must pass (any failure exits non-zero):
      --noclassifier, config 1, --quadtree, --noclassifier --quadtree and the
      KEY_PATHS flags): card == CPU bitwise at 256^2 (512^2 for --rms 10),
      then at 2048^2 each with its launch counts (only `_thr` instances),
-     PSNR and hit share, and the wall times of the first six.
+     PSNR and hit share, and the wall times of the first six;
+ 17. the bitstream (BITSTREAM_PATHS: the default path, --quadtree,
+     --compat --quadtree and --color) at 512^2 and 2048^2: the CLI writes
+     the file (--out) on the card and decodes it (--decode-file) on the
+     card; at 512^2 the CPU's encode writes the same bytes and the CPU's
+     decode of the file gives the same pixels; the file's bytes, bpp and
+     PSNR, and the host ms of packing the card's results and of unpacking
+     the file onto the card.
 Every path is driven with the launch counts set to 0 just before it and
 read just after; each must launch the kernels it names.  Each kernel's
 record keeps the times of its last parity check, which is at the shape of
@@ -68,10 +77,12 @@ with the frontier; the class layout's padding rows and columns are not
 counted) over the H100 SXM's 1,979 TOP/s and the bytes of its ranges,
 columns and results (``search_bytes``) over 3.35 TB/s.
 No single PyTorch call gives (q, idx), so library_ms is null.  Plain timings
-at 2048^2 are one run each (after the parity run), to keep the script short.
+at 2048^2 are one run each, the parity run itself (which also counts the
+pairs scanned), to keep the script short.
 The planes are natural-like synthetic textures made with numpy from a seed.
 The last two lines are the kernels' JSON record and the device JSON line.
-Without a CUDA device it exits non-zero and prints no result.
+Without a CUDA device it exits non-zero and prints no result.  Its files
+go to build/smoke/ in the checkout, which it removes at the end.
 """
 from __future__ import annotations
 
@@ -80,6 +91,7 @@ import gzip
 import json
 import os
 import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -92,24 +104,28 @@ SOURCES = {"search_classed": "fractencode_tpu_torch/csrc/search_classed.cu",
            "search_dense": "fractencode_tpu_torch/csrc/search_dense.cu"}
 # The line of the TPU kernel each kernel key replaces: _pairs_kernel (K1)
 # and _search_kernel (K3); 'ls' at K = 64 is their ls_fast int8 branch,
-# 'raw' and 'general' their generic int8 branch, K = 256 their f32 branch;
-# 'thr' (the `_thr` instances) their call of _apply_frontier.
-_LINES = {"search_classed": {"ls16": 508, "ls64": 556, "ls256": 568, "raw": 560,
-                             "general": 560, "thr": 581},
-          "search_dense": {"ls16": 163, "ls64": 203, "ls256": 211, "raw": 206,
-                           "general": 206, "thr": 227}}
+# 'raw' and 'general' their generic int8 branch, K = 256 their f32 branch
+# (every key); 'thr' (the `_thr` instances) their call of _apply_frontier.
+_LINES = {"search_classed": {"ls16": 508, "ls64": 556, "raw": 560, "general": 560,
+                             "f32": 568, "thr": 581},
+          "search_dense": {"ls16": 163, "ls64": 203, "raw": 206, "general": 206,
+                           "f32": 211, "thr": 227}}
 # (domain, range) sizes of the quadtree's levels by K (CLI defaults)
 LEVELS = {16: (16, 4), 64: (32, 8), 256: (64, 16)}
 CONFIG1 = ["--source", "16", "--target", "8", "--transforms", "8"]
 # the CLI paths of the 'raw' and 'general' keys by (key, K), driven in phase
 # 13 with and without --noclassifier; phases 8 and 9 check the kernels at
-# the configs these flags parse to (--compat keeps 4 isometries, as in the
-# JAX CLI, so its config 1 path has 260,100 columns)
+# the configs these flags parse to, a quadtree path at its level of K
+# (--compat keeps 4 isometries, as in the JAX CLI, so its config 1 path has
+# 260,100 columns)
 KEY_PATHS = {("raw", 16): ["--compat"],
              ("raw", 64): [*CONFIG1, "--compat"],
              ("general", 16): ["--smax", "0.9"],
-             ("general", 64): [*CONFIG1, "--smax", "0.9"]}
-GOLDEN = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests", "golden")
+             ("general", 64): [*CONFIG1, "--smax", "0.9"],
+             ("raw", 256): ["--compat", "--quadtree"],
+             ("general", 256): ["--smax", "0.9", "--quadtree"]}
+ROOT = os.path.dirname(os.path.abspath(__file__))
+GOLDEN = os.path.join(ROOT, "tests", "golden")
 # the C++ reference's goldens on the Lenna crop: CLI flags, encode dump, result
 GOLDENS = {"default": ([], "lenna128_cpp_encode.txt.gz", "lenna128_cpp_result.png"),
            "nocls": (["--noclassifier"], "lenna128_cpp_nocls.txt.gz",
@@ -119,6 +135,14 @@ GOLDENS = {"default": ([], "lenna128_cpp_encode.txt.gz", "lenna128_cpp_result.pn
            "rms10": (["--rms", "10"], "lenna128_cpp_rms10.txt.gz",
                      "lenna128_cpp_result_rms10.png")}
 RMS = ["--rms", "10"]
+
+
+def path_ks(argv, k):
+    """The K of every search a CLI path of the key at K runs: each level's
+    on the quadtree."""
+    return list(LEVELS) if "--quadtree" in argv else [k]
+
+
 # the --rms paths (phase 16) and the `_thr` instances (kernel, key, K) each
 # runs; phase 15 checks each instance at the config of the first path here
 # that runs it (the quadtree levels at their level geometry)
@@ -131,9 +155,19 @@ RMS_PATHS = {
                             [("search_classed", "ls", k) for k in LEVELS]),
     "--noclassifier --quadtree --rms 10": (["--noclassifier", "--quadtree", *RMS],
                                            [("search_dense", "ls", k) for k in LEVELS]),
-    **{f"{' '.join(argv)}{nocls} --rms 10": ([*argv, *nocls.split(), *RMS], [(kernel, *key)])
+    **{f"{' '.join(argv)}{nocls} --rms 10": ([*argv, *nocls.split(), *RMS],
+                                             [(kernel, mode, kk) for kk in path_ks(argv, k)])
        for kernel, nocls in (("search_classed", ""), ("search_dense", " --noclassifier"))
-       for key, argv in KEY_PATHS.items() if (kernel, key) != ("search_classed", ("raw", 16))},
+       for (mode, k), argv in KEY_PATHS.items()
+       if (kernel, mode, k) != ("search_classed", "raw", 16)},
+}
+# the paths of phase 17, each with the kernel instances its encode launches
+BITSTREAM_PATHS = {
+    "default": ([], [("search_classed", "ls", 16, False)]),
+    "--quadtree": (["--quadtree"], [("search_classed", "ls", k, False) for k in LEVELS]),
+    "--compat --quadtree": (["--compat", "--quadtree"],
+                            [("search_classed", "raw", k, False) for k in LEVELS]),
+    "--color": (["--color"], [("search_classed", "ls", 16, False)]),
 }
 # the H100 SXM's dense int8 tensor-core rate and HBM3 rate (NVIDIA's data
 # sheet, 700 W): the bound of a search is the larger of its 2K int8
@@ -195,8 +229,8 @@ def ptxas_report(text):
 
 
 def cuda_ms(fn, reps=5):
-    """Median device time of fn() in ms (CUDA events); one warmup first
-    when there is more than one repetition."""
+    """Median device time of fn() in ms (CUDA events), and its last result;
+    one warmup first when there is more than one repetition."""
     import torch
 
     if reps > 1:
@@ -206,11 +240,11 @@ def cuda_ms(fn, reps=5):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
-        fn()
+        out = fn()
         end.record()
         torch.cuda.synchronize()
         times.append(start.elapsed_time(end))
-    return statistics.median(times)
+    return statistics.median(times), out
 
 
 def bitwise(a, b) -> bool:
@@ -284,8 +318,8 @@ class Kernels:
                 for k in ks:
                     for thr in (False, True):
                         lines = _LINES[kernel]
-                        line = (lines["thr"] if thr else
-                                lines.get(f"{mode}{k}", lines.get(mode)))
+                        line = (lines["thr"] if thr else lines["f32"] if k == 256
+                                else lines.get(f"{mode}{k}", lines.get(mode)))
                         self.records[(kernel, mode, k, thr)] = dict(
                             name=f"{kernel}_{mode}{k}" + ("_thr" if thr else ""),
                             route="cuda", source=SOURCES[kernel],
@@ -321,15 +355,15 @@ class Kernels:
 
         q_k, i_k = run()
         scanned = torch.zeros(q_k.shape[0], dtype=torch.int64, device=q_k.device)
-        q_p, i_p = plain(scanned)
-        torch.cuda.synchronize()
+        plain_ms, (q_p, i_p) = cuda_ms(lambda: plain(scanned), reps=1)
         err = float((q_k.double() - q_p.double()).abs().max())
         name = self.records[key]["name"]
         check(bitwise(q_k, q_p), f"{name} q differs from the plain version at {what} "
                                  f"(max abs {err})")
         check(bitwise(i_k, i_p), f"{name} idx differs from the plain version at {what}")
-        ms = cuda_ms(run)
-        plain_ms = cuda_ms(plain, reps=plain_reps)
+        ms, _ = cuda_ms(run)
+        if plain_reps > 1:
+            plain_ms, _ = cuda_ms(plain, reps=plain_reps)
         pairs = int((scanned if real is None else scanned[real]).sum())
         bound_ms, bound_by = bound(pairs, key[2], nbytes)
         print(f"    {name} at {what}: {q_k.shape[0]} rows, (q, idx) bitwise equal; "
@@ -352,6 +386,44 @@ def parse(argv):
 
     args = cli.build_parser().parse_args(argv)
     return args, cli._config_from_args(args), cli._decoder_config(args)
+
+
+def path_config(argv, mode, k):
+    """The config the CLI parses from ``argv``, at the geometry of its level
+    of K on the quadtree; it must select the (mode, K) kernel key."""
+    from fractencode_tpu_torch.encode import matcher as tm
+
+    _, c, _ = parse(["--device", "cuda", *argv])
+    if "--quadtree" in argv:
+        c = dataclasses.replace(c, source_size=LEVELS[k][0], target_size=LEVELS[k][1])
+    check((tm.rank_mode(c.criterion, c.so_mode, c.s_max), c.target_size ** 2) == (mode, k),
+          f"{' '.join(argv)} does not select the {mode}{k} kernel")
+    return c
+
+
+def run_cli(argv):
+    """cli.main(argv) with its standard output captured: (exit code, text)."""
+    import contextlib
+    import io
+
+    from fractencode_tpu_torch import cli
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(argv)
+    return rc, buf.getvalue()
+
+
+def host_ms(fn, reps=3):
+    """Median host-clock ms of fn(), which ends in a synchronize, over reps
+    runs after one warmup; and its last result."""
+    fn()
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        out = fn()
+        times.append(time.perf_counter() - t0)
+    return 1e3 * statistics.median(times), out
 
 
 def card_equals_cpu(img, argv, label):
@@ -462,7 +534,12 @@ def main() -> int:
     from fractencode_tpu_torch.encode.quadtree import (QuadtreeConfig,
                                                        decode_plane_quadtree,
                                                        encode_plane_quadtree)
-    from fractencode_tpu_torch.image import load_gray
+    from PIL import Image
+
+    from fractencode_tpu_torch.codec import (is_container, pack_container, pack_quadtree,
+                                             pack_result, unpack_container,
+                                             unpack_quadtree, unpack_result)
+    from fractencode_tpu_torch.image import load_gray, load_planes
     from fractencode_tpu_torch.ops import _build
     from fractencode_tpu_torch.ops import matcher_kernels as mk
     from fractencode_tpu_torch.params import REFERENCE_COMPAT
@@ -619,16 +696,9 @@ def main() -> int:
     k3_parity(big, nocls, "2048^2", plain_reps=1)
     k3_parity(big, c1, "2048^2, config 1", plain_reps=1)
 
-    def path_config(key, argv):
-        """The config the CLI parses from ``argv``; it must select ``key``."""
-        _, c, _ = parse(["--device", "cuda", *argv])
-        check((tm.rank_mode(c.criterion, c.so_mode, c.s_max), c.target_size ** 2) == key,
-              f"{' '.join(argv)} does not select the {key} kernel")
-        return c
-
-    for key, argv in KEY_PATHS.items():
+    for (mode, k), argv in KEY_PATHS.items():
         argv = [*argv, "--noclassifier"]
-        k3_parity(big, path_config(key, argv), f"2048^2, {' '.join(argv)}", plain_reps=1)
+        k3_parity(big, path_config(argv, mode, k), f"2048^2, {' '.join(argv)}", plain_reps=1)
 
     # -- 9. K1's raw and general keys
     print("[9] K1 'raw' and 'general' keys, kernel vs plain")
@@ -637,8 +707,8 @@ def main() -> int:
     for base in (REFERENCE_COMPAT(), so_ref, dataclasses.replace(cfg, s_max=0.9)):
         k1_parity(big, dataclasses.replace(base, source_size=32, target_size=8),
                   "2048^2, 8 px level", plain_reps=1)
-    for key, argv in KEY_PATHS.items():
-        k1_parity(big, path_config(key, argv), f"2048^2, {' '.join(argv)}", plain_reps=1)
+    for (mode, k), argv in KEY_PATHS.items():
+        k1_parity(big, path_config(argv, mode, k), f"2048^2, {' '.join(argv)}", plain_reps=1)
 
     # -- 10. --noclassifier: 512^2 card == CPU, then 2048^2
     card_equals_cpu(planes[512], ["--noclassifier"], "512 noclassifier")
@@ -704,13 +774,20 @@ def main() -> int:
             argv = [*key_argv, *nocls_flag]
             path = " ".join(argv)
             card_equals_cpu(planes[256], argv, f"256 {path}")
-            print(f"     256^2 {path}: card and CPU EncodeResult and pixels bitwise equal")
-            res, out, counts = drive(kernels, path, big, argv, [(kernel, mode, k, False)],
+            print(f"     256^2 {path}: card and CPU results and pixels bitwise equal")
+            res, out, counts = drive(kernels, path, big, argv,
+                                     [(kernel, mode, kk, False) for kk in path_ks(argv, k)],
                                      f"2048 {path} cuda")
-            check_uniform(res, out, 2048, f"2048^2 {path}")
+            leaves = ""
+            if "--quadtree" in argv:
+                check_quadtree(res, out, 2048, qcfg, f"2048^2 {path}")
+                leaves = "; leaves " + " ".join(f"{l.range_size}px:{int(l.accepted.sum())}"
+                                                for l in res.levels)
+            else:
+                check_uniform(res, out, 2048, f"2048^2 {path}")
             db = float(psnr(plane_t, torch.from_numpy(out)))
             check(db > 20.0, f"2048^2 {path} PSNR {db:.4f} dB is implausibly low")
-            print(f"     2048^2 {path}: launches {counts}; PSNR {db:.4f} dB")
+            print(f"     2048^2 {path}: launches {counts}{leaves}; PSNR {db:.4f} dB")
 
     # -- 14. the C++ reference goldens on the card
     lenna = load_gray(os.path.join(GOLDEN, "lenna128_input.png"))
@@ -742,17 +819,6 @@ def main() -> int:
     # -- 15. the frontier instances against their plain versions
     print("[15] the early-accept frontier (_thr instances), kernel vs plain")
 
-    def rms_config(name, mode, k):
-        """The config the --rms path ``name`` parses to, at its level's
-        geometry for K on the quadtree."""
-        argv = RMS_PATHS[name][0]
-        _, c, _ = parse(["--device", "cuda", *argv])
-        if "--quadtree" in argv:
-            c = dataclasses.replace(c, source_size=LEVELS[k][0], target_size=LEVELS[k][1])
-        check((tm.rank_mode(c.criterion, c.so_mode, c.s_max), c.target_size ** 2)
-              == (mode, k) and c.rms_threshold == 10.0, f"{name} does not select {mode}{k}")
-        return c
-
     smooth = smooth_plane(512, SEED)
     checked = set()
     for name, (_, insts) in RMS_PATHS.items():
@@ -760,7 +826,8 @@ def main() -> int:
             if (kernel, mode, k) in checked:
                 continue
             checked.add((kernel, mode, k))
-            c = rms_config(name, mode, k)
+            c = path_config(RMS_PATHS[name][0], mode, k)
+            check(c.rms_threshold == 10.0, f"{name}: rms_threshold {c.rms_threshold}")
             parity = k1_parity if kernel == "search_classed" else k3_parity
             parity(planes[512], c, f"512^2, {name}")
             if k == 256:  # few 16 px ranges of a natural plane hit
@@ -785,8 +852,10 @@ def main() -> int:
         if args.quadtree:
             check_quadtree(res, out, 2048, qcfg, f"2048^2 {name}")
             shares = []
-            for l in res.levels:  # the affine criterion: error is the distance
+            for l in res.levels:  # error is the distance, per pixel for 'raw'
                 err = l.error[torch.isfinite(l.error)].cpu()
+                if c.criterion == "raw":  # exact: a power-of-two scale
+                    err = err * (l.range_size ** 2 / l.domain_size ** 2)
                 shares.append(f"{l.range_size}px:{float((err <= thr32).double().mean()):.4f}")
             what = ("leaves " + " ".join(f"{l.range_size}px:{int(l.accepted.sum())}"
                                          for l in res.levels)
@@ -808,6 +877,86 @@ def main() -> int:
             timing = (f"; encode {enc_ms:.3f} ms, decode {dec_ms:.3f} ms ({iters} "
                       "full-res steps, median of 3 warm runs, host clock)")
         print(f"     2048^2 {name}: launches {counts}; {what}; PSNR {db:.4f} dB{timing}")
+
+    # -- 17. the bitstream: --out, then --decode-file, on the card
+    print("[17] the bitstream: --out and --decode-file on the card")
+    work = os.path.join(ROOT, "build", "smoke")
+    os.makedirs(work, exist_ok=True)
+    for n in (512, 2048):
+        sources = {"gray": os.path.join(work, f"gray{n}.png"),
+                   "rgb": os.path.join(work, f"rgb{n}.png")}
+        Image.fromarray(planes[n]).save(sources["gray"])
+        rgb = np.stack([planes[n], natural_plane(n, SEED + 1), natural_plane(n, SEED + 2)], -1)
+        Image.fromarray(rgb).save(sources["rgb"])
+        for name, (flags, expect) in BITSTREAM_PATHS.items():
+            src = sources["rgb" if "--color" in flags else "gray"]
+            file = lambda tag: os.path.join(work, f"{n}_{tag}")
+            kernels.zero()
+            rc, text = run_cli([src, *flags, "--out", file("card.ft"),
+                                "--result", file("enc.png")])
+            counts = kernels.read(f"{name} --out", expect)
+            check(rc == 0, f"{n}^2 {name} --out: exit {rc}")
+            with open(file("card.ft"), "rb") as f:
+                blob = f.read()
+            bpp = 8 * len(blob) / n ** 2
+            check(f"bitstream: {len(blob)} bytes" in text and f"bpp: {bpp:.4f}" in text,
+                  f"{n}^2 {name}: the CLI's bitstream lines")
+            # the decoder flags of the encode (--compat: the reference's flat decode)
+            dflags = [f for f in flags if f == "--compat"]
+            rc, _ = run_cli(["--decode-file", file("card.ft"), *dflags,
+                             "--result", file("dec.png")])
+            check(rc == 0, f"{n}^2 {name} --decode-file on the card: exit {rc}")
+            y_dec = load_planes(file("dec.png"))[0]
+            if n == 512:
+                rc, _ = run_cli([src, *flags, "--device", "cpu", "--out", file("cpu.ft"),
+                                 "--result", file("enc_cpu.png")])
+                with open(file("cpu.ft"), "rb") as f:
+                    check(rc == 0 and f.read() == blob,
+                          f"{n}^2 {name}: the CPU's encode writes other bytes")
+                rc, _ = run_cli(["--decode-file", file("card.ft"), *dflags, "--device",
+                                 "cpu", "--result", file("dec_cpu.png")])
+                check(rc == 0 and np.array_equal(np.asarray(Image.open(file("dec_cpu.png"))),
+                                                 np.asarray(Image.open(file("dec.png")))),
+                      f"{n}^2 {name}: the card's decode of the file differs from the CPU's")
+            # pack the card's results (what the CLI packs) and unpack the file
+            args, c, _ = parse(["--device", "cuda", src, *flags])
+            pl = load_planes(src)[:3 if args.color else 1]
+            if args.quadtree:
+                results = [encode_plane_quadtree(p, c, qcfg, device="cuda") for p in pl]
+                pack, unpack = pack_quadtree, unpack_quadtree
+            else:
+                results = [encode_plane(p, c, device="cuda") for p in pl]
+                pack, unpack = pack_result, unpack_result
+
+            def pack_all():
+                blobs = [pack(r, plane=p) for r, p in zip(results, pl)]
+                return blobs[0] if len(blobs) == 1 else pack_container(blobs)
+
+            reps = 3 if n == 512 else 1
+            pack_ms, packed = host_ms(pack_all, reps)
+            check(packed == blob, f"{n}^2 {name}: packing the card's results gives other bytes")
+
+            def unpack_all():
+                out = [unpack(b, "cuda") for b in
+                       (unpack_container(blob) if is_container(blob) else [blob])]
+                torch.cuda.synchronize()
+                return out
+
+            unpack_ms, _ = host_ms(unpack_all, reps)
+            # the file's s and o (5 and 7 bits) cost little against the encode's
+            # own decode (the CLI's first psnr line: Y's): within 3 dB of it, or
+            # still above 30 dB where quantization noise is all that is left
+            db = float(psnr(torch.from_numpy(load_planes(src)[0]), torch.from_numpy(y_dec)))
+            db_enc = float(re.search(r"psnr: ([0-9.]+) dB", text).group(1))
+            check(db > min(db_enc - 3.0, 30.0), f"{n}^2 {name}: the decoded file's PSNR "
+                                                f"{db:.4f} dB, the encode's {db_enc:.4f} dB")
+            print(f"     {n}^2 {name}: launches {counts}; {len(blob)} bytes, {bpp:.4f} bpp, "
+                  f"decoded file's Y PSNR {db:.4f} dB (the encode's {db_enc:.4f} dB); "
+                  f"pack {pack_ms:.3f} ms, unpack onto "
+                  f"the card {unpack_ms:.3f} ms ({'median of 3' if reps > 1 else 'one run'}, "
+                  "host clock, after a warmup)"
+                  + ("; card == CPU: the same bytes and decoded pixels" if n == 512 else ""))
+    shutil.rmtree(work)
 
     records = list(kernels.records.values())
     for rec in records:

@@ -1,11 +1,16 @@
 """Command-line entry point of the port (mirrors ``fractencode_tpu/cli.py``).
 
-Encodes one grayscale plane, decodes it and prints the reference CLI's
-statistics plus PSNR, for the flags the port covers.  Flags of parts not
-ported yet are accepted by the parser and refused with exit code 2.
+Encodes one grayscale plane (or the three YUV planes with ``--color``),
+decodes it and prints the reference CLI's statistics plus PSNR, for the flags
+the port covers; ``--out`` writes the compressed file (FTC1 for the uniform
+grid, FTQ1 for the quadtree, FTCC around three planes) and ``--decode-file``
+decodes one.  Flags of parts not ported yet are accepted by the parser and
+refused with exit code 2.
 
 Usage:
     python -m fractencode_tpu_torch input.png [--device cuda|cpu] [flags]
+    python -m fractencode_tpu_torch input.png --out out.ftc
+    python -m fractencode_tpu_torch --decode-file in.ftc --result out.png
 """
 from __future__ import annotations
 
@@ -19,9 +24,6 @@ import torch
 # flag -> the ROADMAP.md item that ports it
 _NOT_PORTED = {
     "vq_classes": "queue 1, VQ pruning",
-    "out": "queue 1, Codec adapters and bitstream",
-    "decode_file": "queue 1, Codec adapters and bitstream",
-    "color": "queue 1, CLI",
     "log": "queue 1, Profiling",
     "profile": "queue 1, Profiling",
 }
@@ -56,13 +58,13 @@ def build_parser() -> argparse.ArgumentParser:
                    help="per-pixel MSE acceptance threshold per level")
     p.add_argument("--noclassifier", action="store_true",
                    help="search every (range, domain) pair, with no class prune")
+    p.add_argument("--color", action="store_true", help="encode all 3 YUV planes")
+    p.add_argument("--out", help="write the compressed bitstream to this path")
+    p.add_argument("--decode-file", help="decode a bitstream instead of encoding")
     # not ported yet: parsed so that they are refused by name
-    p.add_argument("--color", action="store_true", help=argparse.SUPPRESS)
     p.add_argument("--log", action="store_true", help=argparse.SUPPRESS)
     p.add_argument("--profile", default=None, help=argparse.SUPPRESS)
     p.add_argument("--vq-classes", type=int, default=0, help=argparse.SUPPRESS)
-    p.add_argument("--out", default=None, help=argparse.SUPPRESS)
-    p.add_argument("--decode-file", default=None, help=argparse.SUPPRESS)
     return p
 
 
@@ -190,13 +192,63 @@ def _decoder_config(args):
     )
 
 
+def _decode_file(args, dcfg) -> int:
+    """``--decode-file``: decode a bare FTC1 or FTQ1 plane or an FTCC
+    container of three on ``args.device`` and save the image; exit 2 on a
+    file that does not parse or decode."""
+    from .codec import is_container, unpack_container, unpack_quadtree, unpack_result
+    from .decode import decode_plane
+    from .encode.quadtree import decode_plane_quadtree
+    from .image import save_plane, save_yuv
+
+    def decode_blob(blob):
+        if blob[:4] == b"FTQ1":
+            return decode_plane_quadtree(unpack_quadtree(blob, args.device), dcfg)
+        return decode_plane(unpack_result(blob, args.device), dcfg)
+
+    try:
+        with open(args.decode_file, "rb") as f:
+            data = f.read()
+        blobs = unpack_container(data) if is_container(data) else [data]
+        decoded = [decode_blob(b) for b in blobs]
+    except Exception as e:  # struct.error / ValueError / truncated file
+        print(f"error: not a valid bitstream: {args.decode_file} ({e})", file=sys.stderr)
+        return 2
+    planes = [out.cpu().numpy() for out, _, _ in decoded]
+    if len(planes) == 3:
+        save_yuv(*planes, args.result)  # cf. main.cpp:192-200
+    else:
+        save_plane(planes[0], args.result)
+    for _, iters, mse in decoded:
+        print(f"decoded {args.decode_file}: {iters} steps, rms {mse:.6g}")
+    return 0
+
+
+def _write_file(args, results) -> None:
+    """``--out``: one bare FTC1 or FTQ1 plane, or three in an FTCC container,
+    with o stored as each block's mean (``plane``); prints the size, its
+    ratio to one byte per pixel and plane (the JAX CLI's line), and the rate
+    in bits per pixel of the image."""
+    from .codec import pack_container, pack_quadtree, pack_result
+
+    pack = pack_quadtree if args.quadtree else pack_result
+    blobs = [pack(res, plane=plane) for res, plane in results]
+    blob = blobs[0] if len(blobs) == 1 else pack_container(blobs)
+    with open(args.out, "wb") as f:
+        f.write(blob)
+    pixels = results[0][1].size
+    raw = pixels * len(results)
+    print(f"bitstream: {len(blob)} bytes ({raw / max(len(blob), 1):.1f}x)")
+    print(f"bpp: {8 * len(blob) / pixels:.4f}")
+
+
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
     refused = _unported_flag(args)
     if refused:
         print(f"error: {refused}", file=sys.stderr)
         return 2
-    if not args.input:
+    if not args.input and not args.decode_file:
         print("no input image", file=sys.stderr)
         return 2
     if torch.device(args.device).type == "cuda" and not torch.cuda.is_available():
@@ -204,22 +256,33 @@ def main(argv=None) -> int:
               file=sys.stderr)
         return 2
     dcfg = _decoder_config(args)
+    if args.decode_file:
+        return _decode_file(args, dcfg)
     try:
         cfg = _config_from_args(args)
     except ValueError as e:
         print(f"error: {e}", file=sys.stderr)  # cf. main.cpp:99-102
         return 2
 
-    from .image import load_planes, save_plane
+    from .image import load_planes, save_plane, save_yuv
 
     total0 = time.perf_counter()
-    y, _, _ = load_planes(args.input)
+    y, u, v = load_planes(args.input)
     try:
-        _, out = _encode_one(y, args, cfg, dcfg)
+        if args.color:
+            outs = [_encode_one(p, args, cfg, dcfg, f" [{name}]")
+                    for name, p in (("Y", y), ("U", u), ("V", v))]
+            save_yuv(*(out for _, out in outs), args.result)
+            results = [(res, p) for (res, _), p in zip(outs, (y, u, v))]
+        else:
+            res, out = _encode_one(y, args, cfg, dcfg)
+            save_plane(out, args.result)
+            results = [(res, y)]
     except NotImplementedError as e:
         print(f"error: {e}", file=sys.stderr)
         return 2
-    save_plane(out, args.result)
+    if args.out:
+        _write_file(args, results)
     print(f"total time: {time.perf_counter() - total0:.4g} s.")
     return 0
 

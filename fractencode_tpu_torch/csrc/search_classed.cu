@@ -1,18 +1,19 @@
-// Class-blocked all-pairs search with int8 operands: the 'ls' key at K = 16,
-// 64 and 256 (4x4, 8x8 and 16x16 range blocks), the 'raw' and 'general' keys
-// at K = 16 and 64; each with and without the early-accept frontier.
+// Class-blocked all-pairs search with int8 operands: the 'ls', 'raw' and
+// 'general' keys at K = 16, 64 and 256 (4x4, 8x8 and 16x16 range blocks),
+// each with and without the early-accept frontier.
 //
 // Replaces the TPU kernel `_pairs_kernel` (fractencode_tpu/ops/matcher_pallas.py,
 // reached through `fused_search_pairs`): its `ls_fast` int8 branch ('ls' at
 // K = 16 and 64), its generic int8 branch (`_pair_ab_int8` + `_rank_tile`:
 // 'raw' and 'general' at K = 16 and 64) and its f32 branch (`_pair_ab_f32` +
-// `_rank_tile`, 'ls' key) at K = 256.  For each class-sorted range row r,
+// `_rank_tile`, every key) at K = 256.  For each class-sorted range row r,
 // with class c = tile_class[r / block_r], it returns the first-occurrence
 // argmax over the columns [col_tile_start[c] * block_m, col_end[c]) of the
 // rank key q (search_common.cuh), bit for bit against the plain version.  At
-// K = 256 the key is formed from exact integers (cov4 in int64, rounded once
-// to f32): that is the port's exact-integer rule for K = 256, where the TPU
-// kernel computes the key in f32 (ROADMAP.md, parity contract).  The int8
+// K = 256 the key is formed from exact integers, each key rounded once to f32
+// (the 'general' residual evaluated in double from them): that is the port's
+// exact-integer rule for K = 256, where the TPU kernel computes the key in
+// f32 (ROADMAP.md, parity contract).  The int8
 // operands serve K = 256 too: 4B <= 1020 keeps ch = 4B >> 3 <= 127, and
 // |dot| <= 256 * 128 * 1020 < 2^31.  A row whose class has no columns gets
 // q = -3e38, idx = 0, the TPU kernel's initial value.  Without the frontier
@@ -50,7 +51,8 @@ search_classed_kernel(const int4* __restrict__ ai,      // [r_pad] rows of K int
                       const int4* __restrict__ ch,      // [m_pad] rows of K int8
                       const int4* __restrict__ cl,      // [m_pad] rows of K int8
                       const float* __restrict__ sb,     // [m_pad] SumB
-                      const float* __restrict__ aux,    // [m_pad] inv_var_b or SumB2
+                      const void* __restrict__ aux,     // [m_pad] f32 inv_var_b or SumB2;
+                                                        // double SumB2 (exact keys)
                       const int* __restrict__ tile_class,      // [nrt]
                       const int* __restrict__ col_tile_start,  // [nc]
                       const int* __restrict__ col_end,         // [nc]
@@ -87,7 +89,7 @@ int launch(const void* ai, const void* ch, const void* cl, const void* sb,
   search_classed_kernel<K, M, Frontier><<<grid, kRows, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int4*>(ai), static_cast<const int4*>(ch),
       static_cast<const int4*>(cl), static_cast<const float*>(sb),
-      static_cast<const float*>(aux), static_cast<const int*>(tile_class),
+      aux, static_cast<const int*>(tile_class),
       static_cast<const int*>(col_tile_start), static_cast<const int*>(col_end),
       static_cast<const int*>(row_end), block_r, block_m, p, static_cast<float*>(q_out),
       static_cast<int*>(idx_out));
@@ -126,5 +128,7 @@ FE_SEARCH_CLASSED_ENTRIES(ls, fe::kLs, 64)
 FE_SEARCH_CLASSED_ENTRIES(ls, fe::kLs, 256)
 FE_SEARCH_CLASSED_ENTRIES(raw, fe::kRaw, 16)
 FE_SEARCH_CLASSED_ENTRIES(raw, fe::kRaw, 64)
+FE_SEARCH_CLASSED_ENTRIES(raw, fe::kRaw, 256)
 FE_SEARCH_CLASSED_ENTRIES(general, fe::kGeneral, 16)
 FE_SEARCH_CLASSED_ENTRIES(general, fe::kGeneral, 64)
+FE_SEARCH_CLASSED_ENTRIES(general, fe::kGeneral, 256)

@@ -8,7 +8,7 @@
 // kernels' min-index-of-max, and no reduction across threads is needed.
 //
 // The rank keys are bit for bit those of the plain PyTorch version
-// (ops/matcher_kernels.py, `_rank_ls_int8` and `_rank_tile`):
+// (ops/matcher_kernels.py, `_rank_ls_int8`, `_rank_tile` and `_rank_exact`):
 //   * every integer is exact: dot = sum_k ai * (8 ch + cl) by dp4a, and
 //     cov4 = n * dot + (128 n - SumA) * sb4, in int32 for K <= 64 and int64 at
 //     K = 256;
@@ -26,6 +26,14 @@
 //           q = 2 ab - SumB2, aux = SumB2;
 //   general q = -(max(e, 0) * inv_norm), e the residual under the mode's
 //           (s, o) with the |s| clamp, aux = SumB2 (matcher_pallas._rank_tile).
+// At K = 256 'raw' and 'general' rank from exact integers (the `Exact` keys;
+// aux is then the exact SumB2 as float64, 16 SumB2 <= 266,342,400):
+//   raw     q = f32(8 (4 SumAB) - 16 SumB2) / 16, the integer in int32
+//           (<= 532,684,800) with 4 SumAB = dot + 128 sb4, one rounding;
+//   general cov4, var16 = n (16 SumB2) - sb4^2, var_a and the 'reference'
+//           denominator n SumA2 - (SumA - 1) SumA in int64, then s, o and e
+//           in double with __dmul_rn/__dadd_rn/__dsub_rn/__ddiv_rn (nvcc
+//           contracts doubles into FMAs too), q = -f32(max(e, 0) inv_norm).
 //
 // The early-accept frontier (the `Frontier` instantiations; the TPU kernels'
 // `_apply_frontier`, matcher_pallas.py:103-129): columns come in groups of
@@ -52,8 +60,12 @@ constexpr float kInitQ = -3.0e38f;
 
 enum Mode : int { kLs = 0, kRaw = 1, kGeneral = 2 };
 
+// 'raw' and 'general' above K = 64 rank from exact integers.
+template <int K, int M>
+constexpr bool kExact = K > 64 && M != kLs;
+
 // Columns staged in shared memory per pass: 2K bytes of operands plus up to
-// 20 bytes of per-column sums, kept under the 48 KB of static shared memory.
+// 24 bytes of per-column sums, kept under the 48 KB of static shared memory.
 template <int K>
 constexpr int kChunkCols = K == 16 ? 512 : (K == 64 ? 256 : 64);
 
@@ -75,13 +87,16 @@ template <int K, int M, bool Masked>
 struct Chunk {
   static constexpr int kW = K / 16;  // int4 words per row
   static constexpr int kN = kChunkCols<K>;
+  static constexpr bool kX = kExact<K, M>;
   int4 ch[kN * kW];
   int4 cl[kN * kW];
-  int sb4[M == kRaw ? 1 : kN];        // 4 SumB (exact)
-  float aux[kN];                      // ls: inv_var_b / 16; raw, general: SumB2
-  float sb[M == kLs ? 1 : kN];        // SumB
-  float var_b[M == kGeneral ? kN : 1];  // n SumB2 - SumB SumB
-  int cls[Masked ? kN : 1];           // column class (K3's class mask)
+  int sb4[M == kRaw && !kX ? 1 : kN];        // 4 SumB (exact)
+  float aux[kX ? 1 : kN];                    // ls: inv_var_b / 16; raw, general: SumB2
+  float sb[M == kLs || kX ? 1 : kN];         // SumB
+  float var_b[M == kGeneral && !kX ? kN : 1];  // n SumB2 - SumB SumB
+  int sb2_16[kX ? kN : 1];                   // Exact: 16 SumB2
+  double var_bd[kX && M == kGeneral ? kN : 1];  // Exact 'general': var16 / 16
+  int cls[Masked ? kN : 1];                  // column class (K3's class mask)
 };
 
 template <int K>
@@ -89,6 +104,7 @@ struct Row {
   int4 a[K / 16];
   int base;                   // 128 n - SumA ('ls', 'general')
   float sa, sa2, var_a, den;  // 'general' (sa, sa2 also for the frontier)
+  double var_ad, den_d;       // Exact 'general': var_a and den, exact
   float hit_a;                // frontier: 'ls' f32(exact var_a), 'raw' SumA2
   float hit_q;                // frontier: the least key that hits (hit_key)
 };
@@ -160,6 +176,7 @@ __device__ __forceinline__ Row<K> load_row(const int4* __restrict__ ai, long lon
   }
   r.base = 128 * K - (rowsum + 128 * K);
   r.sa = r.sa2 = r.var_a = r.den = r.hit_a = 0.0f;
+  r.var_ad = r.den_d = 0.0;
   if constexpr (M == kGeneral || Frontier) {
     r.sa = active ? p.sa[row] : 0.0f;
     r.sa2 = active ? p.sa2[row] : 0.0f;
@@ -176,9 +193,16 @@ __device__ __forceinline__ Row<K> load_row(const int4* __restrict__ ai, long lon
   if constexpr (Frontier) r.hit_q = hit_key<K, M>(r, p);
   if constexpr (M == kGeneral) {
     r.base = 128 * K - static_cast<int>(r.sa);
-    // var_a = n*sa2 - sa*sa;  den = n*sa2 - (sa - 1.0)*sa
-    r.var_a = __fsub_rn(__fmul_rn(n, r.sa2), __fmul_rn(r.sa, r.sa));
-    r.den = __fsub_rn(__fmul_rn(n, r.sa2), __fmul_rn(__fsub_rn(r.sa, 1.0f), r.sa));
+    if constexpr (kExact<K, M>) {  // exact in int64, then exact in double
+      const long long sa = static_cast<long long>(r.sa);
+      const long long sa2 = static_cast<long long>(r.sa2);
+      r.var_ad = __ll2double_rn(K * sa2 - sa * sa);
+      r.den_d = __ll2double_rn(K * sa2 - (sa - 1) * sa);
+    } else {
+      // var_a = n*sa2 - sa*sa;  den = n*sa2 - (sa - 1.0)*sa
+      r.var_a = __fsub_rn(__fmul_rn(n, r.sa2), __fmul_rn(r.sa, r.sa));
+      r.den = __fsub_rn(__fmul_rn(n, r.sa2), __fmul_rn(__fsub_rn(r.sa, 1.0f), r.sa));
+    }
   }
   return r;
 }
@@ -188,6 +212,49 @@ __device__ __forceinline__ float solve_s(float cov, float den, const KeyParams& 
   float s = fabsf(den) < 1e-5f ? 0.0f : __fdiv_rn(cov, den == 0.0f ? 1.0f : den);
   if (p.s_max > 0.0f) s = fminf(fmaxf(s, -p.s_max), p.s_max);
   return s;
+}
+
+// The 'general' key at K = 256 from the exact integers (matcher_kernels.
+// _rank_exact): s, o and the residual in double in the plain version's
+// order, one rounding to f32 at the end.
+template <int K, int M, bool Masked>
+__device__ __forceinline__ float general_exact(int dot, int ab4, int j,
+                                               const Chunk<K, M, Masked>& s,
+                                               const Row<K>& r, const KeyParams& p) {
+  constexpr double inv_n = 1.0 / K;
+  const int sb4 = s.sb4[j];
+  // cov = (n*dot + (128n - SumA)*sb4) * 0.25, exact (|cov4| < 2^53)
+  const double cov = __dmul_rn(__ll2double_rn(static_cast<long long>(K) * dot +
+                                              static_cast<long long>(r.base) * sb4), 0.25);
+  const double den = p.so_reference ? r.den_d : s.var_bd[j];
+  double sv = den == 0.0 ? 0.0 : __ddiv_rn(cov, den);
+  if (p.s_max > 0.0f) {
+    const double s_max = p.s_max;
+    sv = fmin(fmax(sv, -s_max), s_max);
+  }
+  const double two_s = __dmul_rn(2.0, sv);
+  double e;
+  if (!p.so_reference) {
+    // e = (var_a - 2.0*s*cov + (s*s)*var_b) * (1.0/n)
+    e = __dmul_rn(__dadd_rn(__dsub_rn(r.var_ad, __dmul_rn(two_s, cov)),
+                            __dmul_rn(__dmul_rn(sv, sv), den)),
+                  inv_n);
+  } else {
+    const double sa = r.sa, sa2 = r.sa2;  // exact
+    const double sb = __dmul_rn(__int2double_rn(sb4), 0.25);
+    const double sb2 = __dmul_rn(__int2double_rn(s.sb2_16[j]), 0.0625);
+    const double ab = __dmul_rn(__int2double_rn(ab4), 0.25);
+    // o = (sb - s*sa) * (1.0/n)
+    const double o = __dmul_rn(__dsub_rn(sb, __dmul_rn(sv, sa)), inv_n);
+    // e = sa2 + (s*s)*sb2 + n*o*o + 2.0*s*o*sb - 2.0*s*ab - 2.0*o*sa
+    e = __dadd_rn(sa2, __dmul_rn(__dmul_rn(sv, sv), sb2));
+    e = __dadd_rn(e, __dmul_rn(__dmul_rn(static_cast<double>(K), o), o));
+    e = __dadd_rn(e, __dmul_rn(__dmul_rn(two_s, o), sb));
+    e = __dsub_rn(e, __dmul_rn(two_s, ab));
+    e = __dsub_rn(e, __dmul_rn(__dmul_rn(2.0, o), sa));
+  }
+  // -f32(max(e, 0) * inv_norm)
+  return -__double2float_rn(__dmul_rn(fmax(e, 0.0), static_cast<double>(p.inv_norm)));
 }
 
 // The rank key of row `r` against staged column j, from the exact dot.
@@ -204,8 +271,15 @@ __device__ __forceinline__ float rank_key(int dot, int j, const Chunk<K, M, Mask
                         static_cast<long long>(r.base) * s.sb4[j]);
     }
     return __fmul_rn(__fmul_rn(c, c), s.aux[j]);
+  } else if constexpr (kExact<K, M>) {
+    const int ab4 = dot + 128 * s.sb4[j];  // 4 SumAB <= 66,585,600
+    if constexpr (M == kRaw) {
+      // 16q = 8*(4 SumAB) - 16 SumB2, exact in int32; one rounding, exact scale
+      return __fmul_rn(__int2float_rn(8 * ab4 - s.sb2_16[j]), 0.0625f);
+    } else {
+      return general_exact<K, M, Masked>(dot, ab4, j, s, r, p);
+    }
   } else {
-    static_assert(K <= 64, "the raw and general keys need exact f32 SumAB (K <= 64)");
     const float sb = s.sb[j];
     const float sb2 = s.aux[j];
     // ab = dot*0.25 + 128.0*sb
@@ -252,13 +326,16 @@ template <int K, int M, bool Masked, bool Frontier>
 __device__ __forceinline__ void scan_columns(
     Chunk<K, M, Masked>& s, const Row<K>& r, bool active, int row_cls,
     const int4* __restrict__ ch, const int4* __restrict__ cl,
-    const float* __restrict__ sb, const float* __restrict__ aux,
+    const float* __restrict__ sb, const void* __restrict__ aux_v,
     const int* __restrict__ ccls, int start, int end, const KeyParams& p,
     float& best_q, int& best_idx) {
   static_assert(!(Masked && Frontier), "the frontier has no class-masked scan");
   constexpr int kW = K / 16;
   constexpr int kN = kChunkCols<K>;
   constexpr float n = static_cast<float>(K);
+  // aux: f32 (inv_var_b or SumB2), or the exact SumB2 as double (Exact keys)
+  const float* __restrict__ aux = static_cast<const float*>(aux_v);
+  const double* __restrict__ aux_d = static_cast<const double*>(aux_v);
   const int step = Frontier ? kN - kN % p.t_n : kN;
   bool done = !active;
   for (int c0 = start; c0 < end; c0 += step) {
@@ -276,14 +353,22 @@ __device__ __forceinline__ void scan_columns(
     }
     for (int j = threadIdx.x; j < n_cols; j += kRows) {
       const float b = sb[c0 + j];
-      if constexpr (M != kRaw) s.sb4[j] = static_cast<int>(4.0f * b);  // exact
-      if constexpr (M == kLs) {
+      if constexpr (M != kRaw || kExact<K, M>) s.sb4[j] = static_cast<int>(4.0f * b);  // exact
+      if constexpr (kExact<K, M>) {
+        const int sb2_16 = static_cast<int>(__dmul_rn(aux_d[c0 + j], 16.0));  // exact
+        s.sb2_16[j] = sb2_16;
+        if constexpr (M == kGeneral) {  // var_b = (n*16 SumB2 - sb4^2) / 16, exact
+          const long long sb4 = s.sb4[j];
+          s.var_bd[j] = __dmul_rn(__ll2double_rn(K * static_cast<long long>(sb2_16) - sb4 * sb4),
+                                  0.0625);
+        }
+      } else if constexpr (M == kLs) {
         s.aux[j] = aux[c0 + j] * 0.0625f;  // exact: power-of-two scale
       } else {
         s.aux[j] = aux[c0 + j];
         s.sb[j] = b;
       }
-      if constexpr (M == kGeneral) {  // var_b = n*sb2 - sb*sb
+      if constexpr (M == kGeneral && !kExact<K, M>) {  // var_b = n*sb2 - sb*sb
         s.var_b[j] = __fsub_rn(__fmul_rn(n, aux[c0 + j]), __fmul_rn(b, b));
       }
       if constexpr (Masked) s.cls[j] = ccls[c0 + j];

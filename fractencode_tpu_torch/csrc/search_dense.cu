@@ -1,6 +1,6 @@
-// Dense search with int8 operands, optionally masked by class: the 'ls' key at
-// K = 16, 64 and 256, the 'raw' and 'general' keys at K = 16 and 64; each
-// also with the early-accept frontier, without the class mask.
+// Dense search with int8 operands, optionally masked by class: the 'ls',
+// 'raw' and 'general' keys at K = 16, 64 and 256; each also with the
+// early-accept frontier, without the class mask.
 //
 // Replaces the TPU kernel `_search_kernel` (fractencode_tpu/ops/matcher_pallas.py,
 // reached through `fused_search`), which serves the search without the
@@ -12,7 +12,7 @@
 // TPU kernel's per-element `rcls == ccls` compare; a row with no such column
 // gets q = -3e38, idx = 0, the TPU kernel's initial value.  The TPU kernel
 // pads its grid and masks the tail with `col < m_valid`; this one needs no
-// padding and stops at m_valid and at the last row.  At K = 256 the 'ls' key is
+// padding and stops at m_valid and at the last row.  At K = 256 every key is
 // formed from exact integers, the port's rule where the TPU kernel ranks in
 // f32 (ROADMAP.md, parity contract).
 //
@@ -42,7 +42,8 @@ search_dense_kernel(const int4* __restrict__ ai,    // [rows] rows of K int8
                     const int4* __restrict__ ch,    // [>= m_valid] rows of K int8
                     const int4* __restrict__ cl,    // [>= m_valid] rows of K int8
                     const float* __restrict__ sb,   // SumB per column
-                    const float* __restrict__ aux,  // inv_var_b or SumB2 per column
+                    const void* __restrict__ aux,   // per column: f32 inv_var_b or SumB2;
+                                                    // double SumB2 (exact keys)
                     const int* __restrict__ rcls,   // [rows] (Masked only)
                     const int* __restrict__ ccls,   // per column (Masked only)
                     int rows, int m_valid, KeyParams p,
@@ -72,7 +73,7 @@ int launch(const void* ai, const void* ch, const void* cl, const void* sb,
   search_dense_kernel<K, M, Masked, Frontier><<<blocks, kRows, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int4*>(ai), static_cast<const int4*>(ch),
       static_cast<const int4*>(cl), static_cast<const float*>(sb),
-      static_cast<const float*>(aux), static_cast<const int*>(rcls),
+      aux, static_cast<const int*>(rcls),
       static_cast<const int*>(ccls), rows, m_valid, p, static_cast<float*>(q_out),
       static_cast<int*>(idx_out));
   return static_cast<int>(cudaGetLastError());
@@ -119,5 +120,7 @@ FE_SEARCH_DENSE_ENTRIES(ls, fe::kLs, 64)
 FE_SEARCH_DENSE_ENTRIES(ls, fe::kLs, 256)
 FE_SEARCH_DENSE_ENTRIES(raw, fe::kRaw, 16)
 FE_SEARCH_DENSE_ENTRIES(raw, fe::kRaw, 64)
+FE_SEARCH_DENSE_ENTRIES(raw, fe::kRaw, 256)
 FE_SEARCH_DENSE_ENTRIES(general, fe::kGeneral, 16)
 FE_SEARCH_DENSE_ENTRIES(general, fe::kGeneral, 64)
+FE_SEARCH_DENSE_ENTRIES(general, fe::kGeneral, 256)

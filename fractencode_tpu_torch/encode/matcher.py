@@ -36,7 +36,7 @@ import torch
 
 from ..ops.matcher_kernels import (DEFAULT_BM, DEFAULT_BR, INT8_MAX_K,
                                    _rank_tile, _require_exact_k,
-                                   _require_exact_sums, _require_key, inv_var_b,
+                                   _require_exact_sums, inv_var_b,
                                    key_sum_sq, rank_mode, rank_to_dist,
                                    search_classed_cuda, search_classed_torch,
                                    search_dense_cuda, search_dense_torch)
@@ -475,7 +475,6 @@ def _pair_scores(ranges, sum_a, sum_a2, cb: Codebook, cfg: EncoderConfig):
     d, t, _ = cb.values.shape
     _require_exact_k(n)
     mode = rank_mode(cfg.criterion, cfg.so_mode, cfg.s_max)
-    _require_key(mode, k)
     exact = torch.float32 if k <= INT8_MAX_K else torch.float64
     flat_cb = cb.values.reshape(d * t, k).to(torch.float64)
     sum_ab = (ranges.to(torch.float64) @ flat_cb.T).to(exact).reshape(-1, d, t)

@@ -14,8 +14,8 @@ each pixel from the level that holds its leaf.
 
 The JAX package runs the pyramid as one fused program or level by level;
 PyTorch runs eagerly, so there is one form here, the per-level loop.  The
-batch and sharded forms and the quadtree bitstream are not ported yet
-(ROADMAP.md queue 1).
+batch and sharded forms are not ported yet (ROADMAP.md queue 1); the FTQ1
+bitstream is ``codec/bitstream_quadtree.py``.
 """
 from __future__ import annotations
 

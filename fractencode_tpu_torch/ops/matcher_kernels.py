@@ -17,7 +17,7 @@ Each has two versions of the same function:
 
   * the plain PyTorch version (``search_classed_torch``,
     ``search_dense_torch``), for the three rank modes ('ls', 'raw',
-    'general') at K <= INT8_MAX_K and 'ls' up to MAX_K;
+    'general') at every K up to MAX_K;
   * the wrapper of the hand-written CUDA kernel (``search_classed_cuda`` on
     ``csrc/search_classed.cu``, ``search_dense_cuda`` on
     ``csrc/search_dense.cu``), for the (mode, K) pairs in ``KERNEL_KEYS``.
@@ -48,11 +48,15 @@ every key is the same f32 value (see ``rank_mode``).  One rule per K:
     summation order and on FMA contraction; the port departs from it on
     purpose (ROADMAP.md, parity contract).  The sums f32 cannot hold
     exactly there (SumAB, SumB2) are passed as float64, which holds them
-    exactly; all integer arithmetic is int64.
+    exactly; all integer arithmetic is int64.  'ls' is f32(cov4)^2 * aux/16
+    as below; 'raw' is f32(16q) / 16 with the integer 16q = 8*(4*SumAB) -
+    16*SumB2; 'general' evaluates its residual in float64 from the exact
+    sums, in one fixed order, and rounds once to f32 (``_rank_exact``).
 """
 from __future__ import annotations
 
 import ctypes
+import struct
 
 import torch
 
@@ -68,8 +72,8 @@ INT8_MAX_K = 64
 # so ch = 4B >> 3 <= 127) and the dot sum(ai * b4) stays below 2^31.
 MAX_K = 256
 # The K of each CUDA kernel instantiation by rank mode (csrc/search_classed.cu
-# and csrc/search_dense.cu): 'raw' and 'general' need an exact f32 SumAB.
-KERNEL_KEYS = {"ls": (16, 64, 256), "raw": (16, 64), "general": (16, 64)}
+# and csrc/search_dense.cu).
+KERNEL_KEYS = {"ls": (16, 64, 256), "raw": (16, 64, 256), "general": (16, 64, 256)}
 
 # The port's layout tiles: range rows and codebook columns per class-segment
 # alignment unit.  Results do not depend on them (only the padding does);
@@ -152,6 +156,52 @@ def _cov_exact(ab, sa, sb, n: float):
     return cov4.to(torch.float32) * 0.25
 
 
+def _f32(x: float) -> float:
+    """The f32 value of a Python float: the host constants the kernels take."""
+    return struct.unpack("f", struct.pack("f", x))[0]
+
+
+def _rank_exact(ab, sa, sa2, sb, sb2, *, mode, so_mode, s_max, inv_norm, n):
+    """The 'raw' and 'general' keys above INT8_MAX_K, from exact integers.
+
+    ab (SumAB) and sb2 (SumB2) come as exact float64, sa, sa2 and sb as f32
+    (exact integers and quarters).  'raw': the integer 16q = 8*(4*SumAB) -
+    16*SumB2 (<= 532,684,800 at K = 256), rounded once to f32, then scaled
+    by 1/16 (exact).  'general': cov4, var16 = 16*var_b, var_a and the
+    'reference' denominator n*SumA2 - (SumA - 1)*SumA as int64; s, o and
+    the residual e in float64 in the expression order of the f32 branch
+    below (the C++ reference computes them in double); q = -f32(max(e, 0)
+    * inv_norm).  s_max and inv_norm enter as their f32 values, as the
+    kernels take them.
+    """
+    ni = int(n)
+    ab4 = (4.0 * ab).to(torch.int64)
+    sb2_16 = (16.0 * sb2).to(torch.int64)
+    if mode == "raw":
+        return (8 * ab4 - sb2_16).to(torch.float32) * 0.0625
+    f64 = torch.float64
+    sa_i, sa2_i = sa.to(torch.int64), sa2.to(torch.int64)
+    sb4 = (4.0 * sb).to(torch.int64)
+    cov = (ni * ab4 - sa_i * sb4).to(f64) * 0.25
+    if so_mode == "ls":
+        var_b = (ni * sb2_16 - sb4 * sb4).to(f64) * 0.0625
+        den = var_b
+    else:
+        den = (ni * sa2_i - (sa_i - 1) * sa_i).to(f64)
+    s = torch.where(den == 0.0, 0.0, cov / torch.where(den == 0.0, 1.0, den))
+    if s_max > 0.0:
+        s = s.clamp(-_f32(s_max), _f32(s_max))
+    if so_mode == "ls":
+        var_a = (ni * sa2_i - sa_i * sa_i).to(f64)
+        e = (var_a - 2.0 * s * cov + (s * s) * var_b) * (1.0 / n)
+    else:
+        sa, sa2, sb = sa.to(f64), sa2.to(f64), sb.to(f64)
+        o = (sb - s * sa) * (1.0 / n)
+        e = (sa2 + (s * s) * sb2 + n * o * o + 2.0 * s * o * sb
+             - 2.0 * s * ab - 2.0 * o * sa)
+    return -((e.clamp_min(0.0) * _f32(inv_norm)).to(torch.float32))
+
+
 def _rank_tile(ab, sa, sa2, sb, aux, *, criterion, so_mode, s_max, inv_norm, n):
     """The maximized rank key q for a [rows, cols] block of SumAB values.
 
@@ -159,8 +209,15 @@ def _rank_tile(ab, sa, sa2, sb, aux, *, criterion, so_mode, s_max, inv_norm, n):
     single IEEE operations on exact operands, so they equal the JAX package's
     keys bit for bit.  'general' has multiply-adds that XLA:CPU may contract
     into FMAs, so its keys can differ from the JAX package's in the last bit.
+    Above INT8_MAX_K, 'raw' and 'general' take ``_rank_exact`` (ab and aux
+    as exact float64).
     """
     mode = rank_mode(criterion, so_mode, s_max)
+    if n > INT8_MAX_K and mode != "ls":
+        _require_exact_k(n)
+        _require_exact_sums(n, ab=ab, sb2=aux)
+        return _rank_exact(ab, sa, sa2, sb, aux, mode=mode, so_mode=so_mode,
+                           s_max=s_max, inv_norm=inv_norm, n=n)
     if mode == "raw":
         return 2.0 * ab - aux
     cov = _cov_exact(ab, sa, sb, n)
@@ -218,13 +275,6 @@ def rank_to_dist(q, sa2, sa, *, criterion, so_mode, s_max, inv_norm, n: float):
     return torch.where(q <= -_BIG * 0.5, _BIG, dist)
 
 
-def _require_key(mode: str, k: int) -> None:
-    if k > INT8_MAX_K and mode != "ls":
-        raise NotImplementedError(
-            f"rank mode '{mode}' at K = {k} > {INT8_MAX_K} is not ported yet "
-            "(ROADMAP.md queue 2, the raw and general keys above K = 64)")
-
-
 def _frontier_mask(hit, t_n: int):
     """Within one chunk of whole groups (chunk-local ids, groups of ``t_n``
     from id 0): (the columns a row keeps, whether the row hit, the end of
@@ -266,7 +316,6 @@ def _plain_search(ai, ch, cl, sb, aux, segments, *, criterion: str, so_mode: str
     _require_exact_k(k)
     dev = ai.device
     mode = rank_mode(criterion, so_mode, s_max)
-    _require_key(mode, k)
     frontier = threshold > 0.0
     if frontier and (sa is None or sa2 is None or t_n < 1):
         raise ValueError("the frontier needs the per-row sa and sa2, and t_n >= 1")
@@ -295,6 +344,9 @@ def _plain_search(ai, ch, cl, sb, aux, segments, *, criterion: str, so_mode: str
         sa_i = ai.to(torch.int32).sum(1, dtype=torch.int32) + 128 * k
         sb4 = (4.0 * sb).to(torch.int32)
         aux16 = aux * 0.0625
+    else:
+        ab_dtype = torch.float32 if k <= INT8_MAX_K else torch.float64
+        sb_ab = sb.to(ab_dtype)
     col = lambda x, rows: None if x is None else x[rows].unsqueeze(1)
 
     for r0_, r1_, c0, c1 in segments:
@@ -321,8 +373,8 @@ def _plain_search(ai, ch, cl, sb, aux, segments, *, criterion: str, so_mode: str
                 if mode == "ls":
                     q = _rank_ls_int8(col(sa_i, rows), dot, sb4[None, j0:j1],
                                       aux16[None, j0:j1], k)
-                else:
-                    ab = dot.to(torch.float32) * 0.25 + 128.0 * sb[None, j0:j1]
+                else:  # SumAB: exact in f32 up to INT8_MAX_K, in float64 above
+                    ab = dot.to(ab_dtype) * 0.25 + 128.0 * sb_ab[None, j0:j1]
                     q = _rank_tile(ab, col(sa, rows), col(sa2, rows), sb[None, j0:j1],
                                    aux[None, j0:j1], criterion=criterion,
                                    so_mode=so_mode, s_max=s_max, inv_norm=inv_norm,
@@ -385,8 +437,8 @@ def search_classed_torch(ai_s, ch_s, cl_s, sb_s, aux_s, tile_class,
     sorted column index.  Without the frontier every row of a class's tiles
     is searched, the layout's padding rows too (as the TPU kernel does);
     with it only the rows below ``row_end[c]``, and the padding rows keep
-    (-_BIG, 0).  K above INT8_MAX_K takes the 'ls' key only.  ``scanned``:
-    see ``_plain_search``.
+    (-_BIG, 0).  Above INT8_MAX_K, aux_s is float64 for 'raw' and
+    'general' (the exact SumB2).  ``scanned``: see ``_plain_search``.
     """
     starts = (col_tile_start.to(torch.int64) * block_m).tolist()
     ends = col_end.tolist()
@@ -415,7 +467,8 @@ def search_dense_torch(ai, ch, cl, sb, aux, *, m_valid: int, criterion: str,
     0); rcls [R] and ccls [M] i32 for the class mask (``use_classes``), or
     None.  Returns (q [R] f32, idx [R] i32): the first-occurrence argmax over
     the columns [0, m_valid) (of the row's class, with the mask).  K above
-    INT8_MAX_K takes the 'ls' key only.  ``scanned``: see ``_plain_search``.
+    INT8_MAX_K, aux is float64 for 'raw' and 'general' (the exact SumB2).
+    ``scanned``: see ``_plain_search``.
     """
     return _plain_search(ai, ch, cl, sb, aux, [(0, ai.shape[0], 0, m_valid)],
                          criterion=criterion, so_mode=so_mode, s_max=s_max,
@@ -439,12 +492,17 @@ def _launch_mode(kernel: str, ai, criterion: str, so_mode: str, s_max: float):
     mode = rank_mode(criterion, so_mode, s_max)
     k = ai.shape[1]
     if k not in KERNEL_KEYS[mode]:
-        item = ("the raw and general keys above K = 64"
-                if mode != "ls" and k > INT8_MAX_K else "K1 and K3 at other range sizes")
         raise NotImplementedError(
             f"rank mode '{mode}' at K = {k}: the {kernel} CUDA kernel covers K in "
-            f"{KERNEL_KEYS[mode]} only (ROADMAP.md queue 2, {item})")
+            f"{KERNEL_KEYS[mode]} only (ROADMAP.md queue 2, K1 and K3 at other "
+            "range sizes)")
     return mode, k
+
+
+def _aux_dtype(mode: str, k: int):
+    """The column aux the kernels read: f32, or the exact float64 SumB2 of
+    the 'raw' and 'general' keys above INT8_MAX_K (``key_sum_sq``)."""
+    return torch.float64 if k > INT8_MAX_K and mode != "ls" else torch.float32
 
 
 def _key_args(mode, k, sa, sa2, rows, dev, *, so_mode, s_max, inv_norm, threshold,
@@ -532,7 +590,7 @@ def search_classed_cuda(ai_s, ch_s, cl_s, sb_s, aux_s, tile_class,
     _check("ch_s", ch_s, torch.int8, (m_pad, k), dev)
     _check("cl_s", cl_s, torch.int8, (m_pad, k), dev)
     _check("sb_s", sb_s, torch.float32, (m_pad,), dev)
-    _check("aux_s", aux_s, torch.float32, (m_pad,), dev)
+    _check("aux_s", aux_s, _aux_dtype(mode, k), (m_pad,), dev)
     _check("tile_class", tile_class, torch.int32, (nrt,), dev)
     _check("col_tile_start", col_tile_start, torch.int32, (nc,), dev)
     _check("col_end", col_end, torch.int32, (nc,), dev)
@@ -581,7 +639,7 @@ def search_dense_cuda(ai, ch, cl, sb, aux, *, m_valid: int, criterion: str,
     _check("ch", ch, torch.int8, (m, k), dev)
     _check("cl", cl, torch.int8, (m, k), dev)
     _check("sb", sb, torch.float32, (m,), dev)
-    _check("aux", aux, torch.float32, (m,), dev)
+    _check("aux", aux, _aux_dtype(mode, k), (m,), dev)
     if rcls is not None:
         _check("rcls", rcls, torch.int32, (rows,), dev)
         _check("ccls", ccls, torch.int32, (m,), dev)

@@ -80,15 +80,146 @@ def test_cli_psnr_matches_jax_cli(tmp_path, flags):
                           np.asarray(Image.open(tmp_path / "j.png")))
 
 
-@pytest.mark.parametrize("flag", [["--quadtree", "--compat"], ["--vq-classes", "3"],
-                                  ["--out", "x.ftc"], ["--decode-file", "x.ftc"],
-                                  ["--color"], ["--log"], ["--profile", "p"]])
+@pytest.mark.parametrize("flag", [["--vq-classes", "3"], ["--log"], ["--profile", "p"]])
 def test_cli_refuses_unported_flags(flag, capsys):
     from fractencode_tpu_torch.cli import main
 
     assert main([LENNA, "--device", "cpu", *flag]) == 2
     err = capsys.readouterr().err
     assert "not ported yet" in err and "ROADMAP.md" in err
+
+
+def _png(path):
+    from PIL import Image
+
+    return np.asarray(Image.open(path))
+
+
+def _port_args(*args):
+    return ["-m", "fractencode_tpu_torch", *args, "--device", "cpu"]
+
+
+def _jax_run(args, cwd):
+    return (["-m", "fractencode_tpu", *args], cwd, dict(JAX_PLATFORMS="cpu"))
+
+
+def _ok(*procs):
+    for proc in procs:
+        assert proc.returncode == 0, proc.stderr
+
+
+def test_cli_quadtree_compat_matches_jax_cli(tmp_path):
+    """--quadtree --compat (the 'raw' key at K = 256 on the 16 px level): the
+    port's CLI on the CPU prints the JAX CLI's leaves per level, decode stats
+    and PSNR, and writes its pixels."""
+    flags = [LENNA, "--quadtree", "--compat"]
+    port, ref = _run_both(
+        (_port_args(*flags, "--result", str(tmp_path / "t.png")), tmp_path),
+        _jax_run([*flags, "--result", str(tmp_path / "j.png")], tmp_path))
+    _ok(port, ref)
+    keep = ("decode stats", "psnr")
+    lines = lambda out: [l for l in out.splitlines()
+                         if l.startswith(keep) or " leaves 16px:" in l]
+    assert len(lines(ref.stdout)) == 3
+    assert lines(port.stdout) == lines(ref.stdout)
+    assert np.array_equal(_png(tmp_path / "t.png"), _png(tmp_path / "j.png"))
+
+
+def _decode_both_ways(tmp_path, files):
+    """Each CLI decodes each file in ``files`` ({name: path}), side by side;
+    returns {(package, name): pixels} after checking the runs."""
+    runs, keys = [], []
+    for name, path in files.items():
+        for pkg in ("t", "j"):
+            out = str(tmp_path / f"dec_{pkg}_{name}.png")
+            args = ["--decode-file", str(path), "--result", out]
+            runs.append((_port_args(*args), tmp_path) if pkg == "t"
+                        else _jax_run(args, tmp_path))
+            keys.append((pkg, name, out))
+    procs = _run_both(*runs)
+    _ok(*procs)
+    for proc, (_, name, _) in zip(procs, keys):
+        assert f"decoded {files[name]}: " in proc.stdout
+    return {(pkg, name): _png(out) for pkg, name, out in keys}
+
+
+@pytest.mark.parametrize("quadtree", [False, True], ids=["grid", "quadtree"])
+def test_cli_out_then_decode_file_matches_jax_cli(tmp_path, quadtree):
+    """--out, then --decode-file.  The grid: the port's file is the JAX CLI's
+    byte for byte.  The quadtree: the files may differ in the 16 px level's
+    s and o (the K = 256 parity rule; tests/test_torch_codec.py), so each CLI
+    decodes both files and the two packages decode each file to the same
+    pixels.  Both print the JAX CLI's bitstream line and the port a bpp line."""
+    ext = ".ftq" if quadtree else ".ftc"
+    flags = [LENNA, *(["--quadtree"] if quadtree else [])]
+    files = {"t": tmp_path / f"t{ext}", "j": tmp_path / f"j{ext}"}
+    port, ref = _run_both(
+        (_port_args(*flags, "--out", str(files["t"]), "--result",
+                    str(tmp_path / "t.png")), tmp_path),
+        _jax_run([*flags, "--out", str(files["j"]), "--result", str(tmp_path / "j.png")],
+                 tmp_path))
+    _ok(port, ref)
+    size = lambda p: os.path.getsize(p)
+    assert f"bitstream: {size(files['t'])} bytes" in port.stdout
+    assert f"bitstream: {size(files['j'])} bytes" in ref.stdout
+    assert re.search(r"^bpp: ([0-9.]+)$", port.stdout, re.M).group(1) == \
+        f"{8 * size(files['t']) / 128 ** 2:.4f}"
+    if not quadtree:
+        assert files["t"].read_bytes() == files["j"].read_bytes()
+        files.pop("j")
+    decoded = _decode_both_ways(tmp_path, files)
+    for name in files:
+        assert np.array_equal(decoded["t", name], decoded["j", name]), name
+
+
+def test_cli_color_out_round_trip(tmp_path):
+    """--color --out writes an FTCC container of three FTC1 planes, the JAX
+    CLI's bytes; --decode-file gives each CLI the same RGB pixels, and the
+    encodes' own --result images are equal.  The planes are noise: on a range
+    with an exact match (distance 0, as on flat blocks) the JAX CLI's CPU
+    search (its jnp oracle) takes the first transform, and its Pallas
+    kernels and the port the last (ROADMAP.md, parity contract)."""
+    rgb = np.random.default_rng(8).integers(0, 256, (64, 64, 3), dtype=np.uint8)
+    from PIL import Image
+
+    src = tmp_path / "rgb.png"
+    Image.fromarray(rgb).save(src)
+    port, ref = _run_both(
+        (_port_args(str(src), "--color", "--out", str(tmp_path / "t.ftcc"),
+                    "--result", str(tmp_path / "t.png")), tmp_path),
+        _jax_run([str(src), "--color", "--out", str(tmp_path / "j.ftcc"),
+                  "--result", str(tmp_path / "j.png")], tmp_path))
+    _ok(port, ref)
+    blob = (tmp_path / "t.ftcc").read_bytes()
+    assert blob[:4] == b"FTCC" and blob == (tmp_path / "j.ftcc").read_bytes()
+    assert [l for l in port.stdout.splitlines() if l.startswith("psnr")] == \
+        [l for l in ref.stdout.splitlines() if l.startswith("psnr")]
+    assert port.stdout.count("[U]") and port.stdout.count("[V]")
+    decoded = _decode_both_ways(tmp_path, {"t": tmp_path / "t.ftcc"})
+    assert decoded["t", "t"].shape == (64, 64, 3)
+    assert np.array_equal(decoded["t", "t"], decoded["j", "t"])
+    assert np.array_equal(_png(tmp_path / "t.png"), _png(tmp_path / "j.png"))
+
+
+@pytest.mark.parametrize("kind", ["garbage", "truncated", "empty"])
+def test_cli_decode_file_rejects_a_bad_file(tmp_path, capsys, kind):
+    """A file that is no bitstream, one cut short, or an empty one: exit 2 and
+    'error: not a valid bitstream', with no image written."""
+    from fractencode_tpu_torch.cli import main
+
+    good = tmp_path / "good.ftq"
+    assert main([LENNA, "--device", "cpu", "--quadtree", "--out", str(good),
+                 "--result", str(tmp_path / "r.png")]) == 0
+    blob = good.read_bytes()
+    bad = {"garbage": b"NOPE" + bytes(range(200)), "truncated": blob[:len(blob) // 2],
+           "empty": b""}[kind]
+    path = tmp_path / "bad.ftq"
+    path.write_bytes(bad)
+    capsys.readouterr()
+    out = tmp_path / "bad.png"
+    assert main(["--decode-file", str(path), "--device", "cpu", "--result", str(out)]) == 2
+    assert "error: not a valid bitstream" in capsys.readouterr().err
+    assert not out.exists()
 
 
 def test_cli_needs_a_card_unless_asked_for_the_cpu(capsys):

@@ -146,11 +146,10 @@ def test_encode_decode_cuda_equals_cpu(cuda):
     assert ig == ic
 
 
-@pytest.mark.parametrize("case", [c for c in CASES if c[1] <= 64],
-                         ids=lambda c: f"{c[0]}{c[1]}")
+@pytest.mark.parametrize("case", CASES, ids=lambda c: f"{c[0]}{c[1]}")
 def test_classed_keys_match_plain(cuda, case):
-    """K1's 'raw' and 'general' keys (and 'ls') at K = 16 and 64: (q, idx)
-    of every sorted row bitwise against the plain version."""
+    """K1's 'raw' and 'general' keys (and 'ls') at K = 16, 64 and 256: (q,
+    idx) of every sorted row bitwise against the plain version."""
     key, k = case
     cfg = _case_cfg(key, k)
     prep = _prep(random_plane(128, 10), cfg, cuda)
@@ -214,6 +213,33 @@ def test_encode_cuda_equals_cpu_keys(cuda, cfg):
     oc, ic, mc = T.decode_plane(rc)
     assert_bitwise(og, oc, "pixels")
     assert (ig, mg) == (ic, mc)
+
+
+@pytest.mark.parametrize("cfg", [T.EncoderConfig(), T.REFERENCE_COMPAT()],
+                         ids=["default", "compat"])
+@pytest.mark.parametrize("quadtree", [False, True], ids=["grid", "quadtree"])
+def test_stream_bytes_cuda_equal_cpu(cuda, quadtree, cfg):
+    """FTC1 and FTQ1 at 128^2 (the quadtree under --compat: the 'raw' key at
+    K = 256): the card's encode packs to the CPU's bytes, and the file
+    unpacks on the card to tensors there that decode to the CPU's pixels."""
+    from fractencode_tpu_torch import codec
+    from fractencode_tpu_torch.encode import quadtree as tq
+
+    img = random_plane(128, 13)
+    if quadtree:
+        encode, pack, unpack, decode = (tq.encode_plane_quadtree, codec.pack_quadtree,
+                                        codec.unpack_quadtree, tq.decode_plane_quadtree)
+    else:
+        encode, pack, unpack, decode = (T.encode_plane, codec.pack_result,
+                                        codec.unpack_result, T.decode_plane)
+    blob = pack(encode(img, cfg, device=cuda), plane=img)
+    assert blob == pack(encode(img, cfg, device="cpu"), plane=img)
+    ug, uc = unpack(blob), unpack(blob, device="cpu")
+    og, ig, _ = decode(ug, T.DecoderConfig())
+    oc, ic, _ = decode(uc, T.DecoderConfig())
+    assert og.device.type == "cuda"
+    assert_bitwise(og, oc, "pixels")
+    assert ig == ic
 
 
 def test_quadtree_noclassifier_cuda_equals_cpu(cuda):
@@ -287,6 +313,42 @@ def test_frontier_kernels_match_plain(cuda, case, kernel, t_n):
     assert_bitwise(q_k, q_p, "q")
     assert_bitwise(i_k, i_p, "idx")
     assert bool((run(off)[0] != q_k).any()), "vacuous: the frontier changed no key"
+
+
+@pytest.mark.parametrize("frontier", [False, True], ids=["plain", "thr"])
+@pytest.mark.parametrize("kernel", ["classed", "dense"])
+@pytest.mark.parametrize("key", ["raw", "general-ls", "general-reference"])
+def test_exact_key_instances_match_plain(cuda, key, kernel, frontier):
+    """The 'raw' and 'general' instances at K = 256 (raw256, general256 and
+    their `_thr` forms, K1 and K3; 'general' under both so_modes) on a
+    smooth 256^2 plane at the quadtree's 16 px level geometry: (q, idx) of
+    every row bitwise against the plain version, through the encoder's own
+    calls; with the frontier some rows' keys change."""
+    cfg = _case_cfg(key, 256, rms_threshold=60.0 if frontier else 0.0)
+    yy, xx = np.mgrid[0:256, 0:256]
+    img = (70 + 30 * np.sin(xx / 23.0) * np.cos(yy / 31.0)
+           + np.random.default_rng(15).integers(0, 6, (256, 256))).astype(np.uint8)
+    inputs = _inputs(img, cfg, cuda)
+    mode = key.split("-")[0]
+    if kernel == "classed":
+        prep = tm.classed_prep(*inputs, cfg)
+        run, launches = (lambda c: tm.classed_kernel(prep, 256, 64 * 64, c)), \
+            mk.search_classed_cuda.launches
+    else:
+        prep = tm.dense_prep(*inputs[:4], None, None, cfg)
+        run, launches = (lambda c: tm.dense_kernel(prep, 256, 64 * 64, c)), \
+            mk.search_dense_cuda.launches
+    assert prep["aux_s" if kernel == "classed" else "aux"].dtype == torch.float64
+    before = launches[(mode, 256, frontier)]
+    q_k, i_k = run(cfg)
+    assert launches[(mode, 256, frontier)] == before + 1
+    q_p, i_p = run(dataclasses.replace(cfg, backend="torch"))
+    torch.cuda.synchronize()
+    assert_bitwise(q_k, q_p, "q")
+    assert_bitwise(i_k, i_p, "idx")
+    if frontier:
+        off = run(dataclasses.replace(cfg, rms_threshold=0.0))[0]
+        assert bool((off != q_k).any()), "vacuous: the frontier changed no key"
 
 
 def test_frontier_launch_never_runs_plain(cuda, monkeypatch):

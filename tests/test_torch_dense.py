@@ -163,9 +163,9 @@ def test_dense_keys_dominate_classed(pname):
 def test_dense_refusals():
     """Uncovered configs raise naming their ROADMAP item (no fallback)."""
     img = random_plane(64)
-    with pytest.raises(NotImplementedError, match="ROADMAP.*raw and general keys"):
-        T.encode_plane(img, T.REFERENCE_COMPAT(use_classifier=False, source_size=32,
-                                               target_size=16), device="cpu")
+    with pytest.raises(NotImplementedError, match="ROADMAP.*K1 beyond K = 256"):
+        T.encode_plane(img, T.REFERENCE_COMPAT(use_classifier=False, source_size=64,
+                                               target_size=32), device="cpu")
     with pytest.raises(ValueError, match="CUDA"):
         T.encode_plane(img, T.EncoderConfig(use_classifier=False, backend="cuda"),
                        device="cpu")

@@ -191,9 +191,12 @@ def test_jax_decodes_port_encode():
 
 
 def test_quadtree_refuses_unported_options():
-    with pytest.raises(NotImplementedError, match="ROADMAP.*above K = 64"):
+    """A 32 px level (K = 1024) raises naming its ROADMAP item; the 'raw'
+    and 'general' keys run at 16 px (tests/test_torch_quadtree_compat.py)."""
+    with pytest.raises(NotImplementedError, match="ROADMAP.*beyond K = 256"):
         tq.encode_plane_quadtree(PLANES["smooth64"],
-                                 T.REFERENCE_COMPAT(use_classifier=False), device="cpu")
+                                 T.REFERENCE_COMPAT(use_classifier=False),
+                                 tq.QuadtreeConfig(max_size=32), device="cpu")
     with pytest.raises(ValueError, match="aligned"):
         tq.encode_plane_quadtree(PLANES["smooth64"][:56, :56], device="cpu")
 
