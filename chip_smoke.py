@@ -4,10 +4,10 @@
     python3 chip_smoke.py
 
 Phases, each of which must pass (any failure exits non-zero):
-  1. build the CUDA kernels from csrc/ (search_classed.cu, K1, and
-     search_dense.cu, K3: one nvcc each, in parallel, into build/kernels/),
-     print each instantiation's registers and spills from ptxas' report,
-     and the card's name and power limit;
+  1. build the CUDA kernels from csrc/ (search_classed.cu, K1,
+     search_classed2d.cu, K2, and search_dense.cu, K3: one nvcc each, in
+     parallel, into build/kernels/), print each instantiation's registers
+     and spills from ptxas' report, and the card's name and power limit;
   2. K1 parity at K = 16: the search kernel against its plain PyTorch
      version on the same class-sorted tensors at 512^2 and 2048^2, (q, idx)
      bitwise equal, with both times (CUDA events, median of 5 after a
@@ -67,7 +67,23 @@ Phases, each of which must pass (any failure exits non-zero):
      card; at 512^2 the CPU's encode writes the same bytes and the CPU's
      decode of the file gives the same pixels; the file's bytes, bpp and
      PSNR, and the host ms of packing the card's results and of unpacking
-     the file onto the card.
+     the file onto the card;
+ 18. K2, the 2-D class-blocked search: every instance against its plain
+     version on the forced route (force_no_pairs), (q, idx) bitwise, with
+     both times, at 512^2 (every K at its quadtree level's geometry; K = 256
+     `_thr` also on the smooth plane) and at 2048^2's 8 px and 16 px level
+     inputs, and once with splits of 64 columns; each `_thr` instance with
+     a hit share above 0 in one check; then K2 against K1 on the same prep
+     (bitwise, CUDA events, median of 5) at 512^2 and 2048^2 and on the
+     2048^2 quadtree's levels with their coverage masks; then at 8192^2
+     the default and --rms 10 paths through cli._encode_one (each launching
+     K2 and not K1, whose route the JAX package's pair-list overflow
+     decides), with K2 against K1 on their preps, encode and decode wall
+     times, PSNR, the split count and the partials' bytes, and K2 against
+     its plain version at the path's own split plan on a sample of the
+     range tiles (the first and last of each class: the plain version of
+     the whole plane would take minutes); and --quadtree at 8192^2 with the
+     route each level took.
 Every path is driven with the launch counts set to 0 just before it and
 read just after; each must launch the kernels it names.  Each kernel's
 record keeps the times of its last parity check, which is at the shape of
@@ -101,13 +117,17 @@ import numpy as np
 
 SEED = 20240611
 SOURCES = {"search_classed": "fractencode_tpu_torch/csrc/search_classed.cu",
+           "search_classed2d": "fractencode_tpu_torch/csrc/search_classed2d.cu",
            "search_dense": "fractencode_tpu_torch/csrc/search_dense.cu"}
-# The line of the TPU kernel each kernel key replaces: _pairs_kernel (K1)
-# and _search_kernel (K3); 'ls' at K = 64 is their ls_fast int8 branch,
-# 'raw' and 'general' their generic int8 branch, K = 256 their f32 branch
-# (every key); 'thr' (the `_thr` instances) their call of _apply_frontier.
+# The line of the TPU kernel each kernel key replaces: _pairs_kernel (K1),
+# _classed_kernel (K2) and _search_kernel (K3); 'ls' at K = 64 is their
+# ls_fast int8 branch (K2's serves K = 16 too), 'raw' and 'general' their
+# generic int8 branch, K = 256 their f32 branch (every key); 'thr' (the
+# `_thr` instances) their call of _apply_frontier.
 _LINES = {"search_classed": {"ls16": 508, "ls64": 556, "raw": 560, "general": 560,
                              "f32": 568, "thr": 581},
+          "search_classed2d": {"ls16": 426, "ls64": 426, "raw": 430, "general": 430,
+                               "f32": 437, "thr": 454},
           "search_dense": {"ls16": 163, "ls64": 203, "raw": 206, "general": 206,
                            "f32": 211, "thr": 227}}
 # (domain, range) sizes of the quadtree's levels by K (CLI defaults)
@@ -212,11 +232,14 @@ def ptxas_report(text):
             while d := re.match(r"\d+", rest):
                 end = d.end() + int(d.group())
                 name, rest = rest[d.end():end], rest[end:]
-            k, mode, *flags = re.findall(r"L[ib](\d+)E", rest)
-            masked, frontier = flags[:2] if name.startswith("search_dense") else ("0", *flags[:1])
-            name += (f" K={k} {('ls', 'raw', 'general')[int(mode)]}"
-                     + (" masked" if masked == "1" else "")
-                     + (" frontier" if frontier == "1" else ""))
+            targs = re.findall(r"L[ib](\d+)E", rest)
+            if targs:  # K2's reduce kernel has none
+                k, mode, *flags = targs
+                masked, frontier = (flags[:2] if name.startswith("search_dense")
+                                    else ("0", *flags[:1]))
+                name += (f" K={k} {('ls', 'raw', 'general')[int(mode)]}"
+                         + (" masked" if masked == "1" else "")
+                         + (" frontier" if frontier == "1" else ""))
         m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
         if m:
             spill = m.groups()
@@ -311,6 +334,7 @@ class Kernels:
         from fractencode_tpu_torch.ops import matcher_kernels as mk
 
         self.wrappers = {"search_classed": mk.search_classed_cuda,
+                         "search_classed2d": mk.search_classed2d_cuda,
                          "search_dense": mk.search_dense_cuda}
         self.records = {}
         for kernel in self.wrappers:
@@ -668,6 +692,7 @@ def main() -> int:
                                [("search_classed", "ls", k, False) for k in LEVELS],
                                "2048 quadtree cuda")
     check_quadtree(qres, qout, 2048, qcfg, "2048^2 quadtree")
+    qres_big = qres  # phase 18 searches its levels again
     enc_ms, dec_ms, (d, iters, _) = wall_times(
         lambda: encode_plane_quadtree(big, cfg, qcfg, device="cuda"),
         lambda e: decode_plane_quadtree(e, dcfg))
@@ -958,10 +983,199 @@ def main() -> int:
                   + ("; card == CPU: the same bytes and decoded pixels" if n == 512 else ""))
     shutil.rmtree(work)
 
+    # -- 18. K2: kernel vs plain, K2 vs K1, and the 8192^2 paths
+    print("[18] K2 (2-D class-blocked search): kernel vs plain on the forced route")
+    t18 = time.perf_counter()
+    key_cfgs = {"ls": cfg, "raw": REFERENCE_COMPAT(), "general": dataclasses.replace(cfg, s_max=0.9)}
+
+    def k2_parity(img, c, what, plain_reps=5, splits=None):
+        """K2 on one plane's class-sorted inputs under config c, on the
+        forced route, through the encoder's own call (matcher.classed_kernel)."""
+        k, area = c.target_size ** 2, c.source_size ** 2
+        ranges, sa, sa2, cb, rcls, dcls = level_inputs(img, c)
+        prep = tm.classed_prep(ranges, sa, sa2, cb, rcls, dcls, c, force_no_pairs=True)
+        check(prep["route"] == "search_classed2d", f"{what}: forced route {prep['route']}")
+        plain_c = dataclasses.replace(c, backend="torch")
+        key = ("search_classed2d", tm.rank_mode(c.criterion, c.so_mode, c.s_max), k,
+               c.rms_threshold > 0)
+        nbytes = search_bytes(ranges.shape[0], cb.values.shape[0] * cb.values.shape[1], k,
+                              prep["sa_s"] is not None)
+        rows = prep["rpos"].long()
+        q, _, pairs = kernels.parity(
+            key, lambda: tm.classed_kernel(prep, k, area, c, splits=splits),
+            lambda scanned=None: tm.classed_kernel(prep, k, area, plain_c, scanned=scanned,
+                                                   splits=splits),
+            f"{what}, {prep['ai_s'].shape[0]} sorted rows x {prep['ch_s'].shape[0]} "
+            "sorted columns", nbytes, plain_reps, real=rows)
+        plan = mk.search_classed2d_cuda.plan
+        print(f"      {plan['splits']} splits of {plan['width']} columns over "
+              f"{plan['searched']} range tiles, partials {plan['partial_bytes']} bytes")
+        report_frontier(key, c, q[rows], sa, sa2, pairs, what)
+        return plan
+
+    for mode, base in key_cfgs.items():
+        for thr in (False, True):
+            c16 = dataclasses.replace(base, rms_threshold=10.0 if thr else 0.0)
+            k2_parity(planes[512], c16, f"512^2, {mode}16")
+            for k in (64, 256):
+                ds, rs = LEVELS[k]
+                c = dataclasses.replace(c16, source_size=ds, target_size=rs)
+                k2_parity(planes[512], c, f"512^2, {rs} px level")
+                if thr and k == 256:
+                    k2_parity(smooth, c, f"512^2 smooth plane, {rs} px level")
+                k2_parity(big, c, f"2048^2, {rs} px level", plain_reps=1)
+            if thr:
+                for k in LEVELS:
+                    share = kernels.records[("search_classed2d", mode, k, True)].get(
+                        "max_hit_share", 0.0)
+                    check(share > 0, f"search_classed2d {mode}{k}_thr: no range hit")
+    plan = k2_parity(planes[512], cfg, "512^2, splits of 64 columns", splits=64)
+    check(plan["splits"] > 1, "K2 with 64-column splits ran one split")
+
+    def k1_vs_k2(prep, c, what, reps=5):
+        """K1 and K2 on the same prep, (q, idx) bitwise, with both times."""
+        k, area = c.target_size ** 2, c.source_size ** 2
+        k1 = dict(prep, route="search_classed")
+        k2 = dict(prep, route="search_classed2d")
+        ms1, (q1, i1) = cuda_ms(lambda: tm.classed_kernel(k1, k, area, c), reps)
+        ms2, (q2, i2) = cuda_ms(lambda: tm.classed_kernel(k2, k, area, c), reps)
+        check(bitwise(q1, q2) and bitwise(i1, i2), f"K2 differs from K1 at {what}")
+        plan = dict(mk.search_classed2d_cuda.plan)
+        rows = prep["rpos"].long()
+        seg = (prep["col_end"] - prep["col_tile_start"] * prep["block_m"]).long()
+        pairs = int(seg[prep["tile_class"].long()[rows // prep["block_r"]]].sum())
+        bound_ms, bound_by = bound(pairs, k, search_bytes(
+            rows.shape[0], prep["b4_cols"].shape[0], k, prep["sa_s"] is not None))
+        print(f"    {what}: K1 {ms1:.4f} ms, K2 {ms2:.4f} ms ({plan['splits']} splits of "
+              f"{plan['width']} columns over {plan['searched']} range tiles, partials "
+              f"{plan['partial_bytes']} bytes; "
+              f"{'median of 5' if reps > 1 else 'one run'}); (q, idx) bitwise equal; "
+              f"{rows.shape[0]} rows, {pairs} same-class pairs, bound {bound_ms:.4f} ms "
+              f"({bound_by}{', without the frontier' if c.rms_threshold > 0 else ''})")
+        return ms1, ms2, plan, (q2, i2)
+
+    def k2_sampled(prep, c, plan, full, what):
+        """K2 against its plain version on a prep too large for the plain
+        version whole: a sample of its range tiles, the first and last of
+        each class's run, with the path's split width (``plan``).  The other
+        tiles point at the empty column bin, so neither version searches
+        them.  The path's own run (``full``) and the sampled run of the
+        kernel, on the sampled rows, are bitwise equal to the plain."""
+        k, area = c.target_size ** 2, c.source_size ** 2
+        tc, br = prep["tile_class"], prep["block_r"]
+        tiles = sorted({t for t0, t1, _ in mk._class_runs(tc) for t in (t0, t1 - 1)})
+        keep = torch.zeros(tc.shape[0], dtype=torch.bool, device=tc.device)
+        keep[tiles] = True
+        sub = dict(prep, tile_class=torch.where(keep, tc, prep["col_end"].shape[0] - 1)
+                   .to(torch.int32))
+        rows = prep["rpos"].long()
+        real = rows[keep[rows // br]]
+        key = ("search_classed2d", tm.rank_mode(c.criterion, c.so_mode, c.s_max), k,
+               c.rms_threshold > 0)
+        plain_c = dataclasses.replace(c, backend="torch")
+        width = plan["width"]
+        q_k, i_k, pairs = kernels.parity(
+            key, lambda: tm.classed_kernel(sub, k, area, c, splits=width),
+            lambda scanned=None: tm.classed_kernel(sub, k, area, plain_c, scanned=scanned,
+                                                   splits=width),
+            f"{what}, {len(tiles)} of {tc.shape[0]} range tiles ({real.shape[0]} ranges; "
+            f"the first and last of each class), the path's {plan['splits']} split(s) of "
+            f"{width} columns", search_bytes(real.shape[0], prep["b4_cols"].shape[0], k,
+                                            prep["sa_s"] is not None),
+            plain_reps=1, real=real)
+        check(mk.search_classed2d_cuda.plan["splits"] == plan["splits"],
+              f"{what}: the sample ran {mk.search_classed2d_cuda.plan['splits']} splits")
+        sampled = keep.repeat_interleave(br)
+        check(bitwise(full[0][sampled], q_k[sampled]) and bitwise(full[1][sampled], i_k[sampled]),
+              f"{what}: the path's K2 differs from its plain version on the sampled tiles")
+        if c.rms_threshold > 0:  # the sorted sums exist with the frontier
+            report_frontier(key, c, q_k[real], prep["sa_s"][real], prep["sa2_s"][real], pairs,
+                            what)
+
+    print("     K2 against K1 on the same prep (route by the JAX package's rule; "
+          "these times are for routing by speed)")
+    for n in (512, 2048):
+        ranges, sa, sa2, cb, rcls, dcls = level_inputs(planes[n], cfg)
+        k1_vs_k2(tm.classed_prep(ranges, sa, sa2, cb, rcls, dcls, cfg), cfg, f"{n}^2 default")
+    masks, covered = [], None
+    for l in qres_big.levels:  # each level's coverage mask, as the encoder builds it
+        ny = 2048 // l.range_size
+        masks.append(None if covered is None else ~covered.reshape(-1))
+        acc = l.accepted.reshape(ny, ny)
+        covered = acc if covered is None else covered | acc
+        covered = covered.repeat_interleave(2, 0).repeat_interleave(2, 1)
+    for l, mask in zip(qres_big.levels, masks):
+        c = dataclasses.replace(cfg, source_size=l.domain_size, target_size=l.range_size)
+        ranges, sa, sa2, cb, rcls, dcls = level_inputs(big, c)
+        prep = tm.classed_prep(ranges, sa, sa2, cb, rcls, dcls, c, range_mask=mask)
+        searched = ranges.shape[0] if mask is None else int(mask.sum())
+        k1_vs_k2(prep, c, f"2048^2 quadtree {l.range_size} px level ({searched} ranges "
+                          "searched)")
+
+    # the 8192^2 paths: the JAX package's pair list overflows there, so both
+    # route to K2
+    n8 = 8192
+    huge = natural_plane(n8, SEED + n8)
+    huge_t = torch.from_numpy(huge)
+    for name, argv, expect in (("8192 default", [], ("ls", 16, False)),
+                               ("8192 --rms 10", RMS, ("ls", 16, True))):
+        res, out, counts = drive(kernels, name, huge, argv, [("search_classed2d", *expect)],
+                                 f"{name} cuda")
+        k1 = [n for n in counts if n.startswith("search_classed_")]
+        check(not k1 and counts == {kernels.records[("search_classed2d", *expect)]["name"]: 1},
+              f"{name}: launches {counts}, not K2's {expect} once")
+        plan = mk.search_classed2d_cuda.plan
+        check_uniform(res, out, n8, f"{n8}^2 {name}")
+        _, c, dcfg_p = parse(["--device", "cuda", *argv])
+        enc_ms, dec_ms, (d, iters, _) = wall_times(
+            lambda: encode_plane(huge, c, device="cuda"), lambda e: decode_plane(e, dcfg_p),
+            reps=1)
+        check(np.array_equal(d.cpu().numpy(), out), f"repeat {name} decode differs")
+        db = float(psnr(huge_t, d.cpu()))
+        check(db > 20.0, f"{name} PSNR {db:.4f} dB is implausibly low")
+        ranges, sa, sa2, cb, rcls, dcls = level_inputs(huge, c)
+        prep = tm.classed_prep(ranges, sa, sa2, cb, rcls, dcls, c)
+        check(prep["route"] == "search_classed2d",
+              f"{name}: route {prep['route']}, n_pairs {prep['n_pairs']}")
+        _, _, plan_p, full = k1_vs_k2(prep, c, f"{n8}^2 {name[5:]} prep", reps=1)
+        k2_sampled(prep, c, plan_p, full, f"{n8}^2 {name[5:]} prep")
+        del prep, ranges, cb, full
+        print(f"     {n8}^2 {name[5:]}: launches {counts}; route K2 (worst_pairs "
+              f"{tm._classed_statics((n8 // 4) ** 2, ((n8 - 16) // 8 + 1) ** 2 * 4)[4]}, "
+              f"n_pairs above the cap {mk.PAIR_CAP}); {plan['splits']} split(s) of "
+              f"{plan['width']} columns, partials {plan['partial_bytes']} bytes; encode "
+              f"{enc_ms:.3f} ms, decode {dec_ms:.3f} ms ({iters} full-res steps, one warm "
+              f"run, host clock); PSNR {db:.4f} dB")
+    name = "8192 --quadtree"
+    qres, qout, counts = drive(kernels, name, huge, ["--quadtree"], [], f"{name} cuda")
+    check_quadtree(qres, qout, n8, qcfg, f"{n8}^2 --quadtree")
+    routes = []
+    for l in qres.levels:
+        k = l.range_size ** 2
+        took = [kern for kern in ("search_classed", "search_classed2d")
+                if counts.get(kernels.records[(kern, "ls", k, False)]["name"])]
+        check(len(took) == 1, f"{name} {l.range_size} px level: launched {took}")
+        routes.append(f"{l.range_size}px:{took[0]}")
+    db = float(psnr(huge_t, torch.from_numpy(qout)))
+    check(db > 20.0, f"{name} PSNR {db:.4f} dB is implausibly low")
+    leaves = " ".join(f"{l.range_size}px:{int(l.accepted.sum())}" for l in qres.levels)
+    print(f"     {n8}^2 --quadtree: routes {' '.join(routes)}; launches {counts}; leaves "
+          f"{leaves}; PSNR {db:.4f} dB")
+    # K4 and K5 (scripts/micro_kernel.py, still to port): one pair-list step
+    # is a 512-row range tile against a 4096-column tile at K = 16
+    step_ms, step_by = bound(512 * 4096, 16, search_bytes(512, 4096, 16, False))
+    print(f"     K4/K5 (not ported): bound per pair-list step (512 x 4096, K = 16) "
+          f"{1e3 * step_ms:.4f} us ({step_by})")
+    print(f"     phase 18 took {time.perf_counter() - t18:.1f} s")
+
     records = list(kernels.records.values())
     for rec in records:
-        check(rec["launches"] > 0, f"{rec['name']} was launched by no path")
+        # K2 runs where the JAX package routes to it: at 8192^2 only its 'ls'
+        # instances at K = 16; the others report the launches they had
+        if not rec["name"].startswith("search_classed2d"):
+            check(rec["launches"] > 0, f"{rec['name']} was launched by no path")
         check("ms" in rec and "bound_ms" in rec, f"{rec['name']} was not timed")
+    check(len(records) == 54, f"{len(records)} kernel records, not 54")
     print(json.dumps({"kernels": records}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -47,6 +47,10 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--so-mode", choices=["ls", "reference"], default="ls")
     p.add_argument("--compat", action="store_true",
                    help="bit-parity with the C++ reference (raw + reference + 4)")
+    p.add_argument("--backend", choices=["auto", "jnp", "pallas"], default="auto",
+                   help="the search's route, by the JAX CLI's names: auto (the "
+                        "kernels on the card, the plain versions on the CPU), jnp "
+                        "(the plain PyTorch versions) or pallas (the CUDA kernels)")
     p.add_argument("--result", default="result.png", help="decoded output image path")
     p.add_argument("--decode-rms", type=float, default=1e-5)
     p.add_argument("--quadtree", action="store_true",
@@ -76,11 +80,12 @@ def _unported_flag(args) -> str | None:
 
 
 def _config_from_args(args):
+    from .bridge import _BACKENDS
     from .params import REFERENCE_COMPAT, EncoderConfig
 
     kw = dict(source_size=args.source, target_size=args.target,
               rms_threshold=args.rms, s_max=args.smax,
-              use_classifier=not args.noclassifier)
+              use_classifier=not args.noclassifier, backend=_BACKENDS[args.backend])
     if args.compat:
         return REFERENCE_COMPAT(**kw)
     return EncoderConfig(criterion=args.criterion, so_mode=args.so_mode,
@@ -254,6 +259,10 @@ def main(argv=None) -> int:
     if torch.device(args.device).type == "cuda" and not torch.cuda.is_available():
         print("error: no CUDA device; pass --device cpu to run on the CPU",
               file=sys.stderr)
+        return 2
+    if args.backend == "pallas" and torch.device(args.device).type != "cuda":
+        print(f"error: --backend pallas runs the CUDA kernels, which need --device "
+              f"cuda, not --device {args.device}", file=sys.stderr)
         return 2
     dcfg = _decoder_config(args)
     if args.decode_file:

@@ -1,0 +1,215 @@
+// Class-blocked all-pairs search split across blocks (K2): the function of
+// search_classed.cu (K1) on the same class-sorted layout, for the 'ls', 'raw'
+// and 'general' keys at K = 16, 64 and 256, each with and without the
+// early-accept frontier.
+//
+// Replaces the TPU kernel `_classed_kernel` (fractencode_tpu/ops/matcher_pallas.py,
+// reached through `fused_search_classed`): its ls_fast int8 branch ('ls' at
+// K = 16 and 64), its generic int8 branch ('raw' and 'general' at K = 16 and
+// 64), its f32 branch at K = 256 (every key, here from exact integers as in
+// K1: ROADMAP.md, parity contract) and its `_apply_frontier` with the per-row
+// freeze after it.  The TPU kernel walks a 2-D grid (range tile, column tile
+// of the class) in order, carrying each row's best and its frozen flag in
+// scratch from one column tile to the next.  Blocks here run in no order, so
+// the second grid axis becomes a split of the class segment that a block
+// searches alone, and the carry becomes a second pass:
+//
+//   * the split kernel, grid (searched range tile, row slice, split): the
+//     grid's x runs over `tiles`, (tile, class) of the range tiles whose
+//     class has columns, so a fine quadtree level launches no block for its
+//     masked tiles, and a block's first load gives both.
+//     Split z of class c covers the columns [start + z * width, start +
+//     (z + 1) * width) of c's segment [col_tile_start[c] * block_m,
+//     col_end[c]).  One thread scans one row over them (load_row and
+//     scan_columns of search_common.cuh, as in K1), and writes its partial
+//     (q, idx) and whether its scan met the frontier at [z, x * block_r +
+//     row in tile].  `width` is a multiple of t_n with the frontier, so the
+//     frontier's groups, counted from each split's start, are the segment's
+//     own groups and none straddles two splits;
+//   * the reduce kernel, one thread per row of r_pad (its tile's place in
+//     `tiles` from `tile_rank`): the strict-'>' max of the row's partials in
+//     split order, up to and including the first split that hit.
+//     An earlier split holds lower columns, so ties go to the lowest column,
+//     and nothing after the row's frontier counts: exactly K1's result.
+//
+// What bounds it on the card: as K1, arithmetic issue (K/2 dp4a and a dozen
+// to forty other operations per pair), not memory.  What the split adds is
+// parallelism: K1 gives a range tile one block, so a search with few range
+// tiles (the quadtree's fine levels, small planes) leaves most SMs idle,
+// while here the wrapper picks `width` so that the grid has a few blocks per
+// SM.  The partials cost 9 bytes per searched row and split, so a search of
+// few tiles on a large plane (a fine quadtree level) holds only what those
+// tiles write.  The split kernel reads nothing per tile after its scan: a
+// per-tile slot read there made the 8192^2 scan about 4% slower on an H100
+// (nvcc allocates the loop's registers differently).  With the frontier a
+// split cannot see that an earlier one hit, so it scans on; its block still
+// stops once all its rows have hit within the split.
+
+#include "search_common.cuh"
+
+namespace {
+
+using namespace fe;
+
+// The number of splits of class c's segment (0 for an empty one).
+__device__ __forceinline__ int splits_of(int cls, const int* __restrict__ col_tile_start,
+                                         const int* __restrict__ col_end, int block_m,
+                                         int width) {
+  const long long seg = static_cast<long long>(col_end[cls]) -
+                        static_cast<long long>(col_tile_start[cls]) * block_m;
+  return seg > 0 ? static_cast<int>((seg + width - 1) / width) : 0;
+}
+
+template <int K, int M, bool Frontier>
+__global__ void __launch_bounds__(kRows)
+search_classed2d_kernel(const int4* __restrict__ ai,      // [r_pad] rows of K int8
+                        const int4* __restrict__ ch,      // [m_pad] rows of K int8
+                        const int4* __restrict__ cl,      // [m_pad] rows of K int8
+                        const float* __restrict__ sb,     // [m_pad] SumB
+                        const void* __restrict__ aux,     // [m_pad] as in K1
+                        const int2* __restrict__ tiles,          // [searched] (tile, class)
+                        const int* __restrict__ col_tile_start,  // [nc]
+                        const int* __restrict__ col_end,         // [nc]
+                        const int* __restrict__ row_end,         // [nc]
+                        int block_r, int block_m, int width, long long stride, KeyParams p,
+                        float* __restrict__ part_q,       // [splits, stride]
+                        int* __restrict__ part_idx,       // [splits, stride]
+                        unsigned char* __restrict__ part_hit) {  // [splits, stride]
+  __shared__ Chunk<K, M, false> s;
+  const int2 tc = tiles[blockIdx.x];
+  const int tile = tc.x;
+  const int cls = tc.y;
+  const int split = blockIdx.z;
+  // past the class's segment: the reduce never reads this split (block-uniform)
+  if (split >= splits_of(cls, col_tile_start, col_end, block_m, width)) return;
+  const int local = blockIdx.y * kRows + threadIdx.x;
+  const bool in_tile = local < block_r;
+  const long long row = (long long)tile * block_r + local;
+  const bool active = in_tile && (!Frontier || row < row_end[cls]);
+  const int start = col_tile_start[cls] * block_m + split * width;  // < col_end[cls]
+  const int end = min(start + width, col_end[cls]);
+  const Row<K> r = load_row<K, M, Frontier>(ai, row, active, p);
+  float best_q = kInitQ;
+  int best_idx = 0;
+  const bool stopped = scan_columns<K, M, false, Frontier>(
+      s, r, active, 0, ch, cl, sb, aux, nullptr, start, end, p, best_q, best_idx);
+  if (in_tile) {
+    const long long at = (long long)split * stride + (long long)blockIdx.x * block_r + local;
+    part_q[at] = best_q;
+    part_idx[at] = best_idx;
+    part_hit[at] = Frontier && active && stopped;
+  }
+}
+
+__global__ void classed2d_reduce_kernel(const float* __restrict__ part_q,
+                                        const int* __restrict__ part_idx,
+                                        const unsigned char* __restrict__ part_hit,
+                                        const int* __restrict__ tile_rank,
+                                        const int* __restrict__ tile_class,
+                                        const int* __restrict__ col_tile_start,
+                                        const int* __restrict__ col_end, int block_r,
+                                        int block_m, int width, long long r_pad,
+                                        long long stride, float* __restrict__ q_out,
+                                        int* __restrict__ idx_out) {
+  const long long row = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (row >= r_pad) return;
+  const long long tile = row / block_r;
+  const long long local = row - tile * block_r;
+  const int cls = tile_class[tile];
+  const int n = splits_of(cls, col_tile_start, col_end, block_m, width);
+  const long long at0 = n > 0 ? (long long)tile_rank[tile] * block_r + local : 0;
+  float best_q = kInitQ;  // a row with no columns: the TPU kernel's initial value
+  int best_idx = 0;
+  for (int z = 0; z < n; ++z) {
+    const long long at = z * stride + at0;
+    const float q = part_q[at];
+    if (q > best_q) {  // strict: the lower split, so the lower column, wins a tie
+      best_q = q;
+      best_idx = part_idx[at];
+    }
+    if (part_hit[at]) break;  // the row's frontier lies in split z
+  }
+  q_out[row] = best_q;
+  idx_out[row] = best_idx;
+}
+
+constexpr int kReduceThreads = 256;
+
+template <int K, int M, bool Frontier>
+int launch(const void* ai, const void* ch, const void* cl, const void* sb,
+           const void* aux, const void* tile_class, const void* col_tile_start,
+           const void* col_end, const void* row_end, int nrt, int block_r, int block_m,
+           int width, int n_splits, int searched, const KeyParams& p, const void* tiles,
+           const void* tile_rank, void* part_q, void* part_idx, void* part_hit, void* q_out,
+           void* idx_out, void* stream) {
+  if (nrt <= 0 || block_r <= 0) return 0;
+  if (searched < 0 || searched > nrt || width <= 0 || n_splits <= 0 || n_splits > 65535)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const long long r_pad = static_cast<long long>(nrt) * block_r;
+  const long long stride = static_cast<long long>(searched) * block_r;
+  if (searched > 0) {
+    const dim3 grid(searched, (block_r + kRows - 1) / kRows, n_splits);
+    search_classed2d_kernel<K, M, Frontier><<<grid, kRows, 0, st>>>(
+        static_cast<const int4*>(ai), static_cast<const int4*>(ch),
+        static_cast<const int4*>(cl), static_cast<const float*>(sb), aux,
+        static_cast<const int2*>(tiles), static_cast<const int*>(col_tile_start),
+        static_cast<const int*>(col_end), static_cast<const int*>(row_end), block_r,
+        block_m, width, stride, p,
+        static_cast<float*>(part_q), static_cast<int*>(part_idx),
+        static_cast<unsigned char*>(part_hit));
+    const cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  const unsigned blocks = static_cast<unsigned>((r_pad + kReduceThreads - 1) / kReduceThreads);
+  classed2d_reduce_kernel<<<blocks, kReduceThreads, 0, st>>>(
+      static_cast<const float*>(part_q), static_cast<const int*>(part_idx),
+      static_cast<const unsigned char*>(part_hit), static_cast<const int*>(tile_rank),
+      static_cast<const int*>(tile_class), static_cast<const int*>(col_tile_start),
+      static_cast<const int*>(col_end), block_r, block_m, width, r_pad, stride,
+      static_cast<float*>(q_out), static_cast<int*>(idx_out));
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+// Two entry points per (key, K), `fe_search_classed2d_<key><K>` and its `_thr`
+// form with the frontier, all with one signature: K1's arguments, then the
+// split width (columns, a multiple of t_n with the frontier), the number of
+// splits of the longest segment and the number of searched tiles; after the
+// key arguments the searched tiles in order ([searched, 2] i32: tile,
+// class), each tile's place among them ([nrt] i32, read for searched tiles
+// only) and the partials' buffers ([n_splits, searched * block_r] f32, i32
+// and u8), then the outputs.
+// Each launches both kernels on `stream` and returns cudaGetLastError() (0 on
+// success).
+#define FE_SEARCH_CLASSED2D_ENTRY(NAME, MODE, K, SUFFIX, FRONTIER)                           \
+  extern "C" int fe_search_classed2d_##NAME##K##SUFFIX(                                      \
+      const void* ai, const void* ch, const void* cl, const void* sb, const void* aux,       \
+      const void* tile_class, const void* col_tile_start, const void* col_end,               \
+      const void* row_end, int nrt, int block_r, int block_m, int width, int n_splits,       \
+      int searched, const void* sa, const void* sa2, float s_max, float inv_n,               \
+      float inv_norm, int so_reference, float threshold, float dist_scale, int t_n,          \
+      const void* tiles, const void* tile_rank, void* part_q, void* part_idx,                \
+      void* part_hit, void* q_out, void* idx_out, void* stream) {                            \
+    const fe::KeyParams p{static_cast<const float*>(sa),                                     \
+                          static_cast<const float*>(sa2), s_max, inv_n, inv_norm,            \
+                          so_reference, threshold, dist_scale, t_n};                         \
+    return launch<K, MODE, FRONTIER>(ai, ch, cl, sb, aux, tile_class, col_tile_start,        \
+                                     col_end, row_end, nrt, block_r, block_m, width,         \
+                                     n_splits, searched, p, tiles, tile_rank, part_q,        \
+                                     part_idx, part_hit, q_out, idx_out, stream);            \
+  }
+#define FE_SEARCH_CLASSED2D_ENTRIES(NAME, MODE, K)   \
+  FE_SEARCH_CLASSED2D_ENTRY(NAME, MODE, K, , false) \
+  FE_SEARCH_CLASSED2D_ENTRY(NAME, MODE, K, _thr, true)
+
+FE_SEARCH_CLASSED2D_ENTRIES(ls, fe::kLs, 16)
+FE_SEARCH_CLASSED2D_ENTRIES(ls, fe::kLs, 64)
+FE_SEARCH_CLASSED2D_ENTRIES(ls, fe::kLs, 256)
+FE_SEARCH_CLASSED2D_ENTRIES(raw, fe::kRaw, 16)
+FE_SEARCH_CLASSED2D_ENTRIES(raw, fe::kRaw, 64)
+FE_SEARCH_CLASSED2D_ENTRIES(raw, fe::kRaw, 256)
+FE_SEARCH_CLASSED2D_ENTRIES(general, fe::kGeneral, 16)
+FE_SEARCH_CLASSED2D_ENTRIES(general, fe::kGeneral, 64)
+FE_SEARCH_CLASSED2D_ENTRIES(general, fe::kGeneral, 256)

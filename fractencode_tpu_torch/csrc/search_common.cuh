@@ -1,7 +1,8 @@
-// Device code shared by the port's two search kernels: search_classed.cu (K1,
-// the class-blocked search) and search_dense.cu (K3, the dense search).
+// Device code shared by the port's search kernels: search_classed.cu (K1,
+// the class-blocked search), search_classed2d.cu (K2, the same search split
+// across blocks) and search_dense.cu (K3, the dense search).
 //
-// Both give one thread one range row (its K int8 values in K/16 int4
+// Each gives one thread one range row (its K int8 values in K/16 int4
 // registers) and stream a column segment through shared memory in chunks.
 // Each thread scans the columns in ascending order and keeps the best key with
 // a strict '>', so the first occurrence of the max wins, exactly as in the TPU
@@ -321,9 +322,11 @@ __device__ __forceinline__ float rank_key(int dot, int j, const Chunk<K, M, Mask
 // p.t_n columns start at `start` and every chunk holds whole groups; a row
 // stops after its first group with a hit, and the block stops loading chunks
 // once all its rows have (inactive rows, past the block's end or, in K1, the
-// class layout's padding rows, count as stopped).
+// class layout's padding rows, count as stopped).  Returns whether the row
+// stopped: for an active row with Frontier, whether its scan hit (K2 keeps it
+// per split); K1 and K3 ignore it.
 template <int K, int M, bool Masked, bool Frontier>
-__device__ __forceinline__ void scan_columns(
+__device__ __forceinline__ bool scan_columns(
     Chunk<K, M, Masked>& s, const Row<K>& r, bool active, int row_cls,
     const int4* __restrict__ ch, const int4* __restrict__ cl,
     const float* __restrict__ sb, const void* __restrict__ aux_v,
@@ -436,6 +439,7 @@ __device__ __forceinline__ void scan_columns(
       }
     }
   }
+  return done;
 }
 
 }  // namespace fe

@@ -9,9 +9,11 @@ brightness class, in three stages, as the JAX package's
 
   * ``classed_prep``: a counting sort lays ranges and codebook columns out
     by class in tile-aligned segments and converts them to the kernel's
-    int8 operands;
+    int8 operands; it also takes the JAX package's route between its two
+    class-blocked kernels (K1, or K2 where K1's pair list would overflow);
   * ``classed_kernel``: the search over each range tile's class segment
-    (``ops.matcher_kernels``, K1: the CUDA kernel or its plain version);
+    (``ops.matcher_kernels``, K1 or K2 by the route: the CUDA kernel or its
+    plain version; both give the same result);
   * ``classed_post``: unsorts the winners and solves (s, o) for each.
 
 ``search_dense`` (the JAX package's ``search_pallas``) ranks every pair, for
@@ -34,12 +36,15 @@ import dataclasses
 
 import torch
 
-from ..ops.matcher_kernels import (DEFAULT_BM, DEFAULT_BR, INT8_MAX_K,
-                                   _rank_tile, _require_exact_k,
-                                   _require_exact_sums, inv_var_b,
-                                   key_sum_sq, rank_mode, rank_to_dist,
-                                   search_classed_cuda, search_classed_torch,
-                                   search_dense_cuda, search_dense_torch)
+from ..ops import matcher_kernels as _mk
+from ..ops.matcher_kernels import (CT_BITS, DEFAULT_BM, DEFAULT_BR, INT8_MAX_K,
+                                   PAIR_TILE_M, PAIR_TILE_R, _rank_tile,
+                                   _require_exact_k, _require_exact_sums,
+                                   inv_var_b, key_sum_sq, rank_mode,
+                                   rank_to_dist, search_classed2d_cuda,
+                                   search_classed2d_torch, search_classed_cuda,
+                                   search_classed_torch, search_dense_cuda,
+                                   search_dense_torch)
 from ..params import EncoderConfig
 from .codebook import Codebook
 
@@ -167,31 +172,70 @@ def _column_sums(b4, mode: str):
     return sb, inv_var_b(sb, sb2, k) if mode == "ls" else sb2
 
 
+def _tiles(r: int, m: int, n_row_bins: int, n_col_bins: int, block_r: int,
+           block_m: int):
+    """(block_r, block_m, r_pad, m_pad) of a class-sorted layout: room for
+    every class's alignment waste plus the reserved bins."""
+    block_r = min(block_r, _round_up(r, 8))
+    block_m = min(block_m, _round_up(m, 128))
+    return (block_r, block_m, _round_up(r, block_r) + n_row_bins * block_r,
+            _round_up(m, block_m) + n_col_bins * block_m)
+
+
 def _classed_statics(r: int, m: int, masked_domains: bool = False,
                      masked_ranges: bool = False, block_r: int | None = None,
                      block_m: int | None = None):
-    """(block_r, block_m, r_pad, m_pad) of the class-sorted layout.
+    """(block_r, block_m, r_pad, m_pad, worst_pairs, p_cap, use_pairs).
 
-    ``block_r``/``block_m`` default to the port's tiles (``DEFAULT_BR``,
-    ``DEFAULT_BM``); the JAX package uses 512 and 4096.  The padded buffers
-    have room for every class's alignment waste plus one reserved bin for
-    masked domains or ranges.
+    The first four are the class-sorted layout's.  ``block_r``/``block_m``
+    default to the port's tiles (``DEFAULT_BR``, ``DEFAULT_BM``); the padded
+    buffers have room for every class's alignment waste plus one reserved
+    bin for masked domains or ranges.  The last three are the JAX package's
+    route (``fractencode_tpu/encode/matcher.py:253-285``), at its tiles
+    (``PAIR_TILE_R``, ``PAIR_TILE_M``) whatever the port's: the length of
+    its pair list in the worst case, the list's cap, and whether the
+    column-tile index fits the list's field at all (below 16K planes).
     """
     n_col_bins = _NUM_CLASS_BINS + (1 if masked_domains else 0)
     n_row_bins = _NUM_CLASS_BINS + (1 if masked_ranges else 0)
-    block_r = min(block_r or DEFAULT_BR, _round_up(r, 8))
-    block_m = min(block_m or DEFAULT_BM, _round_up(m, 128))
-    r_pad = _round_up(r, block_r) + n_row_bins * block_r
-    m_pad = _round_up(m, block_m) + n_col_bins * block_m
-    return block_r, block_m, r_pad, m_pad
+    layout = _tiles(r, m, n_row_bins, n_col_bins, block_r or DEFAULT_BR,
+                    block_m or DEFAULT_BM)
+    pbr, pbm, pr_pad, pm_pad = _tiles(r, m, n_row_bins, n_col_bins, PAIR_TILE_R,
+                                      PAIR_TILE_M)
+    use_pairs = pm_pad // pbm < (1 << CT_BITS)
+    worst_pairs = (pr_pad // pbr) * (pm_pad // pbm) + pr_pad // pbr
+    return (*layout, worst_pairs, min(worst_pairs, _mk.PAIR_CAP), use_pairs)
+
+
+def _pair_count(r_counts, c_counts, r: int, m: int, n_row_bins: int,
+                n_col_bins: int) -> int:
+    """The length of the JAX package's pair list, its ``n_pairs``
+    (``fractencode_tpu/encode/matcher.py:504-509``): at its tiles, every
+    range tile of a class pairs with each column tile of that class, or
+    with one dummy where there is none, and every other range tile (padding,
+    masked ranges) with one.  ``r_counts``/``c_counts``: the ranges and
+    columns of the seven class bins, read back from the card here."""
+    pbr, pbm, pr_pad, _ = _tiles(r, m, n_row_bins, n_col_bins, PAIR_TILE_R, PAIR_TILE_M)
+    rc, cc = torch.stack([r_counts[:_NUM_CLASS_BINS], c_counts[:_NUM_CLASS_BINS]]).tolist()
+    tiles = [-(-n // pbr) for n in rc]
+    pairs = sum(t * max(-(-c // pbm), 1) for t, c in zip(tiles, cc))
+    return pairs + pr_pad // pbr - sum(tiles)
 
 
 def classed_prep(ranges, sum_a, sum_a2, cb: Codebook, range_classes,
                  domain_classes, cfg: EncoderConfig, domain_mask=None,
                  range_mask=None, block_r: int | None = None,
-                 block_m: int | None = None) -> dict:
+                 block_m: int | None = None, force_no_pairs: bool = False) -> dict:
     """Class-sorted layout and int8 operands: every tensor the search takes,
-    plus the inverse maps ``classed_post`` needs.
+    plus the inverse maps ``classed_post`` needs, and the route.
+
+    The route is the JAX package's (``fractencode_tpu/encode/matcher.py:
+    590-602``): K2 (``search_classed2d``) where its pair list cannot be used
+    (``use_pairs`` False, 16K planes and up), where ``force_no_pairs`` asks
+    for it, or where the list could overflow its cap (``worst_pairs >
+    PAIR_CAP``, 4K planes and up) and this layout's ``n_pairs`` does; K1
+    (``search_classed``) otherwise.  Only the last case reads anything back
+    from the card (the class counts).
 
     ``domain_mask`` ([D] bool) parks geometry-invalid domains in a reserved
     column bin no range tile visits; ``range_mask`` ([R] bool) parks excluded
@@ -202,7 +246,9 @@ def classed_prep(ranges, sum_a, sum_a2, cb: Codebook, range_classes,
     frontier, else None); tile_class [nrt] i32; col_tile_start, col_tile_count, col_end
     and row_end (the end of each class's real rows, 0 past the classes)
     [n_col_bins+1] i32; rpos [R]; inv_dom [m_pad/T] or inv_col [m_pad]; and
-    b4_cols [m, K] i16 (4x the codebook values in search order).
+    b4_cols [m, K] i16 (4x the codebook values in search order); route
+    ('search_classed' or 'search_classed2d'), n_pairs (None where the route
+    did not need it), worst_pairs, p_cap and use_pairs.
     """
     r, k = ranges.shape
     _require_exact_k(k)
@@ -213,7 +259,7 @@ def classed_prep(ranges, sum_a, sum_a2, cb: Codebook, range_classes,
     r_masked = range_mask is not None
     n_col_bins = _NUM_CLASS_BINS + (1 if masked else 0)
     n_row_bins = _NUM_CLASS_BINS + (1 if r_masked else 0)
-    block_r, block_m, r_pad, m_pad = _classed_statics(
+    block_r, block_m, r_pad, m_pad, worst_pairs, p_cap, use_pairs = _classed_statics(
         r, m, masked, r_masked, block_r, block_m)
 
     rcls01 = (range_classes + 1).to(torch.int32)  # bins -1..5 -> 0..6
@@ -277,12 +323,22 @@ def classed_prep(ranges, sum_a, sum_a2, cb: Codebook, range_classes,
     col_end = (c_seg_start + c_counts).to(torch.int32)
     row_end = torch.zeros_like(col_end)
     row_end[:_NUM_CLASS_BINS] = (r_seg_start + r_counts)[:_NUM_CLASS_BINS]
+
+    n_pairs = None
+    if not use_pairs or force_no_pairs:
+        route = "search_classed2d"
+    elif worst_pairs > _mk.PAIR_CAP:
+        n_pairs = _pair_count(r_counts, c_counts, r, m, n_row_bins, n_col_bins)
+        route = "search_classed2d" if n_pairs > p_cap else "search_classed"
+    else:
+        route = "search_classed"
     return dict(ai_s=ai_s, ch_s=ch_s, cl_s=cl_s, sb_s=sb_s, aux_s=aux_s,
                 sa_s=sa_s, sa2_s=sa2_s, b4_cols=b4_cols,
                 tile_class=tile_class, col_tile_start=col_tile_start,
                 col_tile_count=col_tile_count, col_end=col_end, row_end=row_end,
                 rpos=rpos, inv_col=inv_col, inv_dom=inv_dom,
-                block_r=block_r, block_m=block_m)
+                block_r=block_r, block_m=block_m, route=route, n_pairs=n_pairs,
+                worst_pairs=worst_pairs, p_cap=p_cap, use_pairs=use_pairs)
 
 
 def _plain_only(cfg: EncoderConfig, scanned) -> dict:
@@ -296,17 +352,27 @@ def _plain_only(cfg: EncoderConfig, scanned) -> dict:
 
 
 def classed_kernel(prep: dict, k: int, domain_area: int, cfg: EncoderConfig,
-                   scanned=None):
+                   scanned=None, splits=None):
     """Run the search on prepped tensors; (q_s, idx_s) in the sorted layout.
 
-    ``cfg.backend`` 'torch' forces the plain version; otherwise the CUDA
-    wrapper routes on the device (CPU tensors run the plain version), and
-    'cuda' requires CUDA tensors.  ``scanned`` (backend 'torch' only): see
-    ``ops.matcher_kernels._plain_search``.
+    ``prep['route']`` picks K1 or K2.  ``cfg.backend`` 'torch' forces the
+    plain version; otherwise the CUDA wrapper routes on the device (CPU
+    tensors run the plain version), and 'cuda' requires CUDA tensors.
+    ``scanned`` (backend 'torch' only): see ``ops.matcher_kernels.
+    _plain_search``.  ``splits`` (K2 only): its columns per split, chosen
+    by the wrapper when None.
     """
     if cfg.backend == "cuda" and prep["ai_s"].device.type != "cuda":
         raise ValueError("backend='cuda' needs tensors on a CUDA device")
-    search = search_classed_torch if cfg.backend == "torch" else search_classed_cuda
+    plain = cfg.backend == "torch"
+    extra = _plain_only(cfg, scanned)
+    if prep["route"] == "search_classed2d":
+        search = search_classed2d_torch if plain else search_classed2d_cuda
+        extra["splits"] = splits
+    elif splits is not None:
+        raise ValueError("splits is K2's: the route is K1")
+    else:
+        search = search_classed_torch if plain else search_classed_cuda
     return search(
         prep["ai_s"], prep["ch_s"], prep["cl_s"], prep["sb_s"], prep["aux_s"],
         prep["tile_class"], prep["col_tile_start"], prep["col_end"], prep["row_end"],
@@ -314,7 +380,7 @@ def classed_kernel(prep: dict, k: int, domain_area: int, cfg: EncoderConfig,
         criterion=cfg.criterion, so_mode=cfg.so_mode, s_max=cfg.s_max,
         inv_norm=inv_norm(cfg, k, domain_area), sa_s=prep["sa_s"],
         sa2_s=prep["sa2_s"], threshold=cfg.rms_threshold, t_n=cfg.num_transforms,
-        **_plain_only(cfg, scanned))
+        **extra)
 
 
 def classed_post(q_s, idx_s, rpos, inv_col, ranges, sum_a, sum_a2, cb: Codebook,
@@ -387,13 +453,15 @@ def mask_ranges_result(res: SearchResult, range_mask: torch.Tensor) -> SearchRes
 def search_classed(ranges, sum_a, sum_a2, cb: Codebook, range_classes,
                    domain_classes, cfg: EncoderConfig, domain_mask=None,
                    range_mask=None, block_r: int | None = None,
-                   block_m: int | None = None) -> SearchResult:
+                   block_m: int | None = None,
+                   force_no_pairs: bool = False) -> SearchResult:
     """Class-blocked search (the counterpart of ``search_pallas_classed``):
-    only same-class pairs compete, with the reference's tie-break order."""
+    only same-class pairs compete, with the reference's tie-break order.
+    ``force_no_pairs`` takes K2 whatever the route (``classed_prep``)."""
     k = ranges.shape[1]
     prep = classed_prep(ranges, sum_a, sum_a2, cb, range_classes, domain_classes,
                         cfg, domain_mask=domain_mask, range_mask=range_mask,
-                        block_r=block_r, block_m=block_m)
+                        block_r=block_r, block_m=block_m, force_no_pairs=force_no_pairs)
     q_s, idx_s = classed_kernel(prep, k, cb.grid.block_size ** 2, cfg)
     res = classed_post(q_s, idx_s, prep["rpos"], prep["inv_col"], ranges, sum_a,
                        sum_a2, cb, cfg, b4_cols=prep["b4_cols"],

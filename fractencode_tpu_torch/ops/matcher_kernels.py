@@ -1,4 +1,4 @@
-"""The port's search kernels, K1 (class-blocked) and K3 (dense).
+"""The port's search kernels: K1 and K2 (class-blocked) and K3 (dense).
 
 Counterpart of ``fractencode_tpu/ops/matcher_pallas.py``.  For every range
 row a search returns ``(q, idx)``: the first-occurrence argmax of the rank
@@ -8,6 +8,14 @@ key ``q`` over the row's columns, and its column index.
     (through ``fused_search_pairs``) walks a list of (range tile, column
     tile) pairs.  Here each range tile scans its own class's column segment,
     which ``encode.matcher.classed_prep`` lays out, so there is no pair list.
+  * K2, the 2-D class-blocked search (the TPU kernel ``_classed_kernel``,
+    through ``fused_search_classed``): K1's function over the same layout,
+    with each class segment cut into splits of whole groups.  A block
+    searches one range tile against one split, writing a partial (q, idx,
+    hit) per row; a second pass reduces a row's partials in split order (see
+    ``search_classed2d_torch``).  It gives few-row searches more blocks, and
+    it is the route the JAX package takes where its pair list overflows
+    (``encode.matcher.classed_prep``).
   * K3, the dense search (the TPU kernel ``_search_kernel``, through
     ``fused_search``): every row against the columns ``[0, m_valid)`` in
     search order, optionally masked by a per-element class compare.  It
@@ -16,10 +24,11 @@ key ``q`` over the row's columns, and its column index.
 Each has two versions of the same function:
 
   * the plain PyTorch version (``search_classed_torch``,
-    ``search_dense_torch``), for the three rank modes ('ls', 'raw',
-    'general') at every K up to MAX_K;
+    ``search_classed2d_torch``, ``search_dense_torch``), for the three rank
+    modes ('ls', 'raw', 'general') at every K up to MAX_K;
   * the wrapper of the hand-written CUDA kernel (``search_classed_cuda`` on
-    ``csrc/search_classed.cu``, ``search_dense_cuda`` on
+    ``csrc/search_classed.cu``, ``search_classed2d_cuda`` on
+    ``csrc/search_classed2d.cu``, ``search_dense_cuda`` on
     ``csrc/search_dense.cu``), for the (mode, K) pairs in ``KERNEL_KEYS``.
     It routes on the tensors' device: CPU tensors run the plain version;
     CUDA tensors launch the kernel or raise.
@@ -61,9 +70,10 @@ import struct
 import torch
 
 __all__ = ["INT8_MAX_K", "MAX_K", "KERNEL_KEYS", "DEFAULT_BR", "DEFAULT_BM",
-           "rank_mode", "inv_var_b", "key_sum_sq", "rank_to_dist",
-           "search_classed_torch", "search_classed_cuda", "search_dense_torch",
-           "search_dense_cuda"]
+           "PAIR_TILE_R", "PAIR_TILE_M", "PAIR_CAP", "CT_BITS", "rank_mode",
+           "inv_var_b", "key_sum_sq", "rank_to_dist", "search_classed_torch",
+           "search_classed_cuda", "search_classed2d_torch", "search_classed2d_cuda",
+           "search_dense_torch", "search_dense_cuda"]
 
 # Largest K for which the JAX package's keys are exact integers in i32 and
 # it searches with int8 operands (matcher_pallas.py:41-44).
@@ -82,6 +92,31 @@ KERNEL_KEYS = {"ls": (16, 64, 256), "raw": (16, 64, 256), "general": (16, 64, 25
 # block each.
 DEFAULT_BR = 128
 DEFAULT_BM = 128
+
+# The JAX package's route between its pair-list kernel (K1) and its 2-D
+# classed kernel (K2), copied so that the port takes K2 where it does
+# (encode.matcher.classed_prep).  Its tiles, which size the pair list
+# (fractencode_tpu/ops/matcher_pallas.py:36-37): they decide the route only,
+# never the port's layout.
+PAIR_TILE_R = 512
+PAIR_TILE_M = 4096
+# The pair list's length cap and its column-tile field width
+# (matcher_pallas.py:496-498).
+PAIR_CAP = 196608
+CT_BITS = 12
+
+# Columns each CUDA kernel stages in shared memory per pass, by K
+# (kChunkCols in csrc/search_common.cuh): K2's splits hold at least one.
+_CHUNK_COLS = {16: 512, 64: 256, 256: 64}
+# Rows (threads) per CUDA block (kRows in csrc/search_common.cuh)
+_KROWS = 128
+# K2's blocks per SM when it chooses its split width (search_classed2d_cuda)
+_BLOCKS_PER_SM = 4
+# the most bytes K2's chosen split width may give its partials: past them it
+# takes wider splits (a long segment among many short ones)
+_PARTIALS_MAX_BYTES = 1 << 30
+# the most splits the CUDA grid takes (its z dimension)
+_MAX_SPLITS = 65535
 
 _BIG = 3.0e38
 _BIG_I = 2**31 - 1
@@ -293,7 +328,8 @@ def _frontier_mask(hit, t_n: int):
 
 def _plain_search(ai, ch, cl, sb, aux, segments, *, criterion: str, so_mode: str,
                   s_max: float, inv_norm: float, sa=None, sa2=None, rcls=None,
-                  ccls=None, threshold: float = 0.0, t_n: int = 4, scanned=None):
+                  ccls=None, threshold: float = 0.0, t_n: int = 4, scanned=None,
+                  hit=None):
     """The plain search: for each (r0, r1, c0, c1) in ``segments``, rows
     [r0, r1) of ``ai`` against columns [c0, c1), with the class mask
     ``rcls[r] == ccls[j]`` when both are given, and the early-accept
@@ -302,7 +338,8 @@ def _plain_search(ai, ch, cl, sb, aux, segments, *, criterion: str, so_mode: str
     covers, and rows with no admissible column, keep (-_BIG, 0).
     ``scanned`` (int64 [rows], optional) receives each row's count of
     admissible columns up to the end of its frontier group (or of its
-    segment): the pairs the search needs.
+    segment): the pairs the search needs.  ``hit`` (bool [rows], optional)
+    receives whether each row's scan met the frontier.
 
     The dot sum(ai * (8*ch + cl)) comes exactly from matmuls: one of ai
     against b4 = 8*ch + cl in float64 on the CPU (integers below 2^53); in
@@ -388,7 +425,7 @@ def _plain_search(ai, ch, cl, sb, aux, segments, *, criterion: str, so_mode: str
                     dist = rank_to_dist(q, col(sa2, rows), col(sa, rows),
                                         criterion=criterion, so_mode=so_mode,
                                         s_max=s_max, inv_norm=inv_norm, n=float(k))
-                    keep, hit, end = _frontier_mask(dist <= thr, t_n)
+                    keep, row_hit, end = _frontier_mask(dist <= thr, t_n)
                     q = torch.where(keep, q, -_BIG)
                 if scanned is not None:
                     within = (torch.ones_like(q, dtype=torch.bool) if end is None else
@@ -404,9 +441,11 @@ def _plain_search(ai, ch, cl, sb, aux, segments, *, criterion: str, so_mode: str
                 best_i[loc] = torch.where(improved, tile_arg.to(torch.int32), best_i[loc])
                 best_q[loc] = torch.where(improved, tile_q, best_q[loc])
                 if frontier:
-                    done[loc] = hit
+                    done[loc] = row_hit
             q_out[r0:r1] = best_q
             idx_out[r0:r1] = best_i
+            if hit is not None:
+                hit[r0:r1] = done
     return q_out, idx_out
 
 
@@ -420,6 +459,20 @@ def _class_runs(tile_class: torch.Tensor):
             runs.append((t0, t, tc[t0]))
             t0 = t
     return runs
+
+
+def _classed_segments(tile_class, col_tile_start, col_end, row_end, block_r: int,
+                      block_m: int, frontier: bool):
+    """[(r0, r1, c0, c1)]: each run of range tiles of one class, its rows and
+    its class's column segment.  With the frontier only a class's real rows
+    (below ``row_end``) search."""
+    starts = (col_tile_start.to(torch.int64) * block_m).tolist()
+    ends = col_end.tolist()
+    row_ends = row_end.tolist()
+    return [(t0 * block_r,
+             min(t1 * block_r, max(t0 * block_r, row_ends[c])) if frontier else t1 * block_r,
+             starts[c], ends[c])
+            for t0, t1, c in _class_runs(tile_class)]
 
 
 def search_classed_torch(ai_s, ch_s, cl_s, sb_s, aux_s, tile_class,
@@ -440,18 +493,67 @@ def search_classed_torch(ai_s, ch_s, cl_s, sb_s, aux_s, tile_class,
     (-_BIG, 0).  Above INT8_MAX_K, aux_s is float64 for 'raw' and
     'general' (the exact SumB2).  ``scanned``: see ``_plain_search``.
     """
-    starts = (col_tile_start.to(torch.int64) * block_m).tolist()
-    ends = col_end.tolist()
-    row_ends = row_end.tolist()
-    frontier = threshold > 0.0
-    segments = [(t0 * block_r,
-                 max(t0 * block_r, row_ends[c]) if frontier else t1 * block_r,
-                 starts[c], ends[c])
-                for t0, t1, c in _class_runs(tile_class)]
+    segments = _classed_segments(tile_class, col_tile_start, col_end, row_end,
+                                 block_r, block_m, threshold > 0.0)
     return _plain_search(ai_s, ch_s, cl_s, sb_s, aux_s, segments,
                          criterion=criterion, so_mode=so_mode, s_max=s_max,
                          inv_norm=inv_norm, sa=sa_s, sa2=sa2_s, threshold=threshold,
                          t_n=t_n, scanned=scanned)
+
+
+def _check_width(width: int, frontier: bool, t_n: int) -> None:
+    if width < 1 or (frontier and width % t_n):
+        raise ValueError(f"{width} columns per split: need a positive multiple of "
+                         f"t_n = {t_n} with the frontier")
+
+
+def search_classed2d_torch(ai_s, ch_s, cl_s, sb_s, aux_s, tile_class,
+                           col_tile_start, col_end, row_end, *, block_r: int,
+                           block_m: int, criterion: str, so_mode: str, s_max: float,
+                           inv_norm: float, sa_s=None, sa2_s=None,
+                           threshold: float = 0.0, t_n: int = 4, splits=None,
+                           scanned=None):
+    """Plain PyTorch version of K2, the 2-D class-blocked search: K1's
+    function (``search_classed_torch``: the same arguments and result),
+    computed split by split as the TPU kernel's 2-D grid does.
+
+    ``splits`` is the number of columns per split (a multiple of ``t_n``
+    with the frontier; None: one split per class segment).  Split s of a
+    class covers columns [start + s*splits, start + (s+1)*splits) of its
+    segment; its partial is ``_plain_search`` over them, with the frontier's
+    groups counted from the split's start, which is a group boundary of the
+    segment, so no group straddles two splits.  A row's result is the
+    strict-'>' max over its splits in order, up to and including the first
+    split whose scan hit: an earlier split holds lower columns, so ties go
+    to the lowest column, and nothing after a row's frontier counts.
+    ``scanned`` counts each row's pairs up to its frontier, as K1's does.
+    """
+    frontier = threshold > 0.0
+    segments = _classed_segments(tile_class, col_tile_start, col_end, row_end,
+                                 block_r, block_m, frontier)
+    longest = max((c1 - c0 for _, _, c0, c1 in segments), default=0)
+    width = max(longest, 1) if splits is None else splits
+    _check_width(width, frontier, t_n)
+    r_pad, dev = ai_s.shape[0], ai_s.device
+    q = torch.full((r_pad,), -_BIG, dtype=torch.float32, device=dev)
+    idx = torch.zeros((r_pad,), dtype=torch.int32, device=dev)
+    stopped = torch.zeros((r_pad,), dtype=torch.bool, device=dev)
+    for s0 in range(0, longest, width):
+        part = [(r0, r1, c0 + s0, min(c0 + s0 + width, c1))
+                for r0, r1, c0, c1 in segments if c0 + s0 < c1]
+        hit = torch.zeros_like(stopped)
+        part_scanned = None if scanned is None else torch.zeros_like(scanned)
+        q_s, i_s = _plain_search(ai_s, ch_s, cl_s, sb_s, aux_s, part, criterion=criterion,
+                                 so_mode=so_mode, s_max=s_max, inv_norm=inv_norm,
+                                 sa=sa_s, sa2=sa2_s, threshold=threshold, t_n=t_n,
+                                 scanned=part_scanned, hit=hit)
+        better = ~stopped & (q_s > q)
+        q = torch.where(better, q_s, q)
+        idx = torch.where(better, i_s, idx)
+        if scanned is not None:
+            scanned += torch.where(stopped, 0, part_scanned)
+        stopped |= hit
+    return q, idx
 
 
 def search_dense_torch(ai, ch, cl, sb, aux, *, m_valid: int, criterion: str,
@@ -531,17 +633,23 @@ _KEY_ARGTYPES = ([ctypes.c_void_p] * 2 + [ctypes.c_float] * 3 + [ctypes.c_int]
                  + [ctypes.c_float] * 2 + [ctypes.c_int])
 
 
+# each kernel's arguments before the key arguments: pointers, then ints
+# (K2: also its split width and count and its searched tiles' count), and
+# after them (K2: its searched tiles, each tile's rank among them, then its
+# partials)
+_HEADS = {"search_classed": [ctypes.c_void_p] * 9 + [ctypes.c_int] * 3,
+          "search_classed2d": [ctypes.c_void_p] * 9 + [ctypes.c_int] * 6,
+          "search_dense": [ctypes.c_void_p] * 7 + [ctypes.c_int] * 2}
+_TAILS = {"search_classed2d": [ctypes.c_void_p] * 5}
+
+
 def _kernel_fn(kernel: str, mode: str, k: int, frontier: bool):
     """The C entry point ``fe_<kernel>_<mode><k>``, ``..._thr`` with the
     frontier (its library built and loaded on first use)."""
     from ._build import load_library
 
     fn = getattr(load_library(kernel), f"fe_{kernel}_{mode}{k}" + ("_thr" if frontier else ""))
-    if kernel == "search_classed":
-        head = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 3
-    else:
-        head = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 2
-    fn.argtypes = head + _KEY_ARGTYPES + [ctypes.c_void_p] * 3
+    fn.argtypes = _HEADS[kernel] + _KEY_ARGTYPES + _TAILS.get(kernel, []) + [ctypes.c_void_p] * 3
     fn.restype = ctypes.c_int
     return fn
 
@@ -580,7 +688,22 @@ def search_classed_cuda(ai_s, ch_s, cl_s, sb_s, aux_s, tile_class,
     if ai_s.device.type == "cpu":
         return search_classed_torch(ai_s, ch_s, cl_s, sb_s, aux_s, tile_class,
                                     col_tile_start, col_end, row_end, **kw)
-    mode, k = _launch_mode("search_classed", ai_s, criterion, so_mode, s_max)
+    key, head, keys = _classed_launch_args(
+        "search_classed", ai_s, ch_s, cl_s, sb_s, aux_s, tile_class, col_tile_start,
+        col_end, row_end, block_r, block_m, criterion, so_mode, s_max, inv_norm,
+        sa_s, sa2_s, threshold, t_n)
+    out = _launch("search_classed", key, ai_s.shape[0], ai_s.device, *head, *keys)
+    search_classed_cuda.launches[key] += 1
+    return out
+
+
+def _classed_launch_args(kernel, ai_s, ch_s, cl_s, sb_s, aux_s, tile_class,
+                         col_tile_start, col_end, row_end, block_r, block_m, criterion,
+                         so_mode, s_max, inv_norm, sa_s, sa2_s, threshold, t_n):
+    """Check K1's or K2's CUDA tensors; return the launch key (mode, K,
+    frontier), the layout's pointers, nrt, block_r and block_m, and the key
+    arguments (``_key_args``)."""
+    mode, k = _launch_mode(kernel, ai_s, criterion, so_mode, s_max)
     r_pad, m_pad = ai_s.shape[0], ch_s.shape[0]
     nrt, nc = tile_class.shape[0], col_end.shape[0]
     dev = ai_s.device
@@ -595,14 +718,92 @@ def search_classed_cuda(ai_s, ch_s, cl_s, sb_s, aux_s, tile_class,
     _check("col_tile_start", col_tile_start, torch.int32, (nc,), dev)
     _check("col_end", col_end, torch.int32, (nc,), dev)
     _check("row_end", row_end, torch.int32, (nc,), dev)
-    key = (mode, k, threshold > 0.0)
-    args = _key_args(mode, k, sa_s, sa2_s, r_pad, dev, so_mode=so_mode, s_max=s_max,
+    head = (ai_s.data_ptr(), ch_s.data_ptr(), cl_s.data_ptr(), sb_s.data_ptr(),
+            aux_s.data_ptr(), tile_class.data_ptr(), col_tile_start.data_ptr(),
+            col_end.data_ptr(), row_end.data_ptr(), nrt, block_r, block_m)
+    keys = _key_args(mode, k, sa_s, sa2_s, r_pad, dev, so_mode=so_mode, s_max=s_max,
                      inv_norm=inv_norm, threshold=threshold, t_n=t_n)
-    out = _launch("search_classed", key, r_pad, dev,
-                  ai_s.data_ptr(), ch_s.data_ptr(), cl_s.data_ptr(), sb_s.data_ptr(),
-                  aux_s.data_ptr(), tile_class.data_ptr(), col_tile_start.data_ptr(),
-                  col_end.data_ptr(), row_end.data_ptr(), nrt, block_r, block_m, *args)
-    search_classed_cuda.launches[key] += 1
+    return (mode, k, threshold > 0.0), head, keys
+
+
+def _split_plan(total: int, longest: int, searched: int, block_r: int, k: int,
+                frontier: bool, t_n: int, splits, sms: int):
+    """K2's (columns per split, splits of the longest segment, partials'
+    bytes), from the columns the range tiles search: ``total`` over all
+    tiles, ``longest`` of one tile, and ``searched``, the tiles with any.
+
+    The grid runs over the searched tiles only, and the partials hold
+    (q, idx, hit), 9 bytes, per searched row and split: their size follows
+    the searched tiles, not the plane.  ``splits`` None chooses the width
+    that gives the grid about ``_BLOCKS_PER_SM`` blocks per SM of ``sms``
+    over those columns, never less than one staged chunk (``_CHUNK_COLS``,
+    whole groups with the frontier) nor so little that the partials pass
+    ``_PARTIALS_MAX_BYTES``; a search with many range tiles gets one split
+    per segment."""
+    rows = searched * block_r
+    if splits is None:
+        step = _CHUNK_COLS[k] - (_CHUNK_COLS[k] % t_n if frontier else 0)
+        slices = -(-block_r // _KROWS)  # the grid's thread blocks per range tile
+        width = max(step, -(-total * slices // (_BLOCKS_PER_SM * sms)))
+        most = max(1, _PARTIALS_MAX_BYTES // max(9 * rows, 1))  # splits the bytes allow
+        width = max(width, -(-longest // most))
+        splits = -(-width // step) * step
+    _check_width(splits, frontier, t_n)
+    n = max(1, -(-longest // splits))
+    if n > _MAX_SPLITS:
+        raise ValueError(f"{n} splits of {splits} columns: the grid takes {_MAX_SPLITS}")
+    return splits, n, 9 * n * rows
+
+
+def search_classed2d_cuda(ai_s, ch_s, cl_s, sb_s, aux_s, tile_class,
+                          col_tile_start, col_end, row_end, *, block_r: int,
+                          block_m: int, criterion: str, so_mode: str, s_max: float,
+                          inv_norm: float, sa_s=None, sa2_s=None,
+                          threshold: float = 0.0, t_n: int = 4, splits=None):
+    """K2's hand-written CUDA kernel, with the arguments and result of
+    ``search_classed2d_torch``.
+
+    CPU tensors run the plain version.  CUDA tensors launch
+    ``csrc/search_classed2d.cu`` (and add one to
+    ``search_classed2d_cuda.launches[(mode, K, frontier)]``), or raise
+    ``NotImplementedError`` for a config the kernel does not cover.
+    ``splits`` (columns per split) None: chosen to fill the card
+    (``_split_plan``, from three integers read back).  The plan of the last
+    launch (columns per split, splits, searched tiles, the partials' bytes)
+    is kept in ``search_classed2d_cuda.plan``.
+    """
+    kw = dict(block_r=block_r, block_m=block_m, criterion=criterion,
+              so_mode=so_mode, s_max=s_max, inv_norm=inv_norm, sa_s=sa_s,
+              sa2_s=sa2_s, threshold=threshold, t_n=t_n, splits=splits)
+    if ai_s.device.type == "cpu":
+        return search_classed2d_torch(ai_s, ch_s, cl_s, sb_s, aux_s, tile_class,
+                                      col_tile_start, col_end, row_end, **kw)
+    key, head, keys = _classed_launch_args(
+        "search_classed2d", ai_s, ch_s, cl_s, sb_s, aux_s, tile_class, col_tile_start,
+        col_end, row_end, block_r, block_m, criterion, so_mode, s_max, inv_norm,
+        sa_s, sa2_s, threshold, t_n)
+    dev = ai_s.device
+    seg = (col_end.to(torch.int64) - col_tile_start.to(torch.int64) * block_m).clamp_min(0)
+    per_tile = seg[tile_class.to(torch.int64)]
+    has = per_tile > 0  # the tiles the grid runs over
+    rank = has.cumsum(0, dtype=torch.int32) - 1
+    total, longest, searched = torch.stack([per_tile.sum(), per_tile.max(), has.sum()]).tolist()
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    width, n, nbytes = _split_plan(total, longest, searched, block_r, key[1], key[2], t_n,
+                                   splits, sms)
+    # (tile, class) of the searched tiles in order; the others go to a last row
+    tiles = torch.empty((searched + 1, 2), dtype=torch.int32, device=dev)
+    ids = torch.arange(tile_class.shape[0], dtype=torch.int32, device=dev)
+    tiles.index_copy_(0, torch.where(has, rank, searched).long(),
+                      torch.stack([ids, tile_class], 1))
+    # the partials (q, idx, hit) of every searched row and split
+    part = [torch.empty((n, searched * block_r), dtype=dt, device=dev)
+            for dt in (torch.float32, torch.int32, torch.uint8)]
+    out = _launch("search_classed2d", key, ai_s.shape[0], dev, *head, width, n, searched,
+                  *keys, tiles.data_ptr(), rank.data_ptr(), *(t.data_ptr() for t in part))
+    search_classed2d_cuda.launches[key] += 1
+    search_classed2d_cuda.plan = dict(width=width, splits=n, searched=searched,
+                                      partial_bytes=nbytes)
     return out
 
 
@@ -659,4 +860,6 @@ def search_dense_cuda(ai, ch, cl, sb, aux, *, m_valid: int, criterion: str,
 # launch counts by (mode, K, frontier)
 search_classed_cuda.launches = {(mode, k, thr): 0 for mode, ks in KERNEL_KEYS.items()
                                 for k in ks for thr in (False, True)}
+search_classed2d_cuda.launches = dict(search_classed_cuda.launches)
+search_classed2d_cuda.plan = None
 search_dense_cuda.launches = dict(search_classed_cuda.launches)

@@ -301,3 +301,44 @@ def test_chip_smoke_needs_a_card(tmp_path):
     for proc in _run_both(([os.path.join(REPO, "chip_smoke.py")], tmp_path),
                           (["chip_smoke.py"], alone, dict(PYTHONPATH=""))):
         assert proc.returncode != 0 and '"ok"' not in proc.stdout
+
+
+def test_cli_backend_jnp_matches_default(tmp_path, capsys):
+    """--backend jnp (the plain versions) prints the default's PSNR and
+    writes its pixels."""
+    from fractencode_tpu_torch.cli import main
+
+    psnr = {}
+    for name, flags in (("auto", []), ("jnp", ["--backend", "jnp"])):
+        assert main([LENNA, "--device", "cpu", *flags,
+                     "--result", str(tmp_path / f"{name}.png")]) == 0
+        psnr[name] = _psnr(capsys.readouterr().out)
+    assert psnr["jnp"] == psnr["auto"]
+    assert np.array_equal(_png(tmp_path / "jnp.png"), _png(tmp_path / "auto.png"))
+
+
+def test_cli_backend_pallas_needs_the_card(tmp_path, capsys):
+    """--backend pallas with --device cpu exits 2 and names the device,
+    without a traceback and without writing an image."""
+    from fractencode_tpu_torch.cli import main
+
+    out = tmp_path / "r.png"
+    assert main([LENNA, "--device", "cpu", "--backend", "pallas", "--result", str(out)]) == 2
+    err = capsys.readouterr().err
+    assert "--device cpu" in err and "Traceback" not in err
+    assert not out.exists()
+
+
+def test_cli_parses_every_jax_backend():
+    """Every --backend choice of the JAX CLI parses, and maps to the port's
+    route (bridge._BACKENDS)."""
+    from fractencode_tpu.cli import build_parser as jax_parser
+
+    from fractencode_tpu_torch import cli
+    from fractencode_tpu_torch.bridge import _BACKENDS
+
+    action = next(a for a in jax_parser()._actions if "--backend" in a.option_strings)
+    assert set(action.choices) == set(_BACKENDS)
+    for choice in action.choices:
+        args = cli.build_parser().parse_args([LENNA, "--backend", choice])
+        assert cli._config_from_args(args).backend == _BACKENDS[choice]

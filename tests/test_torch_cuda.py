@@ -371,6 +371,97 @@ def test_frontier_launch_never_runs_plain(cuda, monkeypatch):
         assert launches[key] == before + 1
 
 
+def _smooth(n, seed):
+    """A smooth wave plus uniform noise: many ranges meet the threshold 10."""
+    yy, xx = np.mgrid[0:n, 0:n]
+    return (70 + 30 * np.sin(xx / 23.0) * np.cos(yy / 31.0)
+            + np.random.default_rng(seed).integers(0, 6, (n, n))).astype(np.uint8)
+
+
+@pytest.mark.parametrize("frontier", [False, True], ids=["plain", "thr"])
+@pytest.mark.parametrize("case", CASES, ids=lambda c: f"{c[0]}{c[1]}")
+def test_classed2d_kernel_matches_plain(cuda, case, frontier):
+    """Each K2 instance on the forced route (force_no_pairs), with the split
+    width it picks and with splits of two groups: (q, idx) of every sorted
+    row bitwise against its plain version; K2 launches, K1 does not."""
+    key, k = case
+    cfg = _case_cfg(key, k, rms_threshold=10.0 if frontier else 0.0)
+    prep = _prep(_smooth(256, 16), cfg, cuda, force_no_pairs=True)
+    assert prep["route"] == "search_classed2d"
+    mode, area = key.split("-")[0], cfg.source_size ** 2
+    q_p, i_p = tm.classed_kernel(prep, k, area, dataclasses.replace(cfg, backend="torch"))
+    before = mk.search_classed2d_cuda.launches[(mode, k, frontier)]
+    k1 = dict(mk.search_classed_cuda.launches)
+    for splits in (None, 2 * cfg.num_transforms):
+        q_k, i_k = tm.classed_kernel(prep, k, area, cfg, splits=splits)
+        torch.cuda.synchronize()
+        assert_bitwise(q_k, q_p, f"q, splits {splits}")
+        assert_bitwise(i_k, i_p, f"idx, splits {splits}")
+    assert mk.search_classed2d_cuda.launches[(mode, k, frontier)] == before + 2
+    assert mk.search_classed_cuda.launches == k1
+    assert mk.search_classed2d_cuda.plan["splits"] > 1
+
+
+@pytest.mark.parametrize("threshold", [0.0, 10.0])
+def test_classed2d_matches_classed_on_the_card(cuda, threshold):
+    """K2 against K1 on the card, on the forced route's prep and K1's: one
+    split per segment, several, and the width K2 picks; (q, idx) bitwise."""
+    cfg = T.EncoderConfig(rms_threshold=threshold)
+    inputs = _inputs(_smooth(256, 17), cfg, cuda)
+    q1, i1 = tm.classed_kernel(tm.classed_prep(*inputs, cfg), 16, 256, cfg)
+    prep = tm.classed_prep(*inputs, cfg, force_no_pairs=True)
+    longest = int((prep["col_end"] - prep["col_tile_start"] * prep["block_m"]).max())
+    for splits, n in ((-(-longest // 4) * 4, 1), (64, -(-longest // 64)), (None, None)):
+        q2, i2 = tm.classed_kernel(prep, 16, 256, cfg, splits=splits)
+        torch.cuda.synchronize()
+        assert_bitwise(q1, q2, f"q, splits {splits}")
+        assert_bitwise(i1, i2, f"idx, splits {splits}")
+        assert n is None or mk.search_classed2d_cuda.plan["splits"] == n
+
+
+@pytest.mark.parametrize("threshold", [0.0, 10.0])
+def test_classed2d_few_searched_tiles(cuda, threshold):
+    """A range mask that leaves 200 of 16,384 ranges (a fine quadtree
+    level's coverage): K2 at the width it picks (many splits) against its
+    plain version, (q, idx) of every sorted row bitwise, with the partials
+    sized by the searched tiles, not by r_pad."""
+    cfg = T.EncoderConfig(rms_threshold=threshold)
+    img = _smooth(512, 19)
+    ranges, *rest = _inputs(img, cfg, cuda)
+    keep = torch.zeros(ranges.shape[0], dtype=torch.bool, device=cuda)
+    keep[torch.from_numpy(np.random.default_rng(19).choice(ranges.shape[0], 200,
+                                                           replace=False)).to(cuda)] = True
+    prep = tm.classed_prep(ranges, *rest, cfg, range_mask=keep, force_no_pairs=True)
+    q_p, i_p = tm.classed_kernel(prep, 16, 256, dataclasses.replace(cfg, backend="torch"))
+    q_k, i_k = tm.classed_kernel(prep, 16, 256, cfg)
+    torch.cuda.synchronize()
+    assert_bitwise(q_k, q_p, "q")
+    assert_bitwise(i_k, i_p, "idx")
+    plan, r_pad = mk.search_classed2d_cuda.plan, prep["ai_s"].shape[0]
+    assert plan["splits"] > 1
+    assert plan["partial_bytes"] * 4 < 9 * plan["splits"] * r_pad
+
+
+def test_classed2d_wrapper_refuses_bad_inputs(cuda):
+    """A wrong dtype, shape or device, or a split width below one column,
+    raises before any launch."""
+    cfg = T.EncoderConfig()
+    prep = _prep(random_plane(128, 18), cfg, cuda, force_no_pairs=True)
+    names = ("ai_s", "ch_s", "cl_s", "sb_s", "aux_s", "tile_class", "col_tile_start",
+             "col_end", "row_end")
+    args = [prep[n] for n in names]
+    kw = dict(block_r=prep["block_r"], block_m=prep["block_m"], criterion="affine",
+              so_mode="ls", s_max=-1.0, inv_norm=1.0 / 16)
+    before = dict(mk.search_classed2d_cuda.launches)
+    for i, bad in ((0, args[0].to(torch.int16)), (3, args[3][:-1].contiguous()),
+                   (1, args[1].cpu()), (5, args[5].to(torch.int64))):
+        with pytest.raises(ValueError, match=names[i]):
+            mk.search_classed2d_cuda(*args[:i], bad, *args[i + 1:], **kw)
+    with pytest.raises(ValueError, match="multiple"):
+        mk.search_classed2d_cuda(*args, **kw, splits=0)
+    assert mk.search_classed2d_cuda.launches == before
+
+
 def test_cli_without_a_card_exits_nonzero(cuda, tmp_path):
     """With the card hidden, the CLI's default --device cuda exits non-zero
     and names --device cpu; it does not run on the CPU by itself."""
