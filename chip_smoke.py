@@ -5,9 +5,10 @@
 
 Phases, each of which must pass (any failure exits non-zero):
   1. build the CUDA kernels from csrc/ (search_classed.cu, K1,
-     search_classed2d.cu, K2, and search_dense.cu, K3: one nvcc each, in
-     parallel, into build/kernels/), print each instantiation's registers
-     and spills from ptxas' report, and the card's name and power limit;
+     search_classed2d.cu, K2, search_dense.cu, K3, and micro_step.cu, K4
+     and K5: one nvcc each, in parallel, into build/kernels/), print each
+     instantiation's registers and spills from ptxas' report, and the card's
+     name and power limit;
   2. K1 parity at K = 16: the search kernel against its plain PyTorch
      version on the same class-sorted tensors at 512^2 and 2048^2, (q, idx)
      bitwise equal, with both times (CUDA events, median of 5 after a
@@ -83,16 +84,28 @@ Phases, each of which must pass (any failure exits non-zero):
      its plain version at the path's own split plan on a sample of the
      range tiles (the first and last of each class: the plain version of
      the whole plane would take minutes); and --quadtree at 8192^2 with the
-     route each level took.
+     route each level took;
+ 19. K4 and K5, the pair-list step microbenchmark (ops/micro_kernels.py):
+     at the JAX script's shapes and draws (fractencode_tpu_torch.scripts.
+     micro_kernel: 8 x 64 tiles of 512 x 4096 at K = 16), each of the five
+     instances against its plain version at 1 and 4 repetitions of the
+     list, (q, idx) bitwise; K5 against K4 'full' and 4 repetitions against
+     1, bitwise; every instance on a small list of ties; then the
+     microbenchmark's main (the path `micro_kernel`), whose lines it prints.
 Every path is driven with the launch counts set to 0 just before it and
-read just after; each must launch the kernels it names.  Each kernel's
-record keeps the times of its last parity check, which is at the shape of
-a path that launches it, and its bound there: the larger of 2K int8
-operations per (range, column) pair the search needs (the data's own count
-with the frontier; the class layout's padding rows and columns are not
-counted) over the H100 SXM's 1,979 TOP/s and the bytes of its ranges,
-columns and results (``search_bytes``) over 3.35 TB/s.
-No single PyTorch call gives (q, idx), so library_ms is null.  Plain timings
+read just after; each must launch the kernels it names.  Each search
+kernel's record keeps the times of its last parity check, which is at the
+shape of a path that launches it, and its bound there: the larger of 2K
+int8 operations per (range, column) pair the search needs (the data's own
+count with the frontier; the class layout's padding rows and columns are
+not counted) over the H100 SXM's 1,979 TOP/s and the bytes of its ranges,
+columns and results (``search_bytes``) over 3.35 TB/s.  K4's and K5's
+records: the time of one repetition of the list (CUDA events, median of 5),
+the per-step µs from 4 repetitions and 1, and the bound of one repetition
+(every range tile against every column tile once).
+No single PyTorch call gives a search's (q, idx), so library_ms is null;
+K4 'matmul''s is torch._int_mm's int8 products of each range tile against
+all columns with the row max, which writes the products out.  Plain timings
 at 2048^2 are one run each, the parity run itself (which also counts the
 pairs scanned), to keep the script short.
 The planes are natural-like synthetic textures made with numpy from a seed.
@@ -118,7 +131,8 @@ import numpy as np
 SEED = 20240611
 SOURCES = {"search_classed": "fractencode_tpu_torch/csrc/search_classed.cu",
            "search_classed2d": "fractencode_tpu_torch/csrc/search_classed2d.cu",
-           "search_dense": "fractencode_tpu_torch/csrc/search_dense.cu"}
+           "search_dense": "fractencode_tpu_torch/csrc/search_dense.cu",
+           "micro_step": "fractencode_tpu_torch/csrc/micro_step.cu"}
 # The line of the TPU kernel each kernel key replaces: _pairs_kernel (K1),
 # _classed_kernel (K2) and _search_kernel (K3); 'ls' at K = 64 is their
 # ls_fast int8 branch (K2's serves K = 16 too), 'raw' and 'general' their
@@ -223,7 +237,8 @@ def natural_plane(n: int, seed: int) -> np.ndarray:
 def ptxas_report(text):
     """One line per kernel instantiation in an ``nvcc -Xptxas -v`` log: its
     name, template arguments (K, key, for K3 the class mask, and the
-    frontier), registers and spills."""
+    frontier; K4/K5: the variant and the [K, M] layout), registers and
+    spills."""
     lines, name, spill = [], None, ("?", "?")
     for line in text.splitlines():
         m = re.search(r"Compiling entry function '_ZN?(\w+)'", line)
@@ -233,7 +248,11 @@ def ptxas_report(text):
                 end = d.end() + int(d.group())
                 name, rest = rest[d.end():end], rest[end:]
             targs = re.findall(r"L[ib](\d+)E", rest)
-            if targs:  # K2's reduce kernel has none
+            if targs and name.startswith("micro_step"):
+                variant, transposed = targs[:2]
+                name += (f" {('full', 'noargpass', 'packed', 'matmul')[int(variant)]}"
+                         + (" [K, M] layout" if transposed == "1" else ""))
+            elif targs:  # the reduce kernels have none
                 k, mode, *flags = targs
                 masked, frontier = (flags[:2] if name.startswith("search_dense")
                                     else ("0", *flags[:1]))
@@ -328,14 +347,17 @@ def bound(pairs: int, k: int, nbytes: int):
 
 
 class Kernels:
-    """The kernels' records and launch counts, by (kernel, mode, K, frontier)."""
+    """The kernels' records and launch counts, by (kernel, mode, K, frontier)
+    for the searches and ("micro_step", variant) for K4 and K5."""
 
     def __init__(self):
         from fractencode_tpu_torch.ops import matcher_kernels as mk
+        from fractencode_tpu_torch.ops import micro_kernels as mt
 
         self.wrappers = {"search_classed": mk.search_classed_cuda,
                          "search_classed2d": mk.search_classed2d_cuda,
                          "search_dense": mk.search_dense_cuda}
+        self.micro = mt.micro_step_cuda
         self.records = {}
         for kernel in self.wrappers:
             for mode, ks in mk.KERNEL_KEYS.items():
@@ -350,9 +372,15 @@ class Kernels:
                             replaces=f"fractencode_tpu/ops/matcher_pallas.py:{line}",
                             launches=0, max_abs_err=0.0, library_ms=None,
                             launches_by_path={})
+        for variant in mt.VARIANTS:  # K5 is 'full_t'; K4 the other four
+            self.records[("micro_step", variant)] = dict(
+                name="micro_t_full" if variant == "full_t" else f"micro_{variant}",
+                route="cuda", source=SOURCES["micro_step"],
+                replaces=f"scripts/micro_kernel.py:{208 if variant == 'full_t' else 96}",
+                launches=0, max_abs_err=0.0, library_ms=None, launches_by_path={})
 
     def zero(self):
-        for w in self.wrappers.values():
+        for w in (*self.wrappers.values(), self.micro):
             for key in w.launches:
                 w.launches[key] = 0
 
@@ -361,6 +389,7 @@ class Kernels:
         every key in ``expect`` must have launched."""
         counts = {(kernel, *key): n for kernel, w in self.wrappers.items()
                   for key, n in w.launches.items()}
+        counts.update({("micro_step", v): n for v, n in self.micro.launches.items()})
         for key in expect:
             check(counts[key] > 0, f"the {path} path launched no {self.records[key]['name']}")
         for key, n in counts.items():
@@ -541,6 +570,118 @@ def cpp_golden(name):
     out[(dump[:, 1] // 4).astype(int) * 32 + (dump[:, 0] // 4).astype(int)] = dump
     ref = np.asarray(Image.open(os.path.join(GOLDEN, result_name)).convert("L"))
     return flags, out, ref
+
+
+def micro_ties(ni: int, br: int, nj: int, bm: int):
+    """Operands with many equal keys at each row's max (ai in [-2, 2), ch in
+    {0, 1}, cl 0, sb in {0, 0.25}, aux 0.5; column tile 1 one column
+    repeated), on the card, and a list that revisits column tiles, restarts
+    a range tile and holds a word outside the operands: (operands, words,
+    n_pairs)."""
+    import torch
+
+    from fractencode_tpu_torch.ops.micro_kernels import pack_pairs
+
+    rng = np.random.default_rng(SEED)
+    ops = dict(ai=rng.integers(-2, 2, (ni * br, 16), np.int8),
+               ch=rng.integers(0, 2, (nj * bm, 16), np.int8),
+               cl=np.zeros((nj * bm, 16), np.int8),
+               sb=rng.integers(0, 2, nj * bm).astype(np.float32) * 0.25,
+               aux=np.full(nj * bm, 0.5, np.float32))
+    for name in ("ch", "cl", "sb", "aux"):
+        ops[name][bm:2 * bm] = ops[name][bm]
+    ops["chT"], ops["clT"] = ops["ch"].T.copy(), ops["cl"].T.copy()
+    steps = [(0, 1, 1), (0, 0, 0), (0, 1, 0), (0, 2, 0), (0, 0, 0), (ni, 0, 1),
+             (1, 2, 1), (1, 0, 0), (1, 1, 1), (1, 1, 0), (1, 2, 0), (1, 0, 0)]
+    rt, ct, first = (torch.tensor(c, dtype=torch.int32) for c in zip(*steps))
+    words = pack_pairs(rt, ct, first, torch.ones_like(rt)).cuda()
+    return ({k: torch.from_numpy(v).cuda() for k, v in ops.items()}, words, len(steps))
+
+
+def micro_phase(kernels):
+    """Phase 19: K4's four instances and K5's against their plain version at
+    the JAX script's shapes and on ties; then the microbenchmark's main."""
+    import contextlib
+    import io
+
+    import torch
+
+    from fractencode_tpu_torch.ops import micro_kernels as mt
+    from fractencode_tpu_torch.scripts import micro_kernel as mkb
+
+    def micro(fn, ops, variant, words, n, br=mkb.BR, bm=mkb.BM):
+        t = variant == "full_t"
+        return fn(words, n, ops["ai"], ops["chT" if t else "ch"], ops["clT" if t else "cl"],
+                  ops["sb"], ops["aux"], variant=variant, block_r=br, block_m=bm)
+
+    ins = mkb.make_inputs("cuda")
+    lists = {reps: mkb.make_pairs(reps, "cuda") for reps in (1, 4)}
+    ties = micro_ties(2, 128, 3, 1024)
+    # one repetition of the list: every range tile against every column tile
+    pairs = mkb.R_PAD * mkb.M_PAD
+    bound_ms, bound_by = bound(pairs, mkb.K, search_bytes(mkb.R_PAD, mkb.M_PAD, mkb.K, False))
+    out = {}
+    for variant in mt.VARIANTS:
+        key = ("micro_step", variant)
+        rec = kernels.records[key]
+        for reps, (words, n) in lists.items():
+            q_k, i_k = micro(mt.micro_step_cuda, ins, variant, words, n)
+            q_p, i_p = micro(mt.micro_step_torch, ins, variant, words, n)
+            err = float((q_k.double() - q_p.double()).abs().max())
+            rec["max_abs_err"] = max(rec["max_abs_err"], err)
+            check(bitwise(q_k, q_p) and bitwise(i_k, i_p),
+                  f"{rec['name']} differs from its plain version at {reps} repetition(s) "
+                  f"(max abs {err})")
+            out[variant, reps] = q_k, i_k
+        check(bitwise(out[variant, 4][0], out[variant, 1][0])
+              and bitwise(out[variant, 4][1], out[variant, 1][1]),
+              f"{rec['name']}: 4 repetitions differ from 1")
+        q_k, i_k = micro(mt.micro_step_cuda, ties[0], variant, *ties[1:], br=128, bm=1024)
+        q_p, i_p = micro(mt.micro_step_torch, ties[0], variant, *ties[1:], br=128, bm=1024)
+        check(bitwise(q_k, q_p) and bitwise(i_k, i_p), f"{rec['name']} differs on the ties")
+        ms, _ = cuda_ms(lambda: micro(mt.micro_step_cuda, ins, variant, *lists[1]))
+        ms4, _ = cuda_ms(lambda: micro(mt.micro_step_cuda, ins, variant, *lists[4]))
+        plain_ms, _ = cuda_ms(lambda: micro(mt.micro_step_torch, ins, variant, *lists[1]))
+        step_us = (ms4 - ms) / (mkb.NI * mkb.NJ * 3) * 1e3
+        rec.update(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                   step_us=step_us, step_bound_us=bound_ms / (mkb.NI * mkb.NJ) * 1e3)
+        print(f"    {rec['name']}: (q, idx) bitwise equal to plain at 1 and 4 repetitions "
+              f"and on the ties, 4 repetitions == 1; kernel {ms:.4f} ms a repetition "
+              f"({mkb.NI * mkb.NJ} steps; 4 repetitions {ms4:.4f} ms), plain {plain_ms:.4f} "
+              f"ms; {step_us:.4f} us a step; bound {bound_ms:.4f} ms ({bound_by}), "
+              f"{rec['step_bound_us']:.4f} us a step")
+    check(bitwise(out["full_t", 1][0], out["full", 1][0])
+          and bitwise(out["full_t", 1][1], out["full", 1][1]), "K5 differs from K4 'full'")
+
+    def int_mm_max():
+        """The 'matmul' step's q by torch._int_mm: each range tile's int8
+        products with all columns (written out as [512, M] i32), combined
+        8 abh + abl, and the row max."""
+        rows = []
+        for rt in range(mkb.NI):
+            a = ins["ai"][rt * mkb.BR:(rt + 1) * mkb.BR]
+            comb = 8 * torch._int_mm(a, ins["chT"]) + torch._int_mm(a, ins["clT"])
+            rows.append(comb.amax(1).to(torch.float32))
+        return torch.cat(rows)
+
+    lib_ms, q_lib = cuda_ms(int_mm_max)
+    check(bitwise(q_lib, out["matmul", 1][0]), "torch._int_mm's row max differs from 'matmul'")
+    kernels.records[("micro_step", "matmul")]["library_ms"] = lib_ms
+    print(f"    micro_matmul's yardstick torch._int_mm: {lib_ms:.4f} ms a repetition "
+          "(writes the [512, 262144] i32 products of each range tile), q bitwise equal")
+
+    # the path: the microbenchmark's main, as `python -m` runs it
+    kernels.zero()
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = mkb.main()
+    counts = kernels.read("micro_kernel", [("micro_step", v) for v in mt.VARIANTS])
+    text = buf.getvalue()
+    for line in text.splitlines():
+        print(f"     | {line}")
+    check(rc == 0 and "transposed bit-identical: True" in text,
+          f"the microbenchmark exited {rc}")
+    print(f"     micro_kernel path: launches {counts}")
 
 
 def main() -> int:
@@ -1161,12 +1302,13 @@ def main() -> int:
     leaves = " ".join(f"{l.range_size}px:{int(l.accepted.sum())}" for l in qres.levels)
     print(f"     {n8}^2 --quadtree: routes {' '.join(routes)}; launches {counts}; leaves "
           f"{leaves}; PSNR {db:.4f} dB")
-    # K4 and K5 (scripts/micro_kernel.py, still to port): one pair-list step
-    # is a 512-row range tile against a 4096-column tile at K = 16
-    step_ms, step_by = bound(512 * 4096, 16, search_bytes(512, 4096, 16, False))
-    print(f"     K4/K5 (not ported): bound per pair-list step (512 x 4096, K = 16) "
-          f"{1e3 * step_ms:.4f} us ({step_by})")
     print(f"     phase 18 took {time.perf_counter() - t18:.1f} s")
+
+    # -- 19. K4 and K5: the pair-list step microbenchmark
+    print("[19] K4/K5 (the pair-list step microbenchmark), kernel vs plain")
+    t19 = time.perf_counter()
+    micro_phase(kernels)
+    print(f"     phase 19 took {time.perf_counter() - t19:.1f} s")
 
     records = list(kernels.records.values())
     for rec in records:
@@ -1175,7 +1317,7 @@ def main() -> int:
         if not rec["name"].startswith("search_classed2d"):
             check(rec["launches"] > 0, f"{rec['name']} was launched by no path")
         check("ms" in rec and "bound_ms" in rec, f"{rec['name']} was not timed")
-    check(len(records) == 54, f"{len(records)} kernel records, not 54")
+    check(len(records) == 59, f"{len(records)} kernel records, not 59")
     print(json.dumps({"kernels": records}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -473,3 +473,115 @@ def test_cli_without_a_card_exits_nonzero(cuda, tmp_path):
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode != 0 and "--device cpu" in proc.stderr
     assert not (tmp_path / "r.png").exists()
+
+
+# K4 and K5, the pair-list step microbenchmark's kernels (ops/micro_kernels.py)
+from fractencode_tpu_torch.ops import micro_kernels as mt  # noqa: E402
+
+
+def _micro_ops(kind, ni, br, nj, bm, device, seed=0):
+    """Operands for ni x nj tiles of br x bm: the JAX script's draw law, or
+    ties (many equal keys at each row's max; column tile 1 one column
+    repeated), with the [K, M] copies."""
+    rng = np.random.default_rng(seed)
+    r, m = ni * br, nj * bm
+    if kind == "draw":
+        ops = dict(ai=rng.integers(-128, 128, (r, 16), np.int8),
+                   ch=rng.integers(0, 128, (m, 16), np.int8),
+                   cl=rng.integers(0, 8, (m, 16), np.int8),
+                   sb=rng.random(m, np.float32) * 100, aux=rng.random(m, np.float32))
+    else:
+        ops = dict(ai=rng.integers(-2, 2, (r, 16), np.int8),
+                   ch=rng.integers(0, 2, (m, 16), np.int8), cl=np.zeros((m, 16), np.int8),
+                   sb=rng.integers(0, 2, m).astype(np.float32) * 0.25,
+                   aux=np.full(m, 0.5, np.float32))
+        for name in ("ch", "cl", "sb", "aux"):
+            ops[name][bm:2 * bm] = ops[name][bm]
+    ops["chT"], ops["clT"] = ops["ch"].T.copy(), ops["cl"].T.copy()
+    return {k: torch.from_numpy(v).to(device) for k, v in ops.items()}
+
+
+def _micro_words(steps, device, cap=64):
+    rt, ct, first = (torch.tensor(c, dtype=torch.int32) for c in zip(*steps))
+    w = torch.zeros(cap, dtype=torch.int32)
+    w[:len(steps)] = mt.pack_pairs(rt, ct, first, torch.ones_like(rt))
+    return w.to(device)
+
+
+def _micro(fn, ops, variant, words, n, br, bm):
+    t = variant == "full_t"
+    return fn(words, n, ops["ai"], ops["chT" if t else "ch"], ops["clT" if t else "cl"],
+              ops["sb"], ops["aux"], variant=variant, block_r=br, block_m=bm)
+
+
+# (ni, block_r, nj, block_m): a tile of 200 rows (two thread blocks, the
+# second part idle), 1000 columns (a staged chunk and a part), and the
+# script's 512 x 4096 tiles
+MICRO_TILES = [(3, 200, 5, 1000), (2, 512, 3, 4096)]
+# each range tile over its column tiles twice, the first restarted midway
+# by a second `first`, with a word outside the operands (rt = ni) and one
+# range tile (the last) never visited
+def _micro_steps(ni, nj):
+    steps = [(0, ct, int(ct == 0)) for ct in range(nj)] + [(0, 1, 1), (0, 0, 0)]
+    steps += [(ni, 0, 1)]
+    for rt in range(1, ni - 1):
+        steps += [(rt, ct % nj, int(ct == 0)) for ct in range(2 * nj)]
+    return steps
+
+
+@pytest.mark.parametrize("kind", ["draw", "ties"])
+@pytest.mark.parametrize("tiles", MICRO_TILES, ids=["200x1000", "512x4096"])
+@pytest.mark.parametrize("variant", mt.VARIANTS)
+def test_micro_step_matches_plain(cuda, variant, tiles, kind):
+    """Each K4/K5 instance equals its plain version on the card, (q, idx)
+    bitwise, and counts one launch."""
+    ni, br, nj, bm = tiles
+    ops = _micro_ops(kind, ni, br, nj, bm, cuda)
+    steps = _micro_steps(ni, nj)
+    words = _micro_words(steps, cuda)
+    before = mt.micro_step_cuda.launches[variant]
+    q_k, i_k = _micro(mt.micro_step_cuda, ops, variant, words, len(steps), br, bm)
+    torch.cuda.synchronize()
+    assert mt.micro_step_cuda.launches[variant] == before + 1
+    q_p, i_p = _micro(mt.micro_step_torch, ops, variant, words, len(steps), br, bm)
+    assert_bitwise(q_k, q_p, f"{variant} q")
+    assert_bitwise(i_k, i_p, f"{variant} idx")
+    assert (q_k[(ni - 1) * br:] == np.float32(-3.0e38)).all()  # the tile no word visits
+
+
+@pytest.mark.parametrize("tiles", MICRO_TILES, ids=["200x1000", "512x4096"])
+def test_micro_k5_equals_k4_full(cuda, tiles):
+    """K5 reads the [K, M] layout itself and equals K4 'full' bitwise; an
+    empty list leaves every row at (-3e38, 0)."""
+    ni, br, nj, bm = tiles
+    ops = _micro_ops("draw", ni, br, nj, bm, cuda, seed=3)
+    steps = _micro_steps(ni, nj)
+    words = _micro_words(steps, cuda)
+    q4, i4 = _micro(mt.micro_step_cuda, ops, "full", words, len(steps), br, bm)
+    q5, i5 = _micro(mt.micro_step_cuda, ops, "full_t", words, len(steps), br, bm)
+    assert_bitwise(q5, q4, "q")
+    assert_bitwise(i5, i4, "idx")
+    q0, i0 = _micro(mt.micro_step_cuda, ops, "full_t", words, 0, br, bm)
+    assert (q0 == np.float32(-3.0e38)).all() and (i0 == 0).all()
+
+
+def test_micro_wrapper_refuses_bad_inputs(cuda):
+    """'packed' above 4096 columns, K != 16, K5 given row-layout operands,
+    words not int32, n_pairs beyond the list, and operands on two devices
+    raise before any launch."""
+    ops = _micro_ops("draw", 2, 128, 2, 8192, cuda)
+    words = _micro_words([(0, 0, 1), (1, 1, 1)], cuda)
+    kw = dict(block_r=128, block_m=8192)
+    args = lambda **o: {**dict(words=words, n_pairs=2, ai=ops["ai"], ch=ops["ch"],
+                               cl=ops["cl"], sb=ops["sb"], aux=ops["aux"]), **o}
+    before = dict(mt.micro_step_cuda.launches)
+    cases = [("packed", args(), "12 bits"),
+             ("full", args(ai=ops["ai"][:, :8].contiguous()), "K = 16"),
+             ("full_t", args(), r"\[K, M\]"),
+             ("full", args(words=words.to(torch.int64)), "int32"),
+             ("full", args(n_pairs=65), "the list's length"),
+             ("full", args(words=words.cpu()), "several devices")]
+    for variant, a, msg in cases:
+        with pytest.raises(ValueError, match=msg):
+            mt.micro_step_cuda(*a.values(), variant=variant, **kw)
+    assert mt.micro_step_cuda.launches == before
