@@ -2,13 +2,16 @@
 """Smoke run of the PyTorch port (fractencode_tpu_torch) on one CUDA card.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --dp4a DIR   # also time K2/K3's dp4a design
 
 Phases, each of which must pass (any failure exits non-zero):
   1. build the CUDA kernels from csrc/ (search_classed.cu, K1,
      search_classed2d.cu, K2, search_dense.cu, K3, and micro_step.cu, K4
      and K5: one nvcc each, in parallel, into build/kernels/), print each
-     instantiation's registers and spills from ptxas' report, and the card's
-     name and power limit;
+     instantiation's registers and spills from ptxas' report, one line per
+     tensor-core library (K2, K3) with its SASS counts of tensor-core
+     (IMMA, HGMMA, IGMMA) and dp4a (IDP.4A) instructions, of which it must
+     hold some IMMA and no dp4a, and the card's name and power limit;
   2. K1 parity at K = 16: the search kernel against its plain PyTorch
      version on the same class-sorted tensors at 512^2 and 2048^2, (q, idx)
      bitwise equal, with both times (CUDA events, median of 5 after a
@@ -103,6 +106,15 @@ columns and results (``search_bytes``) over 3.35 TB/s.  K4's and K5's
 records: the time of one repetition of the list (CUDA events, median of 5),
 the per-step µs from 4 repetitions and 1, and the bound of one repetition
 (every range tile against every column tile once).
+K2 `ls16`'s record times the 8192^2 default path's whole launch against its
+bound; its plain time is the sample's (the plain version of the whole
+plane would take minutes), kept with the sample's kernel time and bound as
+sample_ms and sample_bound_ms.  With --dp4a DIR (a csrc/ directory holding
+search_dense.cu and search_classed2d.cu of the dp4a design, before the
+tensor-core mainloop, e.g. from `git archive`), each K2 and K3 record's
+kernel time is taken in turns with that design's (kernel, dp4a, dp4a,
+kernel; medians of 5), whose time goes into dp4a_ms, and the two must agree
+bitwise.
 No single PyTorch call gives a search's (q, idx), so library_ms is null;
 K4 'matmul''s is torch._int_mm's int8 products of each range tile against
 all columns with the row max, which writes the products out.  Plain timings
@@ -115,6 +127,8 @@ go to build/smoke/ in the checkout, which it removes at the end.
 """
 from __future__ import annotations
 
+import argparse
+import contextlib
 import dataclasses
 import gzip
 import json
@@ -133,6 +147,10 @@ SOURCES = {"search_classed": "fractencode_tpu_torch/csrc/search_classed.cu",
            "search_classed2d": "fractencode_tpu_torch/csrc/search_classed2d.cu",
            "search_dense": "fractencode_tpu_torch/csrc/search_dense.cu",
            "micro_step": "fractencode_tpu_torch/csrc/micro_step.cu"}
+# the sources on the tensor-core mainloop (csrc/search_mma.cuh): phase 1
+# counts their SASS instructions, and --dp4a times them against the dp4a
+# design in turns
+MMA_SOURCES = ("search_dense", "search_classed2d")
 # The line of the TPU kernel each kernel key replaces: _pairs_kernel (K1),
 # _classed_kernel (K2) and _search_kernel (K3); 'ls' at K = 64 is their
 # ls_fast int8 branch (K2's serves K = 16 too), 'raw' and 'general' their
@@ -270,6 +288,53 @@ def ptxas_report(text):
     return lines
 
 
+def sass_counts(lib) -> dict:
+    """The tensor-core and dp4a instructions in a built library's SASS
+    (``cuobjdump -sass``, from the toolkit beside nvcc)."""
+    from fractencode_tpu_torch.ops import _build
+
+    tool = os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump")
+    sass = subprocess.run([tool, "-sass", str(lib)], capture_output=True, text=True,
+                          check=True).stdout
+    ops = re.findall(r"^\s+/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)", sass,
+                     re.M)
+    heads = [op.split(".")[0] for op in ops]
+    counts = {name: heads.count(name) for name in ("IMMA", "HMMA", "HGMMA", "IGMMA")}
+    # dp4a is IDP.4A in Hopper's SASS
+    counts["IDP4A"] = sum(op.startswith(("IDP.4A", "IDP4A")) for op in ops)
+    counts.update({name: heads.count(name) for name in ("LDSM", "LDGSTS")})
+    return counts
+
+
+@contextlib.contextmanager
+def dp4a_kernels(csrc):
+    """Launches of MMA_SOURCES go to the dp4a design built from ``csrc``
+    (the wrappers load their library by name on each launch)."""
+    from fractencode_tpu_torch.ops import _build
+
+    load = _build.load_library
+    _build.load_library = lambda name: (load(name, csrc=csrc) if name in MMA_SOURCES
+                                        else load(name))
+    try:
+        yield
+    finally:
+        _build.load_library = load
+
+
+def turns(run, what, csrc):
+    """(the kernel's ms, the dp4a design's ms, built from ``csrc``): medians
+    of 5 (CUDA events) in turns kernel, dp4a, dp4a, kernel, each the mean of
+    its two; the dp4a design's (q, idx) must equal the kernel's bitwise."""
+    new1, out = cuda_ms(run)
+    with dp4a_kernels(csrc):
+        old1, old = cuda_ms(run)
+        old2, _ = cuda_ms(run)
+    new2, _ = cuda_ms(run)
+    check(bitwise(out[0], old[0]) and bitwise(out[1], old[1]),
+          f"the dp4a design differs from the tensor-core one at {what}")
+    return (new1 + new2) / 2, (old1 + old2) / 2
+
+
 def cuda_ms(fn, reps=5):
     """Median device time of fn() in ms (CUDA events), and its last result;
     one warmup first when there is more than one repetition."""
@@ -350,10 +415,13 @@ class Kernels:
     """The kernels' records and launch counts, by (kernel, mode, K, frontier)
     for the searches and ("micro_step", variant) for K4 and K5."""
 
-    def __init__(self):
+    def __init__(self, dp4a=None):
         from fractencode_tpu_torch.ops import matcher_kernels as mk
         from fractencode_tpu_torch.ops import micro_kernels as mt
 
+        # a csrc/ directory with the dp4a design of MMA_SOURCES (the sources
+        # before the tensor-core mainloop), timed in turns; None: not timed
+        self.dp4a = dp4a
         self.wrappers = {"search_classed": mk.search_classed_cuda,
                          "search_classed2d": mk.search_classed2d_cuda,
                          "search_dense": mk.search_dense_cuda}
@@ -415,6 +483,9 @@ class Kernels:
                                  f"(max abs {err})")
         check(bitwise(i_k, i_p), f"{name} idx differs from the plain version at {what}")
         ms, _ = cuda_ms(run)
+        earlier = None
+        if self.dp4a and key[0] in MMA_SOURCES:
+            ms, earlier = turns(run, what, self.dp4a)
         if plain_reps > 1:
             plain_ms, _ = cuda_ms(plain, reps=plain_reps)
         pairs = int((scanned if real is None else scanned[real]).sum())
@@ -422,10 +493,13 @@ class Kernels:
         print(f"    {name} at {what}: {q_k.shape[0]} rows, (q, idx) bitwise equal; "
               f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms"
               + ("" if plain_reps > 1 else " (one run)")
+              + ("" if earlier is None else f", dp4a design {earlier:.4f} ms in turns")
               + f"; {pairs} pairs, bound {bound_ms:.4f} ms ({bound_by})")
         rec = self.records[key]
         rec.update(max_abs_err=max(rec["max_abs_err"], err), ms=ms, plain_ms=plain_ms,
                    bound_ms=bound_ms, bound_by=bound_by)
+        if earlier is not None:
+            rec["dp4a_ms"] = earlier
         return q_k, i_k, pairs
 
     def hits(self, key, share):
@@ -684,7 +758,12 @@ def micro_phase(kernels):
     print(f"     micro_kernel path: launches {counts}")
 
 
-def main() -> int:
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description="Smoke run of the port on one CUDA card.")
+    ap.add_argument("--dp4a", metavar="DIR", help="a csrc/ directory with the dp4a design "
+                    "of search_dense.cu and search_classed2d.cu, timed against the "
+                    "tensor-core one in turns")
+    dp4a = ap.parse_args(argv).dp4a
     import torch
 
     if not torch.cuda.is_available():
@@ -721,12 +800,23 @@ def main() -> int:
     for name in SOURCES:
         for line in ptxas_report(_build._library(name).with_suffix(".so.log").read_text()):
             print(f"    {line}")
+    for name in MMA_SOURCES:
+        counts = sass_counts(_build._library(name))
+        print(f"    {name} SASS: " + ", ".join(f"{op} {n}" for op, n in counts.items()))
+        check(counts["IMMA"] > 0 and counts["IDP4A"] == 0,
+              f"{name}: {counts['IMMA']} IMMA, {counts['IDP4A']} IDP4A")
+    if dp4a:
+        _build.build(*MMA_SOURCES, csrc=dp4a)
+        for name in MMA_SOURCES:
+            counts = sass_counts(_build._library(name, dp4a))
+            print(f"    {name} (dp4a design, {dp4a}) SASS: "
+                  + ", ".join(f"{op} {n}" for op, n in counts.items()))
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True,
                          check=True).stdout.strip().splitlines()[0]
     print(smi)
 
-    kernels = Kernels()
+    kernels = Kernels(dp4a)
     _, cfg, dcfg = parse(["--device", "cuda"])
     planes = {n: natural_plane(n, SEED + n) for n in (256, 512, 2048)}
     big = planes[2048]
@@ -1173,27 +1263,37 @@ def main() -> int:
     plan = k2_parity(planes[512], cfg, "512^2, splits of 64 columns", splits=64)
     check(plan["splits"] > 1, "K2 with 64-column splits ran one split")
 
-    def k1_vs_k2(prep, c, what, reps=5):
-        """K1 and K2 on the same prep, (q, idx) bitwise, with both times."""
+    def k1_vs_k2(prep, c, what, reps=5, k1_reps=None):
+        """K1 and K2 on the same prep, (q, idx) bitwise, with both times (K1
+        over ``k1_reps`` runs, ``reps`` by default; with --dp4a K2 also in
+        turns with its dp4a design)."""
         k, area = c.target_size ** 2, c.source_size ** 2
         k1 = dict(prep, route="search_classed")
         k2 = dict(prep, route="search_classed2d")
-        ms1, (q1, i1) = cuda_ms(lambda: tm.classed_kernel(k1, k, area, c), reps)
-        ms2, (q2, i2) = cuda_ms(lambda: tm.classed_kernel(k2, k, area, c), reps)
+        run2 = lambda: tm.classed_kernel(k2, k, area, c)
+        ms1, (q1, i1) = cuda_ms(lambda: tm.classed_kernel(k1, k, area, c), k1_reps or reps)
+        ms2, (q2, i2) = cuda_ms(run2, reps)
         check(bitwise(q1, q2) and bitwise(i1, i2), f"K2 differs from K1 at {what}")
         plan = dict(mk.search_classed2d_cuda.plan)
+        earlier = None
+        if kernels.dp4a:
+            ms2, earlier = turns(run2, what, kernels.dp4a)
         rows = prep["rpos"].long()
         seg = (prep["col_end"] - prep["col_tile_start"] * prep["block_m"]).long()
         pairs = int(seg[prep["tile_class"].long()[rows // prep["block_r"]]].sum())
         bound_ms, bound_by = bound(pairs, k, search_bytes(
             rows.shape[0], prep["b4_cols"].shape[0], k, prep["sa_s"] is not None))
-        print(f"    {what}: K1 {ms1:.4f} ms, K2 {ms2:.4f} ms ({plan['splits']} splits of "
+        print(f"    {what}: K1 {ms1:.4f} ms, K2 {ms2:.4f} ms"
+              + ("" if earlier is None else f" (dp4a design {earlier:.4f} ms in turns)")
+              + f" ({plan['splits']} splits of "
               f"{plan['width']} columns over {plan['searched']} range tiles, partials "
-              f"{plan['partial_bytes']} bytes; "
+              f"{plan['partial_bytes']} bytes; K1 "
+              f"{'median of 5' if (k1_reps or reps) > 1 else 'one run'}, K2 "
               f"{'median of 5' if reps > 1 else 'one run'}); (q, idx) bitwise equal; "
               f"{rows.shape[0]} rows, {pairs} same-class pairs, bound {bound_ms:.4f} ms "
               f"({bound_by}{', without the frontier' if c.rms_threshold > 0 else ''})")
-        return ms1, ms2, plan, (q2, i2)
+        return dict(k1_ms=ms1, ms=ms2, dp4a_ms=earlier, bound_ms=bound_ms, bound_by=bound_by,
+                    plan=plan, out=(q2, i2))
 
     def k2_sampled(prep, c, plan, full, what):
         """K2 against its plain version on a prep too large for the plain
@@ -1278,9 +1378,19 @@ def main() -> int:
         prep = tm.classed_prep(ranges, sa, sa2, cb, rcls, dcls, c)
         check(prep["route"] == "search_classed2d",
               f"{name}: route {prep['route']}, n_pairs {prep['n_pairs']}")
-        _, _, plan_p, full = k1_vs_k2(prep, c, f"{n8}^2 {name[5:]} prep", reps=1)
-        k2_sampled(prep, c, plan_p, full, f"{n8}^2 {name[5:]} prep")
-        del prep, ranges, cb, full
+        whole = k1_vs_k2(prep, c, f"{n8}^2 {name[5:]} prep", k1_reps=1)
+        key = ("search_classed2d", *expect)
+        k2_sampled(prep, c, whole["plan"], whole["out"], f"{n8}^2 {name[5:]} prep")
+        if not expect[2]:
+            # the record times the path's whole launch against its bound; the
+            # plain version, too slow for the whole plane, keeps the sample's
+            rec = kernels.records[key]
+            rec.update(sample_ms=rec["ms"], sample_bound_ms=rec["bound_ms"],
+                       sample_bound_by=rec["bound_by"], ms=whole["ms"],
+                       bound_ms=whole["bound_ms"], bound_by=whole["bound_by"])
+            if whole["dp4a_ms"] is not None:
+                rec.update(sample_dp4a_ms=rec.get("dp4a_ms"), dp4a_ms=whole["dp4a_ms"])
+        del prep, ranges, cb, whole
         print(f"     {n8}^2 {name[5:]}: launches {counts}; route K2 (worst_pairs "
               f"{tm._classed_statics((n8 // 4) ** 2, ((n8 - 16) // 8 + 1) ** 2 * 4)[4]}, "
               f"n_pairs above the cap {mk.PAIR_CAP}); {plan['splits']} split(s) of "

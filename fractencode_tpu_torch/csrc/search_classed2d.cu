@@ -20,8 +20,9 @@
 //     masked tiles, and a block's first load gives both.
 //     Split z of class c covers the columns [start + z * width, start +
 //     (z + 1) * width) of c's segment [col_tile_start[c] * block_m,
-//     col_end[c]).  One thread scans one row over them (load_row and
-//     scan_columns of search_common.cuh, as in K1), and writes its partial
+//     col_end[c]).  A block searches its 128 rows over them with
+//     search_mma.cuh's tensor-core mainloop (K1's keys and argmax, bit for
+//     bit), and writes each row's partial
 //     (q, idx) and whether its scan met the frontier at [z, x * block_r +
 //     row in tile].  `width` is a multiple of t_n with the frontier, so the
 //     frontier's groups, counted from each split's start, are the segment's
@@ -32,8 +33,9 @@
 //     An earlier split holds lower columns, so ties go to the lowest column,
 //     and nothing after the row's frontier counts: exactly K1's result.
 //
-// What bounds it on the card: as K1, arithmetic issue (K/2 dp4a and a dozen
-// to forty other operations per pair), not memory.  What the split adds is
+// What bounds it on the card: the epilogue (search_mma.cuh): 2K int8
+// operations a pair on the tensor cores, then eight to forty instructions
+// of key and argmax a pair, not memory.  What the split adds is
 // parallelism: K1 gives a range tile one block, so a search with few range
 // tiles (the quadtree's fine levels, small planes) leaves most SMs idle,
 // while here the wrapper picks `width` so that the grid has a few blocks per
@@ -45,7 +47,7 @@
 // split cannot see that an earlier one hit, so it scans on; its block still
 // stops once all its rows have hit within the split.
 
-#include "search_common.cuh"
+#include "search_mma.cuh"
 
 namespace {
 
@@ -61,12 +63,12 @@ __device__ __forceinline__ int splits_of(int cls, const int* __restrict__ col_ti
 }
 
 template <int K, int M, bool Frontier>
-__global__ void __launch_bounds__(kRows)
-search_classed2d_kernel(const int4* __restrict__ ai,      // [r_pad] rows of K int8
-                        const int4* __restrict__ ch,      // [m_pad] rows of K int8
-                        const int4* __restrict__ cl,      // [m_pad] rows of K int8
-                        const float* __restrict__ sb,     // [m_pad] SumB
-                        const void* __restrict__ aux,     // [m_pad] as in K1
+__global__ void __launch_bounds__(mma::kThreads<K>)
+search_classed2d_kernel(const int* __restrict__ ai,            // [r_pad] rows of K int8
+                        const signed char* __restrict__ ch,    // [m_pad] rows of K int8
+                        const signed char* __restrict__ cl,    // [m_pad] rows of K int8
+                        const float* __restrict__ sb,          // [m_pad] SumB
+                        const void* __restrict__ aux,          // [m_pad] as in K1
                         const int2* __restrict__ tiles,          // [searched] (tile, class)
                         const int* __restrict__ col_tile_start,  // [nc]
                         const int* __restrict__ col_end,         // [nc]
@@ -75,30 +77,31 @@ search_classed2d_kernel(const int4* __restrict__ ai,      // [r_pad] rows of K i
                         float* __restrict__ part_q,       // [splits, stride]
                         int* __restrict__ part_idx,       // [splits, stride]
                         unsigned char* __restrict__ part_hit) {  // [splits, stride]
-  __shared__ Chunk<K, M, false> s;
+  extern __shared__ int4 smem[];
+  auto& sm = *reinterpret_cast<mma::Smem<K, M, false, Frontier>*>(smem);
   const int2 tc = tiles[blockIdx.x];
   const int tile = tc.x;
   const int cls = tc.y;
   const int split = blockIdx.z;
   // past the class's segment: the reduce never reads this split (block-uniform)
   if (split >= splits_of(cls, col_tile_start, col_end, block_m, width)) return;
-  const int local = blockIdx.y * kRows + threadIdx.x;
-  const bool in_tile = local < block_r;
-  const long long row = (long long)tile * block_r + local;
-  const bool active = in_tile && (!Frontier || row < row_end[cls]);
+  const int slice = blockIdx.y * mma::kBlockRows;  // the block's first row in the tile
+  const long long row0 = static_cast<long long>(tile) * block_r + slice;
+  const int n_load = min(mma::kBlockRows, block_r - slice);
+  const int n_active = Frontier ? static_cast<int>(max(0LL, min(static_cast<long long>(n_load),
+                                                                row_end[cls] - row0)))
+                                : n_load;
   const int start = col_tile_start[cls] * block_m + split * width;  // < col_end[cls]
   const int end = min(start + width, col_end[cls]);
-  const Row<K> r = load_row<K, M, Frontier>(ai, row, active, p);
-  float best_q = kInitQ;
-  int best_idx = 0;
-  const bool stopped = scan_columns<K, M, false, Frontier>(
-      s, r, active, 0, ch, cl, sb, aux, nullptr, start, end, p, best_q, best_idx);
-  if (in_tile) {
-    const long long at = (long long)split * stride + (long long)blockIdx.x * block_r + local;
-    part_q[at] = best_q;
-    part_idx[at] = best_idx;
-    part_hit[at] = Frontier && active && stopped;
-  }
+  const long long at0 = static_cast<long long>(split) * stride +
+                        static_cast<long long>(blockIdx.x) * block_r + slice;
+  mma::search_rows<K, M, false, Frontier>(
+      sm, ai, row0, n_load, n_active, nullptr, ch, cl, sb, aux, nullptr, start, end, p,
+      [&](int local, float q, int idx, bool hit) {
+        part_q[at0 + local] = q;
+        part_idx[at0 + local] = idx;
+        part_hit[at0 + local] = hit;
+      });
 }
 
 __global__ void classed2d_reduce_kernel(const float* __restrict__ part_q,
@@ -149,10 +152,13 @@ int launch(const void* ai, const void* ch, const void* cl, const void* sb,
   const long long r_pad = static_cast<long long>(nrt) * block_r;
   const long long stride = static_cast<long long>(searched) * block_r;
   if (searched > 0) {
-    const dim3 grid(searched, (block_r + kRows - 1) / kRows, n_splits);
-    search_classed2d_kernel<K, M, Frontier><<<grid, kRows, 0, st>>>(
-        static_cast<const int4*>(ai), static_cast<const int4*>(ch),
-        static_cast<const int4*>(cl), static_cast<const float*>(sb), aux,
+    const auto kernel = search_classed2d_kernel<K, M, Frontier>;
+    constexpr size_t smem = sizeof(mma::Smem<K, M, false, Frontier>);
+    if (const int err = mma::allow_smem(kernel, smem)) return err;
+    const dim3 grid(searched, (block_r + mma::kBlockRows - 1) / mma::kBlockRows, n_splits);
+    kernel<<<grid, mma::kThreads<K>, smem, st>>>(
+        static_cast<const int*>(ai), static_cast<const signed char*>(ch),
+        static_cast<const signed char*>(cl), static_cast<const float*>(sb), aux,
         static_cast<const int2*>(tiles), static_cast<const int*>(col_tile_start),
         static_cast<const int*>(col_end), static_cast<const int*>(row_end), block_r,
         block_m, width, stride, p,

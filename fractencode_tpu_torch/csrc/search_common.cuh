@@ -1,16 +1,20 @@
 // Device code shared by the port's search kernels: search_classed.cu (K1,
 // the class-blocked search), search_classed2d.cu (K2, the same search split
-// across blocks) and search_dense.cu (K3, the dense search).
+// across blocks) and search_dense.cu (K3, the dense search).  The keys, the
+// row sums and the frontier's hit test here serve all three; K2 and K3 form
+// their dots on the tensor cores (search_mma.cuh), K1 with scan_columns.
 //
-// Each gives one thread one range row (its K int8 values in K/16 int4
-// registers) and stream a column segment through shared memory in chunks.
-// Each thread scans the columns in ascending order and keeps the best key with
-// a strict '>', so the first occurrence of the max wins, exactly as in the TPU
-// kernels' min-index-of-max, and no reduction across threads is needed.
+// scan_columns gives one thread one range row (its K int8 values in K/16
+// int4 registers) and streams a column segment through shared memory in
+// chunks.  Each thread scans the columns in ascending order and keeps the
+// best key with a strict '>', so the first occurrence of the max wins,
+// exactly as in the TPU kernels' min-index-of-max, and no reduction across
+// threads is needed.
 //
 // The rank keys are bit for bit those of the plain PyTorch version
 // (ops/matcher_kernels.py, `_rank_ls_int8`, `_rank_tile` and `_rank_exact`):
-//   * every integer is exact: dot = sum_k ai * (8 ch + cl) by dp4a, and
+//   * every integer is exact: dot = sum_k ai * (8 ch + cl) (by dp4a, or by
+//     s8 tensor-core products), and
 //     cov4 = n * dot + (128 n - SumA) * sb4, in int32 for K <= 64 and int64 at
 //     K = 256;
 //   * every float operation is written as an explicitly rounded intrinsic
@@ -35,6 +39,9 @@
 //           denominator n SumA2 - (SumA - 1) SumA in int64, then s, o and e
 //           in double with __dmul_rn/__dadd_rn/__dsub_rn/__ddiv_rn (nvcc
 //           contracts doubles into FMAs too), q = -f32(max(e, 0) inv_norm).
+// rank_key forms every key from the integer dot; search_mma.cuh's fast_key
+// forms 'ls' and 'raw' at K <= 64 from the tensor cores' accumulators with
+// the same single roundings (the other steps exact), so bit for bit alike.
 //
 // The early-accept frontier (the `Frontier` instantiations; the TPU kernels'
 // `_apply_frontier`, matcher_pallas.py:103-129): columns come in groups of
@@ -156,25 +163,17 @@ __device__ __forceinline__ float hit_key(const Row<K>& r, const KeyParams& p) {
   }
 }
 
-// Loads one range row.  SumA is the row's byte sum (dp4a against 0x01010101)
-// plus 128 n for 'ls'; 'general' and the frontier read SumA and SumA2 from
-// their inputs, as the plain version does (they differ on the layout's
-// padding rows, whose ai is 0 but whose sums are 0).
+// A range row's sums from its byte sum `rowsum` (sum of its K int8 values):
+// the key's per-row values, and for the frontier its least hitting key.
+// SumA is rowsum plus 128 n for 'ls'; 'general' and the frontier read SumA
+// and SumA2 from their inputs, as the plain version does (they differ on the
+// layout's padding rows, whose ai is 0 but whose sums are 0).  `a` is left
+// to the caller.
 template <int K, int M, bool Frontier>
-__device__ __forceinline__ Row<K> load_row(const int4* __restrict__ ai, long long row,
-                                           bool active, const KeyParams& p) {
-  constexpr int kW = K / 16;
+__device__ __forceinline__ Row<K> row_sums(int rowsum, long long row, bool active,
+                                           const KeyParams& p) {
   constexpr float n = static_cast<float>(K);
   Row<K> r;
-  int rowsum = 0;
-#pragma unroll
-  for (int w = 0; w < kW; ++w) {
-    r.a[w] = active ? ai[row * kW + w] : make_int4(0, 0, 0, 0);
-    rowsum = __dp4a(r.a[w].x, 0x01010101, rowsum);
-    rowsum = __dp4a(r.a[w].y, 0x01010101, rowsum);
-    rowsum = __dp4a(r.a[w].z, 0x01010101, rowsum);
-    rowsum = __dp4a(r.a[w].w, 0x01010101, rowsum);
-  }
   r.base = 128 * K - (rowsum + 128 * K);
   r.sa = r.sa2 = r.var_a = r.den = r.hit_a = 0.0f;
   r.var_ad = r.den_d = 0.0;
@@ -208,6 +207,28 @@ __device__ __forceinline__ Row<K> load_row(const int4* __restrict__ ai, long lon
   return r;
 }
 
+// Loads one range row: its K int8 values and row_sums, the byte sum by dp4a
+// against 0x01010101.
+template <int K, int M, bool Frontier>
+__device__ __forceinline__ Row<K> load_row(const int4* __restrict__ ai, long long row,
+                                           bool active, const KeyParams& p) {
+  constexpr int kW = K / 16;
+  int4 a[kW];
+  int rowsum = 0;
+#pragma unroll
+  for (int w = 0; w < kW; ++w) {
+    a[w] = active ? ai[row * kW + w] : make_int4(0, 0, 0, 0);
+    rowsum = __dp4a(a[w].x, 0x01010101, rowsum);
+    rowsum = __dp4a(a[w].y, 0x01010101, rowsum);
+    rowsum = __dp4a(a[w].z, 0x01010101, rowsum);
+    rowsum = __dp4a(a[w].w, 0x01010101, rowsum);
+  }
+  Row<K> r = row_sums<K, M, Frontier>(rowsum, row, active, p);
+#pragma unroll
+  for (int w = 0; w < kW; ++w) r.a[w] = a[w];
+  return r;
+}
+
 // s = 0 where |den| < 1e-5, else cov / den; then the |s| clamp.
 __device__ __forceinline__ float solve_s(float cov, float den, const KeyParams& p) {
   float s = fabsf(den) < 1e-5f ? 0.0f : __fdiv_rn(cov, den == 0.0f ? 1.0f : den);
@@ -218,9 +239,8 @@ __device__ __forceinline__ float solve_s(float cov, float den, const KeyParams& 
 // The 'general' key at K = 256 from the exact integers (matcher_kernels.
 // _rank_exact): s, o and the residual in double in the plain version's
 // order, one rounding to f32 at the end.
-template <int K, int M, bool Masked>
-__device__ __forceinline__ float general_exact(int dot, int ab4, int j,
-                                               const Chunk<K, M, Masked>& s,
+template <int K, int M, bool Masked, class S = Chunk<K, M, Masked>>
+__device__ __forceinline__ float general_exact(int dot, int ab4, int j, const S& s,
                                                const Row<K>& r, const KeyParams& p) {
   constexpr double inv_n = 1.0 / K;
   const int sb4 = s.sb4[j];
@@ -258,10 +278,11 @@ __device__ __forceinline__ float general_exact(int dot, int ab4, int j,
   return -__double2float_rn(__dmul_rn(fmax(e, 0.0), static_cast<double>(p.inv_norm)));
 }
 
-// The rank key of row `r` against staged column j, from the exact dot.
-template <int K, int M, bool Masked>
-__device__ __forceinline__ float rank_key(int dot, int j, const Chunk<K, M, Masked>& s,
-                                          const Row<K>& r, const KeyParams& p) {
+// The rank key of row `r` against staged column j, from the exact dot.  `s`
+// is a Chunk or any staging with its per-column arrays (search_mma.cuh).
+template <int K, int M, bool Masked, class S = Chunk<K, M, Masked>>
+__device__ __forceinline__ float rank_key(int dot, int j, const S& s, const Row<K>& r,
+                                          const KeyParams& p) {
   constexpr float n = static_cast<float>(K);
   if constexpr (M == kLs) {
     float c;
@@ -314,6 +335,60 @@ __device__ __forceinline__ float rank_key(int dot, int j, const Chunk<K, M, Mask
   }
 }
 
+// One column's inputs: SumB, the key's aux (f32 inv_var_b or SumB2; the
+// exact SumB2 as double for the Exact keys) and, for the class mask, its
+// class.
+struct ColumnIn {
+  float b, a;
+  double ad;
+  int cls;
+};
+
+template <int K, int M, bool Masked>
+__device__ __forceinline__ ColumnIn load_column(long long c, const float* __restrict__ sb,
+                                                const void* __restrict__ aux_v,
+                                                const int* __restrict__ ccls) {
+  ColumnIn in;
+  in.b = sb[c];
+  in.a = 0.0f;
+  in.ad = 0.0;
+  if constexpr (kExact<K, M>) {
+    in.ad = static_cast<const double*>(aux_v)[c];
+  } else {
+    in.a = static_cast<const float*>(aux_v)[c];
+  }
+  in.cls = Masked ? ccls[c] : 0;
+  return in;
+}
+
+// Stages a column's values at slot j of `s` (a Chunk or any staging with its
+// arrays): 4 SumB and the key's aux, and what the key derives from them once
+// per column.
+template <int K, int M, bool Masked, class S>
+__device__ __forceinline__ void stage_column(S& s, int j, const ColumnIn& in) {
+  constexpr float n = static_cast<float>(K);
+  const float b = in.b;
+  if constexpr (M != kRaw || kExact<K, M>) s.sb4[j] = static_cast<int>(4.0f * b);  // exact
+  if constexpr (kExact<K, M>) {
+    const int sb2_16 = static_cast<int>(__dmul_rn(in.ad, 16.0));  // exact
+    s.sb2_16[j] = sb2_16;
+    if constexpr (M == kGeneral) {  // var_b = (n*16 SumB2 - sb4^2) / 16, exact
+      const long long sb4 = s.sb4[j];
+      s.var_bd[j] = __dmul_rn(__ll2double_rn(K * static_cast<long long>(sb2_16) - sb4 * sb4),
+                              0.0625);
+    }
+  } else if constexpr (M == kLs) {
+    s.aux[j] = in.a * 0.0625f;  // exact: power-of-two scale
+  } else {
+    s.aux[j] = in.a;
+    s.sb[j] = b;
+  }
+  if constexpr (M == kGeneral && !kExact<K, M>) {  // var_b = n*sb2 - sb*sb
+    s.var_b[j] = __fsub_rn(__fmul_rn(n, in.a), __fmul_rn(b, b));
+  }
+  if constexpr (Masked) s.cls[j] = in.cls;
+}
+
 // Scans columns [start, end) (the same for every thread of the block) for
 // row `r`, updating (best_q, best_idx) with a strict '>'.  With Masked, only
 // columns whose class equals `row_cls` compete: the TPU kernel gives the
@@ -335,10 +410,6 @@ __device__ __forceinline__ bool scan_columns(
   static_assert(!(Masked && Frontier), "the frontier has no class-masked scan");
   constexpr int kW = K / 16;
   constexpr int kN = kChunkCols<K>;
-  constexpr float n = static_cast<float>(K);
-  // aux: f32 (inv_var_b or SumB2), or the exact SumB2 as double (Exact keys)
-  const float* __restrict__ aux = static_cast<const float*>(aux_v);
-  const double* __restrict__ aux_d = static_cast<const double*>(aux_v);
   const int step = Frontier ? kN - kN % p.t_n : kN;
   bool done = !active;
   for (int c0 = start; c0 < end; c0 += step) {
@@ -355,26 +426,7 @@ __device__ __forceinline__ bool scan_columns(
       s.cl[j] = cl[(long long)c0 * kW + j];
     }
     for (int j = threadIdx.x; j < n_cols; j += kRows) {
-      const float b = sb[c0 + j];
-      if constexpr (M != kRaw || kExact<K, M>) s.sb4[j] = static_cast<int>(4.0f * b);  // exact
-      if constexpr (kExact<K, M>) {
-        const int sb2_16 = static_cast<int>(__dmul_rn(aux_d[c0 + j], 16.0));  // exact
-        s.sb2_16[j] = sb2_16;
-        if constexpr (M == kGeneral) {  // var_b = (n*16 SumB2 - sb4^2) / 16, exact
-          const long long sb4 = s.sb4[j];
-          s.var_bd[j] = __dmul_rn(__ll2double_rn(K * static_cast<long long>(sb2_16) - sb4 * sb4),
-                                  0.0625);
-        }
-      } else if constexpr (M == kLs) {
-        s.aux[j] = aux[c0 + j] * 0.0625f;  // exact: power-of-two scale
-      } else {
-        s.aux[j] = aux[c0 + j];
-        s.sb[j] = b;
-      }
-      if constexpr (M == kGeneral && !kExact<K, M>) {  // var_b = n*sb2 - sb*sb
-        s.var_b[j] = __fsub_rn(__fmul_rn(n, aux[c0 + j]), __fmul_rn(b, b));
-      }
-      if constexpr (Masked) s.cls[j] = ccls[c0 + j];
+      stage_column<K, M, Masked>(s, j, load_column<K, M, Masked>(c0 + j, sb, aux_v, ccls));
     }
     __syncthreads();
     if (done) continue;

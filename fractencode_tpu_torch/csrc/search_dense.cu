@@ -18,50 +18,47 @@
 //
 // The `_thr` entry points add the TPU kernel's early-accept frontier
 // (`_apply_frontier` at matcher_pallas.py:227-231 and the freeze at :244-248;
-// search_common.cuh), groups of t_n columns from column 0.  They take no
+// search_common.cuh), groups of t_n columns from column 0 (search_mma.cuh).  They take no
 // class mask: no path asks for it (the encoder sends classed work to K1).
 //
-// What bounds it on the card: arithmetic issue.  Every row meets every column
-// (6.8e10 pairs for a 2048^2 plane at the default geometry), each pair K/2
-// dp4a plus the key's epilogue, while the codebook is 2K bytes a column that
-// every row reuses.  The design is K1's (search_classed.cu): one thread per
-// range row, every block streaming the whole codebook through shared memory
-// in chunks, each thread scanning in ascending order with a strict '>'.
-// Tensor-core tiling and splitting a row's scan across threads are left for a
-// later change.
+// What bounds it on the card: the epilogue.  Every row meets every column
+// (6.8e10 pairs for a 2048^2 plane at the default geometry), each pair 2K
+// int8 operations on the tensor cores and the key's epilogue on the FP32 and
+// integer pipes, while the codebook is 2K bytes a column that every row
+// reuses.  The design is search_mma.cuh's: 128 rows a block, their A
+// fragments in registers, the whole codebook streamed through shared memory
+// in double-buffered chunks, s8 mma.sync products, rank_key and a
+// per-lane strict '>' merged across each quad.
 
-#include "search_common.cuh"
+#include "search_mma.cuh"
 
 namespace {
 
 using namespace fe;
 
 template <int K, int M, bool Masked, bool Frontier>
-__global__ void __launch_bounds__(kRows)
-search_dense_kernel(const int4* __restrict__ ai,    // [rows] rows of K int8
-                    const int4* __restrict__ ch,    // [>= m_valid] rows of K int8
-                    const int4* __restrict__ cl,    // [>= m_valid] rows of K int8
-                    const float* __restrict__ sb,   // SumB per column
-                    const void* __restrict__ aux,   // per column: f32 inv_var_b or SumB2;
-                                                    // double SumB2 (exact keys)
-                    const int* __restrict__ rcls,   // [rows] (Masked only)
-                    const int* __restrict__ ccls,   // per column (Masked only)
+__global__ void __launch_bounds__(mma::kThreads<K>)
+search_dense_kernel(const int* __restrict__ ai,            // [rows] rows of K int8
+                    const signed char* __restrict__ ch,    // [>= m_valid] rows of K int8
+                    const signed char* __restrict__ cl,    // [>= m_valid] rows of K int8
+                    const float* __restrict__ sb,          // SumB per column
+                    const void* __restrict__ aux,          // per column: f32 inv_var_b or SumB2;
+                                                           // double SumB2 (exact keys)
+                    const int* __restrict__ rcls,          // [rows] (Masked only)
+                    const int* __restrict__ ccls,          // per column (Masked only)
                     int rows, int m_valid, KeyParams p,
-                    float* __restrict__ q_out,      // [rows]
-                    int* __restrict__ idx_out) {    // [rows]
-  __shared__ Chunk<K, M, Masked> s;
-  const long long row = (long long)blockIdx.x * kRows + threadIdx.x;
-  const bool active = row < rows;
-  const Row<K> r = load_row<K, M, Frontier>(ai, row, active, p);
-  const int cls = Masked && active ? rcls[row] : 0;
-  float best_q = kInitQ;
-  int best_idx = 0;
-  scan_columns<K, M, Masked, Frontier>(s, r, active, cls, ch, cl, sb, aux, ccls, 0,
-                                       m_valid, p, best_q, best_idx);
-  if (active) {
-    q_out[row] = best_q;
-    idx_out[row] = best_idx;
-  }
+                    float* __restrict__ q_out,             // [rows]
+                    int* __restrict__ idx_out) {           // [rows]
+  extern __shared__ int4 smem[];
+  auto& sm = *reinterpret_cast<mma::Smem<K, M, Masked, Frontier>*>(smem);
+  const long long row0 = static_cast<long long>(blockIdx.x) * mma::kBlockRows;
+  const int n = static_cast<int>(min(static_cast<long long>(mma::kBlockRows), rows - row0));
+  mma::search_rows<K, M, Masked, Frontier>(
+      sm, ai, row0, n, n, rcls, ch, cl, sb, aux, ccls, 0, m_valid, p,
+      [&](int local, float q, int idx, bool) {
+        q_out[row0 + local] = q;
+        idx_out[row0 + local] = idx;
+      });
 }
 
 template <int K, int M, bool Masked, bool Frontier>
@@ -69,10 +66,13 @@ int launch(const void* ai, const void* ch, const void* cl, const void* sb,
            const void* aux, const void* rcls, const void* ccls, int rows, int m_valid,
            const KeyParams& p, void* q_out, void* idx_out, void* stream) {
   if (rows <= 0) return 0;
-  const int blocks = (rows + kRows - 1) / kRows;
-  search_dense_kernel<K, M, Masked, Frontier><<<blocks, kRows, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int4*>(ai), static_cast<const int4*>(ch),
-      static_cast<const int4*>(cl), static_cast<const float*>(sb),
+  const auto kernel = search_dense_kernel<K, M, Masked, Frontier>;
+  constexpr size_t smem = sizeof(mma::Smem<K, M, Masked, Frontier>);
+  if (const int err = mma::allow_smem(kernel, smem)) return err;
+  const int blocks = (rows + mma::kBlockRows - 1) / mma::kBlockRows;
+  kernel<<<blocks, mma::kThreads<K>, smem, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int*>(ai), static_cast<const signed char*>(ch),
+      static_cast<const signed char*>(cl), static_cast<const float*>(sb),
       aux, static_cast<const int*>(rcls),
       static_cast<const int*>(ccls), rows, m_valid, p, static_cast<float*>(q_out),
       static_cast<int*>(idx_out));

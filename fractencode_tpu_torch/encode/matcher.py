@@ -292,8 +292,10 @@ def classed_prep(ranges, sum_a, sum_a2, cb: Codebook, range_classes,
         c_counts = d_counts * t
         packed = torch.cat([ch.reshape(d, t * k), cl.reshape(d, t * k)], 1)
         packed_s = torch.cat([packed, packed.new_zeros(1, 2 * t * k)])[inv_dom]
-        ch_s = packed_s[:, :t * k].reshape(m_pad, k)
-        cl_s = packed_s[:, t * k:].reshape(m_pad, k)
+        # at one isometry the reshapes are strided views: the kernels take
+        # contiguous operands
+        ch_s = packed_s[:, :t * k].reshape(m_pad, k).contiguous()
+        cl_s = packed_s[:, t * k:].reshape(m_pad, k).contiguous()
     else:
         ccls01 = torch.repeat_interleave(dcls01, t)
         cpos, c_seg_start, c_counts, _ = _class_layout(ccls01, block_m, n_col_bins)

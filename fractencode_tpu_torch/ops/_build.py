@@ -39,9 +39,9 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: put it on PATH or set CUDA_HOME")
 
 
-def _library(name: str) -> Path:
+def _library(name: str, csrc: Path = _CSRC) -> Path:
     """The library's path: a hash of the source, every header it includes
-    from ``csrc/`` (transitively) and the flags."""
+    from ``csrc`` (transitively) and the flags."""
     digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
     todo, seen = [f"{name}.cu"], set()
     while todo:
@@ -49,24 +49,25 @@ def _library(name: str) -> Path:
         if path in seen:
             continue
         seen.add(path)
-        text = (_CSRC / path).read_bytes()
+        text = (Path(csrc) / path).read_bytes()
         digest.update(path.encode() + b"\0" + text)
         todo += [m.decode() for m in _LOCAL_INCLUDE.findall(text)]
     return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so"
 
 
-def build(*names: str) -> None:
-    """Compile the named sources whose builds are missing, one ``nvcc`` each,
-    all at once.  The compiler's report (registers, shared memory, spills) is
-    kept beside each library as ``<library>.log``."""
+def build(*names: str, csrc: Path = _CSRC) -> None:
+    """Compile the named sources of ``csrc`` (the package's own by default)
+    whose builds are missing, one ``nvcc`` each, all at once.  The
+    compiler's report (registers, shared memory, spills) is kept beside each
+    library as ``<library>.log``."""
     jobs = []
     for name in names:
-        lib = _library(name)
+        lib = _library(name, csrc)
         if lib.exists():
             continue
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")
-        src = _CSRC / f"{name}.cu"
+        src = Path(csrc) / f"{name}.cu"
         cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)]
         jobs.append((src, lib, tmp, subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
@@ -83,7 +84,7 @@ def build(*names: str) -> None:
 
 
 @functools.lru_cache(maxsize=None)
-def load_library(name: str) -> ctypes.CDLL:
-    """Compile ``csrc/<name>.cu`` if its build is missing, then load it."""
-    build(name)
-    return ctypes.CDLL(str(_library(name)))
+def load_library(name: str, csrc: Path = _CSRC) -> ctypes.CDLL:
+    """Compile ``<csrc>/<name>.cu`` if its build is missing, then load it."""
+    build(name, csrc=csrc)
+    return ctypes.CDLL(str(_library(name, csrc)))

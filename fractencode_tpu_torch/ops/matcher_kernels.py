@@ -105,10 +105,10 @@ PAIR_TILE_M = 4096
 PAIR_CAP = 196608
 CT_BITS = 12
 
-# Columns each CUDA kernel stages in shared memory per pass, by K
-# (kChunkCols in csrc/search_common.cuh): K2's splits hold at least one.
-_CHUNK_COLS = {16: 512, 64: 256, 256: 64}
-# Rows (threads) per CUDA block (kRows in csrc/search_common.cuh)
+# Columns K2 stages in shared memory per pass, by K (mma::kCols in
+# csrc/search_mma.cuh): its splits hold at least one.
+_CHUNK_COLS = {16: 512, 64: 128, 256: 64}
+# Range rows per K2 block (mma::kBlockRows in csrc/search_mma.cuh)
 _KROWS = 128
 # K2's blocks per SM when it chooses its split width (search_classed2d_cuda)
 _BLOCKS_PER_SM = 4

@@ -67,6 +67,41 @@ def _case_cfg(key, k, **kw):
     return T.EncoderConfig(**GEOMETRY[k], **KEYS[key], **kw)
 
 
+# operands beside each test's own plane: tie-heavy ones, and ragged rows and
+# columns (K3: a row count that is no multiple of 16 and m_valid < m; the
+# class layout of K1 and K2: 24-row range tiles and 8-column column tiles)
+OPERANDS = ["plane", "ties", "ragged"]
+RAGGED_BLOCKS = dict(block_r=24, block_m=8)
+
+
+def _ties_plane(n, seed):
+    """Tie-heavy: the top half repeats one 8 px tile, so its domains give
+    repeated codebook columns at every geometry; the bottom-left quarter is
+    flat, so its ranges are flat; the rest is noise."""
+    rng = np.random.default_rng(seed)
+    img = rng.integers(0, 256, (n, n)).astype(np.uint8)
+    img[: n // 2] = np.tile(rng.integers(0, 256, (8, 8)), (n // 16, n // 8))
+    img[n // 2:, : n // 2] = 97
+    return img
+
+
+def _dense_pair(prep, k, area, cfg, rows=None, m_valid=None):
+    """K3's kernel and plain results on ``dense_prep``'s tensors, through the
+    wrappers, for the first ``rows`` ranges against the first ``m_valid``
+    columns (all by default)."""
+    r = prep["ai"].shape[0] if rows is None else rows
+    cut = lambda x: None if x is None else x[:r]
+    kw = dict(m_valid=prep["ch"].shape[0] if m_valid is None else m_valid,
+              criterion=cfg.criterion, so_mode=cfg.so_mode, s_max=cfg.s_max,
+              inv_norm=tm.inv_norm(cfg, k, area), sa=cut(prep["sa"]), sa2=cut(prep["sa2"]),
+              rcls=cut(prep["rcls"]), ccls=prep["ccls"], threshold=cfg.rms_threshold,
+              t_n=cfg.num_transforms)
+    args = (prep["ai"][:r], prep["ch"], prep["cl"], prep["sb"], prep["aux"])
+    out = mk.search_dense_cuda(*args, **kw)
+    torch.cuda.synchronize()
+    return out, mk.search_dense_torch(*args, **kw)
+
+
 @pytest.mark.parametrize("blocks", [{}, dict(block_r=512, block_m=4096),
                                     dict(block_r=8, block_m=128)])
 @pytest.mark.parametrize("n", [128, 256])
@@ -164,30 +199,45 @@ def test_classed_keys_match_plain(cuda, case):
     assert_bitwise(i_k, i_p, "idx")
 
 
+@pytest.mark.parametrize("operands", OPERANDS)
 @pytest.mark.parametrize("masked", [False, True])
 @pytest.mark.parametrize("case", CASES, ids=lambda c: f"{c[0]}{c[1]}")
-def test_dense_kernel_matches_plain(cuda, case, masked):
+def test_dense_kernel_matches_plain(cuda, case, masked, operands):
     """K3 at every (mode, K) it covers, with and without the class mask:
-    (q, idx) of every range bitwise against the plain version."""
+    (q, idx) of every range bitwise against the plain version, on a random
+    plane, on tie-heavy operands (repeated codebook columns, flat ranges)
+    and on ragged ones (a row count that is no multiple of 16, m_valid <
+    m); with the mask, rows of a class no column has keep (-3e38, 0)."""
     key, k = case
     cfg = _case_cfg(key, k)
-    ranges, sa, sa2, cb, rcls, dcls = _inputs(random_plane(128, 11), cfg, cuda)
+    img = _ties_plane(128, 11) if operands == "ties" else random_plane(128, 11)
+    ranges, sa, sa2, cb, rcls, dcls = _inputs(img, cfg, cuda)
     if not masked:
         rcls = dcls = None
+    elif operands != "plane":
+        rcls = rcls.clone()
+        rcls[3:6] = 99  # no column has this class
     prep = tm.dense_prep(ranges, sa, sa2, cb, rcls, dcls, cfg)
     assert (prep["rcls"] is None) != masked
     mode = key.split("-")[0]
     before = mk.search_dense_cuda.launches[(mode, k, False)]
     area = cfg.source_size ** 2
-    q_k, i_k = tm.dense_kernel(prep, k, area, cfg)
+    if operands == "plane":
+        q_k, i_k = tm.dense_kernel(prep, k, area, cfg)
+        q_p, i_p = tm.dense_kernel(prep, k, area, _case_cfg(key, k, backend="torch"))
+    else:
+        rows, m = prep["ai"].shape[0], prep["ch"].shape[0]
+        shape = (rows - 5, m - 13) if operands == "ragged" else (None, None)
+        (q_k, i_k), (q_p, i_p) = _dense_pair(prep, k, area, cfg, *shape)
     assert mk.search_dense_cuda.launches[(mode, k, False)] == before + 1
-    q_p, i_p = tm.dense_kernel(prep, k, area, _case_cfg(key, k, backend="torch"))
     torch.cuda.synchronize()
     assert_bitwise(q_k, q_p, "q")
     assert_bitwise(i_k, i_p, "idx")
-    if masked:  # some rows' best column lies outside their class
+    if masked and operands == "plane":  # some rows' best column lies outside their class
         unmasked = tm.dense_kernel(dict(prep, rcls=None, ccls=None), k, area, cfg)
         assert bool((unmasked[0] > q_k).any())
+    elif masked:
+        assert bool((q_k[3:6] == -3.0e38).all()) and not bool(i_k[3:6].any())
 
 
 @pytest.mark.parametrize("cfg", [
@@ -277,28 +327,34 @@ def test_uncovered_configs_raise_on_cuda(cuda, cfg):
             assert_bitwise(getattr(rg, f), getattr(rc, f), f)
 
 
-@pytest.mark.parametrize("t_n", [4, 3])
+@pytest.mark.parametrize("operands", OPERANDS)
+@pytest.mark.parametrize("t_n", [1, 3, 4, 5, 7, 8])
 @pytest.mark.parametrize("kernel", ["classed", "dense"])
 @pytest.mark.parametrize("case", CASES, ids=lambda c: f"{c[0]}{c[1]}")
-def test_frontier_kernels_match_plain(cuda, case, kernel, t_n):
+def test_frontier_kernels_match_plain(cuda, case, kernel, t_n, operands):
     """Every `_thr` instance (K1 and K3, each key and K) with the early-accept
-    frontier at 10.0 on a smooth 256^2 plane, at 4 isometries and at 3 (the
-    groups then straddle K1's column tiles and the kernels' chunks): (q, idx)
+    frontier at 10.0 on a smooth 256^2 plane, at 4 isometries (the
+    geometry's own: 8 at K = 64) and at 1, 3, 5, 7 and 8 (groups that
+    straddle K1's column tiles, the kernels' n8 tiles and chunks): (q, idx)
     of every row bitwise against the plain version, and the frontier active
-    (it changes some rows' keys)."""
+    at 3 and 4 (it changes some rows' keys); also on tie-heavy operands and on ragged
+    ones (K3: rows no multiple of 16, m_valid < m; K1: 24-row range tiles,
+    8-column column tiles)."""
     key, k = case
     cfg = _case_cfg(key, k, rms_threshold=10.0)
-    if t_n == 3:
-        cfg = dataclasses.replace(cfg, num_transforms=3)
+    if t_n != 4:
+        cfg = dataclasses.replace(cfg, num_transforms=t_n)
     yy, xx = np.mgrid[0:256, 0:256]
     img = (70 + 30 * np.sin(xx / 23.0) * np.cos(yy / 31.0)
            + np.random.default_rng(13).integers(0, 6, (256, 256))).astype(np.uint8)
+    if operands == "ties":
+        img = _ties_plane(256, 13)
     inputs = _inputs(img, cfg, cuda)
     mode = key.split("-")[0]
     area = cfg.source_size ** 2
     off = dataclasses.replace(cfg, rms_threshold=0.0)
     if kernel == "classed":
-        prep = tm.classed_prep(*inputs, cfg)
+        prep = tm.classed_prep(*inputs, cfg, **(RAGGED_BLOCKS if operands == "ragged" else {}))
         run, launches = (lambda c: tm.classed_kernel(prep, k, area, c)), \
             mk.search_classed_cuda.launches
     else:
@@ -306,32 +362,42 @@ def test_frontier_kernels_match_plain(cuda, case, kernel, t_n):
         run, launches = (lambda c: tm.dense_kernel(prep, k, area, c)), \
             mk.search_dense_cuda.launches
     before = launches[(mode, k, True)]
-    q_k, i_k = run(cfg)
+    if kernel == "dense" and operands == "ragged":
+        rows, m = prep["ai"].shape[0], prep["ch"].shape[0]
+        (q_k, i_k), (q_p, i_p) = _dense_pair(prep, k, area, cfg, rows - 5, m - 13)
+    else:
+        q_k, i_k = run(cfg)
+        q_p, i_p = run(dataclasses.replace(cfg, backend="torch"))
     assert launches[(mode, k, True)] == before + 1
-    q_p, i_p = run(dataclasses.replace(cfg, backend="torch"))
     torch.cuda.synchronize()
     assert_bitwise(q_k, q_p, "q")
     assert_bitwise(i_k, i_p, "idx")
-    assert bool((run(off)[0] != q_k).any()), "vacuous: the frontier changed no key"
+    if operands == "plane" and t_n in (3, 4):  # at 1 isometry some keys never move
+        assert bool((run(off)[0] != q_k).any()), "vacuous: the frontier changed no key"
 
 
+@pytest.mark.parametrize("operands", OPERANDS)
 @pytest.mark.parametrize("frontier", [False, True], ids=["plain", "thr"])
 @pytest.mark.parametrize("kernel", ["classed", "dense"])
 @pytest.mark.parametrize("key", ["raw", "general-ls", "general-reference"])
-def test_exact_key_instances_match_plain(cuda, key, kernel, frontier):
+def test_exact_key_instances_match_plain(cuda, key, kernel, frontier, operands):
     """The 'raw' and 'general' instances at K = 256 (raw256, general256 and
     their `_thr` forms, K1 and K3; 'general' under both so_modes) on a
     smooth 256^2 plane at the quadtree's 16 px level geometry: (q, idx) of
     every row bitwise against the plain version, through the encoder's own
-    calls; with the frontier some rows' keys change."""
+    calls; with the frontier some rows' keys change.  Also on tie-heavy
+    operands and on ragged ones (K3: rows no multiple of 16, m_valid < m;
+    K1: 24-row range tiles, 8-column column tiles)."""
     cfg = _case_cfg(key, 256, rms_threshold=60.0 if frontier else 0.0)
     yy, xx = np.mgrid[0:256, 0:256]
     img = (70 + 30 * np.sin(xx / 23.0) * np.cos(yy / 31.0)
            + np.random.default_rng(15).integers(0, 6, (256, 256))).astype(np.uint8)
+    if operands == "ties":
+        img = _ties_plane(256, 15)
     inputs = _inputs(img, cfg, cuda)
     mode = key.split("-")[0]
     if kernel == "classed":
-        prep = tm.classed_prep(*inputs, cfg)
+        prep = tm.classed_prep(*inputs, cfg, **(RAGGED_BLOCKS if operands == "ragged" else {}))
         run, launches = (lambda c: tm.classed_kernel(prep, 256, 64 * 64, c)), \
             mk.search_classed_cuda.launches
     else:
@@ -340,13 +406,17 @@ def test_exact_key_instances_match_plain(cuda, key, kernel, frontier):
             mk.search_dense_cuda.launches
     assert prep["aux_s" if kernel == "classed" else "aux"].dtype == torch.float64
     before = launches[(mode, 256, frontier)]
-    q_k, i_k = run(cfg)
+    if kernel == "dense" and operands == "ragged":
+        rows, m = prep["ai"].shape[0], prep["ch"].shape[0]
+        (q_k, i_k), (q_p, i_p) = _dense_pair(prep, 256, 64 * 64, cfg, rows - 5, m - 13)
+    else:
+        q_k, i_k = run(cfg)
+        q_p, i_p = run(dataclasses.replace(cfg, backend="torch"))
     assert launches[(mode, 256, frontier)] == before + 1
-    q_p, i_p = run(dataclasses.replace(cfg, backend="torch"))
     torch.cuda.synchronize()
     assert_bitwise(q_k, q_p, "q")
     assert_bitwise(i_k, i_p, "idx")
-    if frontier:
+    if frontier and operands == "plane":
         off = run(dataclasses.replace(cfg, rms_threshold=0.0))[0]
         assert bool((off != q_k).any()), "vacuous: the frontier changed no key"
 
@@ -378,15 +448,20 @@ def _smooth(n, seed):
             + np.random.default_rng(seed).integers(0, 6, (n, n))).astype(np.uint8)
 
 
+@pytest.mark.parametrize("operands", OPERANDS)
 @pytest.mark.parametrize("frontier", [False, True], ids=["plain", "thr"])
 @pytest.mark.parametrize("case", CASES, ids=lambda c: f"{c[0]}{c[1]}")
-def test_classed2d_kernel_matches_plain(cuda, case, frontier):
+def test_classed2d_kernel_matches_plain(cuda, case, frontier, operands):
     """Each K2 instance on the forced route (force_no_pairs), with the split
     width it picks and with splits of two groups: (q, idx) of every sorted
-    row bitwise against its plain version; K2 launches, K1 does not."""
+    row bitwise against its plain version; K2 launches, K1 does not.  Also
+    on tie-heavy operands and on a ragged layout (24-row range tiles, so a
+    block's rows are no multiple of 16, and 8-column column tiles)."""
     key, k = case
     cfg = _case_cfg(key, k, rms_threshold=10.0 if frontier else 0.0)
-    prep = _prep(_smooth(256, 16), cfg, cuda, force_no_pairs=True)
+    img = _ties_plane(256, 16) if operands == "ties" else _smooth(256, 16)
+    prep = _prep(img, cfg, cuda, force_no_pairs=True,
+                 **(RAGGED_BLOCKS if operands == "ragged" else {}))
     assert prep["route"] == "search_classed2d"
     mode, area = key.split("-")[0], cfg.source_size ** 2
     q_p, i_p = tm.classed_kernel(prep, k, area, dataclasses.replace(cfg, backend="torch"))

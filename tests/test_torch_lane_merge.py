@@ -1,0 +1,292 @@
+"""The search order of the tensor-core K2 and K3 (csrc/search_mma.cuh),
+emulated in plain PyTorch on the CPU and held against the plain searches
+(``ops/matcher_kernels._plain_search`` through ``search_dense_torch`` and
+``search_classed2d_torch``).
+
+The CUDA kernels cannot run here, so this pins the rule they implement:
+columns in chunks, each split into n8 tiles whose columns 2t and 2t + 1 sit
+in lane t of a quad; a best per lane and row with the strict '>' in the
+lane's column order, then the quad merged (the larger q, the lower idx on
+equal q); with the frontier, chunks and sub-blocks of whole groups and n8
+tiles, a sub-block where a row has no hit continuing the row's lane bests
+and the one where it first hits scanned in column order with the group
+logic, its result merged last; K2's partials per split reduced in split
+order up to the first split that hit.  (The kernel's check of a step's
+maximum before its exact update changes no result and is not emulated.)
+
+The keys come from a small table indexed by the exact dot (the plain
+search's 'ls' key patched to it), so ties are everywhere and +0 and -0 both
+occur.  Where a row's max is a zero, torch's amax in the plain version may
+return either sign for a tie of +0 and -0 (it is not a first occurrence),
+so there q is compared as a float; idx is compared bitwise everywhere, and
+q bitwise wherever the max is not zero.
+"""
+import numpy as np
+import pytest
+import torch
+
+from fractencode_tpu_torch.ops import matcher_kernels as mk
+
+K = 16
+K_INIT = -3.0e38
+SUB = 64  # the frontier's most staged columns per warp (mma::kSub)
+# the key of an even-sum row by dot mod 8 (RARE_KEY where dot mod 64 is 63),
+# of an odd-sum row by dot mod 4
+RARE_KEY = 96.0
+EVEN_KEYS = torch.tensor([-16.0, -0.0, 0.0, 16.0, 32.0, 48.0, 48.0, 80.0])
+ODD_KEYS = torch.tensor([-0.0, 0.0, -16.0, 0.0])
+THRESHOLD = 0.5
+INV_NORM = 16.0  # so the 'ls' distance is max(16 SumA2 - q, 0) for SumA = 0
+KW = dict(criterion="affine", so_mode="ls", s_max=0.0, inv_norm=INV_NORM)
+
+
+def table_key(sa_i, dot, sb4, aux16, n):
+    """The patched 'ls' key: a table lookup by the exact dot and the row's
+    byte-sum parity."""
+    even = sa_i.remainder(2) == 0
+    q_even = torch.where(dot.remainder(64) == 63, RARE_KEY, EVEN_KEYS[dot.remainder(8).long()])
+    return torch.where(even, q_even, ODD_KEYS[dot.remainder(4).long()])
+
+
+@pytest.fixture(autouse=True)
+def _table_keys(monkeypatch):
+    monkeypatch.setattr(mk, "_rank_ls_int8", table_key)
+
+
+def operands(rows: int, cols: int, seed: int):
+    """int8 operands whose dots take small values; a few all-zero rows (every
+    key -0) and repeated columns, many in runs of neighbours; SumA = 0 and SumA2 in 0..7, so the
+    frontier's hit test is q >= 16 SumA2 - 0.5: some rows hit often, some
+    rarely (only the rare key hits at SumA2 = 6: late in the scan), some
+    never."""
+    rng = np.random.default_rng(seed)
+    ai = rng.integers(-3, 4, (rows, K), dtype=np.int8)
+    ai[rng.random(rows) < 0.05] = 0
+    ch = rng.integers(0, 4, (cols, K), dtype=np.int8)
+    cl = rng.integers(0, 8, (cols, K), dtype=np.int8)
+    rep = rng.random(cols) < 0.2
+    src = rng.integers(0, cols, cols)
+    ch[rep], cl[rep] = ch[src[rep]], cl[src[rep]]
+    for j in np.flatnonzero(rng.random(cols) < 0.4):  # runs of equal neighbours
+        ch[j], cl[j] = ch[j - 1], cl[j - 1]
+    sb = np.zeros(cols, np.float32)
+    aux = np.ones(cols, np.float32)
+    sa = np.zeros(rows, np.float32)
+    sa2 = rng.integers(0, 8, rows).astype(np.float32)
+    return tuple(torch.from_numpy(x) for x in (ai, ch, cl, sb, aux, sa, sa2))
+
+
+def key_matrix(ai, ch, cl, sa, sa2):
+    """(keys, hits) of every (row, column) pair: the dot in int64, the table
+    key, and rank_to_dist's distance against the threshold."""
+    dot = ai.long() @ (8 * ch.long() + cl.long()).T
+    sa_i = ai.long().sum(1, keepdim=True) + 128 * K
+    q = table_key(sa_i, dot, None, None, K)
+    dist = mk.rank_to_dist(q, sa2[:, None], sa[:, None], n=float(K), **KW)
+    return q, dist <= torch.tensor(THRESHOLD, dtype=torch.float32)
+
+
+def merge(q, i, oq, oi):
+    """The larger q, the lower idx on equal q (merge_best)."""
+    take = (oq > q) | ((oq == q) & (oi < i))
+    return torch.where(take, oq, q), torch.where(take, oi, i)
+
+
+def lane_bests(q, admit, cols, bq, bi):
+    """Fold the columns ``cols`` (ascending, n8 tiles from the first) into
+    each quad lane's best with the strict '>': lane t holds the columns 2t
+    and 2t + 1 of every tile, in column order."""
+    for n, j in enumerate(cols):
+        t = (n % 8) // 2
+        upd = q[:, j] > bq[t]  # strict: the first occurrence wins
+        if admit is not None:
+            upd &= admit[:, j]
+        bq[t] = torch.where(upd, q[:, j], bq[t])
+        bi[t] = torch.where(upd, j, bi[t])
+
+
+def group_scan(q, hit, cols, t_n):
+    """search_common.cuh's group logic over ``cols`` from a group boundary,
+    for rows that hit there: (q, idx) over the columns before the first
+    group with a hit and that group's from its last hit on (a trailing
+    partial group closed at the end)."""
+    rows = q.shape[0]
+    cand_q, cand_i = torch.full((rows,), K_INIT), torch.zeros(rows, dtype=torch.int64)
+    group_q, group_i = torch.full((rows,), K_INIT), torch.zeros(rows, dtype=torch.int64)
+    group_hit = torch.zeros(rows, dtype=torch.bool)
+    stop = torch.zeros(rows, dtype=torch.bool)
+    for n, j in enumerate(cols):
+        live = ~stop
+        restart = live & (hit[:, j] | (q[:, j] > group_q))  # a hit restarts the group
+        group_q = torch.where(restart, q[:, j], group_q)
+        group_i = torch.where(restart, j, group_i)
+        group_hit |= live & hit[:, j]
+        if (n + 1) % t_n == 0 or n + 1 == len(cols):  # a group (or the scan) ends
+            better = live & (group_q > cand_q)
+            cand_q = torch.where(better, group_q, cand_q)
+            cand_i = torch.where(better, group_i, cand_i)
+            stop |= group_hit
+            group_q = torch.where(stop, group_q, K_INIT)
+            group_hit = torch.zeros(rows, dtype=torch.bool)
+    return cand_q, cand_i
+
+
+def emulate(q, hit, admit, c0, c1, chunk, frontier, t_n):
+    """The kernel's scan of every row of ``q`` over columns [c0, c1) in
+    chunks of ``chunk`` columns: (q, idx, hit) per row.  ``admit`` (bool
+    [rows, cols] or None) is the class mask.  With the frontier, chunks and
+    sub-blocks hold whole groups and whole n8 tiles; a sub-block where a
+    row has no hit folds into its lane bests, the one where it first hits
+    is scanned with the group logic, and the row stops."""
+    rows = q.shape[0]
+    bq = {t: torch.full((rows,), K_INIT) for t in range(4)}
+    bi = {t: torch.zeros(rows, dtype=torch.int64) for t in range(4)}
+    done = torch.zeros(rows, dtype=torch.bool)
+    cand_q, cand_i = torch.full((rows,), K_INIT), torch.zeros(rows, dtype=torch.int64)
+    sub, step = chunk, chunk
+    if frontier:
+        lcm = t_n
+        while lcm % 8:
+            lcm += t_n
+        sub = SUB // lcm * lcm
+        step = chunk // sub * sub
+    for cs in range(c0, c1, step):
+        n = min(step, c1 - cs)
+        for s0 in range(0, n, sub):
+            cols = list(range(cs + s0, cs + min(s0 + sub, n)))
+            if not frontier:
+                lane_bests(q, admit, cols, bq, bi)
+                continue
+            # the bests continued over the sub-block, kept where a row has no hit
+            tq, ti = dict(bq), dict(bi)
+            lane_bests(q, None, cols, tq, ti)
+            rh = hit[:, cols].any(1) & ~done
+            keep = ~rh & ~done
+            for t in bq:
+                bq[t] = torch.where(keep, tq[t], bq[t])
+                bi[t] = torch.where(keep, ti[t], bi[t])
+            if bool(rh.any()):  # the rows that hit here: the group scan
+                gq, gi = group_scan(q, hit, cols, t_n)
+                cand_q = torch.where(rh, gq, cand_q)
+                cand_i = torch.where(rh, gi, cand_i)
+                done |= rh
+    lanes = [(bq[t], bi[t]) for t in range(4)]
+    for x in (1, 2):  # the quad's butterfly (__shfl_xor_sync 1, then 2)
+        lanes = [merge(*lanes[t], *lanes[t ^ x]) for t in range(4)]
+    for t in range(1, 4):  # every lane ends with the same result
+        assert torch.equal(lanes[t][1], lanes[0][1])
+    q_out, i_out = merge(*lanes[0], cand_q, cand_i)
+    return q_out, i_out, done
+
+
+def assert_same(q_e, i_e, q_p, i_p):
+    """idx bitwise; q bitwise where the max is not zero, equal as floats
+    (+0 == -0) where it is."""
+    assert torch.equal(i_e.to(torch.int32), i_p), int((i_e.to(torch.int32) != i_p).sum())
+    assert torch.equal(q_e, q_p)  # as floats
+    nz = q_p != 0
+    assert torch.equal(q_e[nz].view(torch.int32), q_p[nz].view(torch.int32))
+
+
+# the kernel's chunks (mma::kCols: 512 at K = 16) and smaller ones, so that a
+# few hundred columns span several chunks
+CHUNKS = [16, 64, 512]
+
+
+@pytest.mark.parametrize("chunk", CHUNKS)
+@pytest.mark.parametrize("m_valid", [1, 7, 203, 700])
+@pytest.mark.parametrize("masked", [False, True], ids=["nomask", "mask"])
+def test_dense_merge_matches_plain(masked, m_valid, chunk):
+    """K3 without the frontier: the quad lanes' strict-'>' bests merged
+    give the plain version's first-occurrence argmax; with the class mask a
+    row with no column of its class keeps (-3e38, 0)."""
+    ai, ch, cl, sb, aux, sa, sa2 = operands(200, 704, seed=m_valid)
+    rcls = ccls = admit = None
+    if masked:
+        rng = np.random.default_rng(7)
+        rcls = torch.from_numpy(rng.integers(0, 5, 200).astype(np.int32))
+        ccls = torch.from_numpy(rng.integers(0, 4, 704).astype(np.int32))  # class 4: none
+        admit = rcls[:, None] == ccls[None, :]
+    q, hit = key_matrix(ai, ch, cl, sa, sa2)
+    q_p, i_p = mk.search_dense_torch(ai, ch, cl, sb, aux, m_valid=m_valid, rcls=rcls,
+                                     ccls=ccls, **KW)
+    q_e, i_e, _ = emulate(q, hit, admit, 0, m_valid, chunk, False, 4)
+    assert_same(q_e, i_e, q_p, i_p)
+    if masked:  # the rows of class 4 have no column
+        none = rcls == 4
+        assert bool(none.any()) and bool((q_p[none] == K_INIT).all())
+        assert not bool(i_p[none].any())
+
+
+@pytest.mark.parametrize("chunk", [64, 128, 256])
+@pytest.mark.parametrize("m_valid", [3, 203, 700])
+@pytest.mark.parametrize("t_n", range(1, 9))
+def test_dense_frontier_matches_plain(t_n, m_valid, chunk):
+    """K3 with the frontier, in chunks of whole groups of 64 and 128 columns
+    (the frontier's mma::kCols) and of 256: sub-blocks without a hit
+    continuing the lane bests and the first with one scanned by the group
+    logic (groups of t_n from column 0, a column count that is no multiple
+    of t_n) give the plain version's result; some rows hit, some never
+    do."""
+    ai, ch, cl, sb, aux, sa, sa2 = operands(200, 704, seed=t_n)
+    q, hit = key_matrix(ai, ch, cl, sa, sa2)
+    q_p, i_p = mk.search_dense_torch(ai, ch, cl, sb, aux, m_valid=m_valid, sa=sa, sa2=sa2,
+                                     threshold=THRESHOLD, t_n=t_n, **KW)
+    q_e, i_e, hit_e = emulate(q, hit, None, 0, m_valid, chunk, True, t_n)
+    assert_same(q_e, i_e, q_p, i_p)
+    assert 0 < int(hit_e.sum()) < 200
+
+
+def layout(block_r: int, seed: int):
+    """A class-sorted layout: five classes over eight range tiles of
+    ``block_r`` rows (class 1 with no columns, class 3's last tile half
+    padding) and column segments of whole groups of 4 but no multiple of 8,
+    on 8-column tiles."""
+    tile_class = torch.tensor([0, 0, 1, 2, 3, 3, 4, 4], dtype=torch.int32)
+    block_m = 8
+    col_tile_start = torch.tensor([0, 30, 30, 45, 80], dtype=torch.int32)
+    col_end = torch.tensor([236, 240, 300, 516, 700], dtype=torch.int32)
+    col_end[1] = col_tile_start[1] * block_m  # class 1: an empty segment
+    row_end = torch.tensor([2, 3, 4, 5.5, 8]) * block_r
+    return (tile_class, col_tile_start, col_end, row_end.to(torch.int32), block_m)
+
+
+@pytest.mark.parametrize("splits", [None, 64, 96], ids=["one", "64", "96"])
+@pytest.mark.parametrize("frontier", [False, True], ids=["plain", "thr"])
+@pytest.mark.parametrize("block_r", [8, 24, 128])
+def test_classed2d_merge_matches_plain(block_r, frontier, splits):
+    """K2: each split's partial by the kernel's order (without the frontier
+    every row of a class's tiles, with it only the rows below row_end), in
+    chunks of 64 columns, then the reduce in split order up to the first
+    split that hit, give the plain K2 (and so K1) result, at one split per
+    segment (several chunks) and at splits of one and of two chunks; a
+    class with no columns keeps (-3e38, 0)."""
+    tile_class, cts, col_end, row_end, block_m = layout(block_r, block_r)
+    t_n = 4
+    rows = tile_class.shape[0] * block_r
+    ai, ch, cl, sb, aux, sa, sa2 = operands(rows, 704, seed=block_r + 1)
+    q, hit = key_matrix(ai, ch, cl, sa, sa2)
+    kw = dict(block_r=block_r, block_m=block_m, sa_s=sa, sa2_s=sa2,
+              threshold=THRESHOLD if frontier else 0.0, t_n=t_n, **KW)
+    q_p, i_p = mk.search_classed2d_torch(ai, ch, cl, sb, aux, tile_class, cts, col_end,
+                                         row_end, splits=splits, **kw)
+    q_e = torch.full((rows,), K_INIT)
+    i_e = torch.zeros(rows, dtype=torch.int64)
+    for tile, c in enumerate(tile_class.tolist()):
+        start, end = int(cts[c]) * block_m, int(col_end[c])
+        r0 = tile * block_r
+        r1 = min(r0 + block_r, int(row_end[c])) if frontier else r0 + block_r
+        if r1 <= r0 or end <= start:
+            continue
+        width = end - start if splits is None else splits
+        stopped = torch.zeros(r1 - r0, dtype=torch.bool)
+        for s0 in range(start, end, width):  # the reduce, in split order
+            pq, pi, ph = emulate(q[r0:r1], hit[r0:r1], None, s0, min(s0 + width, end),
+                                 64, frontier, t_n)  # chunks of 64 columns
+            better = ~stopped & (pq > q_e[r0:r1])
+            q_e[r0:r1] = torch.where(better, pq, q_e[r0:r1])
+            i_e[r0:r1] = torch.where(better, pi, i_e[r0:r1])
+            stopped |= ph
+    assert_same(q_e, i_e, q_p, i_p)
+    empty = (tile_class == 1).repeat_interleave(block_r)
+    assert bool((q_p[empty] == K_INIT).all())

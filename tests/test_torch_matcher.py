@@ -94,11 +94,13 @@ def test_solve_so(so_mode):
     assert_bitwise(oj, ot, "o")
 
 
-@pytest.mark.parametrize("cname", ["default", "compat", "t8", "t5"])
+@pytest.mark.parametrize("cname", ["default", "compat", "t8", "t5", "t1"])
 @pytest.mark.parametrize("pname", ["lenna128", "rand96"])
 def test_classed_prep(pname, cname):
     """Every sorted array bitwise at the JAX block sizes; lenna128 with t5
-    takes the per-column layout (block_m % T != 0)."""
+    takes the per-column layout (block_m % T != 0).  The kernels' operands
+    are contiguous (at one isometry the domain layout's reshapes are
+    strided views unless copied)."""
     jcfg, tcfg = CONFIGS.get(cname, (None, None))
     if jcfg is None:
         t_n = int(cname[1:])
@@ -117,6 +119,8 @@ def test_classed_prep(pname, cname):
             assert pt[key] is None, key
         else:
             assert_bitwise(pj[key], pt[key], key)
+    for key in ("ai_s", "ch_s", "cl_s", "sb_s", "aux_s"):
+        assert pt[key].is_contiguous(), key
 
 
 @pytest.mark.parametrize("cname", ["default", "compat"])
