@@ -2,24 +2,30 @@
 """Smoke run of the PyTorch port (fractencode_tpu_torch) on one CUDA card.
 
     python3 chip_smoke.py
-    python3 chip_smoke.py --dp4a DIR   # also time K2/K3's dp4a design
+    python3 chip_smoke.py --dp4a DIR   # also time K1/K2/K3's dp4a design
 
 Phases, each of which must pass (any failure exits non-zero):
   1. build the CUDA kernels from csrc/ (search_classed.cu, K1,
      search_classed2d.cu, K2, search_dense.cu, K3, and micro_step.cu, K4
      and K5: one nvcc each, in parallel, into build/kernels/), print each
      instantiation's registers and spills from ptxas' report, one line per
-     tensor-core library (K2, K3) with its SASS counts of tensor-core
+     tensor-core library (K1, K2, K3) with its SASS counts of tensor-core
      (IMMA, HGMMA, IGMMA) and dp4a (IDP.4A) instructions, of which it must
      hold some IMMA and no dp4a, and the card's name and power limit;
   2. K1 parity at K = 16: the search kernel against its plain PyTorch
      version on the same class-sorted tensors at 512^2 and 2048^2, (q, idx)
      bitwise equal, with both times (CUDA events, median of 5 after a
-     warmup);
+     warmup); then K1's block order: the range tiles in the grid's order
+     against longest class segment first (the same kernel on a copy of the
+     prep whose tiles are permuted on the card), timed in turns, (q, idx)
+     bitwise the same rows, at 512^2, 2048^2, the 2048^2 8 and 16 px
+     quadtree levels and 2048^2 --compat;
   3. the CLI's encode -> pyramid-decode path (cli._encode_one) at 512^2 on
      the card, bitwise equal to the same call on the CPU;
   4. the same path at 2048^2 on the card, with the kernel's launch count, the
-     encode and decode wall times and the PSNR;
+     encode and decode wall times and the PSNR; then the encode by stage
+     (inputs, prep, the search, post; each alone, device and host ms) and
+     the card's busy share of a whole encode (torch.profiler);
   5. K1 parity at K = 64 and K = 256: the kernel against its plain version
      on the 8 px and 16 px quadtree level inputs of the 2048^2 plane (no
      coverage mask), (q, idx) bitwise equal, with both times;
@@ -78,7 +84,8 @@ Phases, each of which must pass (any failure exits non-zero):
      `_thr` also on the smooth plane) and at 2048^2's 8 px and 16 px level
      inputs, and once with splits of 64 columns; each `_thr` instance with
      a hit share above 0 in one check; then K2 against K1 on the same prep
-     (bitwise, CUDA events, median of 5) at 512^2 and 2048^2 and on the
+     (bitwise, CUDA events, median of 5; with --dp4a each also in turns with
+     its dp4a design) at 512^2 and 2048^2 and on the
      2048^2 quadtree's levels with their coverage masks; then at 8192^2
      the default and --rms 10 paths through cli._encode_one (each launching
      K2 and not K1, whose route the JAX package's pair-list overflow
@@ -110,11 +117,11 @@ K2 `ls16`'s record times the 8192^2 default path's whole launch against its
 bound; its plain time is the sample's (the plain version of the whole
 plane would take minutes), kept with the sample's kernel time and bound as
 sample_ms and sample_bound_ms.  With --dp4a DIR (a csrc/ directory holding
-search_dense.cu and search_classed2d.cu of the dp4a design, before the
-tensor-core mainloop, e.g. from `git archive`), each K2 and K3 record's
-kernel time is taken in turns with that design's (kernel, dp4a, dp4a,
-kernel; medians of 5), whose time goes into dp4a_ms, and the two must agree
-bitwise.
+search_classed.cu, search_classed2d.cu and search_dense.cu of the dp4a
+design, before the tensor-core mainloop, e.g. `git archive 033dc3f
+fractencode_tpu_torch/csrc`), each K1, K2 and K3 record's kernel time is
+taken in turns with that design's (kernel, dp4a, dp4a, kernel; medians of
+5), whose time goes into dp4a_ms, and the two must agree bitwise.
 No single PyTorch call gives a search's (q, idx), so library_ms is null;
 K4 'matmul''s is torch._int_mm's int8 products of each range tile against
 all columns with the row max, which writes the products out.  Plain timings
@@ -150,7 +157,7 @@ SOURCES = {"search_classed": "fractencode_tpu_torch/csrc/search_classed.cu",
 # the sources on the tensor-core mainloop (csrc/search_mma.cuh): phase 1
 # counts their SASS instructions, and --dp4a times them against the dp4a
 # design in turns
-MMA_SOURCES = ("search_dense", "search_classed2d")
+MMA_SOURCES = ("search_classed", "search_classed2d", "search_dense")
 # The line of the TPU kernel each kernel key replaces: _pairs_kernel (K1),
 # _classed_kernel (K2) and _search_kernel (K3); 'ls' at K = 64 is their
 # ls_fast int8 branch (K2's serves K = 16 too), 'raw' and 'general' their
@@ -321,15 +328,16 @@ def dp4a_kernels(csrc):
         _build.load_library = load
 
 
-def turns(run, what, csrc):
+def turns(run, what, csrc, reps=5):
     """(the kernel's ms, the dp4a design's ms, built from ``csrc``): medians
-    of 5 (CUDA events) in turns kernel, dp4a, dp4a, kernel, each the mean of
-    its two; the dp4a design's (q, idx) must equal the kernel's bitwise."""
-    new1, out = cuda_ms(run)
+    of ``reps`` (CUDA events) in turns kernel, dp4a, dp4a, kernel, each the
+    mean of its two; the dp4a design's (q, idx) must equal the kernel's
+    bitwise."""
+    new1, out = cuda_ms(run, reps)
     with dp4a_kernels(csrc):
-        old1, old = cuda_ms(run)
-        old2, _ = cuda_ms(run)
-    new2, _ = cuda_ms(run)
+        old1, old = cuda_ms(run, reps)
+        old2, _ = cuda_ms(run, reps)
+    new2, _ = cuda_ms(run, reps)
     check(bitwise(out[0], old[0]) and bitwise(out[1], old[1]),
           f"the dp4a design differs from the tensor-core one at {what}")
     return (new1 + new2) / 2, (old1 + old2) / 2
@@ -605,6 +613,85 @@ def wall_times(encode, decode, reps=3):
     return 1e3 * statistics.median(enc_s), 1e3 * statistics.median(dec_s), d
 
 
+def encode_stages(img, cfg, reps=5):
+    """The default encode of ``img`` on the card in encode_plane's stages:
+    inputs (2x2 sums, codebook, ranges and their sums, integral image,
+    classes), prep (matcher.classed_prep), search (matcher.classed_kernel:
+    K1 on its route) and post (matcher.classed_post).  Each stage runs alone,
+    ended by a synchronize: (device ms by CUDA events, host-clock ms) per
+    stage, medians of ``reps`` warm runs after one warmup; and the search
+    result, which must equal encode_plane's."""
+    import torch
+
+    from fractencode_tpu_torch.core.classify import classify_grid
+    from fractencode_tpu_torch.core.grid import uniform_grid
+    from fractencode_tpu_torch.core.stats import block_sums_nonoverlapping, integral_image
+    from fractencode_tpu_torch.encode import matcher as tm
+    from fractencode_tpu_torch.encode.codebook import build_codebook, extract_ranges
+
+    plane = torch.from_numpy(img).cuda()
+    n = plane.shape[0]
+    k, area = cfg.target_size ** 2, cfg.source_size ** 2
+
+    def inputs(_):
+        pf = plane.to(torch.float32)
+        dg = uniform_grid(n, n, cfg.source_size, cfg.domain_step)
+        rg = uniform_grid(n, n, cfg.target_size, cfg.target_size)
+        sums2x2 = block_sums_nonoverlapping(plane, 2)
+        cb = build_codebook(pf, dg, cfg.target_size, cfg.num_transforms,
+                            half=sums2x2.to(torch.float32) * 0.25)
+        ranges = extract_ranges(pf, cfg.target_size)
+        ii = integral_image(plane)
+        return (ranges, ranges.sum(-1), (ranges * ranges).sum(-1), cb,
+                classify_grid(plane, rg, ii=ii, sums2x2=sums2x2),
+                classify_grid(plane, dg, ii=ii, sums2x2=sums2x2))
+
+    def post(x):
+        (ranges, sa, sa2, cb, *_), prep, (q_s, idx_s) = x
+        return tm.classed_post(q_s, idx_s, prep["rpos"], prep["inv_col"], ranges, sa, sa2,
+                               cb, cfg, b4_cols=prep["b4_cols"], inv_dom=prep["inv_dom"])
+
+    stages = {"inputs": inputs,
+              "prep": lambda x: (x, tm.classed_prep(*x, cfg)),
+              "search": lambda x: (*x, tm.classed_kernel(x[1], k, area, cfg)),
+              "post": post}
+    times = {name: [] for name in stages}
+    for rep in range(reps + 1):
+        out = None
+        for name, stage in stages.items():
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            start.record()
+            out = stage(out)
+            end.record()
+            torch.cuda.synchronize()
+            if rep:
+                times[name].append((start.elapsed_time(end), 1e3 * (time.perf_counter() - t0)))
+    return {name: tuple(statistics.median(t[i] for t in ts) for i in range(2))
+            for name, ts in times.items()}, out
+
+
+def device_busy(fn, reps=3):
+    """(share of the host-clock window in which the card ran kernels, the
+    window's ms) over ``reps`` warm runs of fn(), each ending in a
+    synchronize, by torch.profiler's device times; None where the profiler
+    saw no device time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+        wall_us = 1e6 * (time.perf_counter() - t0)
+    busy_us = sum(getattr(e, "self_device_time_total", 0) for e in prof.key_averages())
+    return (busy_us / wall_us if busy_us > 0 else None), wall_us / 1e3 / reps
+
+
 def check_uniform(res, out, n, what):
     import torch
 
@@ -761,8 +848,8 @@ def micro_phase(kernels):
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description="Smoke run of the port on one CUDA card.")
     ap.add_argument("--dp4a", metavar="DIR", help="a csrc/ directory with the dp4a design "
-                    "of search_dense.cu and search_classed2d.cu, timed against the "
-                    "tensor-core one in turns")
+                    "of search_classed.cu, search_classed2d.cu and search_dense.cu, timed "
+                    "against the tensor-core one in turns")
     dp4a = ap.parse_args(argv).dp4a
     import torch
 
@@ -878,10 +965,60 @@ def main(argv=None) -> int:
             + (", class mask" if masked else ""), nbytes, plain_reps)
         report_frontier(key, c, q, sa, sa2, pairs, what)
 
+    def block_order(img, c, what):
+        """K1 with its range tiles in the grid's order and longest class
+        segment first: the same kernel on a copy of the prep whose tiles are
+        permuted on the card (a stable descending argsort of their segments'
+        lengths, then gathers of their rows), timed in turns (grid, longest,
+        longest, grid; medians of 5).  The permuted (q, idx) must be the
+        grid order's rows in the permuted order, bitwise.  Without the
+        frontier only: row_end holds positions in the grid's order."""
+        check(c.rms_threshold == 0, "block order without the frontier only")
+        k, area = c.target_size ** 2, c.source_size ** 2
+        prep = tm.classed_prep(*level_inputs(img, c), c)
+        check(prep["route"] == "search_classed", f"{what}: route {prep['route']}")
+        br, tc = prep["block_r"], prep["tile_class"]
+        seg = (prep["col_end"].long() - prep["col_tile_start"].long() * prep["block_m"])
+        per_tile = seg.clamp_min(0)[tc.long()]
+
+        def permutation():
+            order = torch.argsort(per_tile, descending=True, stable=True)
+            rows = (order[:, None] * br + torch.arange(br, device=order.device)).reshape(-1)
+            return order, rows
+
+        sort_ms, (order, rows) = cuda_ms(permutation)
+        take = lambda t: None if t is None else t[rows].contiguous()
+        longest = dict(prep, ai_s=take(prep["ai_s"]), sa_s=take(prep["sa_s"]),
+                       sa2_s=take(prep["sa2_s"]), tile_class=tc[order].contiguous())
+        run = {"grid": lambda: tm.classed_kernel(prep, k, area, c),
+               "longest": lambda: tm.classed_kernel(longest, k, area, c)}
+        ms = {name: [] for name in run}
+        out = {}
+        for name in ("grid", "longest", "longest", "grid"):
+            t, out[name] = cuda_ms(run[name])
+            ms[name].append(t)
+        check(bitwise(out["grid"][0][rows], out["longest"][0])
+              and bitwise(out["grid"][1][rows], out["longest"][1]),
+              f"K1 in longest-first order differs at {what}")
+        grid_ms, longest_ms = (statistics.mean(ms[name]) for name in run)
+        print(f"    {what}: K1 grid order {grid_ms:.4f} ms, longest segment first "
+              f"{longest_ms:.4f} ms ({grid_ms / longest_ms:.4f}x; in turns, medians of 5), "
+              f"(q, idx) bitwise the same rows; the argsort and row indices {sort_ms:.4f} "
+              f"ms; {tc.shape[0]} range tiles of {br} rows, segments "
+              f"{int(per_tile.min())}-{int(per_tile.max())} columns")
+
     # -- 2. K1 parity and times at K = 16
     print("[2] K1 at K = 16 (default path), kernel vs plain")
     for n in (512, 2048):
         k1_parity(planes[n], cfg, f"{n}^2")
+    print("    K1's block order: the grid's against longest class segment first")
+    block_order(planes[512], cfg, "512^2")
+    block_order(big, cfg, "2048^2")
+    for k in (64, 256):
+        ds, rs = LEVELS[k]
+        block_order(big, dataclasses.replace(cfg, source_size=ds, target_size=rs),
+                    f"2048^2, {rs} px level")
+    block_order(big, path_config(KEY_PATHS[("raw", 16)], "raw", 16), "2048^2, --compat")
 
     # -- 3. main path at 512^2: card == CPU, bitwise
     card_equals_cpu(planes[512], [], "512")
@@ -905,6 +1042,19 @@ def main(argv=None) -> int:
     print(f"[4] 2048^2 main path: launches {counts}; encode {enc_ms:.3f} ms, decode "
           f"{dec_ms:.3f} ms ({iters} full-res steps, median of 3 warm runs, host "
           f"clock); PSNR {db:.4f} dB")
+    stages, staged = encode_stages(big, cfg)
+    check(bitwise(staged.domain_idx, res.domain_idx) and bitwise(staged.s, res.s),
+          "the staged encode differs from encode_plane")
+    busy, window = device_busy(lambda: (encode_plane(big, cfg, device="cuda"),
+                                        torch.cuda.synchronize()))
+    print("    2048^2 encode by stage, each alone (device ms by CUDA events / host ms, "
+          "medians of 5): " + ", ".join(f"{name} {dev:.4f} / {host:.3f}"
+                                        for name, (dev, host) in stages.items())
+          + f"; sum {sum(d for d, _ in stages.values()):.4f} / "
+          f"{sum(h for _, h in stages.values()):.3f}; the whole encode under the profiler "
+          f"{window:.3f} ms a run, device busy "
+          + ("not measured (the profiler saw no device time)" if busy is None
+             else f"{busy:.4f} of it"))
 
     # -- 5. K1 parity and times at K = 64 and 256 (quadtree level inputs)
     print("[5] K1 at K = 64 and 256 (quadtree 8 and 16 px levels), kernel vs plain")
@@ -1265,25 +1415,29 @@ def main(argv=None) -> int:
 
     def k1_vs_k2(prep, c, what, reps=5, k1_reps=None):
         """K1 and K2 on the same prep, (q, idx) bitwise, with both times (K1
-        over ``k1_reps`` runs, ``reps`` by default; with --dp4a K2 also in
+        over ``k1_reps`` runs, ``reps`` by default; with --dp4a each also in
         turns with its dp4a design)."""
         k, area = c.target_size ** 2, c.source_size ** 2
         k1 = dict(prep, route="search_classed")
         k2 = dict(prep, route="search_classed2d")
+        run1 = lambda: tm.classed_kernel(k1, k, area, c)
         run2 = lambda: tm.classed_kernel(k2, k, area, c)
-        ms1, (q1, i1) = cuda_ms(lambda: tm.classed_kernel(k1, k, area, c), k1_reps or reps)
+        ms1, (q1, i1) = cuda_ms(run1, k1_reps or reps)
         ms2, (q2, i2) = cuda_ms(run2, reps)
         check(bitwise(q1, q2) and bitwise(i1, i2), f"K2 differs from K1 at {what}")
         plan = dict(mk.search_classed2d_cuda.plan)
-        earlier = None
+        earlier = earlier1 = None
         if kernels.dp4a:
+            ms1, earlier1 = turns(run1, what, kernels.dp4a, k1_reps or reps)
             ms2, earlier = turns(run2, what, kernels.dp4a)
         rows = prep["rpos"].long()
         seg = (prep["col_end"] - prep["col_tile_start"] * prep["block_m"]).long()
         pairs = int(seg[prep["tile_class"].long()[rows // prep["block_r"]]].sum())
         bound_ms, bound_by = bound(pairs, k, search_bytes(
             rows.shape[0], prep["b4_cols"].shape[0], k, prep["sa_s"] is not None))
-        print(f"    {what}: K1 {ms1:.4f} ms, K2 {ms2:.4f} ms"
+        print(f"    {what}: K1 {ms1:.4f} ms"
+              + ("" if earlier1 is None else f" (dp4a design {earlier1:.4f} ms in turns)")
+              + f", K2 {ms2:.4f} ms"
               + ("" if earlier is None else f" (dp4a design {earlier:.4f} ms in turns)")
               + f" ({plan['splits']} splits of "
               f"{plan['width']} columns over {plan['searched']} range tiles, partials "
@@ -1292,8 +1446,8 @@ def main(argv=None) -> int:
               f"{'median of 5' if reps > 1 else 'one run'}); (q, idx) bitwise equal; "
               f"{rows.shape[0]} rows, {pairs} same-class pairs, bound {bound_ms:.4f} ms "
               f"({bound_by}{', without the frontier' if c.rms_threshold > 0 else ''})")
-        return dict(k1_ms=ms1, ms=ms2, dp4a_ms=earlier, bound_ms=bound_ms, bound_by=bound_by,
-                    plan=plan, out=(q2, i2))
+        return dict(k1_ms=ms1, k1_dp4a_ms=earlier1, ms=ms2, dp4a_ms=earlier, bound_ms=bound_ms,
+                    bound_by=bound_by, plan=plan, out=(q2, i2))
 
     def k2_sampled(prep, c, plan, full, what):
         """K2 against its plain version on a prep too large for the plain

@@ -21,8 +21,8 @@
 //   * the step kernel, grid (list position p, 128-row slice of the tile):
 //     the block decodes word p itself (nothing is read back to the host),
 //     streams the column tile through shared memory in chunks of 512
-//     columns, and one thread per row scans them (load_row and rank_key of
-//     search_common.cuh, as in K1), keeping the variant's tile best; it
+//     columns, and one thread per row scans them with dp4a (load_row and
+//     rank_key of search_common.cuh), keeping the variant's tile best; it
 //     writes the row's partial (tile_q, tile_arg) at [p, row in tile].  At
 //     the script's shapes a list of 512 steps gives 2,048 blocks, so the
 //     card is full from one repetition of the list on;
@@ -37,7 +37,8 @@
 // columns, 160 KB with its sums) is reused by the tile's 512 rows, and the
 // script's 10.6 MB of operands stay in the 50 MB L2.  The bound the smoke
 // script states is the int8 tensor-core rate (2 K operations per pair); this
-// first kernel runs on the dp4a path, as K1 does, so it sits far from it.
+// kernel runs on the dp4a path (K1-K3 moved to search_mma.cuh's tensor-core
+// mainloop), so it sits far from it.
 //
 // K5's layout: ch and cl as [16, M] int8.  The kernel reads it itself: a
 // thread loads, for 4 adjacent columns, one 32-bit word from each of the 16

@@ -29,30 +29,30 @@
 // block_m % t_n == 0, and which keeps a domain's columns together in the
 // per-column layout (block_m % t_n != 0) that the TPU kernel refuses.
 //
-// What bounds it on the card: arithmetic issue, not memory.  Each (row,
-// column) pair costs K/2 dp4a plus about a dozen integer and float operations
-// for 'ls' and 'raw' (about forty for 'general'), while a column is 2K bytes
-// plus its sums that every row of the class reuses.  The design gives one
-// thread one range row and one block of threads one slice of a range tile, so
-// all rows of a block share the class segment, which the block streams
-// through shared memory; every thread reads the same column at once, which
-// shared memory serves as a broadcast.  Tensor-core (mma s8) tiling is left
-// for a later change.
+// The design: a block takes one 128-row slice of a range tile, so all its
+// rows share the tile's class segment, and searches it whole with
+// search_mma.cuh's tensor-core mainloop (the one K2 runs over a split of the
+// segment and K3 over all columns), writing each row's (q, idx) directly:
+// one launch, nothing read back, no partials.  What bounds it on the card:
+// the epilogue, about eight to forty instructions of key and argmax a pair
+// after the 2K int8 operations on the tensor cores, not memory.  A search
+// with few range tiles (a quadtree level, a small plane) leaves SMs idle:
+// K1 cannot split a segment, which is K2's work.
 
-#include "search_common.cuh"
+#include "search_mma.cuh"
 
 namespace {
 
 using namespace fe;
 
 template <int K, int M, bool Frontier>
-__global__ void __launch_bounds__(kRows)
-search_classed_kernel(const int4* __restrict__ ai,      // [r_pad] rows of K int8
-                      const int4* __restrict__ ch,      // [m_pad] rows of K int8
-                      const int4* __restrict__ cl,      // [m_pad] rows of K int8
-                      const float* __restrict__ sb,     // [m_pad] SumB
-                      const void* __restrict__ aux,     // [m_pad] f32 inv_var_b or SumB2;
-                                                        // double SumB2 (exact keys)
+__global__ void __launch_bounds__(mma::kThreads<K>)
+search_classed_kernel(const int* __restrict__ ai,            // [r_pad] rows of K int8
+                      const signed char* __restrict__ ch,    // [m_pad] rows of K int8
+                      const signed char* __restrict__ cl,    // [m_pad] rows of K int8
+                      const float* __restrict__ sb,          // [m_pad] SumB
+                      const void* __restrict__ aux,          // [m_pad] f32 inv_var_b or SumB2;
+                                                             // double SumB2 (exact keys)
                       const int* __restrict__ tile_class,      // [nrt]
                       const int* __restrict__ col_tile_start,  // [nc]
                       const int* __restrict__ col_end,         // [nc]
@@ -60,23 +60,24 @@ search_classed_kernel(const int4* __restrict__ ai,      // [r_pad] rows of K int
                       int block_r, int block_m, KeyParams p,
                       float* __restrict__ q_out,        // [r_pad]
                       int* __restrict__ idx_out) {      // [r_pad]
-  __shared__ Chunk<K, M, false> s;
-  const int tile = blockIdx.x;
-  const int local = blockIdx.y * kRows + threadIdx.x;
-  const bool in_tile = local < block_r;
-  const long long row = (long long)tile * block_r + local;
-  const int cls = tile_class[tile];
-  const bool active = in_tile && (!Frontier || row < row_end[cls]);
-  const Row<K> r = load_row<K, M, Frontier>(ai, row, active, p);
-  float best_q = kInitQ;
-  int best_idx = 0;
-  scan_columns<K, M, false, Frontier>(s, r, active, 0, ch, cl, sb, aux, nullptr,
-                            col_tile_start[cls] * block_m, col_end[cls], p, best_q,
-                            best_idx);
-  if (in_tile) {
-    q_out[row] = best_q;
-    idx_out[row] = best_idx;
-  }
+  extern __shared__ int4 smem[];
+  auto& sm = *reinterpret_cast<mma::Smem<K, M, false, Frontier>*>(smem);
+  const int cls = tile_class[blockIdx.x];
+  const int slice = blockIdx.y * mma::kBlockRows;  // the block's first row in the tile
+  const long long row0 = static_cast<long long>(blockIdx.x) * block_r + slice;
+  const int n_load = min(mma::kBlockRows, block_r - slice);
+  const int n_active = Frontier ? static_cast<int>(max(0LL, min(static_cast<long long>(n_load),
+                                                                row_end[cls] - row0)))
+                                : n_load;
+  float* __restrict__ q = q_out + row0;
+  int* __restrict__ idx = idx_out + row0;
+  mma::search_rows<K, M, false, Frontier>(
+      sm, ai, row0, n_load, n_active, nullptr, ch, cl, sb, aux, nullptr,
+      col_tile_start[cls] * block_m, col_end[cls], p,
+      [&](int local, float best_q, int best_idx, bool) {
+        q[local] = best_q;
+        idx[local] = best_idx;
+      });
 }
 
 template <int K, int M, bool Frontier>
@@ -85,10 +86,13 @@ int launch(const void* ai, const void* ch, const void* cl, const void* sb,
            const void* col_end, const void* row_end, int nrt, int block_r, int block_m, const KeyParams& p,
            void* q_out, void* idx_out, void* stream) {
   if (nrt <= 0 || block_r <= 0) return 0;
-  const dim3 grid(nrt, (block_r + kRows - 1) / kRows);
-  search_classed_kernel<K, M, Frontier><<<grid, kRows, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int4*>(ai), static_cast<const int4*>(ch),
-      static_cast<const int4*>(cl), static_cast<const float*>(sb),
+  const auto kernel = search_classed_kernel<K, M, Frontier>;
+  constexpr size_t smem = sizeof(mma::Smem<K, M, false, Frontier>);
+  if (const int err = mma::allow_smem(kernel, smem)) return err;
+  const dim3 grid(nrt, (block_r + mma::kBlockRows - 1) / mma::kBlockRows);
+  kernel<<<grid, mma::kThreads<K>, smem, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int*>(ai), static_cast<const signed char*>(ch),
+      static_cast<const signed char*>(cl), static_cast<const float*>(sb),
       aux, static_cast<const int*>(tile_class),
       static_cast<const int*>(col_tile_start), static_cast<const int*>(col_end),
       static_cast<const int*>(row_end), block_r, block_m, p, static_cast<float*>(q_out),

@@ -1,15 +1,10 @@
 // Device code shared by the port's search kernels: search_classed.cu (K1,
 // the class-blocked search), search_classed2d.cu (K2, the same search split
-// across blocks) and search_dense.cu (K3, the dense search).  The keys, the
-// row sums and the frontier's hit test here serve all three; K2 and K3 form
-// their dots on the tensor cores (search_mma.cuh), K1 with scan_columns.
-//
-// scan_columns gives one thread one range row (its K int8 values in K/16
-// int4 registers) and streams a column segment through shared memory in
-// chunks.  Each thread scans the columns in ascending order and keeps the
-// best key with a strict '>', so the first occurrence of the max wins,
-// exactly as in the TPU kernels' min-index-of-max, and no reduction across
-// threads is needed.
+// across blocks), search_dense.cu (K3, the dense search) and micro_step.cu
+// (K4/K5, the pair-list step microbenchmark).  The keys, the row sums and
+// the frontier's hit test here serve all of them; K1, K2 and K3 form their
+// dots on the tensor cores (search_mma.cuh), K4/K5 with dp4a (load_row, a
+// Chunk of columns in shared memory and one thread per range row).
 //
 // The rank keys are bit for bit those of the plain PyTorch version
 // (ops/matcher_kernels.py, `_rank_ls_int8`, `_rank_tile` and `_rank_exact`):
@@ -387,111 +382,6 @@ __device__ __forceinline__ void stage_column(S& s, int j, const ColumnIn& in) {
     s.var_b[j] = __fsub_rn(__fmul_rn(n, in.a), __fmul_rn(b, b));
   }
   if constexpr (Masked) s.cls[j] = in.cls;
-}
-
-// Scans columns [start, end) (the same for every thread of the block) for
-// row `r`, updating (best_q, best_idx) with a strict '>'.  With Masked, only
-// columns whose class equals `row_cls` compete: the TPU kernel gives the
-// others q = -3e38, which can never pass the strict '>' against a best that
-// starts there, so skipping them is the same.  With Frontier, the groups of
-// p.t_n columns start at `start` and every chunk holds whole groups; a row
-// stops after its first group with a hit, and the block stops loading chunks
-// once all its rows have (inactive rows, past the block's end or, in K1, the
-// class layout's padding rows, count as stopped).  Returns whether the row
-// stopped: for an active row with Frontier, whether its scan hit (K2 keeps it
-// per split); K1 and K3 ignore it.
-template <int K, int M, bool Masked, bool Frontier>
-__device__ __forceinline__ bool scan_columns(
-    Chunk<K, M, Masked>& s, const Row<K>& r, bool active, int row_cls,
-    const int4* __restrict__ ch, const int4* __restrict__ cl,
-    const float* __restrict__ sb, const void* __restrict__ aux_v,
-    const int* __restrict__ ccls, int start, int end, const KeyParams& p,
-    float& best_q, int& best_idx) {
-  static_assert(!(Masked && Frontier), "the frontier has no class-masked scan");
-  constexpr int kW = K / 16;
-  constexpr int kN = kChunkCols<K>;
-  const int step = Frontier ? kN - kN % p.t_n : kN;
-  bool done = !active;
-  for (int c0 = start; c0 < end; c0 += step) {
-    const int n_cols = min(step, end - c0);
-    // the previous chunk is no longer being read; with the frontier the
-    // same block-wide barrier tells whether any row still scans
-    if constexpr (Frontier) {
-      if (!__syncthreads_or(!done)) break;
-    } else {
-      __syncthreads();
-    }
-    for (int j = threadIdx.x; j < n_cols * kW; j += kRows) {
-      s.ch[j] = ch[(long long)c0 * kW + j];
-      s.cl[j] = cl[(long long)c0 * kW + j];
-    }
-    for (int j = threadIdx.x; j < n_cols; j += kRows) {
-      stage_column<K, M, Masked>(s, j, load_column<K, M, Masked>(c0 + j, sb, aux_v, ccls));
-    }
-    __syncthreads();
-    if (done) continue;
-    // Frontier: the group-local best, whether the group hit, columns left
-    float group_q = kInitQ;
-    int group_idx = 0;
-    bool group_hit = false;
-    int left = p.t_n;
-    // Four columns in flight per thread: the scan is one thread's serial
-    // chain, so where few warps share an SM (the quadtree's levels) it is
-    // latency-bound.  On an H100 80GB HBM3 (700 W) this took K1 at K = 256 on the 2048^2 16 px
-    // level from 2.94 to 1.91 ms, at K = 64 from 3.17 to 2.78 ms, and left
-    // K = 16 within 1%.
-#pragma unroll 4
-    for (int j = 0; j < n_cols; ++j) {
-      if constexpr (Masked) {
-        if (s.cls[j] != row_cls) continue;
-      }
-      // two accumulators per operand so consecutive dp4a do not wait
-      int dh[2] = {0, 0};
-      int dl[2] = {0, 0};
-#pragma unroll
-      for (int w = 0; w < kW; ++w) {
-        const int4 h = s.ch[j * kW + w];
-        const int4 l = s.cl[j * kW + w];
-        int& eh = dh[w & 1];
-        int& el = dl[w & 1];
-        eh = __dp4a(r.a[w].x, h.x, eh);
-        eh = __dp4a(r.a[w].y, h.y, eh);
-        eh = __dp4a(r.a[w].z, h.z, eh);
-        eh = __dp4a(r.a[w].w, h.w, eh);
-        el = __dp4a(r.a[w].x, l.x, el);
-        el = __dp4a(r.a[w].y, l.y, el);
-        el = __dp4a(r.a[w].z, l.z, el);
-        el = __dp4a(r.a[w].w, l.w, el);
-      }
-      const int dot = 8 * (dh[0] + dh[1]) + (dl[0] + dl[1]);
-      const float q = rank_key<K, M, Masked>(dot, j, s, r, p);
-      if constexpr (Frontier) {
-        // predicated, with no exit from the unrolled loop and a per-column
-        // chain as short as the plain scan's, so that nvcc still overlaps
-        // four columns; a row that is done idles to the chunk's end
-        const bool hit = q >= r.hit_q;
-        if (hit || q > group_q) {  // a hit restarts the group-local best
-          group_q = q;
-          group_idx = c0 + j;
-        }
-        group_hit |= hit;
-        if (--left == 0) {  // the group ends here
-          if (!done && group_q > best_q) {
-            best_q = group_q;
-            best_idx = group_idx;
-          }
-          done |= group_hit;
-          group_q = kInitQ;
-          group_hit = false;
-          left = p.t_n;
-        }
-      } else if (q > best_q) {  // strict: the first occurrence of the max wins
-        best_q = q;
-        best_idx = c0 + j;
-      }
-    }
-  }
-  return done;
 }
 
 }  // namespace fe

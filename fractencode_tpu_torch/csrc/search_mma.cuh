@@ -1,12 +1,14 @@
-// The tensor-core mainloop of the dense search (search_dense.cu, K3) and the
-// split class-blocked search (search_classed2d.cu, K2): the same function as
-// search_common.cuh's scan_columns, bit for bit, with the dots on the tensor
-// cores.
+// The tensor-core mainloop of the port's searches: the class-blocked search
+// (search_classed.cu, K1, over a range tile's whole class segment), its
+// split form (search_classed2d.cu, K2, over one split of it) and the dense
+// search (search_dense.cu, K3, over all columns, with an optional class
+// mask).  Each row's first-occurrence argmax of search_common.cuh's keys,
+// with or without its frontier, bit for bit the plain version's.
 //
 // Every key is a function of one exact integer per (row, column) pair,
 // dot = sum_k ai * (8 ch + cl).  An s8 x s8 -> s32 tensor-core product gives
 // dh = ai . ch and dl = ai . cl exactly (mma.sync m16n8k32, m16n8k16 at
-// K = 16), and dot = 8 dh + dl as in the dp4a scan; the epilogue then calls
+// K = 16), and dot = 8 dh + dl as in the plain version; the epilogue calls
 // search_common.cuh's rank_key on it, so there is one definition of each key.
 //
 // A block takes 128 range rows: four warps of 32 rows (two m16 tiles) at
@@ -55,7 +57,7 @@
 namespace fe {
 namespace mma {
 
-constexpr int kBlockRows = 128;  // range rows per block (K2's tile slice)
+constexpr int kBlockRows = 128;  // range rows per block (K1/K2: a tile slice)
 // m16 tiles of rows per warp, warps and threads per block
 template <int K>
 constexpr int kTiles = K == 256 ? 1 : 2;

@@ -108,7 +108,7 @@ CT_BITS = 12
 # Columns K2 stages in shared memory per pass, by K (mma::kCols in
 # csrc/search_mma.cuh): its splits hold at least one.
 _CHUNK_COLS = {16: 512, 64: 128, 256: 64}
-# Range rows per K2 block (mma::kBlockRows in csrc/search_mma.cuh)
+# Range rows per K1 and K2 block (mma::kBlockRows in csrc/search_mma.cuh)
 _KROWS = 128
 # K2's blocks per SM when it chooses its split width (search_classed2d_cuda)
 _BLOCKS_PER_SM = 4

@@ -199,6 +199,50 @@ def test_classed_keys_match_plain(cuda, case):
     assert_bitwise(i_k, i_p, "idx")
 
 
+@pytest.mark.parametrize("t_n", [1, None], ids=["t1", "own"])
+@pytest.mark.parametrize("block_r", [8, 40])
+@pytest.mark.parametrize("frontier", [False, True], ids=["plain", "thr"])
+@pytest.mark.parametrize("case", CASES, ids=lambda c: f"{c[0]}{c[1]}")
+def test_classed_kernel_ragged_empty_class(cuda, case, frontier, block_r, t_n):
+    """Every K1 instance (each key and K, plain and `_thr`) at a ragged
+    block_r (range tiles of 8 and 40 rows: one partial block of the
+    mainloop's 128 rows each), at one isometry and at the geometry's own,
+    on 8-column tiles, with the first tile's class given an empty column
+    segment: (q, idx) of every sorted row bitwise against the plain
+    version, and that class's rows (-3e38, 0)."""
+    key, k = case
+    cfg = _case_cfg(key, k, rms_threshold=10.0 if frontier else 0.0)
+    if t_n is not None:
+        cfg = dataclasses.replace(cfg, num_transforms=t_n)
+    prep = _prep(_smooth(128, 21), cfg, cuda, block_r=block_r, block_m=8)
+    c = int(prep["tile_class"][0])
+    col_end = prep["col_end"].clone()
+    col_end[c] = prep["col_tile_start"][c] * prep["block_m"]
+    prep = dict(prep, col_end=col_end)
+    mode, area = key.split("-")[0], cfg.source_size ** 2
+    before = mk.search_classed_cuda.launches[(mode, k, frontier)]
+    q_k, i_k = tm.classed_kernel(prep, k, area, cfg)
+    assert mk.search_classed_cuda.launches[(mode, k, frontier)] == before + 1
+    q_p, i_p = tm.classed_kernel(prep, k, area, dataclasses.replace(cfg, backend="torch"))
+    torch.cuda.synchronize()
+    assert_bitwise(q_k, q_p, "q")
+    assert_bitwise(i_k, i_p, "idx")
+    empty = (prep["tile_class"] == c).repeat_interleave(block_r)
+    assert bool((q_k[empty] == -3.0e38).all()) and not bool(i_k[empty].any())
+    assert bool((q_k[~empty] > -3.0e38).any())
+
+
+def test_classed_library_runs_on_tensor_cores(cuda):
+    """The built K1 library's SASS holds tensor-core products (IMMA) and no
+    dp4a (IDP.4A), counted as chip_smoke.py's phase 1 counts them."""
+    import chip_smoke
+    from fractencode_tpu_torch.ops import _build
+
+    _build.load_library("search_classed")
+    counts = chip_smoke.sass_counts(_build._library("search_classed"))
+    assert counts["IMMA"] > 0 and counts["IDP4A"] == 0, counts
+
+
 @pytest.mark.parametrize("operands", OPERANDS)
 @pytest.mark.parametrize("masked", [False, True])
 @pytest.mark.parametrize("case", CASES, ids=lambda c: f"{c[0]}{c[1]}")

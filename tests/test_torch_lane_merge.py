@@ -1,7 +1,7 @@
-"""The search order of the tensor-core K2 and K3 (csrc/search_mma.cuh),
+"""The search order of the tensor-core K1, K2 and K3 (csrc/search_mma.cuh),
 emulated in plain PyTorch on the CPU and held against the plain searches
-(``ops/matcher_kernels._plain_search`` through ``search_dense_torch`` and
-``search_classed2d_torch``).
+(``ops/matcher_kernels._plain_search`` through ``search_dense_torch``,
+``search_classed_torch`` and ``search_classed2d_torch``).
 
 The CUDA kernels cannot run here, so this pins the rule they implement:
 columns in chunks, each split into n8 tiles whose columns 2t and 2t + 1 sit
@@ -11,8 +11,11 @@ equal q); with the frontier, chunks and sub-blocks of whole groups and n8
 tiles, a sub-block where a row has no hit continuing the row's lane bests
 and the one where it first hits scanned in column order with the group
 logic, its result merged last; K2's partials per split reduced in split
-order up to the first split that hit.  (The kernel's check of a step's
-maximum before its exact update changes no result and is not emulated.)
+order up to the first split that hit; K1's blocks searching a range
+tile's whole class segment and writing each row's result directly.  (The
+kernel's check of a step's maximum before its exact update, and a warp's or
+block's stop once all its rows are done, change no result and are not
+emulated.)
 
 The keys come from a small table indexed by the exact dot (the plain
 search's 'ls' key patched to it), so ties are everywhere and +0 and -0 both
@@ -290,3 +293,67 @@ def test_classed2d_merge_matches_plain(block_r, frontier, splits):
     assert_same(q_e, i_e, q_p, i_p)
     empty = (tile_class == 1).repeat_interleave(block_r)
     assert bool((q_p[empty] == K_INIT).all())
+
+
+# K1's chunks: mma::kCols at K = 16 (512, and 128 with the frontier) and a
+# smaller one, so that a segment spans several chunks; t_n 1 to 8 with the
+# frontier (groups that straddle n8 tiles, sub-blocks and chunks)
+K1_SCANS = ([(False, chunk, 4) for chunk in (64, 512)]
+            + [(True, 128, t_n) for t_n in range(1, 9)] + [(True, 64, 3)])
+
+
+def k1_layout(block_r: int, t_n: int):
+    """A class-sorted layout: five classes over eight range tiles of
+    ``block_r`` rows (class 1 with no columns, class 3's last tile half
+    padding) and segments of whole groups of ``t_n`` on 8-column tiles:
+    59, 0, 15, 40 and 3 groups (the last shorter than one chunk)."""
+    tile_class = torch.tensor([0, 0, 1, 2, 3, 3, 4, 4], dtype=torch.int32)
+    block_m, at, starts, ends = 8, 0, [], []
+    for groups in (59, 0, 15, 40, 3):
+        starts.append(at // block_m)
+        ends.append(at + groups * t_n)
+        at = -(-ends[-1] // block_m) * block_m
+    row_end = torch.tensor([2, 3, 4, 5.5, 8]) * block_r
+    return (tile_class, torch.tensor(starts, dtype=torch.int32),
+            torch.tensor(ends, dtype=torch.int32), row_end.to(torch.int32), block_m, at)
+
+
+@pytest.mark.parametrize("frontier,chunk,t_n", K1_SCANS,
+                         ids=[f"{'thr' if f else 'plain'}-c{c}-t{t}" for f, c, t in K1_SCANS])
+@pytest.mark.parametrize("block_r", [8, 24, 128])
+def test_classed_direct_write_matches_plain(block_r, frontier, chunk, t_n):
+    """K1: a block per 128-row slice of a range tile searches the tile's
+    whole class segment by the kernel's order (without the frontier every
+    row of the slice, padding rows too; with it only the rows below
+    row_end) and writes each row's (q, idx) directly; that gives the plain
+    K1 result.  A class with no columns and the padding rows under the
+    frontier keep (-3e38, 0)."""
+    tile_class, cts, col_end, row_end, block_m, cols = k1_layout(block_r, t_n)
+    rows = tile_class.shape[0] * block_r
+    ai, ch, cl, sb, aux, sa, sa2 = operands(rows, cols, seed=block_r + t_n)
+    q, hit = key_matrix(ai, ch, cl, sa, sa2)
+    q_p, i_p = mk.search_classed_torch(ai, ch, cl, sb, aux, tile_class, cts, col_end,
+                                       row_end, block_r=block_r, block_m=block_m, sa_s=sa,
+                                       sa2_s=sa2, threshold=THRESHOLD if frontier else 0.0,
+                                       t_n=t_n, **KW)
+    q_e = torch.full((rows,), K_INIT)
+    i_e = torch.zeros(rows, dtype=torch.int64)
+    for tile, c in enumerate(tile_class.tolist()):
+        start, end = int(cts[c]) * block_m, int(col_end[c])
+        for slice0 in range(0, block_r, 128):  # the grid's row slices of the tile
+            r0 = tile * block_r + slice0
+            n_load = min(128, block_r - slice0)
+            n_active = (max(0, min(n_load, int(row_end[c]) - r0)) if frontier else n_load)
+            if n_active == 0:
+                continue
+            r1 = r0 + n_active
+            pq, pi, _ = emulate(q[r0:r1], hit[r0:r1], None, start, end, chunk, frontier, t_n)
+            q_e[r0:r1], i_e[r0:r1] = pq, pi  # the direct write
+    assert_same(q_e, i_e, q_p, i_p)
+    empty = (tile_class == 1).repeat_interleave(block_r)
+    assert bool((q_p[empty] == K_INIT).all()) and not bool(i_p[empty].any())
+    if frontier:  # class 3's padding rows
+        padding = torch.arange(rows)
+        padding = (padding >= int(row_end[3])) & (padding < 6 * block_r)
+        assert bool((q_p[padding] == K_INIT).all()) and not bool(i_p[padding].any())
+        assert 0 < int(hit.any(1).sum())
