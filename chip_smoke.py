@@ -2,16 +2,19 @@
 """Smoke run of the PyTorch port (fractencode_tpu_torch) on one CUDA card.
 
     python3 chip_smoke.py
-    python3 chip_smoke.py --dp4a DIR   # also time K1/K2/K3's dp4a design
+    python3 chip_smoke.py --dp4a DIR   # also time every kernel against DIR's build
 
 Phases, each of which must pass (any failure exits non-zero):
   1. build the CUDA kernels from csrc/ (search_classed.cu, K1,
      search_classed2d.cu, K2, search_dense.cu, K3, and micro_step.cu, K4
      and K5: one nvcc each, in parallel, into build/kernels/), print each
      instantiation's registers and spills from ptxas' report, one line per
-     tensor-core library (K1, K2, K3) with its SASS counts of tensor-core
-     (IMMA, HGMMA, IGMMA) and dp4a (IDP.4A) instructions, of which it must
-     hold some IMMA and no dp4a, and the card's name and power limit;
+     library (all four on the tensor-core mainloop) with its SASS counts of
+     tensor-core (IMMA, HGMMA, IGMMA) and dp4a (IDP.4A) instructions, of
+     which it must hold some IMMA and no dp4a, and the card's name and power
+     limit; with --dp4a DIR also DIR's builds' counts, and for each search
+     library (K1, K2, K3) whether its SASS is identical to DIR's build of
+     the same source, or how many lines differ;
   2. K1 parity at K = 16: the search kernel against its plain PyTorch
      version on the same class-sorted tensors at 512^2 and 2048^2, (q, idx)
      bitwise equal, with both times (CUDA events, median of 5 after a
@@ -100,8 +103,13 @@ Phases, each of which must pass (any failure exits non-zero):
      micro_kernel: 8 x 64 tiles of 512 x 4096 at K = 16), each of the five
      instances against its plain version at 1 and 4 repetitions of the
      list, (q, idx) bitwise; K5 against K4 'full' and 4 repetitions against
-     1, bitwise; every instance on a small list of ties; then the
-     microbenchmark's main (the path `micro_kernel`), whose lines it prints.
+     1, bitwise; every instance on a small list of ties; the five timed in
+     turns (1 and 4 repetitions, medians of 7), and the split of K1's step
+     they give: products ('matmul'), key ('noargpass' - 'matmul'), argmax
+     ('full' - 'noargpass'), the one-pass argmax ('packed' - 'noargpass')
+     and K5's transposed staging (K5 - 'full'), in us a step and as shares
+     of 'full'; then the microbenchmark's main (the path `micro_kernel`),
+     whose lines it prints.
 Every path is driven with the launch counts set to 0 just before it and
 read just after; each must launch the kernels it names.  Each search
 kernel's record keeps the times of its last parity check, which is at the
@@ -110,18 +118,20 @@ int8 operations per (range, column) pair the search needs (the data's own
 count with the frontier; the class layout's padding rows and columns are
 not counted) over the H100 SXM's 1,979 TOP/s and the bytes of its ranges,
 columns and results (``search_bytes``) over 3.35 TB/s.  K4's and K5's
-records: the time of one repetition of the list (CUDA events, median of 5),
-the per-step µs from 4 repetitions and 1, and the bound of one repetition
-(every range tile against every column tile once).
+records: the time of one repetition of the list (CUDA events, the median in
+turns), the per-step µs from 4 repetitions and 1, and the bound of one
+repetition (every range tile against every column tile once).
 K2 `ls16`'s record times the 8192^2 default path's whole launch against its
 bound; its plain time is the sample's (the plain version of the whole
 plane would take minutes), kept with the sample's kernel time and bound as
 sample_ms and sample_bound_ms.  With --dp4a DIR (a csrc/ directory holding
-search_classed.cu, search_classed2d.cu and search_dense.cu of the dp4a
-design, before the tensor-core mainloop, e.g. `git archive 033dc3f
-fractencode_tpu_torch/csrc`), each K1, K2 and K3 record's kernel time is
-taken in turns with that design's (kernel, dp4a, dp4a, kernel; medians of
-5), whose time goes into dp4a_ms, and the two must agree bitwise.
+search_classed.cu, search_classed2d.cu, search_dense.cu and micro_step.cu
+of an earlier design, e.g. `git archive 7d5a7d9 fractencode_tpu_torch/csrc`,
+where micro_step.cu is still the dp4a design and the searches are this
+mainloop, or 033dc3f's, where all four are the dp4a design), each kernel's
+time is also taken in turns with DIR's build (this, DIR's, DIR's, this;
+medians of 5; K4 and K5 at 1 and 4 repetitions), whose time goes into
+dp4a_ms (K4/K5 also dp4a_step_us), and the two must agree bitwise.
 No single PyTorch call gives a search's (q, idx), so library_ms is null;
 K4 'matmul''s is torch._int_mm's int8 products of each range tile against
 all columns with the row max, which writes the products out.  Plain timings
@@ -155,9 +165,11 @@ SOURCES = {"search_classed": "fractencode_tpu_torch/csrc/search_classed.cu",
            "search_dense": "fractencode_tpu_torch/csrc/search_dense.cu",
            "micro_step": "fractencode_tpu_torch/csrc/micro_step.cu"}
 # the sources on the tensor-core mainloop (csrc/search_mma.cuh): phase 1
-# counts their SASS instructions, and --dp4a times them against the dp4a
-# design in turns
-MMA_SOURCES = ("search_classed", "search_classed2d", "search_dense")
+# counts their SASS instructions, and --dp4a times them against the build
+# of the same source in DIR in turns; of these, the searches' SASS is also
+# compared with DIR's
+MMA_SOURCES = ("search_classed", "search_classed2d", "search_dense", "micro_step")
+SEARCH_SOURCES = MMA_SOURCES[:3]
 # The line of the TPU kernel each kernel key replaces: _pairs_kernel (K1),
 # _classed_kernel (K2) and _search_kernel (K3); 'ls' at K = 64 is their
 # ls_fast int8 branch (K2's serves K = 16 too), 'raw' and 'general' their
@@ -272,7 +284,7 @@ def ptxas_report(text):
             while d := re.match(r"\d+", rest):
                 end = d.end() + int(d.group())
                 name, rest = rest[d.end():end], rest[end:]
-            targs = re.findall(r"L[ib](\d+)E", rest)
+            targs = re.findall(r"L(?:[ib]|N\w+?E)(\d+)E", rest)  # int, bool, enum
             if targs and name.startswith("micro_step"):
                 variant, transposed = targs[:2]
                 name += (f" {('full', 'noargpass', 'packed', 'matmul')[int(variant)]}"
@@ -295,16 +307,40 @@ def ptxas_report(text):
     return lines
 
 
-def sass_counts(lib) -> dict:
-    """The tensor-core and dp4a instructions in a built library's SASS
-    (``cuobjdump -sass``, from the toolkit beside nvcc)."""
+def sass(lib) -> str:
+    """A built library's SASS (``cuobjdump -sass``, from the toolkit beside
+    nvcc)."""
     from fractencode_tpu_torch.ops import _build
 
     tool = os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump")
-    sass = subprocess.run([tool, "-sass", str(lib)], capture_output=True, text=True,
+    return subprocess.run([tool, "-sass", str(lib)], capture_output=True, text=True,
                           check=True).stdout
-    ops = re.findall(r"^\s+/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)", sass,
-                     re.M)
+
+
+def sass_diff(lib, other) -> int:
+    """The lines by which two libraries' SASS differ (each kernel's name, its
+    instructions and their encodings; 0: identical).  The hashes that nvcc
+    puts in an anonymous namespace's name, which follow the source's path,
+    are left out."""
+    import difflib
+
+    def code(lib):
+        return [re.sub(r"\d+_GLOBAL__N__[0-9a-f]{8}_\d+_(\w+?)_cu_[0-9a-f]{8}",
+                       r"_GLOBAL__N__\1", line.strip())
+                for line in sass(lib).splitlines()
+                if re.match(r"\s*(Function :|/\*[0-9a-f]{4,}\*/|/\* 0x)", line)]
+
+    a, b = code(lib), code(other)
+    if a == b:
+        return 0
+    return sum(1 for line in difflib.unified_diff(a, b, lineterm="", n=0)
+               if line[:1] in "+-" and not line.startswith(("+++", "---")))
+
+
+def sass_counts(lib) -> dict:
+    """The tensor-core and dp4a instructions in a built library's SASS."""
+    ops = re.findall(r"^\s+/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)",
+                     sass(lib), re.M)
     heads = [op.split(".")[0] for op in ops]
     counts = {name: heads.count(name) for name in ("IMMA", "HMMA", "HGMMA", "IGMMA")}
     # dp4a is IDP.4A in Hopper's SASS
@@ -315,8 +351,8 @@ def sass_counts(lib) -> dict:
 
 @contextlib.contextmanager
 def dp4a_kernels(csrc):
-    """Launches of MMA_SOURCES go to the dp4a design built from ``csrc``
-    (the wrappers load their library by name on each launch)."""
+    """Launches of MMA_SOURCES go to their build from ``csrc`` (the wrappers
+    load their library by name on each launch)."""
     from fractencode_tpu_torch.ops import _build
 
     load = _build.load_library
@@ -329,9 +365,9 @@ def dp4a_kernels(csrc):
 
 
 def turns(run, what, csrc, reps=5):
-    """(the kernel's ms, the dp4a design's ms, built from ``csrc``): medians
-    of ``reps`` (CUDA events) in turns kernel, dp4a, dp4a, kernel, each the
-    mean of its two; the dp4a design's (q, idx) must equal the kernel's
+    """(the kernel's ms, the ms of its build from ``csrc``): medians of
+    ``reps`` (CUDA events) in turns kernel, csrc's, csrc's, kernel, each the
+    mean of its two; the (q, idx) of csrc's build must equal the kernel's
     bitwise."""
     new1, out = cuda_ms(run, reps)
     with dp4a_kernels(csrc):
@@ -339,7 +375,7 @@ def turns(run, what, csrc, reps=5):
         old2, _ = cuda_ms(run, reps)
     new2, _ = cuda_ms(run, reps)
     check(bitwise(out[0], old[0]) and bitwise(out[1], old[1]),
-          f"the dp4a design differs from the tensor-core one at {what}")
+          f"the --dp4a build differs from this one at {what}")
     return (new1 + new2) / 2, (old1 + old2) / 2
 
 
@@ -427,8 +463,8 @@ class Kernels:
         from fractencode_tpu_torch.ops import matcher_kernels as mk
         from fractencode_tpu_torch.ops import micro_kernels as mt
 
-        # a csrc/ directory with the dp4a design of MMA_SOURCES (the sources
-        # before the tensor-core mainloop), timed in turns; None: not timed
+        # a csrc/ directory with earlier designs of MMA_SOURCES, timed in
+        # turns; None: not timed
         self.dp4a = dp4a
         self.wrappers = {"search_classed": mk.search_classed_cuda,
                          "search_classed2d": mk.search_classed2d_cuda,
@@ -501,7 +537,7 @@ class Kernels:
         print(f"    {name} at {what}: {q_k.shape[0]} rows, (q, idx) bitwise equal; "
               f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms"
               + ("" if plain_reps > 1 else " (one run)")
-              + ("" if earlier is None else f", dp4a design {earlier:.4f} ms in turns")
+              + ("" if earlier is None else f", --dp4a build {earlier:.4f} ms in turns")
               + f"; {pairs} pairs, bound {bound_ms:.4f} ms ({bound_by})")
         rec = self.records[key]
         rec.update(max_abs_err=max(rec["max_abs_err"], err), ms=ms, plain_ms=plain_ms,
@@ -759,9 +795,25 @@ def micro_ties(ni: int, br: int, nj: int, bm: int):
     return ({k: torch.from_numpy(v).cuda() for k, v in ops.items()}, words, len(steps))
 
 
+def in_turns(runs, rounds=7):
+    """{key: ms}: the median over ``rounds`` of one timed run (CUDA events)
+    of each of ``runs`` (key -> fn), taken in turns, forward then backward,
+    after one warmup each."""
+    for fn in runs.values():
+        fn()
+    samples = {key: [] for key in runs}
+    order = list(runs)
+    for r in range(rounds):
+        for key in order if r % 2 == 0 else order[::-1]:
+            samples[key].append(cuda_ms(runs[key], reps=1)[0])
+    return {key: statistics.median(v) for key, v in samples.items()}
+
+
 def micro_phase(kernels):
     """Phase 19: K4's four instances and K5's against their plain version at
-    the JAX script's shapes and on ties; then the microbenchmark's main."""
+    the JAX script's shapes and on ties; their times in turns and the split
+    of K1's step they give (with --dp4a each also in turns with its --dp4a
+    build); then the microbenchmark's main."""
     import contextlib
     import io
 
@@ -781,12 +833,15 @@ def micro_phase(kernels):
     # one repetition of the list: every range tile against every column tile
     pairs = mkb.R_PAD * mkb.M_PAD
     bound_ms, bound_by = bound(pairs, mkb.K, search_bytes(mkb.R_PAD, mkb.M_PAD, mkb.K, False))
+    steps = mkb.NI * mkb.NJ * 3  # between 4 repetitions of the list and 1
+    runs = {(v, reps): (lambda v=v, reps=reps: micro(mt.micro_step_cuda, ins, v, *lists[reps]))
+            for v in mt.VARIANTS for reps in lists}
     out = {}
     for variant in mt.VARIANTS:
         key = ("micro_step", variant)
         rec = kernels.records[key]
         for reps, (words, n) in lists.items():
-            q_k, i_k = micro(mt.micro_step_cuda, ins, variant, words, n)
+            q_k, i_k = runs[variant, reps]()
             q_p, i_p = micro(mt.micro_step_torch, ins, variant, words, n)
             err = float((q_k.double() - q_p.double()).abs().max())
             rec["max_abs_err"] = max(rec["max_abs_err"], err)
@@ -800,19 +855,42 @@ def micro_phase(kernels):
         q_k, i_k = micro(mt.micro_step_cuda, ties[0], variant, *ties[1:], br=128, bm=1024)
         q_p, i_p = micro(mt.micro_step_torch, ties[0], variant, *ties[1:], br=128, bm=1024)
         check(bitwise(q_k, q_p) and bitwise(i_k, i_p), f"{rec['name']} differs on the ties")
-        ms, _ = cuda_ms(lambda: micro(mt.micro_step_cuda, ins, variant, *lists[1]))
-        ms4, _ = cuda_ms(lambda: micro(mt.micro_step_cuda, ins, variant, *lists[4]))
-        plain_ms, _ = cuda_ms(lambda: micro(mt.micro_step_torch, ins, variant, *lists[1]))
-        step_us = (ms4 - ms) / (mkb.NI * mkb.NJ * 3) * 1e3
-        rec.update(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
-                   step_us=step_us, step_bound_us=bound_ms / (mkb.NI * mkb.NJ) * 1e3)
-        print(f"    {rec['name']}: (q, idx) bitwise equal to plain at 1 and 4 repetitions "
-              f"and on the ties, 4 repetitions == 1; kernel {ms:.4f} ms a repetition "
-              f"({mkb.NI * mkb.NJ} steps; 4 repetitions {ms4:.4f} ms), plain {plain_ms:.4f} "
-              f"ms; {step_us:.4f} us a step; bound {bound_ms:.4f} ms ({bound_by}), "
-              f"{rec['step_bound_us']:.4f} us a step")
+        rec["plain_ms"], _ = cuda_ms(
+            lambda: micro(mt.micro_step_torch, ins, variant, *lists[1]))
     check(bitwise(out["full_t", 1][0], out["full", 1][0])
           and bitwise(out["full_t", 1][1], out["full", 1][1]), "K5 differs from K4 'full'")
+    print("    every instance: (q, idx) bitwise equal to plain at 1 and 4 repetitions and on "
+          "the ties, 4 repetitions == 1; K5 == K4 'full'")
+
+    ms = in_turns(runs)
+    us = {v: (ms[v, 4] - ms[v, 1]) / steps * 1e3 for v in mt.VARIANTS}
+    for variant in mt.VARIANTS:
+        rec = kernels.records[("micro_step", variant)]
+        rec.update(ms=ms[variant, 1], bound_ms=bound_ms, bound_by=bound_by,
+                   step_us=us[variant], step_bound_us=bound_ms / (mkb.NI * mkb.NJ) * 1e3)
+        line = (f"    {rec['name']}: kernel {ms[variant, 1]:.4f} ms a repetition "
+                f"({mkb.NI * mkb.NJ} steps; 4 repetitions {ms[variant, 4]:.4f} ms), "
+                f"{us[variant]:.4f} us a step (the five in turns, medians of 7), plain "
+                f"{rec['plain_ms']:.4f} ms; bound {bound_ms:.4f} ms ({bound_by}), "
+                f"{rec['step_bound_us']:.4f} us a step")
+        if kernels.dp4a:
+            new1, old1 = turns(runs[variant, 1], f"{rec['name']}, 1 repetition", kernels.dp4a)
+            new4, old4 = turns(runs[variant, 4], f"{rec['name']}, 4 repetitions", kernels.dp4a)
+            rec.update(dp4a_ms=old1, dp4a_step_us=(old4 - old1) / steps * 1e3)
+            line += (f"; against the --dp4a build in turns: {new1:.4f} vs {old1:.4f} ms a "
+                     f"repetition, {(new4 - new1) / steps * 1e3:.4f} vs "
+                     f"{rec['dp4a_step_us']:.4f} us a step, (q, idx) bitwise equal")
+        print(line)
+    split = {"products": us["matmul"], "key": us["noargpass"] - us["matmul"],
+             "argmax": us["full"] - us["noargpass"],
+             "one-pass argmax": us["packed"] - us["noargpass"],
+             "transposed staging": us["full_t"] - us["full"]}
+    kernels.records[("micro_step", "full")]["split_us"] = split
+    print("    K1's step split by K4's variants on the mainloop (us a step, share of 'full'): "
+          + "; ".join(f"{part} {v:.4f} ({v / us['full']:.1%})" for part, v in split.items())
+          + " (products: 'matmul'; key: 'noargpass' - 'matmul'; argmax: 'full' - "
+          "'noargpass'; one-pass argmax: 'packed' - 'noargpass'; transposed staging: K5 - "
+          "'full')")
 
     def int_mm_max():
         """The 'matmul' step's q by torch._int_mm: each range tile's int8
@@ -847,9 +925,10 @@ def micro_phase(kernels):
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description="Smoke run of the port on one CUDA card.")
-    ap.add_argument("--dp4a", metavar="DIR", help="a csrc/ directory with the dp4a design "
-                    "of search_classed.cu, search_classed2d.cu and search_dense.cu, timed "
-                    "against the tensor-core one in turns")
+    ap.add_argument("--dp4a", metavar="DIR", help="a csrc/ directory with earlier designs "
+                    "of search_classed.cu, search_classed2d.cu, search_dense.cu and "
+                    "micro_step.cu (e.g. micro_step.cu's dp4a design), timed against "
+                    "these in turns")
     dp4a = ap.parse_args(argv).dp4a
     import torch
 
@@ -896,8 +975,12 @@ def main(argv=None) -> int:
         _build.build(*MMA_SOURCES, csrc=dp4a)
         for name in MMA_SOURCES:
             counts = sass_counts(_build._library(name, dp4a))
-            print(f"    {name} (dp4a design, {dp4a}) SASS: "
+            print(f"    {name} ({dp4a}) SASS: "
                   + ", ".join(f"{op} {n}" for op, n in counts.items()))
+        for name in SEARCH_SOURCES:
+            n = sass_diff(_build._library(name), _build._library(name, dp4a))
+            print(f"    {name} SASS against {dp4a}'s build: "
+                  + ("identical" if n == 0 else f"{n} lines differ"))
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True,
                          check=True).stdout.strip().splitlines()[0]
@@ -1416,7 +1499,7 @@ def main(argv=None) -> int:
     def k1_vs_k2(prep, c, what, reps=5, k1_reps=None):
         """K1 and K2 on the same prep, (q, idx) bitwise, with both times (K1
         over ``k1_reps`` runs, ``reps`` by default; with --dp4a each also in
-        turns with its dp4a design)."""
+        turns with its --dp4a build)."""
         k, area = c.target_size ** 2, c.source_size ** 2
         k1 = dict(prep, route="search_classed")
         k2 = dict(prep, route="search_classed2d")
@@ -1436,9 +1519,9 @@ def main(argv=None) -> int:
         bound_ms, bound_by = bound(pairs, k, search_bytes(
             rows.shape[0], prep["b4_cols"].shape[0], k, prep["sa_s"] is not None))
         print(f"    {what}: K1 {ms1:.4f} ms"
-              + ("" if earlier1 is None else f" (dp4a design {earlier1:.4f} ms in turns)")
+              + ("" if earlier1 is None else f" (--dp4a build {earlier1:.4f} ms in turns)")
               + f", K2 {ms2:.4f} ms"
-              + ("" if earlier is None else f" (dp4a design {earlier:.4f} ms in turns)")
+              + ("" if earlier is None else f" (--dp4a build {earlier:.4f} ms in turns)")
               + f" ({plan['splits']} splits of "
               f"{plan['width']} columns over {plan['searched']} range tiles, partials "
               f"{plan['partial_bytes']} bytes; K1 "

@@ -2,14 +2,13 @@
 // the class-blocked search), search_classed2d.cu (K2, the same search split
 // across blocks), search_dense.cu (K3, the dense search) and micro_step.cu
 // (K4/K5, the pair-list step microbenchmark).  The keys, the row sums and
-// the frontier's hit test here serve all of them; K1, K2 and K3 form their
-// dots on the tensor cores (search_mma.cuh), K4/K5 with dp4a (load_row, a
-// Chunk of columns in shared memory and one thread per range row).
+// the frontier's hit test here serve all of them; each forms its dots on
+// the tensor cores, in search_mma.cuh's mainloop.
 //
 // The rank keys are bit for bit those of the plain PyTorch version
 // (ops/matcher_kernels.py, `_rank_ls_int8`, `_rank_tile` and `_rank_exact`):
-//   * every integer is exact: dot = sum_k ai * (8 ch + cl) (by dp4a, or by
-//     s8 tensor-core products), and
+//   * every integer is exact: dot = sum_k ai * (8 ch + cl) (by s8
+//     tensor-core products), and
 //     cov4 = n * dot + (128 n - SumA) * sb4, in int32 for K <= 64 and int64 at
 //     K = 256;
 //   * every float operation is written as an explicitly rounded intrinsic
@@ -58,7 +57,6 @@
 
 namespace fe {
 
-constexpr int kRows = 128;  // threads per block, one range row each
 constexpr float kInitQ = -3.0e38f;
 
 enum Mode : int { kLs = 0, kRaw = 1, kGeneral = 2 };
@@ -66,11 +64,6 @@ enum Mode : int { kLs = 0, kRaw = 1, kGeneral = 2 };
 // 'raw' and 'general' above K = 64 rank from exact integers.
 template <int K, int M>
 constexpr bool kExact = K > 64 && M != kLs;
-
-// Columns staged in shared memory per pass: 2K bytes of operands plus up to
-// 24 bytes of per-column sums, kept under the 48 KB of static shared memory.
-template <int K>
-constexpr int kChunkCols = K == 16 ? 512 : (K == 64 ? 256 : 64);
 
 // Per-call inputs of the 'general' key and of the frontier (unused otherwise).
 struct KeyParams {
@@ -85,25 +78,11 @@ struct KeyParams {
   int t_n;           // frontier: columns per group (isometries per domain)
 };
 
-// One shared-memory chunk of columns; arrays a key does not read shrink to 1.
-template <int K, int M, bool Masked>
-struct Chunk {
-  static constexpr int kW = K / 16;  // int4 words per row
-  static constexpr int kN = kChunkCols<K>;
-  static constexpr bool kX = kExact<K, M>;
-  int4 ch[kN * kW];
-  int4 cl[kN * kW];
-  int sb4[M == kRaw && !kX ? 1 : kN];        // 4 SumB (exact)
-  float aux[kX ? 1 : kN];                    // ls: inv_var_b / 16; raw, general: SumB2
-  float sb[M == kLs || kX ? 1 : kN];         // SumB
-  float var_b[M == kGeneral && !kX ? kN : 1];  // n SumB2 - SumB SumB
-  int sb2_16[kX ? kN : 1];                   // Exact: 16 SumB2
-  double var_bd[kX && M == kGeneral ? kN : 1];  // Exact 'general': var16 / 16
-  int cls[Masked ? kN : 1];                  // column class (K3's class mask)
-};
-
 template <int K>
 struct Row {
+  // the row's K int8 values: the mainloop keeps them in its A fragments and
+  // never sets these, but the field stays, as Row's layout steers how nvcc
+  // allocates the searches' registers
   int4 a[K / 16];
   int base;                   // 128 n - SumA ('ls', 'general')
   float sa, sa2, var_a, den;  // 'general' (sa, sa2 also for the frontier)
@@ -162,8 +141,7 @@ __device__ __forceinline__ float hit_key(const Row<K>& r, const KeyParams& p) {
 // the key's per-row values, and for the frontier its least hitting key.
 // SumA is rowsum plus 128 n for 'ls'; 'general' and the frontier read SumA
 // and SumA2 from their inputs, as the plain version does (they differ on the
-// layout's padding rows, whose ai is 0 but whose sums are 0).  `a` is left
-// to the caller.
+// layout's padding rows, whose ai is 0 but whose sums are 0).
 template <int K, int M, bool Frontier>
 __device__ __forceinline__ Row<K> row_sums(int rowsum, long long row, bool active,
                                            const KeyParams& p) {
@@ -202,28 +180,6 @@ __device__ __forceinline__ Row<K> row_sums(int rowsum, long long row, bool activ
   return r;
 }
 
-// Loads one range row: its K int8 values and row_sums, the byte sum by dp4a
-// against 0x01010101.
-template <int K, int M, bool Frontier>
-__device__ __forceinline__ Row<K> load_row(const int4* __restrict__ ai, long long row,
-                                           bool active, const KeyParams& p) {
-  constexpr int kW = K / 16;
-  int4 a[kW];
-  int rowsum = 0;
-#pragma unroll
-  for (int w = 0; w < kW; ++w) {
-    a[w] = active ? ai[row * kW + w] : make_int4(0, 0, 0, 0);
-    rowsum = __dp4a(a[w].x, 0x01010101, rowsum);
-    rowsum = __dp4a(a[w].y, 0x01010101, rowsum);
-    rowsum = __dp4a(a[w].z, 0x01010101, rowsum);
-    rowsum = __dp4a(a[w].w, 0x01010101, rowsum);
-  }
-  Row<K> r = row_sums<K, M, Frontier>(rowsum, row, active, p);
-#pragma unroll
-  for (int w = 0; w < kW; ++w) r.a[w] = a[w];
-  return r;
-}
-
 // s = 0 where |den| < 1e-5, else cov / den; then the |s| clamp.
 __device__ __forceinline__ float solve_s(float cov, float den, const KeyParams& p) {
   float s = fabsf(den) < 1e-5f ? 0.0f : __fdiv_rn(cov, den == 0.0f ? 1.0f : den);
@@ -234,7 +190,7 @@ __device__ __forceinline__ float solve_s(float cov, float den, const KeyParams& 
 // The 'general' key at K = 256 from the exact integers (matcher_kernels.
 // _rank_exact): s, o and the residual in double in the plain version's
 // order, one rounding to f32 at the end.
-template <int K, int M, bool Masked, class S = Chunk<K, M, Masked>>
+template <int K, int M, bool Masked, class S>
 __device__ __forceinline__ float general_exact(int dot, int ab4, int j, const S& s,
                                                const Row<K>& r, const KeyParams& p) {
   constexpr double inv_n = 1.0 / K;
@@ -274,8 +230,8 @@ __device__ __forceinline__ float general_exact(int dot, int ab4, int j, const S&
 }
 
 // The rank key of row `r` against staged column j, from the exact dot.  `s`
-// is a Chunk or any staging with its per-column arrays (search_mma.cuh).
-template <int K, int M, bool Masked, class S = Chunk<K, M, Masked>>
+// is a staging with its per-column arrays (search_mma.cuh's Cols).
+template <int K, int M, bool Masked, class S>
 __device__ __forceinline__ float rank_key(int dot, int j, const S& s, const Row<K>& r,
                                           const KeyParams& p) {
   constexpr float n = static_cast<float>(K);
@@ -356,14 +312,16 @@ __device__ __forceinline__ ColumnIn load_column(long long c, const float* __rest
   return in;
 }
 
-// Stages a column's values at slot j of `s` (a Chunk or any staging with its
-// arrays): 4 SumB and the key's aux, and what the key derives from them once
-// per column.
+// Stages a column's values at slot j of `s` (a staging with its per-column
+// arrays, search_mma.cuh's Cols): 4 SumB and the key's aux, and what the key
+// derives from them once per column.
 template <int K, int M, bool Masked, class S>
 __device__ __forceinline__ void stage_column(S& s, int j, const ColumnIn& in) {
   constexpr float n = static_cast<float>(K);
   const float b = in.b;
-  if constexpr (M != kRaw || kExact<K, M>) s.sb4[j] = static_cast<int>(4.0f * b);  // exact
+  // exact for the encoder's SumB (a multiple of 0.25); truncated toward zero
+  // otherwise, as the plain version's int32 cast truncates
+  if constexpr (M != kRaw || kExact<K, M>) s.sb4[j] = static_cast<int>(4.0f * b);
   if constexpr (kExact<K, M>) {
     const int sb2_16 = static_cast<int>(__dmul_rn(in.ad, 16.0));  // exact
     s.sb2_16[j] = sb2_16;

@@ -3,7 +3,10 @@
 // split form (search_classed2d.cu, K2, over one split of it) and the dense
 // search (search_dense.cu, K3, over all columns, with an optional class
 // mask).  Each row's first-occurrence argmax of search_common.cuh's keys,
-// with or without its frontier, bit for bit the plain version's.
+// with or without its frontier, bit for bit the plain version's.  The
+// pair-list step microbenchmark (micro_step.cu, K4 and K5) runs K1's step on
+// it with parts of the argmax removed (Policy) and, for K5, its operands
+// staged from the [K, M] layout.
 //
 // Every key is a function of one exact integer per (row, column) pair,
 // dot = sum_k ai * (8 ch + cl).  An s8 x s8 -> s32 tensor-core product gives
@@ -52,12 +55,14 @@
 // eight to forty more instructions a pair on the FP32 and integer pipes.
 #pragma once
 
+#include <climits>
+
 #include "search_common.cuh"
 
 namespace fe {
 namespace mma {
 
-constexpr int kBlockRows = 128;  // range rows per block (K1/K2: a tile slice)
+constexpr int kBlockRows = 128;  // range rows per block (K1/K2/K4: a tile slice)
 // m16 tiles of rows per warp, warps and threads per block
 template <int K>
 constexpr int kTiles = K == 256 ? 1 : 2;
@@ -97,7 +102,23 @@ template <int K, int M>
 constexpr bool kFastKey = (M == kLs || M == kRaw) && K <= 64;
 constexpr int kMagicBits = 0x4B400000;
 constexpr float kMagic = 12582912.0f;
-// The per-column values of one chunk, as a Chunk holds them (stage_column).
+
+// What a lane keeps of a row's keys and how the quad merges it: the searches'
+// own first-occurrence argmax, or the step microbenchmark's variants
+// (micro_step.cu), each with a part of it removed.
+//   Argmax     the strict '>' per lane behind the step-maximum check, then
+//              merge_best (K1, K2, K3; K4 'full' and K5);
+//   MaxOnly    the key's maximum by fmaxf, idx the first column `start`
+//              (K4 'noargpass');
+//   PackedMax  the int maximum of (bits(q) & ~4095) | (4095 - lane), lane
+//              the column's offset from `start` (below 4096), in one pass;
+//              the quad merges by the same maximum (K4 'packed');
+//   DotMax     f32(dot) in place of the key, read off the accumulators at
+//              K = 16, its maximum by fmaxf, idx `start`; no row sums and no
+//              column values are staged (K4 'matmul').
+enum class Policy : int { Argmax = 0, MaxOnly = 1, PackedMax = 2, DotMax = 3 };
+
+// The per-column values of one chunk (stage_column).
 template <int K, int M, bool Masked, int N>
 struct Cols {
   static constexpr bool kX = kExact<K, M>;
@@ -209,6 +230,27 @@ __device__ __forceinline__ void tile_dot(int (&d)[4], const int* a, const int* b
   }
 }
 
+// Columns 4g..4g+3 of a [16, m] int8 operand from its 16 rows' words w[k]
+// (bytes: columns 4g..4g+3 of row k): the four columns' 16-byte words, byte
+// k of column j being w[k]'s byte j.
+__device__ __forceinline__ void transpose_4cols(const int (&w)[16], int4 (&col)[4]) {
+  int out[4][4];  // [column][group of 4 rows]
+#pragma unroll
+  for (int g = 0; g < 4; ++g) {
+    const int w0 = w[4 * g], w1 = w[4 * g + 1], w2 = w[4 * g + 2], w3 = w[4 * g + 3];
+    const int lo01 = __byte_perm(w0, w1, 0x5140);  // w0.b0 w1.b0 w0.b1 w1.b1
+    const int hi01 = __byte_perm(w0, w1, 0x7362);  // w0.b2 w1.b2 w0.b3 w1.b3
+    const int lo23 = __byte_perm(w2, w3, 0x5140);
+    const int hi23 = __byte_perm(w2, w3, 0x7362);
+    out[0][g] = __byte_perm(lo01, lo23, 0x5410);  // w0.b0 w1.b0 w2.b0 w3.b0
+    out[1][g] = __byte_perm(lo01, lo23, 0x7632);  // w0.b1 w1.b1 w2.b1 w3.b1
+    out[2][g] = __byte_perm(hi01, hi23, 0x5410);
+    out[3][g] = __byte_perm(hi01, hi23, 0x7632);
+  }
+#pragma unroll
+  for (int j = 0; j < 4; ++j) col[j] = make_int4(out[j][0], out[j][1], out[j][2], out[j][3]);
+}
+
 // The larger q, the lower idx on equal q.
 __device__ __forceinline__ void merge_best(float& q, int& idx, float oq, int oidx) {
   if (oq > q || (oq == q && oidx < idx)) {
@@ -222,15 +264,26 @@ __device__ __forceinline__ void merge_best(float& q, int& idx, float oq, int oid
 // whole block.  With the frontier only the rows below n_active search; the
 // others count as stopped.  Calls write(local row, q, idx, hit) once for each
 // loaded row, `hit` whether its scan met the frontier.  Masked: a column
-// competes only where ccls[j] == rcls[row].
-template <int K, int M, bool Masked, bool Frontier, class Write>
+// competes only where ccls[j] == rcls[row].  Pol: what each lane keeps and
+// how the quad merges it (Policy).  Transposed: ch and cl are stored as
+// [16, m_t] (K = 16), and each chunk is staged through registers by
+// transpose_4cols into the layout that ldmatrix reads, in place of cp.async
+// (which cannot transpose): its words are loaded before the previous chunk
+// is searched and stored after it, as the column values are.
+template <int K, int M, bool Masked, bool Frontier, Policy Pol = Policy::Argmax,
+          bool Transposed = false, class Write>
 __device__ __forceinline__ void search_rows(
     Smem<K, M, Masked, Frontier>& sm, const int* __restrict__ ai, long long row0, int n_load,
     int n_active, const int* __restrict__ rcls, const signed char* __restrict__ ch,
     const signed char* __restrict__ cl, const float* __restrict__ sb,
     const void* __restrict__ aux, const int* __restrict__ ccls, int start, int end,
-    const KeyParams& p, Write write) {
+    const KeyParams& p, Write write, long long m_t = 0) {
   static_assert(!(Masked && Frontier), "the frontier has no class-masked scan");
+  static_assert(Pol == Policy::Argmax || !(Masked || Frontier),
+                "the step's variants search unmasked columns without the frontier");
+  static_assert(Pol != Policy::DotMax || (K == 16 && kFastKey<K, M>),
+                "DotMax reads f32(dot) off accumulators started at kMagicBits");
+  static_assert(!Transposed || (K == 16 && !Frontier), "the [16, m] layout is K5's");
   constexpr int kT = kTiles<K>;
   constexpr int kRW = 16 * kT;  // rows per warp
   constexpr int kN = kCols<K, Frontier>;
@@ -268,19 +321,21 @@ __device__ __forceinline__ void search_rows(
   Row<K> rw[kT][2];
   float base_f[kT][2];
   int rc[kT][2];
+  if constexpr (Pol != Policy::DotMax) {
 #pragma unroll
-  for (int mt = 0; mt < kT; ++mt) {
-    int ones[2 * (K == 16 ? 1 : K / 32)];
+    for (int mt = 0; mt < kT; ++mt) {
+      int ones[2 * (K == 16 ? 1 : K / 32)];
 #pragma unroll
-    for (int i = 0; i < 2 * (K == 16 ? 1 : K / 32); ++i) ones[i] = 0x01010101;
-    int s[4];
-    tile_dot<K>(s, a[mt], ones);
+      for (int i = 0; i < 2 * (K == 16 ? 1 : K / 32); ++i) ones[i] = 0x01010101;
+      int s[4];
+      tile_dot<K>(s, a[mt], ones);
 #pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int local = rows_local[mt][h];
-      rw[mt][h] = row_sums<K, M, false>(s[2 * h], row0 + local, local < n_load, p);
-      base_f[mt][h] = static_cast<float>(rw[mt][h].base);  // exact
-      rc[mt][h] = Masked && local < n_load ? rcls[row0 + local] : 0;
+      for (int h = 0; h < 2; ++h) {
+        const int local = rows_local[mt][h];
+        rw[mt][h] = row_sums<K, M, false>(s[2 * h], row0 + local, local < n_load, p);
+        base_f[mt][h] = static_cast<float>(rw[mt][h].base);  // exact
+        rc[mt][h] = Masked && local < n_load ? rcls[row0 + local] : 0;
+      }
     }
   }
 
@@ -323,43 +378,85 @@ __device__ __forceinline__ void search_rows(
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
       bq[mt][h] = kInitQ;
-      bi[mt][h] = 0;
+      bi[mt][h] = Pol == Policy::PackedMax ? INT_MIN : 0;
     }
 
   auto stage = [&](int buf, int c0, int n_cols) {  // columns [c0, c0 + n_cols) -> buf
-    for (int i = threadIdx.x; i < n_cols * (K / 16); i += kThreads<K>) {
-      const int j = i / (K / 16);
-      const int w = i - j * (K / 16);
-      const long long src = (static_cast<long long>(c0) + j) * K + 16 * w;
-      cp_async16(&sm.ch[buf][j * kS + 16 * w], ch + src);
-      cp_async16(&sm.cl[buf][j * kS + 16 * w], cl + src);
+    if constexpr (!Transposed) {
+      for (int i = threadIdx.x; i < n_cols * (K / 16); i += kThreads<K>) {
+        const int j = i / (K / 16);
+        const int w = i - j * (K / 16);
+        const long long src = (static_cast<long long>(c0) + j) * K + 16 * w;
+        cp_async16(&sm.ch[buf][j * kS + 16 * w], ch + src);
+        cp_async16(&sm.cl[buf][j * kS + 16 * w], cl + src);
+      }
+      cp_async_commit();
     }
-    cp_async_commit();
   };
   // the column values a thread stages per chunk: loaded into registers
   // before the previous chunk is searched, staged after it
   constexpr int kPer = (kN + kThreads<K> - 1) / kThreads<K>;
   ColumnIn col_in[kPer];
+  // Transposed: the groups of 4 columns a thread stages per chunk, and their
+  // 16 rows' words of ch and cl
+  constexpr int kPerT = Transposed ? (kN / 4 + kThreads<K> - 1) / kThreads<K> : 1;
+  int words[kPerT][2][16];
   auto load_cols = [&](int c0, int n_cols) {
+    if constexpr (Pol != Policy::DotMax) {
 #pragma unroll
-    for (int i = 0; i < kPer; ++i) {
-      const int j = threadIdx.x + i * kThreads<K>;
-      if (j < n_cols) {
-        col_in[i] = load_column<K, M, Masked>(static_cast<long long>(c0) + j, sb, aux, ccls);
+      for (int i = 0; i < kPer; ++i) {
+        const int j = threadIdx.x + i * kThreads<K>;
+        if (j < n_cols) {
+          col_in[i] = load_column<K, M, Masked>(static_cast<long long>(c0) + j, sb, aux, ccls);
+        }
+      }
+    }
+    if constexpr (Transposed) {  // a warp reads 128 adjacent bytes of a row at a time
+      const int* __restrict__ wh = reinterpret_cast<const int*>(ch);
+      const int* __restrict__ wl = reinterpret_cast<const int*>(cl);
+#pragma unroll
+      for (int i = 0; i < kPerT; ++i) {
+        const int g = threadIdx.x + i * kThreads<K>;
+        if (4 * g < n_cols) {
+#pragma unroll
+          for (int k = 0; k < 16; ++k) {
+            const long long at = k * (m_t / 4) + c0 / 4 + g;  // c0, m_t: multiples of 4
+            words[i][0][k] = wh[at];
+            words[i][1][k] = wl[at];
+          }
+        }
       }
     }
   };
   auto stage_cols = [&](int buf, int n_cols) {
-    auto& cs = sm.cols[buf];
+    if constexpr (Pol != Policy::DotMax) {
+      auto& cs = sm.cols[buf];
 #pragma unroll
-    for (int i = 0; i < kPer; ++i) {
-      const int j = threadIdx.x + i * kThreads<K>;
-      if (j < n_cols) {
-        stage_column<K, M, Masked>(cs, j, col_in[i]);
-        if constexpr (kFastKey<K, M> && M == kLs) {
-          cs.fb[j] = static_cast<float>(cs.sb4[j]);  // exact
-        } else if constexpr (kFastKey<K, M>) {  // both steps exact
-          cs.fb[j] = __fsub_rn(__fmul_rn(128.0f, cs.sb[j]), 0.25f * kMagic);
+      for (int i = 0; i < kPer; ++i) {
+        const int j = threadIdx.x + i * kThreads<K>;
+        if (j < n_cols) {
+          stage_column<K, M, Masked>(cs, j, col_in[i]);
+          if constexpr (kFastKey<K, M> && M == kLs) {
+            cs.fb[j] = static_cast<float>(cs.sb4[j]);  // exact
+          } else if constexpr (kFastKey<K, M>) {  // both steps exact
+            cs.fb[j] = __fsub_rn(__fmul_rn(128.0f, cs.sb[j]), 0.25f * kMagic);
+          }
+        }
+      }
+    }
+    if constexpr (Transposed) {
+#pragma unroll
+      for (int i = 0; i < kPerT; ++i) {
+        const int g = threadIdx.x + i * kThreads<K>;
+        if (4 * g < n_cols) {
+#pragma unroll
+          for (int op = 0; op < 2; ++op) {
+            int4 col[4];
+            transpose_4cols(words[i][op], col);
+            signed char* dst = op ? sm.cl[buf] : sm.ch[buf];
+#pragma unroll
+            for (int j = 0; j < 4; ++j) *reinterpret_cast<int4*>(dst + (4 * g + j) * kS) = col[j];
+          }
         }
       }
     }
@@ -442,7 +539,10 @@ __device__ __forceinline__ void search_rows(
             const int j = n0 + 8 * nt + 2 * t + e;
             float v = kInitQ;
             if (!skip) {
-              if constexpr (kFastKey<K, M>) {
+              if constexpr (Pol == Policy::DotMax) {  // kMagic + dot, exact: f32(dot)
+                v = __fsub_rn(__int_as_float(8 * dh[nt][mt][2 * h + e] + dl[nt][mt][2 * h + e]),
+                              kMagic);
+              } else if constexpr (kFastKey<K, M>) {
                 v = fast_key<K, M>(dh[nt][mt][2 * h + e], dl[nt][mt][2 * h + e], j, cs,
                                    base_f[mt][h]);
               } else {
@@ -462,27 +562,38 @@ __device__ __forceinline__ void search_rows(
             if constexpr (Masked) admit = admit && cs.cls[j] == rc[mt][h];
             q[mt][h][nt][e] = admit ? v : kInitQ;
             top[mt][h] = fmaxf(top[mt][h], q[mt][h][nt][e]);
+            if constexpr (Pol == Policy::PackedMax) {  // lane: the offset from start
+              const int key = (__float_as_int(v) & ~4095) | (4095 - (c0 + j - start));
+              if (admit) i_best[mt][h] = max(i_best[mt][h], key);
+            }
           }
       }
-    bool up = false;
-#pragma unroll
-    for (int mt = 0; mt < kT; ++mt)
-#pragma unroll
-      for (int h = 0; h < 2; ++h) up |= top[mt][h] > q_best[mt][h];
-    if (__any_sync(0xffffffffu, up)) {
+    if constexpr (Pol == Policy::Argmax) {
+      bool up = false;
 #pragma unroll
       for (int mt = 0; mt < kT; ++mt)
 #pragma unroll
-        for (int h = 0; h < 2; ++h)
+        for (int h = 0; h < 2; ++h) up |= top[mt][h] > q_best[mt][h];
+      if (__any_sync(0xffffffffu, up)) {
 #pragma unroll
-          for (int nt = 0; nt < kNT; ++nt)
+        for (int mt = 0; mt < kT; ++mt)
 #pragma unroll
-            for (int e = 0; e < 2; ++e) {
-              if (q[mt][h][nt][e] > q_best[mt][h]) {  // strict: the first occurrence wins
-                q_best[mt][h] = q[mt][h][nt][e];
-                i_best[mt][h] = c0 + n0 + 8 * nt + 2 * t + e;
+          for (int h = 0; h < 2; ++h)
+#pragma unroll
+            for (int nt = 0; nt < kNT; ++nt)
+#pragma unroll
+              for (int e = 0; e < 2; ++e) {
+                if (q[mt][h][nt][e] > q_best[mt][h]) {  // strict: the first occurrence wins
+                  q_best[mt][h] = q[mt][h][nt][e];
+                  i_best[mt][h] = c0 + n0 + 8 * nt + 2 * t + e;
+                }
               }
-            }
+      }
+    } else if constexpr (Pol != Policy::PackedMax) {  // MaxOnly, DotMax
+#pragma unroll
+      for (int mt = 0; mt < kT; ++mt)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) q_best[mt][h] = fmaxf(q_best[mt][h], top[mt][h]);
     }
   };
   // the columns [n0_begin, n1) of chunk buffer buf, in steps (the last one
@@ -636,15 +747,37 @@ __device__ __forceinline__ void search_rows(
   }
 
   // the quad's lanes
+  if constexpr (Pol == Policy::Argmax) {
 #pragma unroll
-  for (int mt = 0; mt < kT; ++mt)
+    for (int mt = 0; mt < kT; ++mt)
 #pragma unroll
-    for (int h = 0; h < 2; ++h)
+      for (int h = 0; h < 2; ++h)
 #pragma unroll
-      for (int x = 1; x <= 2; x <<= 1) {
-        merge_best(bq[mt][h], bi[mt][h], __shfl_xor_sync(0xffffffffu, bq[mt][h], x),
-                   __shfl_xor_sync(0xffffffffu, bi[mt][h], x));
+        for (int x = 1; x <= 2; x <<= 1) {
+          merge_best(bq[mt][h], bi[mt][h], __shfl_xor_sync(0xffffffffu, bq[mt][h], x),
+                     __shfl_xor_sync(0xffffffffu, bi[mt][h], x));
+        }
+  } else {
+#pragma unroll
+    for (int mt = 0; mt < kT; ++mt)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+#pragma unroll
+        for (int x = 1; x <= 2; x <<= 1) {
+          if constexpr (Pol == Policy::PackedMax) {
+            bi[mt][h] = max(bi[mt][h], __shfl_xor_sync(0xffffffffu, bi[mt][h], x));
+          } else {
+            bq[mt][h] = fmaxf(bq[mt][h], __shfl_xor_sync(0xffffffffu, bq[mt][h], x));
+          }
+        }
+        if constexpr (Pol == Policy::PackedMax) {  // the key's q, and its column
+          bq[mt][h] = __int_as_float(bi[mt][h] & ~4095);
+          bi[mt][h] = 4095 - (bi[mt][h] & 4095) + start;
+        } else {
+          bi[mt][h] = start;
+        }
       }
+  }
   if constexpr (Frontier) {
     // the scanning lane's row: its bests from its quad, then the sub-block
     // where it hit (later columns: they win only a strictly larger key)

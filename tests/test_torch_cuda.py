@@ -684,6 +684,19 @@ def test_micro_k5_equals_k4_full(cuda, tiles):
     assert (q0 == np.float32(-3.0e38)).all() and (i0 == 0).all()
 
 
+def test_micro_library_runs_on_tensor_cores(cuda):
+    """The built K4/K5 library's SASS holds tensor-core products (IMMA) and
+    no dp4a (IDP.4A), counted as chip_smoke.py's phase 1 counts them."""
+    import chip_smoke
+    from fractencode_tpu_torch.ops import _build
+
+    if not os.path.exists(os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump")):
+        pytest.skip("needs cuobjdump beside nvcc")
+    _build.load_library("micro_step")
+    counts = chip_smoke.sass_counts(_build._library("micro_step"))
+    assert counts["IMMA"] > 0 and counts["IDP4A"] == 0, counts
+
+
 def test_micro_wrapper_refuses_bad_inputs(cuda):
     """'packed' above 4096 columns, K != 16, K5 given row-layout operands,
     words not int32, n_pairs beyond the list, and operands on two devices

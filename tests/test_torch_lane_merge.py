@@ -1,7 +1,9 @@
 """The search order of the tensor-core K1, K2 and K3 (csrc/search_mma.cuh),
 emulated in plain PyTorch on the CPU and held against the plain searches
 (``ops/matcher_kernels._plain_search`` through ``search_dense_torch``,
-``search_classed_torch`` and ``search_classed2d_torch``).
+``search_classed_torch`` and ``search_classed2d_torch``), and K4/K5's step
+on the same mainloop (csrc/micro_step.cu) against ``ops/micro_kernels.
+micro_step_torch``.
 
 The CUDA kernels cannot run here, so this pins the rule they implement:
 columns in chunks, each split into n8 tiles whose columns 2t and 2t + 1 sit
@@ -12,7 +14,9 @@ tiles, a sub-block where a row has no hit continuing the row's lane bests
 and the one where it first hits scanned in column order with the group
 logic, its result merged last; K2's partials per split reduced in split
 order up to the first split that hit; K1's blocks searching a range
-tile's whole class segment and writing each row's result directly.  (The
+tile's whole class segment and writing each row's result directly; K4's
+step as one such segment per pair-list word, each variant's lane policy
+and quad merge, and the partials folded in list order.  (The
 kernel's check of a step's maximum before its exact update, and a warp's or
 block's stop once all its rows are done, change no result and are not
 emulated.)
@@ -29,6 +33,7 @@ import pytest
 import torch
 
 from fractencode_tpu_torch.ops import matcher_kernels as mk
+from fractencode_tpu_torch.ops import micro_kernels as mt
 
 K = 16
 K_INIT = -3.0e38
@@ -54,6 +59,7 @@ def table_key(sa_i, dot, sb4, aux16, n):
 @pytest.fixture(autouse=True)
 def _table_keys(monkeypatch):
     monkeypatch.setattr(mk, "_rank_ls_int8", table_key)
+    monkeypatch.setattr(mt, "_rank_ls_int8", table_key)
 
 
 def operands(rows: int, cols: int, seed: int):
@@ -357,3 +363,110 @@ def test_classed_direct_write_matches_plain(block_r, frontier, chunk, t_n):
         padding = (padding >= int(row_end[3])) & (padding < 6 * block_r)
         assert bool((q_p[padding] == K_INIT).all()) and not bool(i_p[padding].any())
         assert 0 < int(hit.any(1).sum())
+
+
+# K4/K5's step (csrc/micro_step.cu): the lane policy of each variant
+# (mma::Policy), K5 being K4 'full' on the [K, M] layout
+MICRO_POLICIES = {"full": "Argmax", "full_t": "Argmax", "noargpass": "MaxOnly",
+                  "packed": "PackedMax", "matmul": "DotMax"}
+
+
+def micro_partial(q, start, policy):
+    """One step's partial (q, idx) per row by the mainloop's order: ``q``
+    [rows, block_m] the keys of the columns [start, start + block_m) (f32(dot)
+    for DotMax), each lane t folding the columns 2t and 2t + 1 of every n8
+    tile from ``start`` by its policy, then the quad's butterfly."""
+    off = torch.arange(q.shape[1])
+    lanes = []
+    for t in range(4):
+        cols = off[(off % 8) // 2 == t]
+        v = q[:, cols]
+        if policy == "Argmax":  # the strict '>' in column order: the first maximum
+            first = (v == v.amax(1, keepdim=True)).int().argmax(1)
+            lanes.append((v.gather(1, first[:, None])[:, 0], cols[first] + start))
+        elif policy == "PackedMax":  # the int max of the packed key
+            key = (v.view(torch.int32) & ~4095) | (4095 - cols.to(torch.int32))
+            lanes.append((None, key.amax(1)))
+        else:  # MaxOnly, DotMax: fmaxf
+            lanes.append((v.amax(1), None))
+    for x in (1, 2):  # the quad's butterfly
+        if policy == "Argmax":
+            lanes = [merge(*lanes[t], *lanes[t ^ x]) for t in range(4)]
+        elif policy == "PackedMax":
+            lanes = [(None, torch.maximum(lanes[t][1], lanes[t ^ x][1])) for t in range(4)]
+        else:
+            lanes = [(torch.maximum(lanes[t][0], lanes[t ^ x][0]), None) for t in range(4)]
+    bq, bi = lanes[0]
+    if policy == "PackedMax":  # the key's q, and its column
+        return (bi & ~4095).view(torch.float32), 4095 - (bi & 4095).long() + start
+    if policy != "Argmax":  # idx: the tile's first column
+        return bq, torch.full_like(bq, start, dtype=torch.int64)
+    return bq, bi
+
+
+def micro_emulate(q, words, n_pairs, policy, block_r, block_m, n_rt, n_ct):
+    """K4's two passes: each word's step partial (a block per 128-row slice
+    searches the column tile as one K1 segment; the slices do not change a
+    row's result), then the reduce in list order: a word naming no tile
+    skipped, `first` restarting the tile's rows, a partial taken only where
+    strictly above."""
+    q_out = torch.full((q.shape[0],), K_INIT)
+    i_out = torch.zeros(q.shape[0], dtype=torch.int64)
+    for w in words[:n_pairs].tolist():
+        rt, ct, first = w >> mt.RT_SHIFT, (w >> 2) & 4095, (w >> 1) & 1
+        if not (0 <= rt < n_rt and ct < n_ct):
+            continue
+        rows = slice(rt * block_r, (rt + 1) * block_r)
+        start = ct * block_m
+        pq, pi = micro_partial(q[rows, start:start + block_m], start, policy)
+        if first:
+            q_out[rows], i_out[rows] = K_INIT, 0
+        better = pq > q_out[rows]
+        q_out[rows] = torch.where(better, pq, q_out[rows])
+        i_out[rows] = torch.where(better, pi, i_out[rows])
+    return q_out, i_out
+
+
+def micro_words(ni, nj, revisit):
+    """The pair list: each range tile over its column tiles once, or (revisit)
+    twice with a restart midway, a word outside the rows and one outside the
+    columns, and the last range tile never visited."""
+    if not revisit:
+        steps = [(rt, ct, int(ct == 0)) for rt in range(ni) for ct in range(nj)]
+    else:
+        steps = [(0, ct, int(ct == 0)) for ct in range(nj)] + [(0, 1, 1), (0, 0, 0)]
+        steps += [(ni, 0, 1), (1, nj, 0)]
+        for rt in range(1, ni - 1):
+            steps += [(rt, ct % nj, int(ct == 0)) for ct in range(2 * nj)]
+    rt, ct, first = (torch.tensor(c, dtype=torch.int32) for c in zip(*steps))
+    return mt.pack_pairs(rt, ct, first, torch.ones_like(rt)), len(steps)
+
+
+# (ni, block_r, nj, block_m): ragged tiles (a 128-row slice and a part; a
+# 512-column chunk and a part) as in test_torch_cuda.py's MICRO_TILES, and
+# whole ones
+MICRO_TILES = [(3, 200, 5, 1000), (2, 128, 3, 1024)]
+
+
+@pytest.mark.parametrize("revisit", [False, True], ids=["once", "revisit"])
+@pytest.mark.parametrize("tiles", MICRO_TILES, ids=["200x1000", "128x1024"])
+@pytest.mark.parametrize("variant", list(MICRO_POLICIES))
+def test_micro_step_policies_match_plain(variant, tiles, revisit):
+    """Each K4/K5 variant's lane policy and quad merge (Argmax, MaxOnly,
+    PackedMax, DotMax) over each step's column tile, with the partials folded
+    by the reduce in list order, gives the plain micro_step_torch's result."""
+    ni, br, nj, bm = tiles
+    ai, ch, cl, sb, aux, sa, sa2 = operands(ni * br, nj * bm, seed=br + nj)
+    words, n = micro_words(ni, nj, revisit)
+    policy = MICRO_POLICIES[variant]
+    if policy == "DotMax":
+        q = (ai.long() @ (8 * ch.long() + cl.long()).T).to(torch.float32)
+    else:
+        q, _ = key_matrix(ai, ch, cl, sa, sa2)
+    t = variant == "full_t"
+    q_p, i_p = mt.micro_step_torch(words, n, ai, ch.T.contiguous() if t else ch,
+                                   cl.T.contiguous() if t else cl, sb, aux, variant=variant,
+                                   block_r=br, block_m=bm)
+    q_e, i_e = micro_emulate(q, words, n, policy, br, bm, ni, nj)
+    assert_same(q_e, i_e, q_p, i_p)
+    assert bool((q_p[(ni - 1) * br:] == K_INIT).all()) == revisit  # the tile no word visits
