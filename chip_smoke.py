@@ -109,7 +109,26 @@ Phases, each of which must pass (any failure exits non-zero):
      ('full' - 'noargpass'), the one-pass argmax ('packed' - 'noargpass')
      and K5's transposed staging (K5 - 'full'), in us a step and as shares
      of 'full'; then the microbenchmark's main (the path `micro_kernel`),
-     whose lines it prints.
+     whose lines it prints;
+ 20. the batch forms at BENCH_r05's batch shapes on distinct natural-like
+     frames: encode_batch_stacked of 16 x 512^2 (every frame bitwise equal
+     to encode_plane on the card, frames 0 and 15 to the CPU's encode, K1's
+     launches 16 times the single frame's), decode_batch_stacked of it with
+     the CLI's pyramid (pixels, iterations and MSE equal to decode_plane's
+     per frame) and encode_batch_quadtree_stacked of 8 x 1024^2 (every
+     level equal to encode_plane_quadtree's per frame, K1's launches the
+     single frames' sum); then per form the host ms a frame, the card's
+     busy share under torch.profiler (one warm run) and the host syncs a
+     frame with their lines (torch.cuda.set_sync_debug_mode("warn"));
+ 21. --vq-classes 4: the CLI path card == CPU at 512^2; the VQ labels and
+     codebook steps card == CPU at 512^2, 2048^2 and 4096^2 (the subsample
+     branch); then the 2048^2 and 4096^2 paths (K1 at 2048^2; the route's
+     K1 or K2 at 4096^2), with encode ms, PSNR and codebook steps beside
+     the classifier's;
+ 22. `python -m fractencode_tpu_torch` on a 512^2 PNG on the card, three
+     processes side by side: --log --profile DIR (the phase table, and a
+     trace in DIR that names K1's kernel), --quadtree --log (the phase table
+     and the progress line) and --vq-classes 3; each must exit 0.
 Every path is driven with the launch counts set to 0 just before it and
 read just after; each must launch the kernels it names.  Each search
 kernel's record keeps the times of its last parity check, which is at the
@@ -137,7 +156,8 @@ K4 'matmul''s is torch._int_mm's int8 products of each range tile against
 all columns with the row max, which writes the products out.  Plain timings
 at 2048^2 are one run each, the parity run itself (which also counts the
 pairs scanned), to keep the script short.
-The planes are natural-like synthetic textures made with numpy from a seed.
+The planes are natural-like synthetic textures made with numpy from a seed
+(the batch forms' frames each from its own seed).
 The last two lines are the kernels' JSON record and the device JSON line.
 Without a CUDA device it exits non-zero and prints no result.  Its files
 go to build/smoke/ in the checkout, which it removes at the end.
@@ -923,6 +943,254 @@ def micro_phase(kernels):
     print(f"     micro_kernel path: launches {counts}")
 
 
+def host_syncs(fn):
+    """(fn()'s result, Counter of the host syncs it made by file:line), as
+    torch's sync debug mode reports them (each a warning from the Python
+    line whose op waited for the card)."""
+    import collections
+    import warnings
+
+    import torch
+
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            out = fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    def site(w):
+        path = w.filename
+        path = (os.path.relpath(path, ROOT) if path.startswith(ROOT)
+                else path.split("site-packages/")[-1])
+        return f"{path}:{w.lineno}"
+
+    sites = collections.Counter(site(w) for w in caught if "synchroniz" in str(w.message))
+    return out, sites
+
+
+def k1_launches(counts):
+    """K1's launches in a ``Kernels.read`` result, by instance name."""
+    return {name: n for name, n in counts.items() if name.startswith("search_classed_")}
+
+
+def batch_form(name, fn, frames):
+    """One batch form on the card: host ms per frame (median of 3 warm runs
+    ending in a synchronize), the card's busy share under torch.profiler
+    over one warm run (the profiler's own processing of a run's events
+    takes seconds), and the host syncs per frame with their sites; prints
+    them."""
+    import torch
+
+    def run():
+        out = fn()
+        torch.cuda.synchronize()
+        return out
+
+    ms, _ = host_ms(run)
+    busy, window = device_busy(run, reps=1)
+    _, sites = host_syncs(fn)
+    per = sum(sites.values()) / frames
+    print(f"     {name}: {ms / frames:.3f} host ms a frame ({ms:.3f} ms for {frames}); card "
+          + ("busy not measured (the profiler saw no device time)" if busy is None
+             else f"busy {busy:.4f} of a {window:.3f} ms run")
+          + f"; {per:g} host syncs a frame: "
+          + ", ".join(f"{site} x{n / frames:g}" for site, n in sites.most_common()))
+
+
+def batch_phase(kernels, cfg, dcfg):
+    """Phase 20: the batch forms at BENCH_r05's batch shapes on distinct
+    natural-like frames: every frame bitwise equal to the single-plane
+    function on the card, two encoded frames to the CPU's, K1's launches B
+    times the single frames', and each form's host cost a frame."""
+    import torch
+
+    from fractencode_tpu_torch import (decode_batch_stacked, decode_plane,
+                                       encode_batch_stacked, encode_plane)
+    from fractencode_tpu_torch.encode.quadtree import (QuadtreeConfig,
+                                                       encode_batch_quadtree_stacked,
+                                                       encode_plane_quadtree)
+
+    k1 = ("search_classed", "ls", 16, False)
+    frames = np.stack([natural_plane(512, SEED + 1000 + i) for i in range(16)])
+    kernels.zero()
+    singles = [encode_plane(p, cfg, device="cuda") for p in frames]
+    single = k1_launches(kernels.read("batch16 single frames", [k1]))
+    kernels.zero()
+    stacked = encode_batch_stacked(frames, cfg, device="cuda")
+    batch = k1_launches(kernels.read("batch16 encode_batch_stacked", [k1]))
+    check(batch == single and batch[kernels.records[k1]["name"]] == 16,
+          f"encode_batch_stacked launched K1 {batch}, 16 single frames {single}")
+    fields = ("domain_idx", "transform", "s", "o", "distance", "valid")
+    for i, res in enumerate(singles):
+        for f in fields:
+            check(bitwise(getattr(stacked, f)[i], getattr(res, f)),
+                  f"encode_batch_stacked frame {i} {f} differs from encode_plane")
+    for i in (0, 15):
+        cpu = encode_plane(frames[i], cfg, device="cpu")
+        for f in fields:
+            check(bitwise(getattr(stacked, f)[i], getattr(cpu, f)),
+                  f"encode_batch_stacked frame {i} {f}: card differs from CPU")
+    outs, iters, mses = decode_batch_stacked(stacked, dcfg)
+    for i, res in enumerate(singles):
+        out, it, mse = decode_plane(res, dcfg)
+        check(bitwise(outs[i], out) and (int(iters[i]), float(mses[i])) == (it, mse),
+              f"decode_batch_stacked frame {i} differs from decode_plane")
+    print("     16 x 512^2 encode_batch_stacked and decode_batch_stacked: every frame "
+          "bitwise equal to encode_plane and decode_plane (pixels, iterations, MSE) on "
+          f"the card, frames 0 and 15 to the CPU's encode; K1 launches {batch} = 16 x 1")
+    del singles
+
+    qcfg = QuadtreeConfig()
+    qframes = np.stack([natural_plane(1024, SEED + 2000 + i) for i in range(8)])
+    kernels.zero()
+    qsingles = [encode_plane_quadtree(p, cfg, qcfg, device="cuda") for p in qframes]
+    qsingle = k1_launches(kernels.read("batch8 quadtree single frames", []))
+    kernels.zero()
+    qstacked = encode_batch_quadtree_stacked(qframes, cfg, qcfg, device="cuda")
+    qbatch = k1_launches(kernels.read("batch8 encode_batch_quadtree_stacked", [k1]))
+    check(qbatch == qsingle, f"encode_batch_quadtree_stacked launched K1 {qbatch}, "
+                             f"8 single frames {qsingle}")
+    for i, res in enumerate(qsingles):
+        for ls, l1 in zip(qstacked.levels, res.levels, strict=True):
+            for f in ("domain_idx", "transform", "s", "o", "error", "accepted"):
+                check(bitwise(getattr(ls, f)[i], getattr(l1, f)),
+                      f"encode_batch_quadtree_stacked frame {i} {l1.range_size} px {f} "
+                      "differs from encode_plane_quadtree")
+    print("     8 x 1024^2 encode_batch_quadtree_stacked: every level of every frame "
+          f"bitwise equal to encode_plane_quadtree on the card; K1 launches {qbatch}, "
+          "the 8 single frames' sum")
+    del qsingles
+
+    print("     per form (host clock; busy share by torch.profiler; host syncs by "
+          "torch.cuda.set_sync_debug_mode, by port line):")
+    batch_form("encode_batch_stacked 16 x 512^2",
+               lambda: encode_batch_stacked(frames, cfg, device="cuda"), 16)
+    batch_form("decode_batch_stacked 16 x 512^2 (pyramid)",
+               lambda: decode_batch_stacked(stacked, dcfg), 16)
+    batch_form("encode_batch_quadtree_stacked 8 x 1024^2",
+               lambda: encode_batch_quadtree_stacked(qframes, cfg, qcfg, device="cuda"), 8)
+
+
+def vq_labels(img, cfg, device):
+    """(range labels, domain labels, codebook steps) of the encoder's VQ
+    bins for ``img`` on ``device`` (encoder._vq_classes)."""
+    import torch
+
+    from fractencode_tpu_torch.core.grid import uniform_grid
+    from fractencode_tpu_torch.encode import encoder as te
+    from fractencode_tpu_torch.encode.codebook import build_codebook, extract_ranges
+
+    n = img.shape[0]
+    pf = torch.from_numpy(img).to(device).float()
+    cb = build_codebook(pf, uniform_grid(n, n, cfg.source_size, cfg.domain_step),
+                        cfg.target_size, cfg.num_transforms)
+    return te._vq_classes(extract_ranges(pf, cfg.target_size), cb, cfg)
+
+
+def vq_phase(kernels, planes):
+    """Phase 21: --vq-classes 4 on the card: labels and codebook steps equal
+    to the CPU's at 512^2, 2048^2 and 4096^2 (the subsample branch), the
+    whole CLI path card == CPU at 512^2, then the 2048^2 and 4096^2 paths
+    launching K1, with encode ms and PSNR beside the classifier's."""
+    import torch
+
+    from fractencode_tpu_torch.core.metrics import psnr
+    from fractencode_tpu_torch.decode import decode_plane
+    from fractencode_tpu_torch.encode import encode_plane
+
+    vq = ["--vq-classes", "4"]
+    k1 = ("search_classed", "ls", 16, False)
+    card_equals_cpu(planes[512], vq, "512 --vq-classes 4")
+    print("     512^2 --vq-classes 4: card and CPU EncodeResult and pixels bitwise equal")
+    for n, img in ((512, planes[512]), (2048, planes[2048]), (4096, planes[4096])):
+        _, cfg, _ = parse(["--device", "cuda", *vq])
+        g, c = vq_labels(img, cfg, "cuda"), vq_labels(img, cfg, "cpu")
+        check(g[2] == c[2] and bitwise(g[0], c[0]) and bitwise(g[1], c[1]),
+              f"{n}^2 VQ labels or steps: card differs from CPU")
+        print(f"     {n}^2: {g[1].numel()} domains, VQ labels and {g[2]} codebook steps "
+              "bitwise equal, card against CPU"
+              + (" (trained on a 65,536-vector subsample)" if g[1].numel() > 65536 else ""))
+    for n in (2048, 4096):
+        img = planes[n]
+        plane_t = torch.from_numpy(img)
+        rows = []
+        for label, argv in (("--vq-classes 4", vq), ("classifier", [])):
+            # the JAX package's route: K1 at 2048^2; at 4096^2 its pair list
+            # may overflow, and then K2
+            res, out, counts = drive(kernels, f"{n} {label}", img, argv,
+                                     [k1] if n == 2048 else [], f"{n} {label} cuda")
+            check(any(name.startswith(("search_classed_ls16", "search_classed2d_ls16"))
+                      for name in counts), f"{n}^2 {label}: launches {counts}")
+            check_uniform(res, out, n, f"{n}^2 {label}")
+            _, c, d = parse(["--device", "cuda", *argv])
+            enc_ms, _, (dec, _, _) = wall_times(lambda: encode_plane(img, c, device="cuda"),
+                                                lambda e: decode_plane(e, d),
+                                                reps=3 if n == 2048 else 1)
+            check(np.array_equal(dec.cpu().numpy(), out), f"repeat {n}^2 {label} decode")
+            db = float(psnr(plane_t, torch.from_numpy(out)))
+            check(db > 20.0, f"{n}^2 {label} PSNR {db:.4f} dB is implausibly low")
+            steps = vq_labels(img, c, "cuda")[2] if c.vq_classes else None
+            rows.append(f"{label}: encode {enc_ms:.3f} ms, PSNR {db:.4f} dB"
+                        + ("" if steps is None else f", {steps} codebook steps")
+                        + f", launches {counts}")
+        print(f"     {n}^2 ({'median of 3 warm runs' if n == 2048 else 'one warm run'}, "
+              "host clock): " + "; ".join(rows))
+
+
+def cli_phase(kernels, planes):
+    """Phase 22: ``python -m fractencode_tpu_torch`` on the card, as users
+    run it: --log --profile DIR (the phase table; DIR holds a trace that
+    names K1's kernel), --quadtree --log, and --vq-classes 3; each exits 0."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from PIL import Image
+
+    work = os.path.join(ROOT, "build", "smoke")
+    os.makedirs(work, exist_ok=True)
+    src = os.path.join(work, "gray512.png")
+    Image.fromarray(planes[512]).save(src)
+    prof = os.path.join(work, "prof")
+    runs = {"--log --profile": ["--log", "--profile", prof],
+            "--quadtree --log": ["--quadtree", "--log"],
+            "--vq-classes 3": ["--vq-classes", "3"]}
+    env = {**os.environ, "PYTHONPATH": ROOT}
+
+    def run(name):
+        out = os.path.join(work, name.replace(" ", "").replace("-", "") + ".png")
+        return subprocess.run([sys.executable, "-m", "fractencode_tpu_torch", src,
+                               *runs[name], "--result", out], cwd=work, env=env,
+                              capture_output=True, text=True, timeout=300)
+
+    with ThreadPoolExecutor(len(runs)) as pool:
+        procs = dict(zip(runs, pool.map(run, runs)))
+    for name, proc in procs.items():
+        check(proc.returncode == 0, f"the CLI with {name}: exit {proc.returncode}: "
+                                    f"{proc.stderr[-2000:]}")
+    for name in ("--log --profile", "--quadtree --log"):
+        lines = procs[name].stdout.splitlines()
+        check("-- phases --" in lines, f"{name}: no phase table")
+        table = lines[lines.index("-- phases --") + 1:-1]
+        check([l.split(":")[0] for l in table] == ["load", "encode", "decode", "total"],
+              f"{name}: phase table {table}")
+        print(f"     {name}: exit 0; phases " + ", ".join(table))
+    check("100%" in procs["--quadtree --log"].stdout, "--quadtree --log: no progress line")
+    check(f"profile trace written to {prof}" in procs["--log --profile"].stdout,
+          "--profile: no trace line")
+    traces = [f for f in os.listdir(prof) if f.endswith(".pt.trace.json")]
+    check(len(traces) == 1, f"--profile wrote {traces}")
+    with open(os.path.join(prof, traces[0])) as f:
+        events = json.load(f)["traceEvents"]
+    k1 = [e for e in events if "search_classed_kernel" in str(e.get("name", ""))]
+    check(k1, "the --profile trace names no K1 kernel (search_classed_kernel)")
+    print(f"     --profile: {traces[0]}, {len(events)} events, K1 kernel "
+          f"'{k1[0]['name'][:60]}...' {k1[0]['dur']} us; --vq-classes 3: exit 0, "
+          + next(l for l in procs["--vq-classes 3"].stdout.splitlines()
+                 if l.startswith("psnr:")))
+    shutil.rmtree(work)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description="Smoke run of the port on one CUDA card.")
     ap.add_argument("--dp4a", metavar="DIR", help="a csrc/ directory with earlier designs "
@@ -1656,6 +1924,27 @@ def main(argv=None) -> int:
     t19 = time.perf_counter()
     micro_phase(kernels)
     print(f"     phase 19 took {time.perf_counter() - t19:.1f} s")
+
+    # -- 20. the batch forms
+    print("[20] the batch forms on the card, frame by frame against the single-plane "
+          "functions")
+    t20 = time.perf_counter()
+    batch_phase(kernels, cfg, dcfg)
+    print(f"     phase 20 took {time.perf_counter() - t20:.1f} s")
+
+    # -- 21. VQ pruning
+    print("[21] --vq-classes 4 on the card, against the CPU and the classifier")
+    t21 = time.perf_counter()
+    planes[4096] = natural_plane(4096, SEED + 4096)
+    vq_phase(kernels, planes)
+    print(f"     phase 21 took {time.perf_counter() - t21:.1f} s")
+
+    # -- 22. the CLI as users run it
+    print("[22] python -m fractencode_tpu_torch with --log, --profile, --quadtree, "
+          "--vq-classes on the card")
+    t22 = time.perf_counter()
+    cli_phase(kernels, planes)
+    print(f"     phase 22 took {time.perf_counter() - t22:.1f} s")
 
     records = list(kernels.records.values())
     for rec in records:

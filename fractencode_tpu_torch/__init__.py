@@ -9,8 +9,8 @@ its plain PyTorch version.
 import torch
 
 from .params import EncoderConfig, DecoderConfig, REFERENCE_COMPAT
-from .encode import EncodeResult, encode_plane
-from .decode import decode_plane
+from .encode import EncodeResult, encode_plane, encode_batch, encode_batch_stacked
+from .decode import decode_plane, decode_batch_stacked
 
 # Exactness: the plain search's SumAB matmul is exact in full f32 only.
 torch.backends.cuda.matmul.allow_tf32 = False
@@ -24,6 +24,9 @@ __all__ = [
     "REFERENCE_COMPAT",
     "EncodeResult",
     "encode_plane",
+    "encode_batch",
+    "encode_batch_stacked",
     "decode_plane",
+    "decode_batch_stacked",
     "__version__",
 ]

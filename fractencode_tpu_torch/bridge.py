@@ -2,9 +2,10 @@
 
 The JAX package's ``EncodeResult`` and ``QuadtreeResult`` become this
 package's (and back) through numpy arrays plus their static fields, so
-either package decodes the other's encodes.  Nothing here imports jax: the
-JAX side is handed over as numpy arrays and dicts (``dataclasses.asdict`` of
-its configs).
+either package decodes the other's encodes; a batch form's stacked result
+(arrays with a leading [B] axis) crosses the same way.  Nothing here imports
+jax: the JAX side is handed over as numpy arrays and dicts
+(``dataclasses.asdict`` of its configs).
 """
 from __future__ import annotations
 
@@ -13,18 +14,16 @@ import dataclasses
 import numpy as np
 import torch
 
-from .encode.encoder import EncodeResult, default_device
-from .encode.quadtree import QuadtreeLevel, QuadtreeResult
+from .encode.encoder import ARRAY_FIELDS, EncodeResult, default_device
+from .encode.quadtree import LEVEL_ARRAY_FIELDS, QuadtreeLevel, QuadtreeResult
 from .params import DecoderConfig, EncoderConfig
 
 __all__ = ["ARRAY_FIELDS", "META_FIELDS", "LEVEL_ARRAY_FIELDS",
            "LEVEL_META_FIELDS", "result_from_numpy", "result_to_numpy",
            "quadtree_from_numpy", "quadtree_to_numpy", "config_from_jax_fields"]
 
-ARRAY_FIELDS = ("domain_idx", "transform", "s", "o", "distance", "valid")
 META_FIELDS = ("width", "height", "source_size", "target_size", "domain_step",
                "o_is_mean", "num_transforms")
-LEVEL_ARRAY_FIELDS = ("domain_idx", "transform", "s", "o", "error", "accepted")
 LEVEL_META_FIELDS = ("range_size", "domain_size", "domain_step", "o_is_mean",
                      "num_transforms")
 _DTYPES = dict(domain_idx=np.int32, transform=np.int32, s=np.float32,
@@ -43,15 +42,17 @@ _BACKENDS = {"auto": "auto", "jnp": "torch", "pallas": "cuda"}
 
 def result_from_numpy(arrays, meta, device=None) -> EncodeResult:
     """EncodeResult on ``device`` (default: the card, see
-    ``encoder.default_device``) from per-range arrays (any array-likes, e.g.
-    ``np.asarray`` of the JAX result's fields) and its static fields."""
+    ``encoder.default_device``) from per-range arrays, [R] or stacked [B, R]
+    (any array-likes, e.g. ``np.asarray`` of the JAX result's fields), and
+    its static fields."""
     return EncodeResult(**_tensors(arrays, ARRAY_FIELDS, device),
                         **{name: meta[name] for name in META_FIELDS if name in meta})
 
 
 def result_to_numpy(res: EncodeResult):
-    """(arrays, meta): numpy arrays of the per-range fields and a dict of the
-    static fields, enough to rebuild either package's EncodeResult."""
+    """(arrays, meta): numpy arrays of the per-range fields ([R], or [B, R]
+    for a stacked result) and a dict of the static fields, enough to rebuild
+    either package's EncodeResult."""
     arrays = {name: getattr(res, name).cpu().numpy() for name in ARRAY_FIELDS}
     meta = {name: getattr(res, name) for name in META_FIELDS}
     return arrays, meta
@@ -62,7 +63,8 @@ def quadtree_from_numpy(levels, width: int, height: int,
     """QuadtreeResult on ``device`` (default: the card, see
     ``encoder.default_device``) from one (arrays, meta) pair per level,
     coarse to fine, as ``quadtree_to_numpy`` gives them (any array-likes,
-    e.g. ``np.asarray`` of the JAX levels' fields)."""
+    e.g. ``np.asarray`` of the JAX levels' fields; [R_l], or [B, R_l] for a
+    stacked result)."""
     return QuadtreeResult(
         levels=[QuadtreeLevel(**_tensors(arrays, LEVEL_ARRAY_FIELDS, device),
                               **{name: meta[name] for name in LEVEL_META_FIELDS

@@ -4,8 +4,8 @@ Encodes one grayscale plane (or the three YUV planes with ``--color``),
 decodes it and prints the reference CLI's statistics plus PSNR, for the flags
 the port covers; ``--out`` writes the compressed file (FTC1 for the uniform
 grid, FTQ1 for the quadtree, FTCC around three planes) and ``--decode-file``
-decodes one.  Flags of parts not ported yet are accepted by the parser and
-refused with exit code 2.
+decodes one.  ``--log`` adds progress and a per-phase timing table,
+``--profile DIR`` a torch.profiler trace of the encode and decode.
 
 Usage:
     python -m fractencode_tpu_torch input.png [--device cuda|cpu] [flags]
@@ -15,18 +15,12 @@ Usage:
 from __future__ import annotations
 
 import argparse
+import contextlib
 import sys
 import time
 
 import numpy as np
 import torch
-
-# flag -> the ROADMAP.md item that ports it
-_NOT_PORTED = {
-    "vq_classes": "queue 1, VQ pruning",
-    "log": "queue 1, Profiling",
-    "profile": "queue 1, Profiling",
-}
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -65,18 +59,14 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--color", action="store_true", help="encode all 3 YUV planes")
     p.add_argument("--out", help="write the compressed bitstream to this path")
     p.add_argument("--decode-file", help="decode a bitstream instead of encoding")
-    # not ported yet: parsed so that they are refused by name
-    p.add_argument("--log", action="store_true", help=argparse.SUPPRESS)
-    p.add_argument("--profile", default=None, help=argparse.SUPPRESS)
-    p.add_argument("--vq-classes", type=int, default=0, help=argparse.SUPPRESS)
+    p.add_argument("--log", action="store_true",
+                   help="per-phase wall-clock timing + progress reporting")
+    p.add_argument("--profile", metavar="DIR", default=None,
+                   help="capture a torch.profiler trace into DIR")
+    p.add_argument("--vq-classes", type=int, default=0, metavar="N",
+                   help="replace the brightness classifier with an N-bin "
+                        "learned LBG codebook prune (1..7; 0 = off)")
     return p
-
-
-def _unported_flag(args) -> str | None:
-    for name, item in _NOT_PORTED.items():
-        if getattr(args, name):
-            return f"--{name.replace('_', '-')} is not ported yet (ROADMAP.md {item})"
-    return None
 
 
 def _config_from_args(args):
@@ -89,7 +79,7 @@ def _config_from_args(args):
     if args.compat:
         return REFERENCE_COMPAT(**kw)
     return EncoderConfig(criterion=args.criterion, so_mode=args.so_mode,
-                         num_transforms=args.transforms, **kw)
+                         num_transforms=args.transforms, vq_classes=args.vq_classes, **kw)
 
 
 def _sync(device) -> None:
@@ -97,28 +87,37 @@ def _sync(device) -> None:
         torch.cuda.synchronize(device)
 
 
-def _encode_one_quadtree(plane, args, cfg, dcfg, label=""):
+def _maybe_phase(timer, name):
+    """Timer phase context, or a no-op when --log is off."""
+    return timer.phase(name) if timer is not None else contextlib.nullcontext()
+
+
+def _encode_one_quadtree(plane, args, cfg, dcfg, label="", timer=None):
     """Quadtree-encode and decode one numpy u8 plane on ``args.device``,
     printing the leaves per level and the PSNR as the JAX CLI does; returns
     (QuadtreeResult, decoded numpy plane)."""
     from .core.metrics import psnr
     from .encode.quadtree import (QuadtreeConfig, decode_plane_quadtree,
                                   encode_plane_quadtree)
+    from .utils.progress import NullReporter, StdoutReporter
 
     device = args.device
+    reporter = StdoutReporter() if args.log else NullReporter()
     qcfg = QuadtreeConfig(min_size=args.qt_min, max_size=args.qt_max,
                           error_threshold=args.qt_threshold)
     t0 = time.perf_counter()
-    res = encode_plane_quadtree(plane, cfg, qcfg, device=device)
-    _sync(device)
+    with _maybe_phase(timer, f"encode{label}"):
+        res = encode_plane_quadtree(plane, cfg, qcfg, reporter, device=device)
+        _sync(device)
     print(f"encoded{label} in {time.perf_counter() - t0:.4g} s.")
     leaves = [int(l.accepted.sum()) for l in res.levels]
     print(f"{res.num_leaves} leaves "
           + " ".join(f"{l.range_size}px:{n}" for l, n in zip(res.levels, leaves)))
 
     t0 = time.perf_counter()
-    out, iters, mse = decode_plane_quadtree(res, dcfg)
-    _sync(device)
+    with _maybe_phase(timer, f"decode{label}"):
+        out, iters, mse = decode_plane_quadtree(res, dcfg)
+        _sync(device)
     print(f"decoded{label} in {time.perf_counter() - t0:.4g} s.")
     print(f"decode stats: {iters} steps, rms: {mse:.6g}")
     plane_t = torch.from_numpy(np.ascontiguousarray(plane, dtype=np.uint8))
@@ -126,11 +125,12 @@ def _encode_one_quadtree(plane, args, cfg, dcfg, label=""):
     return res, out.cpu().numpy()
 
 
-def _encode_one(plane, args, cfg, dcfg, label=""):
+def _encode_one(plane, args, cfg, dcfg, label="", timer=None):
     """Encode and decode one numpy u8 plane on ``args.device``, printing the
-    reference CLI's statistics; returns (EncodeResult, decoded numpy plane)."""
+    reference CLI's statistics; returns (EncodeResult, decoded numpy plane).
+    ``timer`` (a PhaseTimer, with --log) times the encode and the decode."""
     if args.quadtree:
-        return _encode_one_quadtree(plane, args, cfg, dcfg, label)
+        return _encode_one_quadtree(plane, args, cfg, dcfg, label, timer)
     from .core.classify import classify_grid
     from .core.metrics import psnr
     from .decode import decode_plane, decode_steps_py
@@ -139,13 +139,15 @@ def _encode_one(plane, args, cfg, dcfg, label=""):
 
     device = args.device
     t0 = time.perf_counter()
-    res = encode_plane(plane, cfg, device=device)
-    _sync(device)
+    with _maybe_phase(timer, f"encode{label}"):
+        res = encode_plane(plane, cfg, device=device)
+        _sync(device)
     print(f"encoded{label} in {time.perf_counter() - t0:.4g} s.")
     print(f"{res.num_ranges} elements.")
     plane_t = torch.from_numpy(np.ascontiguousarray(plane, dtype=np.uint8))
-    if cfg.use_classifier:
-        # classifier rejection statistics (Encoder2.hpp:21-23), O(R + D)
+    if cfg.use_classifier and cfg.vq_classes == 0:
+        # classifier rejection statistics (Encoder2.hpp:21-23), O(R + D);
+        # brightness bins only, as in the JAX CLI
         st = encode_stats(res, classify_grid(plane_t, res.range_grid).numpy(),
                           classify_grid(plane_t, res.domain_grid).numpy())
         total, rejected = st["total_mappings"], st["rejected_mappings"]
@@ -154,13 +156,16 @@ def _encode_one(plane, args, cfg, dcfg, label=""):
 
     if args.debug_decode:
         from .image import save_plane
+        from .utils.progress import StdoutReporter
 
-        for i, img in decode_steps_py(res, dcfg):
+        rep = StdoutReporter() if args.log else None
+        for i, img in decode_steps_py(res, dcfg, reporter=rep):
             save_plane(img.cpu().numpy(), f"decode_debug{i}.png")
 
     t0 = time.perf_counter()
-    out, iters, mse = decode_plane(res, dcfg)
-    _sync(device)
+    with _maybe_phase(timer, f"decode{label}"):
+        out, iters, mse = decode_plane(res, dcfg)
+        _sync(device)
     print(f"decoded{label} in {time.perf_counter() - t0:.4g} s.")
     print(f"decode stats: {iters} steps, rms: {mse:.6g}")
     print(f"psnr: {float(psnr(plane_t, out.cpu())):.4f} dB")
@@ -249,10 +254,6 @@ def _write_file(args, results) -> None:
 
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
-    refused = _unported_flag(args)
-    if refused:
-        print(f"error: {refused}", file=sys.stderr)
-        return 2
     if not args.input and not args.decode_file:
         print("no input image", file=sys.stderr)
         return 2
@@ -274,24 +275,37 @@ def main(argv=None) -> int:
         return 2
 
     from .image import load_planes, save_plane, save_yuv
+    from .utils.profiling import PhaseTimer, device_trace
 
+    timer = PhaseTimer() if args.log else None
+    trace = (device_trace(args.profile, args.device) if args.profile
+             else contextlib.nullcontext())
     total0 = time.perf_counter()
-    y, u, v = load_planes(args.input)
+    with _maybe_phase(timer, "load"):
+        y, u, v = load_planes(args.input)
     try:
-        if args.color:
-            outs = [_encode_one(p, args, cfg, dcfg, f" [{name}]")
-                    for name, p in (("Y", y), ("U", u), ("V", v))]
-            save_yuv(*(out for _, out in outs), args.result)
-            results = [(res, p) for (res, _), p in zip(outs, (y, u, v))]
-        else:
-            res, out = _encode_one(y, args, cfg, dcfg)
-            save_plane(out, args.result)
-            results = [(res, y)]
+        try:
+            with trace:
+                if args.color:
+                    outs = [_encode_one(p, args, cfg, dcfg, f" [{name}]", timer)
+                            for name, p in (("Y", y), ("U", u), ("V", v))]
+                    save_yuv(*(out for _, out in outs), args.result)
+                    results = [(res, p) for (res, _), p in zip(outs, (y, u, v))]
+                else:
+                    res, out = _encode_one(y, args, cfg, dcfg, timer=timer)
+                    save_plane(out, args.result)
+                    results = [(res, y)]
+        finally:
+            if args.profile:
+                print(f"profile trace written to {args.profile}")
     except NotImplementedError as e:
         print(f"error: {e}", file=sys.stderr)
         return 2
     if args.out:
         _write_file(args, results)
+    if timer is not None:
+        print("-- phases --")
+        print(timer.report())
     print(f"total time: {time.perf_counter() - total0:.4g} s.")
     return 0
 

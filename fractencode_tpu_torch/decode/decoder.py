@@ -24,8 +24,8 @@ from ..core.transform import NUM_TRANSFORMS
 from ..encode.encoder import EncodeResult
 from ..params import DecoderConfig
 
-__all__ = ["decode_plane", "decode_steps_py", "build_decode_tables",
-           "sample_domains", "half_res_image", "pyramid_factors"]
+__all__ = ["decode_plane", "decode_batch_stacked", "decode_steps_py",
+           "build_decode_tables", "sample_domains", "half_res_image", "pyramid_factors"]
 
 
 @functools.lru_cache(maxsize=None)
@@ -386,10 +386,34 @@ def decode_plane(result: EncodeResult, dcfg: DecoderConfig = DecoderConfig(), *,
     return _decode_core(_to_device(result, device), dcfg)
 
 
-def decode_steps_py(result: EncodeResult, dcfg: DecoderConfig = DecoderConfig()):
+def decode_batch_stacked(result: EncodeResult, dcfg: DecoderConfig = DecoderConfig(), *,
+                         device: torch.device | str | None = None):
+    """Decode a stacked batch (arrays with a leading [B] axis, as
+    ``encode_batch_stacked`` gives them) on ``device`` (default: the
+    result's), frame after frame through ``decode_plane`` with each frame's
+    ``distance`` zeroed, as the JAX package's does.  Returns ([B, H, W] u8,
+    [B] i32 iterations, [B] f32 mse) tensors; the last two on the CPU."""
+    result = _to_device(result, device)
+    outs, iters, mses = [], [], []
+    for i in range(result.domain_idx.shape[0]):
+        frame = dataclasses.replace(
+            result, domain_idx=result.domain_idx[i], transform=result.transform[i],
+            s=result.s[i], o=result.o[i], distance=torch.zeros_like(result.s[i]),
+            valid=result.valid[i])
+        out, it, mse = _decode_core(frame, dcfg)
+        outs.append(out)
+        iters.append(it)
+        mses.append(mse)
+    return (torch.stack(outs), torch.tensor(iters, dtype=torch.int32),
+            torch.tensor(mses, dtype=torch.float32))
+
+
+def decode_steps_py(result: EncodeResult, dcfg: DecoderConfig = DecoderConfig(),
+                    reporter=None):
     """Decode yielding every iterate (for --debug_decode dumps, cf.
     ``Encoder2.hpp:74-82``).  Yields (step_index, u8 image); stops on the
-    epsilon test only, like the reference."""
+    epsilon test only, like the reference.  ``reporter`` (a
+    ``utils.ProgressReporter``) logs each step against ``max_iterations``."""
     h, w = result.height, result.width
     tables = _build_indices(result)
     s = torch.where(result.valid, result.s, 0.0)
@@ -401,7 +425,11 @@ def decode_steps_py(result: EncodeResult, dcfg: DecoderConfig = DecoderConfig())
                            result.o_is_mean)
         d = nxt.to(torch.int64) - img.to(torch.int64)
         mse = float((d * d).sum().item()) / (h * w)
+        if reporter is not None:
+            reporter.log(i + 1, dcfg.max_iterations)
         yield i + 1, nxt
         if mse < dcfg.epsilon:
+            if reporter is not None:
+                reporter.log(dcfg.max_iterations, dcfg.max_iterations)
             return
         img = nxt

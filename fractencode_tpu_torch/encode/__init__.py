@@ -1,7 +1,9 @@
 from .codebook import Codebook, build_codebook, extract_ranges
 from .matcher import SearchResult, search_classed, solve_so
-from .encoder import EncodeResult, encode_plane, encode_stats
+from .encoder import (EncodeResult, encode_batch, encode_batch_stacked, encode_plane,
+                      encode_stats)
 from .quadtree import (QuadtreeConfig, QuadtreeResult, decode_plane_quadtree,
+                       encode_batch_quadtree, encode_batch_quadtree_stacked,
                        encode_plane_quadtree)
 
 __all__ = [
@@ -13,9 +15,13 @@ __all__ = [
     "solve_so",
     "EncodeResult",
     "encode_plane",
+    "encode_batch",
+    "encode_batch_stacked",
     "encode_stats",
     "QuadtreeConfig",
     "QuadtreeResult",
     "encode_plane_quadtree",
+    "encode_batch_quadtree",
+    "encode_batch_quadtree_stacked",
     "decode_plane_quadtree",
 ]

@@ -2,10 +2,14 @@
 
 Pipeline for one u8 plane: 2x2 box sums (shared by the codebook's half image
 and the classifier's quadrant sums) -> codebook and range blocks -> range and
-domain classes -> class-blocked search (``matcher.search_classed``); without
+domain classes (the brightness classifier, or learned VQ bins with
+``vq_classes``) -> class-blocked search (``matcher.search_classed``); without
 the classifier, no classes and the dense search (``matcher.search_dense``).
 The per-range result plays the role of ``grid_encode_data_t``
 (``encode/datatypes.h:8-26``).
+
+The batch forms run the single-plane encode frame by frame (the JAX package
+streams frames through ``lax.map``) and stack the results.
 """
 from __future__ import annotations
 
@@ -18,11 +22,13 @@ from ..core.classify import classify_grid
 from ..core.grid import Grid, uniform_grid
 from ..core.stats import block_sums_nonoverlapping, integral_image
 from ..params import EncoderConfig
+from ..utils.prng import prng_key
 from .codebook import build_codebook, extract_ranges
 from .matcher import search_classed, search_dense
+from .vq import assign_codes, train_codebook
 
-__all__ = ["EncodeResult", "encode_plane", "encode_stats", "default_device",
-           "plane_on_device"]
+__all__ = ["EncodeResult", "ARRAY_FIELDS", "encode_plane", "encode_batch",
+           "encode_batch_stacked", "encode_stats", "default_device", "plane_on_device"]
 
 
 @dataclasses.dataclass
@@ -71,12 +77,6 @@ class EncodeResult:
         return ox, oy
 
 
-def _check_config(cfg: EncoderConfig) -> None:
-    if cfg.vq_classes > 0:
-        raise NotImplementedError(
-            "vq_classes > 0 is not ported yet (ROADMAP.md queue 1, VQ pruning)")
-
-
 def default_device(device=None):
     """``device``, or the card when it is None: the CPU runs only where the
     caller asks for it.  Raises when no card is there to default to."""
@@ -88,10 +88,10 @@ def default_device(device=None):
 
 
 def plane_on_device(plane, device=None) -> torch.Tensor:
-    """The [H, W] u8 plane (numpy array or tensor) as a tensor on ``device``.
-    By default a tensor stays where it is and a numpy array goes to the
-    card (``default_device``): the CPU runs only where the caller asks for
-    it, with a CPU tensor or ``device='cpu'``."""
+    """The [H, W] u8 plane or [B, H, W] batch (numpy array or tensor) as a
+    tensor on ``device``.  By default a tensor stays where it is and a numpy
+    array goes to the card (``default_device``): the CPU runs only where the
+    caller asks for it, with a CPU tensor or ``device='cpu'``."""
     if device is None and isinstance(plane, torch.Tensor):
         device = plane.device
     device = default_device(device)
@@ -100,13 +100,44 @@ def plane_on_device(plane, device=None) -> torch.Tensor:
     return plane.to(device=device, dtype=torch.uint8)
 
 
+# EncodeResult's per-range arrays
+ARRAY_FIELDS = ("domain_idx", "transform", "s", "o", "distance", "valid")
+
+
+def _normalize_affine(v: torch.Tensor) -> torch.Tensor:
+    """Remove the components the search's affine map absorbs: zero-mean,
+    ~unit-variance rows (variance floor 1 keeps flat blocks at ~0).  The
+    mean is exact in f32 for the encoder's vectors (multiples of 1/4 below
+    256); the variance is the exact sum of the centred squares in float64,
+    and the scale 1/sqrt(var + 1) is rounded once to f32 (the JAX package's
+    ``lax.rsqrt`` is XLA's approximation, within 2 ulp of it)."""
+    c = v - v.mean(-1, keepdim=True)
+    c64 = c.double()
+    var = (c64 * c64).sum(-1, keepdim=True) / v.shape[-1]
+    return c * (1.0 / torch.sqrt(var + 1.0)).float()
+
+
+def _vq_classes(ranges: torch.Tensor, cb, cfg: EncoderConfig):
+    """(range_classes, domain_classes, the codebook's training steps) from a
+    learned LBG codebook, the classes in the classifier's value convention
+    (the class layout shifts by +1, so codeword ids 0..N-1 are returned as
+    -1..N-2 -> bins 0..N-1)."""
+    dvec = _normalize_affine(cb.values[:, 0, :])  # identity-isometry domains
+    rvec = _normalize_affine(ranges)
+    d = dvec.shape[0]
+    limit = cfg.vq_sample_limit if cfg.vq_sample_limit < d else None
+    codebook, dcls, steps = train_codebook(dvec, prng_key(cfg.vq_seed), cfg.vq_classes,
+                                           sample_limit=limit)
+    rcls = assign_codes(rvec, codebook)
+    return rcls - 1, dcls - 1, steps
+
+
 def encode_plane(plane, cfg: EncoderConfig | None = None, *,
                  device: torch.device | str | None = None) -> EncodeResult:
     """Encode one [H, W] u8 plane (numpy array or tensor) on ``device``
     (default: the tensor's device, or the card for a numpy array; see
     ``plane_on_device``)."""
     cfg = cfg or EncoderConfig()
-    _check_config(cfg)
     plane = plane_on_device(plane, device)
     h, w = plane.shape
     if h % cfg.target_size or w % cfg.target_size:
@@ -128,7 +159,14 @@ def encode_plane(plane, cfg: EncoderConfig | None = None, *,
     ranges = extract_ranges(plane_f32, cfg.target_size)
     sum_a = ranges.sum(-1)
     sum_a2 = (ranges * ranges).sum(-1)
-    if cfg.use_classifier:
+    if cfg.vq_classes > 0:
+        # learned pruning: the LBG codeword id as the class bin, on contrast-
+        # and brightness-normalized vectors; the classed search runs on
+        # these bins as on the classifier's (use_classifier forced on)
+        range_classes, domain_classes, _ = _vq_classes(ranges, cb, cfg)
+        res = search_classed(ranges, sum_a, sum_a2, cb, range_classes, domain_classes,
+                             dataclasses.replace(cfg, use_classifier=True))
+    elif cfg.use_classifier:
         ii = integral_image(plane)
         domain_classes = classify_grid(plane, domain_grid, ii=ii, sums2x2=sums2x2)
         range_classes = classify_grid(plane, range_grid, ii=ii, sums2x2=sums2x2)
@@ -141,6 +179,31 @@ def encode_plane(plane, cfg: EncoderConfig | None = None, *,
         distance=res.distance, valid=res.valid, width=w, height=h,
         source_size=cfg.source_size, target_size=cfg.target_size,
         domain_step=cfg.domain_step, num_transforms=cfg.num_transforms)
+
+
+def encode_batch_stacked(planes, cfg: EncoderConfig | None = None, *,
+                         device: torch.device | str | None = None) -> EncodeResult:
+    """Encode a [B, H, W] u8 batch (numpy array or tensor) on ``device``
+    (``plane_on_device``'s rule) and return ONE EncodeResult whose arrays
+    carry a leading batch axis ([B, R]).  Frames run one after another
+    through ``encode_plane``, so each equals its single-plane encode."""
+    cfg = cfg or EncoderConfig()
+    planes = plane_on_device(planes, device)
+    _, h, w = planes.shape
+    frames = [encode_plane(p, cfg) for p in planes]
+    return EncodeResult(
+        **{f: torch.stack([getattr(r, f) for r in frames]) for f in ARRAY_FIELDS},
+        width=w, height=h, source_size=cfg.source_size, target_size=cfg.target_size,
+        domain_step=cfg.domain_step, num_transforms=cfg.num_transforms)
+
+
+def encode_batch(planes, cfg: EncoderConfig | None = None, *,
+                 device: torch.device | str | None = None) -> list[EncodeResult]:
+    """Encode a [B, H, W] u8 batch; one EncodeResult per frame (slices of
+    ``encode_batch_stacked``'s arrays)."""
+    stacked = encode_batch_stacked(planes, cfg, device=device)
+    return [dataclasses.replace(stacked, **{f: getattr(stacked, f)[i] for f in ARRAY_FIELDS})
+            for i in range(stacked.domain_idx.shape[0])]
 
 
 def encode_stats(result: EncodeResult, range_classes=None, domain_classes=None):

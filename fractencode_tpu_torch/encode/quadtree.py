@@ -14,8 +14,9 @@ each pixel from the level that holds its leaf.
 
 The JAX package runs the pyramid as one fused program or level by level;
 PyTorch runs eagerly, so there is one form here, the per-level loop.  The
-batch and sharded forms are not ported yet (ROADMAP.md queue 1); the FTQ1
-bitstream is ``codec/bitstream_quadtree.py``.
+batch forms run it frame by frame (the JAX package's ``lax.map``) and stack
+each level's arrays; the sharded forms are not ported yet (ROADMAP.md queue
+1); the FTQ1 bitstream is ``codec/bitstream_quadtree.py``.
 """
 from __future__ import annotations
 
@@ -32,7 +33,8 @@ from .encoder import plane_on_device
 from .matcher import mask_ranges_result, search_classed, search_dense
 
 __all__ = ["QuadtreeConfig", "QuadtreeLevel", "QuadtreeResult",
-           "encode_plane_quadtree", "decode_plane_quadtree"]
+           "encode_plane_quadtree", "encode_batch_quadtree",
+           "encode_batch_quadtree_stacked", "decode_plane_quadtree"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -143,14 +145,15 @@ def _upsample_mask(mask2d: torch.Tensor) -> torch.Tensor:
 
 
 def encode_plane_quadtree(plane, cfg: EncoderConfig | None = None,
-                          qcfg: QuadtreeConfig | None = None, *,
+                          qcfg: QuadtreeConfig | None = None, reporter=None, *,
                           device: torch.device | str | None = None
                           ) -> QuadtreeResult:
     """Adaptive-depth encode of one [H, W] u8 plane (numpy array or tensor)
     on ``device`` (default: the tensor's, or the card for a numpy array; see
     ``encoder.plane_on_device``): coarse blocks where they fit, fine where
-    needed.  ``cfg`` (its ``rms_threshold`` among the rest) applies at every
-    level."""
+    needed.  ``cfg`` (its ``rms_threshold`` among the rest, not
+    ``vq_classes``) applies at every level; ``reporter`` (a
+    ``utils.ProgressReporter``) logs each level done."""
     cfg = cfg or EncoderConfig()
     qcfg = qcfg or QuadtreeConfig()
     plane = plane_on_device(plane, device)
@@ -184,7 +187,52 @@ def encode_plane_quadtree(plane, cfg: EncoderConfig | None = None,
             domain_size=ds, domain_step=step, num_transforms=cfg.num_transforms))
         if i < len(sizes) - 1:
             covered = _upsample_mask(covered)
+        if reporter is not None:
+            reporter.log(i + 1, len(sizes))
     return QuadtreeResult(levels=levels, width=w, height=h)
+
+
+# QuadtreeLevel's per-range arrays
+LEVEL_ARRAY_FIELDS = ("domain_idx", "transform", "s", "o", "error", "accepted")
+
+
+def encode_batch_quadtree_stacked(planes, cfg: EncoderConfig | None = None,
+                                  qcfg: QuadtreeConfig | None = None, *,
+                                  device: torch.device | str | None = None
+                                  ) -> QuadtreeResult:
+    """Quadtree-encode a [B, H, W] u8 batch (numpy array or tensor) on
+    ``device`` (``encoder.plane_on_device``'s rule) and return ONE
+    QuadtreeResult whose level arrays carry a leading batch axis.  Frames run
+    one after another through ``encode_plane_quadtree``, so each equals its
+    single-plane encode."""
+    cfg = cfg or EncoderConfig()
+    qcfg = qcfg or QuadtreeConfig()
+    planes = plane_on_device(planes, device)
+    _, h, w = planes.shape
+    if h % qcfg.max_size or w % qcfg.max_size:
+        raise ValueError("image not aligned to the coarsest range size")
+    frames = [encode_plane_quadtree(p, cfg, qcfg) for p in planes]
+    levels = [dataclasses.replace(level, **{
+                  f: torch.stack([getattr(r.levels[i], f) for r in frames])
+                  for f in LEVEL_ARRAY_FIELDS})
+              for i, level in enumerate(frames[0].levels)]
+    return QuadtreeResult(levels=levels, width=w, height=h)
+
+
+def encode_batch_quadtree(planes, cfg: EncoderConfig | None = None,
+                          qcfg: QuadtreeConfig | None = None, *,
+                          device: torch.device | str | None = None
+                          ) -> list[QuadtreeResult]:
+    """Quadtree-encode a [B, H, W] u8 batch; one QuadtreeResult per frame
+    (slices of ``encode_batch_quadtree_stacked``'s level arrays)."""
+    stacked = encode_batch_quadtree_stacked(planes, cfg, qcfg, device=device)
+
+    def frame(i):
+        return [dataclasses.replace(l, **{f: getattr(l, f)[i] for f in LEVEL_ARRAY_FIELDS})
+                for l in stacked.levels]
+
+    return [QuadtreeResult(levels=frame(i), width=stacked.width, height=stacked.height)
+            for i in range(stacked.levels[0].domain_idx.shape[0])]
 
 
 # ---------------------------------------------------------------------------

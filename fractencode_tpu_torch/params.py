@@ -38,7 +38,7 @@ class EncoderConfig:
     criterion: str = "affine"  # 'affine' | 'raw'
     so_mode: str = "ls"  # 'ls' | 'reference'
 
-    # Learned pruning (not ported yet: ROADMAP.md queue 1, VQ pruning)
+    # Learned pruning: LBG codeword ids as the class bins (encode/vq.py)
     vq_classes: int = 0
     vq_sample_limit: int = 65536
     vq_seed: int = 0

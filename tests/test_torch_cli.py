@@ -1,7 +1,6 @@
 """The port's package boundary and CLI: no jax import anywhere in the port,
-the CLI's output against the JAX CLI's on the in-repo Lenna crop, refused
-flags, the card as the default device, and chip_smoke.py's behaviour without
-a card."""
+the CLI's output against the JAX CLI's on the in-repo Lenna crop, the card
+as the default device, and chip_smoke.py's behaviour without a card."""
 import os
 import re
 import shutil
@@ -78,15 +77,6 @@ def test_cli_psnr_matches_jax_cli(tmp_path, flags):
 
     assert np.array_equal(np.asarray(Image.open(tmp_path / "t.png")),
                           np.asarray(Image.open(tmp_path / "j.png")))
-
-
-@pytest.mark.parametrize("flag", [["--vq-classes", "3"], ["--log"], ["--profile", "p"]])
-def test_cli_refuses_unported_flags(flag, capsys):
-    from fractencode_tpu_torch.cli import main
-
-    assert main([LENNA, "--device", "cpu", *flag]) == 2
-    err = capsys.readouterr().err
-    assert "not ported yet" in err and "ROADMAP.md" in err
 
 
 def _png(path):

@@ -717,3 +717,82 @@ def test_micro_wrapper_refuses_bad_inputs(cuda):
         with pytest.raises(ValueError, match=msg):
             mt.micro_step_cuda(*a.values(), variant=variant, **kw)
     assert mt.micro_step_cuda.launches == before
+
+
+def _distinct_frames(b, n):
+    """b distinct seeded [n, n] frames (no frame repeated)."""
+    return np.stack([random_plane(n, 40 + i) for i in range(b)])
+
+
+@pytest.mark.parametrize("cfg", [T.EncoderConfig(), T.EncoderConfig(use_classifier=False)],
+                         ids=["default", "nocls"])
+def test_batch_frames_equal_single_on_the_card(cuda, cfg):
+    """encode_batch_stacked and decode_batch_stacked on the card: each frame
+    bitwise equal to encode_plane and decode_plane there, the search's
+    launches B times the single frame's, and frame 0 equal to the CPU's."""
+    frames = _distinct_frames(3, 128)
+    counts = lambda: sum(mk.search_dense_cuda.launches.values()) + \
+        sum(mk.search_classed_cuda.launches.values())
+    before = counts()
+    stacked = T.encode_batch_stacked(frames, cfg, device=cuda)
+    assert counts() == before + 3 and stacked.s.device.type == "cuda"
+    dcfg = T.DecoderConfig(pyramid=True)
+    outs, iters, mses = T.decode_batch_stacked(stacked, dcfg)
+    cpu = T.encode_plane(frames[0], cfg, device="cpu")
+    for i, plane in enumerate(frames):
+        single = T.encode_plane(plane, cfg, device=cuda)
+        for f in ("domain_idx", "transform", "s", "o", "distance", "valid"):
+            assert_bitwise(getattr(stacked, f)[i], getattr(single, f), f"frame {i} {f}")
+            if i == 0:
+                assert_bitwise(getattr(stacked, f)[i], getattr(cpu, f), f"CPU {f}")
+        out, it, mse = T.decode_plane(single, dcfg)
+        assert_bitwise(outs[i], out, f"frame {i} pixels")
+        assert (int(iters[i]), float(mses[i])) == (it, mse)
+
+
+def test_batch_quadtree_frames_equal_single_on_the_card(cuda):
+    from fractencode_tpu_torch.encode import quadtree as tq
+
+    frames = _distinct_frames(2, 128)
+    count = lambda: sum(mk.search_classed_cuda.launches.values())
+    before = count()
+    stacked = tq.encode_batch_quadtree_stacked(frames, device=cuda)
+    launched = count() - before
+    singles = [tq.encode_plane_quadtree(plane, device=cuda) for plane in frames]
+    assert launched == count() - before - launched > 0
+    for i, single in enumerate(singles):
+        for ls, l1 in zip(stacked.levels, single.levels, strict=True):
+            for f in ("domain_idx", "transform", "s", "o", "error", "accepted"):
+                assert_bitwise(getattr(ls, f)[i], getattr(l1, f), f"frame {i} {f}")
+
+
+@pytest.mark.parametrize("num_codes,limit", [(3, 65536), (4, 400), (7, 65536)])
+def test_vq_card_equals_cpu(cuda, num_codes, limit):
+    """VQ on the card: the normalized vectors, train_codebook's codebook,
+    steps and labels, and the encode (K1 on the VQ bins), bitwise equal to
+    the CPU's; limit 400 below 961 domains takes the subsample branch."""
+    from fractencode_tpu_torch.core.grid import uniform_grid
+    from fractencode_tpu_torch.encode import encoder as te
+    from fractencode_tpu_torch.encode import vq as tv
+    from fractencode_tpu_torch.encode.codebook import build_codebook
+    from fractencode_tpu_torch.utils.prng import prng_key
+
+    img = random_plane(256, 17)
+    out = {}
+    for dev in (cuda, torch.device("cpu")):
+        pf = torch.from_numpy(img).to(dev).float()
+        dvec = te._normalize_affine(build_codebook(pf, uniform_grid(256, 256, 16, 8), 4,
+                                                   4).values[:, 0, :])
+        cb, labels, steps = tv.train_codebook(dvec, prng_key(5), num_codes,
+                                              sample_limit=limit if limit < 961 else None)
+        out[dev.type] = (dvec, cb, labels, steps)
+    assert out["cuda"][3] == out["cpu"][3]
+    for what, g, c in zip(("vectors", "codebook", "labels"), out["cuda"][:3], out["cpu"][:3]):
+        assert_bitwise(g, c, what)
+    cfg = T.EncoderConfig(vq_classes=num_codes, vq_sample_limit=limit)
+    before = sum(mk.search_classed_cuda.launches.values())
+    rg = T.encode_plane(img, cfg, device=cuda)
+    assert sum(mk.search_classed_cuda.launches.values()) == before + 1
+    rc = T.encode_plane(img, cfg, device="cpu")
+    for f in ("domain_idx", "transform", "s", "o", "distance", "valid"):
+        assert_bitwise(getattr(rg, f), getattr(rc, f), f)

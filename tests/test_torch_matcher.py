@@ -213,12 +213,11 @@ def test_general_rank_mode(cfg_kw):
 
 
 @pytest.mark.parametrize("cfg_kw", [
-    dict(vq_classes=3),
     dict(criterion="raw", so_mode="reference", source_size=64, target_size=32),
 ])
 def test_unported_configs_raise(cfg_kw):
-    """VQ pruning, and ranges above 16x16 (K = 1024; the 'raw' key runs at
-    K = 256 since it was ported)."""
+    """Ranges above 16x16 (K = 1024; the 'raw' key runs at K = 256 since it
+    was ported)."""
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         T.encode_plane(random_plane(64), T.EncoderConfig(**cfg_kw), device="cpu")
 
