@@ -1075,18 +1075,26 @@ def batch_phase(kernels, cfg, dcfg):
 
 def vq_labels(img, cfg, device):
     """(range labels, domain labels, codebook steps) of the encoder's VQ
-    bins for ``img`` on ``device`` (encoder._vq_classes)."""
+    bins for ``img`` on ``device``: the steps of encoder._vq_classes, with
+    the codebook's training steps kept."""
     import torch
 
     from fractencode_tpu_torch.core.grid import uniform_grid
     from fractencode_tpu_torch.encode import encoder as te
     from fractencode_tpu_torch.encode.codebook import build_codebook, extract_ranges
+    from fractencode_tpu_torch.encode.vq import assign_codes, train_codebook
+    from fractencode_tpu_torch.utils.prng import prng_key
 
     n = img.shape[0]
     pf = torch.from_numpy(img).to(device).float()
     cb = build_codebook(pf, uniform_grid(n, n, cfg.source_size, cfg.domain_step),
                         cfg.target_size, cfg.num_transforms)
-    return te._vq_classes(extract_ranges(pf, cfg.target_size), cb, cfg)
+    dvec = te._normalize_affine(cb.values[:, 0, :])
+    limit = cfg.vq_sample_limit if cfg.vq_sample_limit < dvec.shape[0] else None
+    codebook, dcls, steps = train_codebook(dvec, prng_key(cfg.vq_seed), cfg.vq_classes,
+                                           sample_limit=limit)
+    rcls = assign_codes(te._normalize_affine(extract_ranges(pf, cfg.target_size)), codebook)
+    return rcls - 1, dcls - 1, steps
 
 
 def vq_phase(kernels, planes):
@@ -1104,9 +1112,11 @@ def vq_phase(kernels, planes):
     k1 = ("search_classed", "ls", 16, False)
     card_equals_cpu(planes[512], vq, "512 --vq-classes 4")
     print("     512^2 --vq-classes 4: card and CPU EncodeResult and pixels bitwise equal")
+    steps = {}
     for n, img in ((512, planes[512]), (2048, planes[2048]), (4096, planes[4096])):
         _, cfg, _ = parse(["--device", "cuda", *vq])
         g, c = vq_labels(img, cfg, "cuda"), vq_labels(img, cfg, "cpu")
+        steps[n] = g[2]
         check(g[2] == c[2] and bitwise(g[0], c[0]) and bitwise(g[1], c[1]),
               f"{n}^2 VQ labels or steps: card differs from CPU")
         print(f"     {n}^2: {g[1].numel()} domains, VQ labels and {g[2]} codebook steps "
@@ -1131,9 +1141,8 @@ def vq_phase(kernels, planes):
             check(np.array_equal(dec.cpu().numpy(), out), f"repeat {n}^2 {label} decode")
             db = float(psnr(plane_t, torch.from_numpy(out)))
             check(db > 20.0, f"{n}^2 {label} PSNR {db:.4f} dB is implausibly low")
-            steps = vq_labels(img, c, "cuda")[2] if c.vq_classes else None
             rows.append(f"{label}: encode {enc_ms:.3f} ms, PSNR {db:.4f} dB"
-                        + ("" if steps is None else f", {steps} codebook steps")
+                        + (f", {steps[n]} codebook steps" if c.vq_classes else "")
                         + f", launches {counts}")
         print(f"     {n}^2 ({'median of 3 warm runs' if n == 2048 else 'one warm run'}, "
               "host clock): " + "; ".join(rows))

@@ -386,14 +386,12 @@ def decode_plane(result: EncodeResult, dcfg: DecoderConfig = DecoderConfig(), *,
     return _decode_core(_to_device(result, device), dcfg)
 
 
-def decode_batch_stacked(result: EncodeResult, dcfg: DecoderConfig = DecoderConfig(), *,
-                         device: torch.device | str | None = None):
+def decode_batch_stacked(result: EncodeResult, dcfg: DecoderConfig = DecoderConfig()):
     """Decode a stacked batch (arrays with a leading [B] axis, as
-    ``encode_batch_stacked`` gives them) on ``device`` (default: the
-    result's), frame after frame through ``decode_plane`` with each frame's
-    ``distance`` zeroed, as the JAX package's does.  Returns ([B, H, W] u8,
-    [B] i32 iterations, [B] f32 mse) tensors; the last two on the CPU."""
-    result = _to_device(result, device)
+    ``encode_batch_stacked`` gives them) on the result's device, frame after
+    frame through ``decode_plane``'s core with each frame's ``distance``
+    zeroed, as the JAX package's does.  Returns ([B, H, W] u8, [B] i32
+    iterations, [B] f32 mse) tensors; the last two on the CPU."""
     outs, iters, mses = [], [], []
     for i in range(result.domain_idx.shape[0]):
         frame = dataclasses.replace(

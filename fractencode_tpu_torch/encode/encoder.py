@@ -108,9 +108,10 @@ def _normalize_affine(v: torch.Tensor) -> torch.Tensor:
     """Remove the components the search's affine map absorbs: zero-mean,
     ~unit-variance rows (variance floor 1 keeps flat blocks at ~0).  The
     mean is exact in f32 for the encoder's vectors (multiples of 1/4 below
-    256); the variance is the exact sum of the centred squares in float64,
-    and the scale 1/sqrt(var + 1) is rounded once to f32 (the JAX package's
-    ``lax.rsqrt`` is XLA's approximation, within 2 ulp of it)."""
+    256); the variance sums the centred squares (exact products) in float64,
+    and the scale 1/sqrt(var + 1) is computed in float64, then rounded to
+    f32: the same elementwise ops on the card and the CPU (the JAX
+    package's ``lax.rsqrt`` is XLA's approximation, within 2 ulp of it)."""
     c = v - v.mean(-1, keepdim=True)
     c64 = c.double()
     var = (c64 * c64).sum(-1, keepdim=True) / v.shape[-1]
@@ -118,18 +119,18 @@ def _normalize_affine(v: torch.Tensor) -> torch.Tensor:
 
 
 def _vq_classes(ranges: torch.Tensor, cb, cfg: EncoderConfig):
-    """(range_classes, domain_classes, the codebook's training steps) from a
-    learned LBG codebook, the classes in the classifier's value convention
+    """(range_classes, domain_classes) from a learned LBG codebook, in the
+    classifier's value convention
     (the class layout shifts by +1, so codeword ids 0..N-1 are returned as
     -1..N-2 -> bins 0..N-1)."""
     dvec = _normalize_affine(cb.values[:, 0, :])  # identity-isometry domains
     rvec = _normalize_affine(ranges)
     d = dvec.shape[0]
     limit = cfg.vq_sample_limit if cfg.vq_sample_limit < d else None
-    codebook, dcls, steps = train_codebook(dvec, prng_key(cfg.vq_seed), cfg.vq_classes,
-                                           sample_limit=limit)
+    codebook, dcls, _ = train_codebook(dvec, prng_key(cfg.vq_seed), cfg.vq_classes,
+                                       sample_limit=limit)
     rcls = assign_codes(rvec, codebook)
-    return rcls - 1, dcls - 1, steps
+    return rcls - 1, dcls - 1
 
 
 def encode_plane(plane, cfg: EncoderConfig | None = None, *,
@@ -163,7 +164,7 @@ def encode_plane(plane, cfg: EncoderConfig | None = None, *,
         # learned pruning: the LBG codeword id as the class bin, on contrast-
         # and brightness-normalized vectors; the classed search runs on
         # these bins as on the classifier's (use_classifier forced on)
-        range_classes, domain_classes, _ = _vq_classes(ranges, cb, cfg)
+        range_classes, domain_classes = _vq_classes(ranges, cb, cfg)
         res = search_classed(ranges, sum_a, sum_a2, cb, range_classes, domain_classes,
                              dataclasses.replace(cfg, use_classifier=True))
     elif cfg.use_classifier:

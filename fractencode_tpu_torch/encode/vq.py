@@ -10,7 +10,8 @@ The seeding and the subsample are the JAX package's draws
 CPU agree bitwise: the distances' dot products are a loop over D (no
 matmul: cuBLAS and the CPU's BLAS sum in different orders, and one ulp can
 flip a near-tie and with it every later step), and a cluster's sum is an
-int64 fixed-point sum, rounded once to f32.  The JAX package's dot at
+exact int64 fixed-point sum, rounded to f64 and then to f32 by the same
+elementwise ops on the card and the CPU.  The JAX package's dot at
 HIGHEST and its segment sum have their own orders, so labels can differ
 from its on near-ties (``tests/test_torch_vq.py`` states the agreement).
 """

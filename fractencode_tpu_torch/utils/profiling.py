@@ -38,17 +38,13 @@ class PhaseTimer:
 
 
 @contextlib.contextmanager
-def device_trace(log_dir: str, device=None):
+def device_trace(log_dir: str, device):
     """``torch.profiler`` trace of the block, written into ``log_dir`` as a
     Chrome/TensorBoard trace (``*.pt.trace.json``): host activity, plus the
-    card's kernels when ``device`` is a CUDA device (default: whenever a card
-    is there)."""
+    card's kernels when ``device`` is a CUDA device."""
     from torch.profiler import ProfilerActivity, profile, tensorboard_trace_handler
 
-    if device is None:
-        cuda = torch.cuda.is_available()
-    else:
-        cuda = torch.device(device).type == "cuda"
+    cuda = torch.device(device).type == "cuda"
     activities = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if cuda else [])
     with profile(activities=activities,
                  on_trace_ready=tensorboard_trace_handler(log_dir)):
