@@ -128,7 +128,27 @@ Phases, each of which must pass (any failure exits non-zero):
  22. `python -m fractencode_tpu_torch` on a 512^2 PNG on the card, three
      processes side by side: --log --profile DIR (the phase table, and a
      trace in DIR that names K1's kernel), --quadtree --log (the phase table
-     and the progress line) and --vq-classes 3; each must exit 0.
+     and the progress line) and --vq-classes 3; each must exit 0;
+ 23. sharding (fractencode_tpu_torch.parallel), on meshes that repeat cuda:0
+     (one card: host ms beside the single-device forms' are the sharding's
+     overhead, not scaling), every field bitwise against the single-device
+     functions on the card: each of K3's 18 masked instances (every key and
+     K, plain and `_thr`: the shards' domain masks as classes) on a 'domains'
+     path at 256^2 and against its plain version at that path's last band;
+     encode_batch_sharded of phase 20's 16 x 512^2 frames on (2, 4) by each
+     strategy, default and --rms 10, and without the classifier by 'domains'
+     and 'ring' (K3 masked), against encode_batch_stacked; its decode, flat
+     and pyramid, against decode_batch_stacked; encode_plane_sharded_image
+     at 2048^2 on (1, 4), replicate and ring, with and without the classifier
+     and --rms 10, and at 4096^2 by ring, against encode_plane, with the
+     codebook bytes a shard holds at its peak (from the tensors' sizes); K3
+     `ls16` masked, plain and `_thr`, timed at the 2048^2 --noclassifier
+     halo band (± --rms 10); the quadtree pair on (4, 2) at 8 x 1024^2
+     against the stacked form; the pod driver (scripts/encode_pod.py) as
+     one process and as two
+     (gloo, localhost) for each strategy, whose checksums must agree; and
+     dryrun_multichip on cuda:0 x 8.  No sharded path may run a plain search
+     on the card.
 Every path is driven with the launch counts set to 0 just before it and
 read just after; each must launch the kernels it names.  Each search
 kernel's record keeps the times of its last parity check, which is at the
@@ -158,6 +178,9 @@ at 2048^2 are one run each, the parity run itself (which also counts the
 pairs scanned), to keep the script short.
 The planes are natural-like synthetic textures made with numpy from a seed
 (the batch forms' frames each from its own seed).
+K3's masked instances (the class mask) have records of their own, their
+times at the sharded path that launches them (`ls16` masked, plain and
+`_thr`, at the 2048^2 halo band).
 The last two lines are the kernels' JSON record and the device JSON line.
 Without a CUDA device it exits non-zero and prints no result.  Its files
 go to build/smoke/ in the checkout, which it removes at the end.
@@ -168,6 +191,7 @@ import argparse
 import contextlib
 import dataclasses
 import gzip
+import io
 import json
 import os
 import re
@@ -475,9 +499,24 @@ def bound(pairs: int, k: int, nbytes: int):
     return (ops_ms, "operations") if ops_ms >= bytes_ms else (bytes_ms, "bytes")
 
 
+# K3's masked instances: the TPU kernel's class mask (`use_classes`), before
+# its frontier
+MASK_LINE = 215
+
+
+def record_key(kernel: str, key: tuple) -> tuple:
+    """A wrapper's launch key as a record's: (kernel, mode, K, frontier), and
+    "masked" after K3's masked instances (K3 counts by (mode, K, frontier,
+    masked))."""
+    if kernel == "search_dense":
+        return (kernel, *key[:3]) + (("masked",) if key[3] else ())
+    return (kernel, *key)
+
+
 class Kernels:
     """The kernels' records and launch counts, by (kernel, mode, K, frontier)
-    for the searches and ("micro_step", variant) for K4 and K5."""
+    for the searches, with "masked" after K3's masked instances, and
+    ("micro_step", variant) for K4 and K5."""
 
     def __init__(self, dp4a=None):
         from fractencode_tpu_torch.ops import matcher_kernels as mk
@@ -498,12 +537,17 @@ class Kernels:
                         lines = _LINES[kernel]
                         line = (lines["thr"] if thr else lines["f32"] if k == 256
                                 else lines.get(f"{mode}{k}", lines.get(mode)))
-                        self.records[(kernel, mode, k, thr)] = dict(
-                            name=f"{kernel}_{mode}{k}" + ("_thr" if thr else ""),
-                            route="cuda", source=SOURCES[kernel],
-                            replaces=f"fractencode_tpu/ops/matcher_pallas.py:{line}",
-                            launches=0, max_abs_err=0.0, library_ms=None,
-                            launches_by_path={})
+                        for masked in ((False, True) if kernel == "search_dense"
+                                       else (False,)):
+                            name = (f"{kernel}_{mode}{k}" + ("_masked" if masked else "")
+                                    + ("_thr" if thr else ""))
+                            self.records[(kernel, mode, k, thr) + (("masked",) if masked
+                                                                  else ())] = dict(
+                                name=name, route="cuda", source=SOURCES[kernel],
+                                replaces="fractencode_tpu/ops/matcher_pallas.py:"
+                                         f"{MASK_LINE if masked else line}",
+                                launches=0, max_abs_err=0.0, library_ms=None,
+                                launches_by_path={})
         for variant in mt.VARIANTS:  # K5 is 'full_t'; K4 the other four
             self.records[("micro_step", variant)] = dict(
                 name="micro_t_full" if variant == "full_t" else f"micro_{variant}",
@@ -519,7 +563,7 @@ class Kernels:
     def read(self, path, expect):
         """Add the counts since ``zero`` to the records under ``path``;
         every key in ``expect`` must have launched."""
-        counts = {(kernel, *key): n for kernel, w in self.wrappers.items()
+        counts = {record_key(kernel, key): n for kernel, w in self.wrappers.items()
                   for key, n in w.launches.items()}
         counts.update({("micro_step", v): n for v, n in self.micro.launches.items()})
         for key in expect:
@@ -1200,6 +1244,357 @@ def cli_phase(kernels, planes):
     shutil.rmtree(work)
 
 
+def hit_share(q, sa, sa2, c):
+    """Share of ranges whose winner meets the threshold: exactly the rows
+    that hit (a row that hits wins at or above its hit column's key)."""
+    import torch
+
+    from fractencode_tpu_torch.encode import matcher as tm
+    from fractencode_tpu_torch.ops import matcher_kernels as mk
+
+    k = c.target_size ** 2
+    dist = mk.rank_to_dist(q, sa2, sa, criterion=c.criterion, so_mode=c.so_mode,
+                           s_max=c.s_max, inv_norm=tm.inv_norm(c, k, c.source_size ** 2),
+                           n=float(k))
+    return float((dist <= torch.tensor(c.rms_threshold, dtype=torch.float32,
+                                       device=dist.device)).double().mean())
+
+
+@contextlib.contextmanager
+def recorded(module, name, calls):
+    """Calls of ``module.name`` appended to ``calls`` as (args, kwargs)."""
+    fn = getattr(module, name)
+
+    def record(*args, **kwargs):
+        calls.append((args, kwargs))
+        return fn(*args, **kwargs)
+
+    setattr(module, name, record)
+    try:
+        yield
+    finally:
+        setattr(module, name, fn)
+
+
+@contextlib.contextmanager
+def no_plain_search():
+    """A plain search on CUDA tensors raises while this is on: the sharded
+    paths must launch the kernels."""
+    from fractencode_tpu_torch.ops import matcher_kernels as mk
+
+    def refuse(*_, **__):
+        raise RuntimeError("a sharded path ran the plain search on CUDA tensors")
+
+    plain = mk._plain_search
+    mk._plain_search = refuse
+    try:
+        yield
+    finally:
+        mk._plain_search = plain
+
+
+def timed(fn):
+    """(host-clock ms of fn(), ended by a synchronize; its result)."""
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return 1e3 * (time.perf_counter() - t0), out
+
+
+def search_key(c, masked=False):
+    """The record of the search that config c runs: K1 with the classifier,
+    else K3 (masked: the sharded searches' class mask)."""
+    from fractencode_tpu_torch.encode import matcher as tm
+
+    key = (tm.rank_mode(c.criterion, c.so_mode, c.s_max), c.target_size ** 2,
+           c.rms_threshold > 0)
+    if c.use_classifier:
+        return ("search_classed", *key)
+    return ("search_dense", *key) + (("masked",) if masked else ())
+
+
+def k3_config(mode, k, thr):
+    """The no-classifier config of K3's (mode, K) on the CLI paths (the
+    quadtree's at its level's geometry), with --rms 10 for ``thr``."""
+    argv = ({16: [], 64: [*CONFIG1], 256: ["--quadtree"]}[k] if mode == "ls"
+            else KEY_PATHS[(mode, k)])
+    return path_config([*argv, "--noclassifier", *(RMS if thr else [])], mode, k)
+
+
+def masked_parity(kernels, call, what, plain_reps=5):
+    """K3 masked on the inputs of a recorded ``sharded.search_dense`` call
+    (a shard's search, its domain mask as classes) against its plain
+    version: (q, idx) bitwise, the times and the bound into the record;
+    with the frontier its hit share too."""
+    import dataclasses as dc
+
+    from fractencode_tpu_torch.encode import matcher as tm
+
+    (ranges, sa, sa2, cb, rcls, dcls, c), _ = call
+    k, area = c.target_size ** 2, c.source_size ** 2
+    prep = tm.dense_prep(ranges, sa, sa2, cb, rcls, dcls, c)
+    check(prep["rcls"] is not None, f"{what}: no class mask")
+    key = search_key(dc.replace(c, use_classifier=False), masked=True)
+    cols = prep["ch"].shape[0]
+    nbytes = search_bytes(ranges.shape[0], cols, k, prep["sa"] is not None, True)
+    q, _, pairs = kernels.parity(
+        key, lambda: tm.dense_kernel(prep, k, area, c),
+        lambda scanned=None: tm.dense_kernel(prep, k, area, dc.replace(c, backend="torch"),
+                                             scanned=scanned),
+        f"{what}, {ranges.shape[0]} rows x {cols} columns, {int((dcls < 0).sum())} of "
+        f"{dcls.shape[0]} domains masked", nbytes, plain_reps)
+    if c.rms_threshold > 0:
+        share = hit_share(q, sa, sa2, c)
+        kernels.hits(key, share)
+        print(f"      {share:.4f} of the rows hit; {pairs} pairs scanned up to each "
+              "row's frontier")
+
+
+def codebook_bytes(w: int, c, rows_per: int) -> int:
+    """The bytes of one codebook band of ``rows_per`` domain rows: values
+    [D, T, K] f32, SumB, SumB2 and 1/var_b [D, T] f32, and the classes [D]
+    i32 with the classifier."""
+    nx = (w - c.source_size) // c.domain_step + 1
+    d, t, k = rows_per * nx, c.num_transforms, c.target_size ** 2
+    return d * t * k * 4 + 3 * d * t * 4 + (4 * d if c.use_classifier else 0)
+
+
+def pod_phase(device="cuda"):
+    """The pod driver as users launch it, on the card: for each strategy one
+    process of 8 shards and two processes of 4 (gloo, a localhost
+    rendezvous), a (2, 4) mesh of cuda:0 either way, 8 x 512^2 with the
+    decode; all nine processes side by side.  The checksums must agree."""
+    import socket
+
+    from fractencode_tpu_torch.parallel import STRATEGIES
+
+    env = {**os.environ, "PYTHONPATH": ROOT, "OMP_NUM_THREADS": "1"}
+    base = [sys.executable, "-m", "fractencode_tpu_torch.scripts.encode_pod", "--batch", "8",
+            "--size", "512", "--decode", "--reps", "1", "--n-data", "2", "--device", device]
+
+    def port():
+        with socket.socket() as sock:
+            sock.bind(("127.0.0.1", 0))
+            return sock.getsockname()[1]
+
+    def start(argv):
+        return subprocess.Popen(base + argv, cwd=ROOT, env=env, stdout=subprocess.PIPE,
+                                stderr=subprocess.STDOUT, text=True)
+
+    runs = {}
+    for st in STRATEGIES:
+        runs[(st, 1)] = [start(["--strategy", st, "--shards", "8"])]
+        at = port()
+        runs[(st, 2)] = [start(["--strategy", st, "--shards", "4", "--coordinator",
+                                f"127.0.0.1:{at}", "--num-processes", "2", "--process-id",
+                                str(i), "--init-timeout", "120"]) for i in (0, 1)]
+    outs = {}
+    try:
+        for key, procs in runs.items():
+            outs[key] = [p.communicate(timeout=400)[0] for p in procs]
+    finally:
+        for procs in runs.values():
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+    for (st, n), texts in outs.items():
+        for p, text in zip(runs[(st, n)], texts):
+            check(p.returncode == 0, f"encode_pod {st}, {n} process(es): exit {p.returncode}: "
+                                     f"{text[-2000:]}")
+    for st in STRATEGIES:
+        sums = {}
+        for n in (1, 2):
+            text = outs[(st, n)][0]
+            sums[n] = [re.search(rf"^{what}: (\d+)$", text, re.M) for what in
+                       ("checksum", "decode checksum")]
+            check(all(sums[n]), f"encode_pod {st}, {n} process(es): no checksum: {text}")
+            sums[n] = [int(m.group(1)) for m in sums[n]]
+            check(f"mesh={{'data': 2, 'search': 4}} hosts={n}" in text,
+                  f"encode_pod {st}, {n} process(es): {text}")
+            lines = [l for l in text.splitlines() if l.startswith(("encode:", "decode:"))]
+            print(f"     encode_pod {st}, {n} process(es): " + "; ".join(lines))
+        check(sums[1] == sums[2], f"encode_pod {st}: checksums {sums[1]} (one process) "
+                                  f"!= {sums[2]} (two)")
+        print(f"     encode_pod {st}: checksum {sums[1][0]}, decode checksum {sums[1][1]}, "
+              "equal for one process and two")
+
+
+def shard_phase(kernels, cfg, planes, card="cuda:0"):
+    """Phase 23: the sharded drivers on meshes of cuda:0 repeated, every
+    field bitwise against the single-device functions on the card: config
+    5's 16 x 512^2 batch on (2, 4) by each strategy (default, --rms 10, and
+    without the classifier under 'domains' and 'ring': K3 masked, plain and
+    `_thr`) and its decode (flat, pyramid); config 4's halo-sharded plane on
+    (1, 4) at 2048^2 (replicate and ring; the classifier and
+    --noclassifier, each with and without --rms 10) and 4096^2 (ring); the
+    quadtree pair on (4, 2) at 8 x 1024^2; every masked K3 instance on a
+    sharded path ('domains', 256^2) and against its plain version there,
+    then ls16 masked, plain and `_thr`, at the 2048^2 halo band; the pod
+    driver in one process and two; the dry run."""
+    import dataclasses as dc
+
+    import torch
+
+    from fractencode_tpu_torch import (DecoderConfig, decode_batch_stacked,
+                                       encode_batch_stacked, encode_plane)
+    from fractencode_tpu_torch.encode import quadtree as tq
+    from fractencode_tpu_torch.graft_entry import dryrun_multichip
+    from fractencode_tpu_torch.ops import matcher_kernels as mk
+    from fractencode_tpu_torch.parallel import (STRATEGIES, decode_batch_sharded,
+                                                encode_batch_sharded,
+                                                encode_plane_sharded_image, make_mesh)
+    from fractencode_tpu_torch.parallel import sharded as ts
+
+    card = torch.device(card)
+    mesh = lambda nd, ns: make_mesh(nd, ns, devices=[card] * (nd * ns))
+    fields = ("domain_idx", "transform", "s", "o", "distance", "valid")
+    variants = lambda c: {"": c, " --rms 10": dc.replace(c, rms_threshold=10.0)}
+    print("     every mesh here repeats cuda:0, so its shards share one card: host ms "
+          "are the sharding's overhead, not its scaling (one warm run each)")
+
+    def sharded(path, expect, fn, calls=None):
+        """fn() as one path: counts zeroed before and read after, no plain
+        search on the card; (host ms, result, launch counts)."""
+        kernels.zero()
+        with no_plain_search(), recorded(ts, "search_dense",
+                                         [] if calls is None else calls):
+            ms, out = timed(fn)
+        return ms, out, kernels.read(path, expect)
+
+    # every masked K3 instance on a sharded path and against its plain
+    # version at that path's last band
+    small, m14 = planes[256], mesh(1, 4)
+    for mode, ks in mk.KERNEL_KEYS.items():
+        for k in ks:
+            for thr in (False, True):
+                c = k3_config(mode, k, thr)
+                name = f"{mode}{k}" + ("_thr" if thr else "")
+                calls = []
+                _, res, _ = sharded(f"sharded domains 256 nocls {name}",
+                                    [search_key(c, masked=True)],
+                                    lambda: encode_batch_sharded(small[None], c, m14, "domains"),
+                                    calls)
+                single = encode_plane(small, c, device=card)
+                for f in fields:
+                    check(bitwise(getattr(res[0], f), getattr(single, f)),
+                          f"sharded domains 256^2 {name} {f} differs from encode_plane")
+                masked_parity(kernels, calls[-1], f"256^2 sharded 'domains' {name}, band 3")
+    print("     256^2 'domains' on (1, 4) without the classifier, every (key, K) plain "
+          "and --rms 10: equal to encode_plane, each launching its masked K3 instance")
+
+    # config 5: 16 distinct 512^2 frames (phase 20's) on (2, 4)
+    frames = np.stack([natural_plane(512, SEED + 1000 + i) for i in range(16)])
+    m24 = mesh(2, 4)
+    for c_name, c0 in (("default", cfg), ("--noclassifier", dc.replace(cfg, use_classifier=False))):
+        for suffix, c in variants(c0).items():
+            name = c_name + suffix
+            st_ms, stacked = timed(lambda: encode_batch_stacked(frames, c, device=card))
+            row = [f"encode_batch_stacked {st_ms / 16:.3f}"]
+            for strategy in STRATEGIES:
+                if strategy == "ranges" and not c.use_classifier:
+                    continue
+                masked = not c.use_classifier
+                ms, res, counts = sharded(
+                    f"sharded {strategy} 16x512 {name}", [search_key(c, masked)],
+                    lambda: encode_batch_sharded(frames, c, m24, strategy))
+                check(not masked or all("_masked" in n for n in counts),
+                      f"{strategy} {name}: launches {counts}")
+                for i in range(16):
+                    for f in fields:
+                        check(bitwise(getattr(res[i], f), getattr(stacked, f)[i]),
+                              f"sharded {strategy} {name} frame {i} {f} differs from "
+                              "encode_batch_stacked")
+                row.append(f"{strategy} {ms / 16:.3f} (launches {counts})")
+                if name == "default" and strategy == "ranges":
+                    base, base_stacked = res, stacked
+            print(f"     16 x 512^2 {name}, (2, 4): every frame and field bitwise equal to "
+                  "encode_batch_stacked; host ms a frame: " + "; ".join(row))
+    for pyramid in (False, True):
+        d = DecoderConfig(pyramid=pyramid)
+        st_ms, (so, si, sm) = timed(lambda: decode_batch_stacked(base_stacked, d))
+        ms, (ho, hi, hm) = timed(lambda: decode_batch_sharded(base, m24, pyramid=pyramid))
+        # the flat loop counts the step that met its exit too (as the JAX
+        # package's sharded decode does)
+        want = si if pyramid else (si + 1).clamp(max=d.max_iterations)
+        check(bitwise(ho, so) and bitwise(hm, sm) and torch.equal(hi, want),
+              f"decode_batch_sharded pyramid={pyramid} differs from decode_batch_stacked")
+        print(f"     decode_batch_sharded {'pyramid' if pyramid else 'flat'}, (2, 4): pixels, "
+              f"MSE and iterations equal to decode_batch_stacked's; host ms a frame "
+              f"{ms / 16:.3f} against {st_ms / 16:.3f}")
+
+    # config 4: the halo-sharded plane on (1, 4)
+    halo_calls = {}
+    for n_px in (2048, 4096):
+        img = planes[n_px]
+        cases = ([(cls + suffix, c) for cls, c0 in (("classifier", cfg), (
+            "--noclassifier", dc.replace(cfg, use_classifier=False)))
+            for suffix, c in variants(c0).items()] if n_px == 2048 else [("classifier", cfg)])
+        for name, c in cases:
+            base_ms, single = timed(lambda: encode_plane(img, c, device=card))
+            row = [f"encode_plane {base_ms:.3f}"]
+            for codebook in ("replicate", "ring") if n_px == 2048 else ("ring",):
+                calls = []
+                ms, res, counts = sharded(
+                    f"halo {codebook} {n_px} {name}",
+                    [search_key(c, True)] if n_px == 2048 else [],
+                    lambda: encode_plane_sharded_image(img, c, m14, codebook), calls)
+                check(any(n.startswith(("search_classed_ls16", "search_classed2d_ls16",
+                                        "search_dense_ls16_masked")) for n in counts),
+                      f"halo {codebook} {n_px} {name}: launches {counts}")
+                for f in fields:
+                    check(bitwise(getattr(res, f), getattr(single, f)),
+                          f"halo {codebook} {n_px}^2 {name} {f} differs from encode_plane")
+                row.append(f"{codebook} {ms:.3f} (launches {counts})")
+                if (n_px, codebook) == (2048, "replicate") and not c.use_classifier:
+                    halo_calls[name] = calls[0]
+            hs = n_px // 4
+            band = codebook_bytes(n_px, c, hs // c.domain_step)
+            print(f"     {n_px}^2 {name}, (1, 4): bitwise equal to encode_plane; host ms "
+                  + "; ".join(row) + f"; codebook bytes a shard holds at its peak: "
+                  f"replicate {5 * band} (its band and the gathered 4), ring {2 * band} "
+                  "(its band and the one arriving), from the tensors' sizes")
+    for name, call in halo_calls.items():
+        masked_parity(kernels, call, f"2048^2 {name} halo band 0 (replicate: 4 gathered "
+                      "bands)", plain_reps=1)
+
+    # the quadtree pair on (4, 2): phase 20's 8 x 1024^2 frames
+    qcfg = tq.QuadtreeConfig()
+    qframes = np.stack([natural_plane(1024, SEED + 2000 + i) for i in range(8)])
+    m42 = mesh(4, 2)
+    st_ms, qst = timed(lambda: tq.encode_batch_quadtree_stacked(qframes, cfg, qcfg,
+                                                                 device=card))
+    ms, qsh, counts = sharded("sharded quadtree 8x1024", [("search_classed", "ls", 16, False)],
+                              lambda: tq.encode_batch_quadtree_sharded(qframes, cfg, qcfg, m42))
+    singles = []
+    for i in range(8):
+        levels = [dc.replace(l, **{f: getattr(l, f)[i] for f in tq.LEVEL_ARRAY_FIELDS})
+                  for l in qst.levels]
+        singles.append(tq.QuadtreeResult(levels=levels, width=qst.width, height=qst.height))
+        for ls, l1 in zip(qsh[i].levels, levels, strict=True):
+            for f in tq.LEVEL_ARRAY_FIELDS:
+                check(bitwise(getattr(ls, f), getattr(l1, f)),
+                      f"sharded quadtree frame {i} {l1.range_size} px {f} differs")
+    dcfg = DecoderConfig(pyramid=True)
+    d_st, outs = timed(lambda: [tq.decode_plane_quadtree(q, dcfg) for q in singles])
+    d_sh, (ho, hi, hm) = timed(lambda: tq.decode_batch_quadtree_sharded(qsh, m42, dcfg))
+    for i, (out, it, mse) in enumerate(outs):
+        check(bitwise(ho[i], out) and (int(hi[i]), float(hm[i])) == (it, float(np.float32(mse))),
+              f"decode_batch_quadtree_sharded frame {i} differs")
+    print(f"     8 x 1024^2 quadtree, (4, 2): every level of every frame equal to "
+          f"encode_batch_quadtree_stacked's, the pyramid decode to decode_plane_quadtree's; "
+          f"host ms a frame: encode {ms / 8:.3f} against {st_ms / 8:.3f}, decode "
+          f"{d_sh / 8:.3f} against {d_st / 8:.3f}; launches {counts}")
+
+    pod_phase(card.type)
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        dryrun_multichip(8, devices=[card] * 8)
+    print(f"     {buf.getvalue().strip()} (devices: cuda:0 x 8)")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description="Smoke run of the port on one CUDA card.")
     ap.add_argument("--dp4a", metavar="DIR", help="a csrc/ directory with earlier designs "
@@ -1268,16 +1663,6 @@ def main(argv=None) -> int:
     planes = {n: natural_plane(n, SEED + n) for n in (256, 512, 2048)}
     big = planes[2048]
 
-    def hit_share(q, sa, sa2, c):
-        """Share of ranges whose winner meets the threshold: exactly the rows
-        that hit (a row that hits wins at or above its hit column's key)."""
-        k = c.target_size ** 2
-        dist = mk.rank_to_dist(q, sa2, sa, criterion=c.criterion, so_mode=c.so_mode,
-                               s_max=c.s_max, inv_norm=tm.inv_norm(c, k, c.source_size ** 2),
-                               n=float(k))
-        return float((dist <= torch.tensor(c.rms_threshold, dtype=torch.float32)).double()
-                     .mean())
-
     def report_frontier(key, c, q, sa, sa2, pairs, what):
         if c.rms_threshold > 0:
             share = hit_share(q, sa, sa2, c)
@@ -1315,7 +1700,7 @@ def main(argv=None) -> int:
         check((prep["rcls"] is not None) == masked, "class mask")
         plain_c = dataclasses.replace(c, backend="torch")
         key = ("search_dense", tm.rank_mode(c.criterion, c.so_mode, c.s_max), k,
-               c.rms_threshold > 0)
+               c.rms_threshold > 0) + (("masked",) if masked else ())
         nbytes = search_bytes(ranges.shape[0], prep["ch"].shape[0], k,
                               prep["sa"] is not None, masked)
         q, _, pairs = kernels.parity(
@@ -1955,6 +2340,13 @@ def main(argv=None) -> int:
     cli_phase(kernels, planes)
     print(f"     phase 22 took {time.perf_counter() - t22:.1f} s")
 
+    # -- 23. sharding
+    print("[23] the sharded drivers on meshes of cuda:0, against the single-device "
+          "functions")
+    t23 = time.perf_counter()
+    shard_phase(kernels, cfg, planes)
+    print(f"     phase 23 took {time.perf_counter() - t23:.1f} s")
+
     records = list(kernels.records.values())
     for rec in records:
         # K2 runs where the JAX package routes to it: at 8192^2 only its 'ls'
@@ -1962,7 +2354,7 @@ def main(argv=None) -> int:
         if not rec["name"].startswith("search_classed2d"):
             check(rec["launches"] > 0, f"{rec['name']} was launched by no path")
         check("ms" in rec and "bound_ms" in rec, f"{rec['name']} was not timed")
-    check(len(records) == 59, f"{len(records)} kernel records, not 59")
+    check(len(records) == 77, f"{len(records)} kernel records, not 77")
     print(json.dumps({"kernels": records}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

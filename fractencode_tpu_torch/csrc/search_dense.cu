@@ -1,6 +1,6 @@
 // Dense search with int8 operands, optionally masked by class: the 'ls',
 // 'raw' and 'general' keys at K = 16, 64 and 256; each also with the
-// early-accept frontier, without the class mask.
+// early-accept frontier, with or without the class mask.
 //
 // Replaces the TPU kernel `_search_kernel` (fractencode_tpu/ops/matcher_pallas.py,
 // reached through `fused_search`), which serves the search without the
@@ -18,8 +18,13 @@
 //
 // The `_thr` entry points add the TPU kernel's early-accept frontier
 // (`_apply_frontier` at matcher_pallas.py:227-231 and the freeze at :244-248;
-// search_common.cuh), groups of t_n columns from column 0 (search_mma.cuh).  They take no
-// class mask: no path asks for it (the encoder sends classed work to K1).
+// search_common.cuh), groups of t_n columns from column 0 (search_mma.cuh).
+// With the class mask, a column of another class takes the key -3e38 before
+// the hit test, as the TPU kernel masks before `_apply_frontier`
+// (matcher_pallas.py:215-231): it is never a hit and never ends a group's
+// scan.  The sharded searches ask for it: they express the domains a shard
+// must skip (padding rows, rows off the image) as a class that no range has
+// (parallel/sharded.py's `_search_any`).
 //
 // What bounds it on the card: the epilogue.  Every row meets every column
 // (6.8e10 pairs for a 2048^2 plane at the default geometry), each pair 2K
@@ -83,7 +88,7 @@ int launch(const void* ai, const void* ch, const void* cl, const void* sb,
 
 // Two entry points per (key, K), `fe_search_dense_<key><K>` and its `_thr`
 // form with the frontier, all with one signature; rcls and ccls both null
-// means no class mask (the `_thr` form refuses one).  sa, sa2 [rows] are read
+// means no class mask.  sa, sa2 [rows] are read
 // by the 'general' key and by the frontier; s_max, inv_n, inv_norm and
 // so_reference by 'general'; threshold, dist_scale and t_n by the frontier.
 // Each launches on `stream` and returns cudaGetLastError() (0 on success).
@@ -110,7 +115,10 @@ int launch(const void* ai, const void* ch, const void* cl, const void* sb,
   }                                                                                     \
   FE_SEARCH_DENSE_SIGNATURE(NAME, K, _thr) {                                            \
     FE_KEY_PARAMS;                                                                      \
-    if (ccls != nullptr) return static_cast<int>(cudaErrorInvalidValue);                \
+    if (ccls != nullptr) {                                                              \
+      return launch<K, MODE, true, true>(ai, ch, cl, sb, aux, rcls, ccls, rows,         \
+                                         m_valid, p, q_out, idx_out, stream);           \
+    }                                                                                   \
     return launch<K, MODE, false, true>(ai, ch, cl, sb, aux, rcls, ccls, rows, m_valid, \
                                         p, q_out, idx_out, stream);                     \
   }

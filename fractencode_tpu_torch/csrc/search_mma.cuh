@@ -34,7 +34,8 @@
 // whole row, its (-3e38, 0) start included.  A step's keys rarely improve a
 // best, so a row's step maximum is compared first and the exact sequential
 // update runs only where some row of the warp improves.  With K3's class
-// mask a column of another class never competes.
+// mask a column of another class never competes, and under the frontier it
+// takes the key -3e38 before the hit test, so it is never a hit either.
 //
 // The frontier (the `_thr` instances).  Sub-blocks and chunks hold whole
 // groups of t_n columns (one domain's isometries, counted from the scan's
@@ -264,7 +265,8 @@ __device__ __forceinline__ void merge_best(float& q, int& idx, float oq, int oid
 // whole block.  With the frontier only the rows below n_active search; the
 // others count as stopped.  Calls write(local row, q, idx, hit) once for each
 // loaded row, `hit` whether its scan met the frontier.  Masked: a column
-// competes only where ccls[j] == rcls[row].  Pol: what each lane keeps and
+// competes only where ccls[j] == rcls[row]; with the frontier, one of
+// another class is never a hit either (its key is -3e38 before the test).  Pol: what each lane keeps and
 // how the quad merges it (Policy).  Transposed: ch and cl are stored as
 // [16, m_t] (K = 16), and each chunk is staged through registers by
 // transpose_4cols into the layout that ldmatrix reads, in place of cp.async
@@ -278,7 +280,6 @@ __device__ __forceinline__ void search_rows(
     const signed char* __restrict__ cl, const float* __restrict__ sb,
     const void* __restrict__ aux, const int* __restrict__ ccls, int start, int end,
     const KeyParams& p, Write write, long long m_t = 0) {
-  static_assert(!(Masked && Frontier), "the frontier has no class-masked scan");
   static_assert(Pol == Policy::Argmax || !(Masked || Frontier),
                 "the step's variants search unmasked columns without the frontier");
   static_assert(Pol != Policy::DotMax || (K == 16 && kFastKey<K, M>),
@@ -550,6 +551,10 @@ __device__ __forceinline__ void search_rows(
                 v = rank_key<K, M, Masked>(dot, j, cs, rw[mt][h], p);
               }
               if constexpr (Frontier) {
+                // (class mask) a column of another class takes -3e38 before
+                // the hit test, as in the plain version: it is never a hit,
+                // and the group logic's scan never takes it
+                if constexpr (Masked) v = cs.cls[j] == rc[mt][h] ? v : kInitQ;
                 // within the staging: a sub-block's steps cover at most kSub
                 // columns (kSub is a multiple of 8 kNT)
                 sm.keys[warp][j - s0][mt * 16 + g + 8 * h] = v;

@@ -313,7 +313,7 @@ def _step_mse(nxt: torch.Tensor, img: torch.Tensor) -> np.float32:
     return np.float32(total) * (np.float32(1.0) / np.float32(nxt.numel()))
 
 
-def _decode_core(result: EncodeResult, dcfg: DecoderConfig):
+def _decode_core(result: EncodeResult, dcfg: DecoderConfig, ran_steps: bool = False):
     h, w = result.height, result.width
     tables = _build_indices(result)
     s = torch.where(result.valid, result.s, 0.0)
@@ -329,10 +329,10 @@ def _decode_core(result: EncodeResult, dcfg: DecoderConfig):
         if mi is not None:
             init = mi
     start = _pyramid_init(result, s, o, dcfg) if dcfg.pyramid else None
-    return _fixed_point(step, init, start, dcfg)
+    return _fixed_point(step, init, start, dcfg, ran_steps)
 
 
-def _fixed_point(step, init, start, dcfg: DecoderConfig):
+def _fixed_point(step, init, start, dcfg: DecoderConfig, ran_steps: bool = False):
     """The decode loop, as (image, iterations, mse).
 
     From a pyramid ``start`` image: a fixed count of full-res steps, capped
@@ -340,7 +340,10 @@ def _fixed_point(step, init, start, dcfg: DecoderConfig):
     Without one (None), from ``init``: the flat loop with the JAX package's
     exit tests: epsilon, an exact period-2 cycle (u8 truncation can trap a
     few pixels flip-flopping forever), or a stall (no improvement by
-    stall_rtol for stall_window steps).
+    stall_rtol for stall_window steps).  The flat loop's iterations follow
+    the reference's count (the step that met an exit is not counted), or
+    with ``ran_steps`` every step run, as the JAX package's sharded decode
+    counts them.
     """
     if start is not None:
         n_full = min(dcfg.pyramid_full_steps, dcfg.max_iterations)
@@ -364,7 +367,7 @@ def _fixed_point(step, init, start, dcfg: DecoderConfig):
         img, prev = nxt, img
         steps += 1
         done = bool(mse < eps) or cycle or stalled
-    return img, (steps - 1 if done else steps), float(mse)
+    return img, (steps - 1 if done and not ran_steps else steps), float(mse)
 
 
 def _to_device(result, device):

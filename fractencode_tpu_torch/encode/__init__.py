@@ -2,8 +2,9 @@ from .codebook import Codebook, build_codebook, extract_ranges
 from .matcher import SearchResult, search_classed, solve_so
 from .encoder import (EncodeResult, encode_batch, encode_batch_stacked, encode_plane,
                       encode_stats)
-from .quadtree import (QuadtreeConfig, QuadtreeResult, decode_plane_quadtree,
-                       encode_batch_quadtree, encode_batch_quadtree_stacked,
+from .quadtree import (QuadtreeConfig, QuadtreeResult, decode_batch_quadtree_sharded,
+                       decode_plane_quadtree, encode_batch_quadtree,
+                       encode_batch_quadtree_sharded, encode_batch_quadtree_stacked,
                        encode_plane_quadtree)
 
 __all__ = [
@@ -23,5 +24,7 @@ __all__ = [
     "encode_plane_quadtree",
     "encode_batch_quadtree",
     "encode_batch_quadtree_stacked",
+    "encode_batch_quadtree_sharded",
     "decode_plane_quadtree",
+    "decode_batch_quadtree_sharded",
 ]

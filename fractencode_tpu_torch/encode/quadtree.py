@@ -15,8 +15,9 @@ each pixel from the level that holds its leaf.
 The JAX package runs the pyramid as one fused program or level by level;
 PyTorch runs eagerly, so there is one form here, the per-level loop.  The
 batch forms run it frame by frame (the JAX package's ``lax.map``) and stack
-each level's arrays; the sharded forms are not ported yet (ROADMAP.md queue
-1); the FTQ1 bitstream is ``codec/bitstream_quadtree.py``.
+each level's arrays; the sharded forms run each data shard's frames on its
+own device (``parallel.mesh``); the FTQ1 bitstream is
+``codec/bitstream_quadtree.py``.
 """
 from __future__ import annotations
 
@@ -34,7 +35,8 @@ from .matcher import mask_ranges_result, search_classed, search_dense
 
 __all__ = ["QuadtreeConfig", "QuadtreeLevel", "QuadtreeResult",
            "encode_plane_quadtree", "encode_batch_quadtree",
-           "encode_batch_quadtree_stacked", "decode_plane_quadtree"]
+           "encode_batch_quadtree_stacked", "encode_batch_quadtree_sharded",
+           "decode_plane_quadtree", "decode_batch_quadtree_sharded"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -235,6 +237,24 @@ def encode_batch_quadtree(planes, cfg: EncoderConfig | None = None,
             for i in range(stacked.levels[0].domain_idx.shape[0])]
 
 
+def encode_batch_quadtree_sharded(planes, cfg: EncoderConfig | None,
+                                  qcfg: QuadtreeConfig | None, mesh) -> list[QuadtreeResult]:
+    """Quadtree-encode a [B, H, W] u8 batch (numpy array or tensor)
+    data-parallel over the mesh's 'data' axis (``parallel.mesh.Mesh``):
+    frame b runs the whole pyramid (``encode_plane_quadtree``) on the first
+    device of data shard b // (B / n_data); no cross-frame communication
+    exists to shard, and the search axis is not used.  One QuadtreeResult
+    per frame, on that device."""
+    cfg = cfg or EncoderConfig()
+    qcfg = qcfg or QuadtreeConfig()
+    planes = plane_on_device(planes, mesh.devices[0][0])
+    _, h, w = planes.shape
+    if h % qcfg.max_size or w % qcfg.max_size:
+        raise ValueError("image not aligned to the coarsest range size")
+    return [encode_plane_quadtree(p, cfg, qcfg, device=devices[0])
+            for p, devices in zip(planes, mesh.frame_devices(planes.shape[0]))]
+
+
 # ---------------------------------------------------------------------------
 # decode (the uniform decoder's helpers are imported inside the functions:
 # decode.decoder imports this package)
@@ -296,3 +316,22 @@ def decode_plane_quadtree(result: QuadtreeResult,
                       device=levels[0].s.device)
     start = _pyramid_init_quadtree(levels, h, w, dcfg) if dcfg.pyramid else None
     return _fixed_point(_quadtree_step_at(levels, h, w, 1), init, start, dcfg)
+
+
+def decode_batch_quadtree_sharded(results: list[QuadtreeResult], mesh,
+                                  dcfg: DecoderConfig = DecoderConfig()):
+    """Decode a batch of quadtree encodes data-parallel over the mesh's
+    'data' axis: frame b with ``decode_plane_quadtree``'s loop and exits on
+    the first device of data shard b // (B / n_data).
+
+    Returns ([B, H, W] u8 images on the mesh's first device, [B] i32
+    iterations, [B] f32 final mse), the last two on the CPU."""
+    home = mesh.devices[0][0]
+    outs, iters, mses = [], [], []
+    for res, devices in zip(results, mesh.frame_devices(len(results))):
+        out, it, mse = decode_plane_quadtree(res, dcfg, device=devices[0])
+        outs.append(out.to(home))
+        iters.append(it)
+        mses.append(mse)
+    return (torch.stack(outs), torch.tensor(iters, dtype=torch.int32),
+            torch.tensor(mses, dtype=torch.float32))

@@ -816,9 +816,9 @@ def search_dense_cuda(ai, ch, cl, sb, aux, *, m_valid: int, criterion: str,
 
     CPU tensors run the plain version.  CUDA tensors launch
     ``csrc/search_dense.cu`` (and add one to
-    ``search_dense_cuda.launches[(mode, K, frontier)]``), or raise
-    ``NotImplementedError`` for a config the kernel does not cover (the
-    frontier with the class mask among them).
+    ``search_dense_cuda.launches[(mode, K, frontier, masked)]``, masked
+    whether the class mask is given), or raise ``NotImplementedError`` for a
+    config the kernel does not cover.
     """
     kw = dict(m_valid=m_valid, criterion=criterion, so_mode=so_mode,
               s_max=s_max, inv_norm=inv_norm, sa=sa, sa2=sa2, rcls=rcls,
@@ -832,10 +832,6 @@ def search_dense_cuda(ai, ch, cl, sb, aux, *, m_valid: int, criterion: str,
         raise ValueError(f"m_valid {m_valid} outside [0, {m}]")
     if (rcls is None) != (ccls is None):
         raise ValueError("the class mask needs both rcls and ccls")
-    if rcls is not None and threshold > 0.0:
-        raise NotImplementedError(
-            "the search_dense CUDA kernel has no frontier with the class mask "
-            "(ROADMAP.md queue 2, K3's class mask)")
     _check("ai", ai, torch.int8, (rows, k), dev)
     _check("ch", ch, torch.int8, (m, k), dev)
     _check("cl", cl, torch.int8, (m, k), dev)
@@ -847,19 +843,20 @@ def search_dense_cuda(ai, ch, cl, sb, aux, *, m_valid: int, criterion: str,
         cls = (rcls.data_ptr(), ccls.data_ptr())
     else:
         cls = (None, None)
-    key = (mode, k, threshold > 0.0)
+    key = (mode, k, threshold > 0.0, rcls is not None)
     args = _key_args(mode, k, sa, sa2, rows, dev, so_mode=so_mode, s_max=s_max,
                      inv_norm=inv_norm, threshold=threshold, t_n=t_n)
-    out = _launch("search_dense", key, rows, dev,
+    out = _launch("search_dense", key[:3], rows, dev,
                   ai.data_ptr(), ch.data_ptr(), cl.data_ptr(), sb.data_ptr(),
                   aux.data_ptr(), *cls, rows, m_valid, *args)
     search_dense_cuda.launches[key] += 1
     return out
 
 
-# launch counts by (mode, K, frontier)
+# launch counts by (mode, K, frontier); K3's also by whether it was masked
 search_classed_cuda.launches = {(mode, k, thr): 0 for mode, ks in KERNEL_KEYS.items()
                                 for k in ks for thr in (False, True)}
 search_classed2d_cuda.launches = dict(search_classed_cuda.launches)
 search_classed2d_cuda.plan = None
-search_dense_cuda.launches = dict(search_classed_cuda.launches)
+search_dense_cuda.launches = {(*key, masked): 0 for key in search_classed_cuda.launches
+                              for masked in (False, True)}

@@ -244,17 +244,26 @@ def test_classed_library_runs_on_tensor_cores(cuda):
 
 
 @pytest.mark.parametrize("operands", OPERANDS)
+@pytest.mark.parametrize("frontier", [False, True], ids=["plain", "thr"])
 @pytest.mark.parametrize("masked", [False, True])
 @pytest.mark.parametrize("case", CASES, ids=lambda c: f"{c[0]}{c[1]}")
-def test_dense_kernel_matches_plain(cuda, case, masked, operands):
-    """K3 at every (mode, K) it covers, with and without the class mask:
-    (q, idx) of every range bitwise against the plain version, on a random
-    plane, on tie-heavy operands (repeated codebook columns, flat ranges)
-    and on ragged ones (a row count that is no multiple of 16, m_valid <
-    m); with the mask, rows of a class no column has keep (-3e38, 0)."""
+def test_dense_kernel_matches_plain(cuda, case, masked, frontier, operands):
+    """K3 at every (mode, K) it covers, with and without the class mask,
+    each plain and with the early-accept frontier at 10.0 (the `_thr`
+    instances; on a smooth plane, where ranges hit): (q, idx) of every
+    range bitwise against the plain version, on a random or smooth plane,
+    on tie-heavy operands (repeated codebook columns, flat ranges) and on
+    ragged ones (a row count that is no multiple of 16, m_valid < m); the
+    launch count of the instance, (mode, K, frontier, masked), moves by one.
+    With the mask, rows of a class no column has keep (-3e38, 0); without
+    the frontier some rows' best column lies outside their class, with it
+    the frontier changes some rows' keys (its threshold 60 at K = 256, as
+    test_exact_key_instances_match_plain's, where 16 px ranges meet 10
+    too rarely within a class)."""
     key, k = case
-    cfg = _case_cfg(key, k)
-    img = _ties_plane(128, 11) if operands == "ties" else random_plane(128, 11)
+    cfg = _case_cfg(key, k, rms_threshold=(60.0 if k == 256 else 10.0) if frontier else 0.0)
+    img = (_ties_plane(128, 11) if operands == "ties" else
+           _smooth(256, 11) if frontier else random_plane(128, 11))
     ranges, sa, sa2, cb, rcls, dcls = _inputs(img, cfg, cuda)
     if not masked:
         rcls = dcls = None
@@ -264,20 +273,25 @@ def test_dense_kernel_matches_plain(cuda, case, masked, operands):
     prep = tm.dense_prep(ranges, sa, sa2, cb, rcls, dcls, cfg)
     assert (prep["rcls"] is None) != masked
     mode = key.split("-")[0]
-    before = mk.search_dense_cuda.launches[(mode, k, False)]
+    launch = (mode, k, frontier, masked)
+    before = mk.search_dense_cuda.launches[launch]
     area = cfg.source_size ** 2
     if operands == "plane":
         q_k, i_k = tm.dense_kernel(prep, k, area, cfg)
-        q_p, i_p = tm.dense_kernel(prep, k, area, _case_cfg(key, k, backend="torch"))
+        q_p, i_p = tm.dense_kernel(prep, k, area, _case_cfg(key, k, backend="torch",
+                                                             rms_threshold=cfg.rms_threshold))
     else:
         rows, m = prep["ai"].shape[0], prep["ch"].shape[0]
         shape = (rows - 5, m - 13) if operands == "ragged" else (None, None)
         (q_k, i_k), (q_p, i_p) = _dense_pair(prep, k, area, cfg, *shape)
-    assert mk.search_dense_cuda.launches[(mode, k, False)] == before + 1
+    assert mk.search_dense_cuda.launches[launch] == before + 1
     torch.cuda.synchronize()
     assert_bitwise(q_k, q_p, "q")
     assert_bitwise(i_k, i_p, "idx")
-    if masked and operands == "plane":  # some rows' best column lies outside their class
+    if masked and operands == "plane" and frontier:
+        off = tm.dense_kernel(prep, k, area, dataclasses.replace(cfg, rms_threshold=0.0))
+        assert bool((off[0] != q_k).any()), "vacuous: the frontier changed no key"
+    elif masked and operands == "plane":  # some rows' best column lies outside their class
         unmasked = tm.dense_kernel(dict(prep, rcls=None, ccls=None), k, area, cfg)
         assert bool((unmasked[0] > q_k).any())
     elif masked:
@@ -405,14 +419,15 @@ def test_frontier_kernels_match_plain(cuda, case, kernel, t_n, operands):
         prep = tm.dense_prep(*inputs[:4], None, None, cfg)
         run, launches = (lambda c: tm.dense_kernel(prep, k, area, c)), \
             mk.search_dense_cuda.launches
-    before = launches[(mode, k, True)]
+    launch = (mode, k, True) if kernel == "classed" else (mode, k, True, False)
+    before = launches[launch]
     if kernel == "dense" and operands == "ragged":
         rows, m = prep["ai"].shape[0], prep["ch"].shape[0]
         (q_k, i_k), (q_p, i_p) = _dense_pair(prep, k, area, cfg, rows - 5, m - 13)
     else:
         q_k, i_k = run(cfg)
         q_p, i_p = run(dataclasses.replace(cfg, backend="torch"))
-    assert launches[(mode, k, True)] == before + 1
+    assert launches[launch] == before + 1
     torch.cuda.synchronize()
     assert_bitwise(q_k, q_p, "q")
     assert_bitwise(i_k, i_p, "idx")
@@ -449,14 +464,15 @@ def test_exact_key_instances_match_plain(cuda, key, kernel, frontier, operands):
         run, launches = (lambda c: tm.dense_kernel(prep, 256, 64 * 64, c)), \
             mk.search_dense_cuda.launches
     assert prep["aux_s" if kernel == "classed" else "aux"].dtype == torch.float64
-    before = launches[(mode, 256, frontier)]
+    launch = (mode, 256, frontier) + (() if kernel == "classed" else (False,))
+    before = launches[launch]
     if kernel == "dense" and operands == "ragged":
         rows, m = prep["ai"].shape[0], prep["ch"].shape[0]
         (q_k, i_k), (q_p, i_p) = _dense_pair(prep, 256, 64 * 64, cfg, rows - 5, m - 13)
     else:
         q_k, i_k = run(cfg)
         q_p, i_p = run(dataclasses.replace(cfg, backend="torch"))
-    assert launches[(mode, 256, frontier)] == before + 1
+    assert launches[launch] == before + 1
     torch.cuda.synchronize()
     assert_bitwise(q_k, q_p, "q")
     assert_bitwise(i_k, i_p, "idx")
@@ -479,7 +495,7 @@ def test_frontier_launch_never_runs_plain(cuda, monkeypatch):
             (T.EncoderConfig(rms_threshold=10.0), mk.search_classed_cuda.launches,
              ("ls", 16, True)),
             (T.REFERENCE_COMPAT(rms_threshold=10.0, use_classifier=False),
-             mk.search_dense_cuda.launches, ("raw", 16, True))):
+             mk.search_dense_cuda.launches, ("raw", 16, True, False))):
         before = launches[key]
         T.encode_plane(img, cfg, device=cuda)
         assert launches[key] == before + 1
@@ -796,3 +812,34 @@ def test_vq_card_equals_cpu(cuda, num_codes, limit):
     rc = T.encode_plane(img, cfg, device="cpu")
     for f in ("domain_idx", "transform", "s", "o", "distance", "valid"):
         assert_bitwise(getattr(rg, f), getattr(rc, f), f)
+
+
+@pytest.mark.parametrize("strategy", ["ranges", "domains", "ring"])
+def test_sharded_encode_on_the_card(cuda, strategy, monkeypatch):
+    """encode_batch_sharded on a (1, 4) mesh of one card repeated, with the
+    classifier and without it under --rms 10: each frame bitwise equal to
+    encode_plane on the card; 'domains' and 'ring' without the classifier
+    launch K3's masked `_thr` instance (the shards' domain masks as
+    classes), and nothing runs a plain version on CUDA tensors."""
+    from fractencode_tpu_torch.parallel import encode_batch_sharded, make_mesh
+
+    def refuse(*_, **__):
+        raise AssertionError("the plain version ran on CUDA tensors")
+
+    monkeypatch.setattr(mk, "search_classed_torch", refuse)
+    monkeypatch.setattr(mk, "search_dense_torch", refuse)
+    monkeypatch.setattr(mk, "_plain_search", refuse)
+    frames = np.stack([_smooth(128, 50), _smooth(128, 51)])
+    mesh = make_mesh(1, 4, devices=[cuda] * 4)
+    for cfg in (T.EncoderConfig(), T.EncoderConfig(use_classifier=False, rms_threshold=10.0)):
+        masked = ("ls", 16, True, True)
+        before = mk.search_dense_cuda.launches[masked]
+        results = encode_batch_sharded(frames, cfg, mesh, strategy)
+        launched = mk.search_dense_cuda.launches[masked] - before
+        assert launched == (0 if cfg.use_classifier or strategy == "ranges" else
+                            2 * (4 if strategy == "domains" else 16))
+        for i, res in enumerate(results):
+            assert res.s.device.type == "cuda"
+            single = T.encode_plane(frames[i], cfg, device=cuda)
+            for f in ("domain_idx", "transform", "s", "o", "distance", "valid"):
+                assert_bitwise(getattr(res, f), getattr(single, f), f"frame {i} {f}")

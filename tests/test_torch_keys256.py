@@ -340,5 +340,8 @@ def test_kernel_keys_cover_k256():
     level under --compat and --smax launches a kernel on the card."""
     for mode in ("ls", "raw", "general"):
         assert 256 in mk.KERNEL_KEYS[mode]
-        for launches in (mk.search_classed_cuda.launches, mk.search_dense_cuda.launches):
-            assert (mode, 256, False) in launches and (mode, 256, True) in launches
+        for launches, masks in ((mk.search_classed_cuda.launches, [()]),
+                                (mk.search_dense_cuda.launches, [(False,), (True,)])):
+            for mask in masks:
+                assert (mode, 256, False, *mask) in launches
+                assert (mode, 256, True, *mask) in launches

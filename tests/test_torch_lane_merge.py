@@ -246,6 +246,35 @@ def test_dense_frontier_matches_plain(t_n, m_valid, chunk):
     assert 0 < int(hit_e.sum()) < 200
 
 
+@pytest.mark.parametrize("chunk", [64, 128])
+@pytest.mark.parametrize("m_valid", [203, 700])
+@pytest.mark.parametrize("t_n", range(1, 9))
+def test_dense_masked_frontier_matches_plain(t_n, m_valid, chunk):
+    """K3 with the class mask and the frontier (the masked `_thr`
+    instances): a column of another class takes the key -3e38 before the
+    hit test and the staging of the sub-block's keys, so it is never a hit
+    and the group scan never takes it; the frontier's scan as above then
+    gives the plain version's result, which masks before the frontier.  Some
+    rows hit, some never do, and the rows of a class no column has keep
+    (-3e38, 0)."""
+    ai, ch, cl, sb, aux, sa, sa2 = operands(200, 704, seed=10 + t_n)
+    rng = np.random.default_rng(t_n)
+    rcls = torch.from_numpy(rng.integers(0, 4, 200).astype(np.int32))
+    ccls = torch.from_numpy(rng.integers(0, 3, 704).astype(np.int32))  # class 3: none
+    admit = rcls[:, None] == ccls[None, :]
+    q, hit = key_matrix(ai, ch, cl, sa, sa2)
+    q, hit = torch.where(admit, q, K_INIT), hit & admit
+    q_p, i_p = mk.search_dense_torch(ai, ch, cl, sb, aux, m_valid=m_valid, sa=sa, sa2=sa2,
+                                     rcls=rcls, ccls=ccls, threshold=THRESHOLD, t_n=t_n,
+                                     **KW)
+    q_e, i_e, hit_e = emulate(q, hit, admit, 0, m_valid, chunk, True, t_n)
+    assert_same(q_e, i_e, q_p, i_p)
+    assert 0 < int(hit_e.sum()) < 200
+    none = rcls == 3
+    assert bool(none.any()) and bool((q_p[none] == K_INIT).all())
+    assert not bool(i_p[none].any())
+
+
 def layout(block_r: int, seed: int):
     """A class-sorted layout: five classes over eight range tiles of
     ``block_r`` rows (class 1 with no columns, class 3's last tile half
