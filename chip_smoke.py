@@ -148,12 +148,28 @@ Phases, each of which must pass (any failure exits non-zero):
      one process and as two
      (gloo, localhost) for each strategy, whose checksums must agree; and
      dryrun_multichip on cuda:0 x 8.  No sharded path may run a plain search
-     on the card.
+     on the card;
+ 24. every range size the JAX CLI accepts (range_phase): the padded
+     instances (n = 4, 36, 100: K = 16, 64, 256 over operands zero past n)
+     and the K-slab form (n = 1024).  The quadtree from 32 px down to 2 px
+     at 2048^2 (default, --noclassifier, --compat, --smax 0.9, --rms 10),
+     card == CPU at 256^2 on every level, with each level's instance, the
+     leaves, times and PSNR; the grid at --source 8 --target 2, 12/6, 20/10
+     and 64/32, with and without the classifier, card == CPU at 256^2
+     (252^2, 240^2), times and PSNR at 2048^2 (2040^2); each new instance
+     of K1, K2 and K3 under each key, plain and `_thr`, launched by a CLI
+     path at 512^2 (504^2, 500^2) and against its plain version at that
+     path's config (K2 on the forced route; `_thr` also on a smooth plane,
+     where it must hit), K3's masked ones on 'domains' paths of the sharded
+     batch encode; the files (--out, --decode-file) of the --qt-min 2
+     --qt-max 32 path and of --source 8 --target 2 at 512^2, card == CPU
+     byte for byte.
 Every path is driven with the launch counts set to 0 just before it and
 read just after; each must launch the kernels it names.  Each search
 kernel's record keeps the times of its last parity check, which is at the
-shape of a path that launches it, and its bound there: the larger of 2K
-int8 operations per (range, column) pair the search needs (the data's own
+shape of a path that launches it, and its bound there: the larger of 2n
+int8 operations per (range, column) pair the search needs (n the range's
+pixel count, not the padded width) (the data's own
 count with the frontier; the class layout's padding rows and columns are
 not counted) over the H100 SXM's 1,979 TOP/s and the bytes of its ranges,
 columns and results (``search_bytes``) over 3.35 TB/s.  K4's and K5's
@@ -250,6 +266,14 @@ GOLDENS = {"default": ([], "lenna128_cpp_encode.txt.gz", "lenna128_cpp_result.pn
            "rms10": (["--rms", "10"], "lenna128_cpp_rms10.txt.gz",
                      "lenna128_cpp_result_rms10.png")}
 RMS = ["--rms", "10"]
+# phase 24's range sizes by instance width: (--source, --target, the plane
+# size of the full-width path, a multiple of the range and of the domain
+# step): the padded instances at n = 4, 36 and 100, the K-slab form at 1024
+RANGE_GRIDS = {"16p": (8, 2, 2048), "64p": (12, 6, 2040), "256p": (20, 10, 2040),
+               "_slab": (64, 32, 2048)}
+# phase 24's keys, by the CLI flags that select them
+RANGE_KEYS = {"ls": [], "raw": ["--compat"], "general": ["--smax", "0.9"]}
+QT_WIDE = ["--quadtree", "--qt-min", "2", "--qt-max", "32"]
 
 
 def path_ks(argv, k):
@@ -317,9 +341,9 @@ def natural_plane(n: int, seed: int) -> np.ndarray:
 
 def ptxas_report(text):
     """One line per kernel instantiation in an ``nvcc -Xptxas -v`` log: its
-    name, template arguments (K, key, for K3 the class mask, and the
-    frontier; K4/K5: the variant and the [K, M] layout), registers and
-    spills."""
+    name, template arguments (K, key, the geometry: padded or the K-slab
+    form, for K3 the class mask, and the frontier; K4/K5: the variant and the
+    [K, M] layout), registers and spills."""
     lines, name, spill = [], None, ("?", "?")
     for line in text.splitlines():
         m = re.search(r"Compiling entry function '_ZN?(\w+)'", line)
@@ -334,10 +358,11 @@ def ptxas_report(text):
                 name += (f" {('full', 'noargpass', 'packed', 'matmul')[int(variant)]}"
                          + (" [K, M] layout" if transposed == "1" else ""))
             elif targs:  # the reduce kernels have none
-                k, mode, *flags = targs
+                k, mode, geom, *flags = targs
                 masked, frontier = (flags[:2] if name.startswith("search_dense")
                                     else ("0", *flags[:1]))
                 name += (f" K={k} {('ls', 'raw', 'general')[int(mode)]}"
+                         + ("", " padded", " K-slab")[int(geom)]
                          + (" masked" if masked == "1" else "")
                          + (" frontier" if frontier == "1" else ""))
         m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
@@ -412,7 +437,10 @@ def turns(run, what, csrc, reps=5):
     """(the kernel's ms, the ms of its build from ``csrc``): medians of
     ``reps`` (CUDA events) in turns kernel, csrc's, csrc's, kernel, each the
     mean of its two; the (q, idx) of csrc's build must equal the kernel's
-    bitwise."""
+    bitwise.  A launch shorter than 4 ms gets medians of as many launches as
+    take ~20 ms, up to 51 (sub-ms launches spread by ±25% over 5)."""
+    probe, _ = cuda_ms(run, 1)
+    reps = max(reps, min(51, int(20.0 / max(probe, 0.01))))
     new1, out = cuda_ms(run, reps)
     with dp4a_kernels(csrc):
         old1, old = cuda_ms(run, reps)
@@ -458,7 +486,7 @@ def level_inputs(img, cfg):
 
     from fractencode_tpu_torch.core.classify import classify_grid
     from fractencode_tpu_torch.core.grid import uniform_grid
-    from fractencode_tpu_torch.encode.codebook import build_codebook, extract_ranges
+    from fractencode_tpu_torch.encode.codebook import build_codebook, extract_ranges, range_sums
 
     n = img.shape[0]
     p = torch.from_numpy(img).cuda()
@@ -467,8 +495,7 @@ def level_inputs(img, cfg):
     rg = uniform_grid(n, n, cfg.target_size, cfg.target_size)
     cb = build_codebook(pf, dg, cfg.target_size, cfg.num_transforms)
     ranges = extract_ranges(pf, cfg.target_size)
-    return (ranges, ranges.sum(-1), (ranges * ranges).sum(-1), cb,
-            classify_grid(p, rg), classify_grid(p, dg))
+    return (ranges, *range_sums(ranges), cb, classify_grid(p, rg), classify_grid(p, dg))
 
 
 def smooth_plane(n: int, seed: int) -> np.ndarray:
@@ -513,9 +540,32 @@ def record_key(kernel: str, key: tuple) -> tuple:
     return (kernel, *key)
 
 
+def replaced_line(kernel: str, mode: str, width, thr: bool) -> int:
+    """The line of the TPU kernel's branch an instance replaces: its frontier
+    for `_thr`, its f32 branch for n > 64 (K = 256, padded to 256, the
+    K-slab form), else its int8 branch ('ls' at K = 16 and 64: ls_fast)."""
+    lines = _LINES[kernel]
+    k = int(str(width).rstrip("p")) if width != "_slab" else None
+    if thr:
+        return lines["thr"]
+    if k is None or k == 256:
+        return lines["f32"]
+    return lines[f"ls{k}"] if mode == "ls" else lines[mode]
+
+
+def width_of(c):
+    """The instance width config c searches with (matcher_kernels.WIDTHS):
+    n itself at n = 16, 64, 256, else the padded width or the K-slab form."""
+    from fractencode_tpu_torch.ops import matcher_kernels as mk
+
+    n = c.target_size ** 2
+    return mk.instance_width(n, mk.kernel_width(n))
+
+
 class Kernels:
-    """The kernels' records and launch counts, by (kernel, mode, K, frontier)
-    for the searches, with "masked" after K3's masked instances, and
+    """The kernels' records and launch counts, by (kernel, mode, width,
+    frontier) for the searches (width: K, or the padded and K-slab tags of
+    matcher_kernels.WIDTHS), with "masked" after K3's masked instances, and
     ("micro_step", variant) for K4 and K5."""
 
     def __init__(self, dp4a=None):
@@ -534,9 +584,7 @@ class Kernels:
             for mode, ks in mk.KERNEL_KEYS.items():
                 for k in ks:
                     for thr in (False, True):
-                        lines = _LINES[kernel]
-                        line = (lines["thr"] if thr else lines["f32"] if k == 256
-                                else lines.get(f"{mode}{k}", lines.get(mode)))
+                        line = replaced_line(kernel, mode, k, thr)
                         for masked in ((False, True) if kernel == "search_dense"
                                        else (False,)):
                             name = (f"{kernel}_{mode}{k}" + ("_masked" if masked else "")
@@ -574,12 +622,15 @@ class Kernels:
                 self.records[key]["launches_by_path"][path] = n
         return {self.records[key]["name"]: n for key, n in counts.items() if n}
 
-    def parity(self, key, run, plain, what, nbytes, plain_reps=5, real=None):
+    def parity(self, key, run, plain, what, nbytes, plain_reps=5, real=None, n=None):
         """Kernel ``run()`` against plain ``plain(scanned)``: (q, idx)
         bitwise; both times, and the bound from ``nbytes`` and the pairs the
         plain version counts in ``scanned`` for the rows ``real`` (the rows
-        that hold a range; all rows when None), go into the record of
-        ``key``.  Returns the kernel's (q, idx) and the pairs."""
+        that hold a range; all rows when None), at 2n operations a pair (n:
+        the range's pixels; the K of a fixed instance by default), go into
+        the record of ``key``.  Only a fixed instance (an int K) is timed
+        against the --dp4a build: the earlier builds have no other.  Returns
+        the kernel's (q, idx) and the pairs."""
         import torch
 
         q_k, i_k = run()
@@ -592,12 +643,12 @@ class Kernels:
         check(bitwise(i_k, i_p), f"{name} idx differs from the plain version at {what}")
         ms, _ = cuda_ms(run)
         earlier = None
-        if self.dp4a and key[0] in MMA_SOURCES:
+        if self.dp4a and key[0] in MMA_SOURCES and isinstance(key[2], int):
             ms, earlier = turns(run, what, self.dp4a)
         if plain_reps > 1:
             plain_ms, _ = cuda_ms(plain, reps=plain_reps)
         pairs = int((scanned if real is None else scanned[real]).sum())
-        bound_ms, bound_by = bound(pairs, key[2], nbytes)
+        bound_ms, bound_by = bound(pairs, key[2] if n is None else n, nbytes)
         print(f"    {name} at {what}: {q_k.shape[0]} rows, (q, idx) bitwise equal; "
               f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms"
               + ("" if plain_reps > 1 else " (one run)")
@@ -1309,8 +1360,7 @@ def search_key(c, masked=False):
     else K3 (masked: the sharded searches' class mask)."""
     from fractencode_tpu_torch.encode import matcher as tm
 
-    key = (tm.rank_mode(c.criterion, c.so_mode, c.s_max), c.target_size ** 2,
-           c.rms_threshold > 0)
+    key = (tm.rank_mode(c.criterion, c.so_mode, c.s_max), width_of(c), c.rms_threshold > 0)
     if c.use_classifier:
         return ("search_classed", *key)
     return ("search_dense", *key) + (("masked",) if masked else ())
@@ -1345,7 +1395,7 @@ def masked_parity(kernels, call, what, plain_reps=5):
         lambda scanned=None: tm.dense_kernel(prep, k, area, dc.replace(c, backend="torch"),
                                              scanned=scanned),
         f"{what}, {ranges.shape[0]} rows x {cols} columns, {int((dcls < 0).sum())} of "
-        f"{dcls.shape[0]} domains masked", nbytes, plain_reps)
+        f"{dcls.shape[0]} domains masked", nbytes, plain_reps, n=k)
     if c.rms_threshold > 0:
         share = hit_share(q, sa, sa2, c)
         kernels.hits(key, share)
@@ -1467,8 +1517,8 @@ def shard_phase(kernels, cfg, planes, card="cuda:0"):
     # every masked K3 instance on a sharded path and against its plain
     # version at that path's last band
     small, m14 = planes[256], mesh(1, 4)
-    for mode, ks in mk.KERNEL_KEYS.items():
-        for k in ks:
+    for mode in mk.KERNEL_KEYS:
+        for k in LEVELS:  # the fixed instances (phase 24: the others)
             for thr in (False, True):
                 c = k3_config(mode, k, thr)
                 name = f"{mode}{k}" + ("_thr" if thr else "")
@@ -1595,6 +1645,176 @@ def shard_phase(kernels, cfg, planes, card="cuda:0"):
     print(f"     {buf.getvalue().strip()} (devices: cuda:0 x 8)")
 
 
+def range_phase(kernels, planes, k1_parity, k2_parity, k3_parity):
+    """Phase 24: every range size the JAX CLI accepts.  (a) the quadtree
+    from 32 px down to 2 px (levels of n = 1024, 256, 64, 16 and 4) at
+    2048^2, default, --noclassifier, --compat, --smax 0.9 and --rms 10: card
+    == CPU at 256^2 on every level, then each level's instance launched, the
+    leaves, times and PSNR; (b) the grid at 2x2, 6x6, 10x10 and 32x32 ranges
+    (n = 4, 36, 100, 1024), with and without the classifier: card == CPU at
+    256^2 (240^2 for 6x6 and 10x10), then at 2048^2 (2040^2) the launches,
+    times and PSNR; (c) each padded and K-slab instance driven by a CLI path
+    at 512^2 (480^2) that launches it, and against its plain version at that
+    path's config (K1, K2 on the forced route, K3; `_thr` also on a smooth
+    plane, where its ranges hit), then K3's masked instances on 256^2 (240^2)
+    'domains' paths of the sharded batch encode; (d) the files of the
+    --qt-min 2 --qt-max 32 path and of --source 8 --target 2 at 512^2, card
+    == CPU byte for byte."""
+    import dataclasses as dc
+
+    import torch
+    from PIL import Image
+
+    from fractencode_tpu_torch.core.metrics import psnr
+    from fractencode_tpu_torch.encode import matcher as tm
+    from fractencode_tpu_torch.encode.quadtree import (QuadtreeConfig,
+                                                       decode_plane_quadtree,
+                                                       encode_plane_quadtree)
+    from fractencode_tpu_torch.parallel import encode_batch_sharded, make_mesh
+    from fractencode_tpu_torch.parallel import sharded as ts
+    from fractencode_tpu_torch.decode import decode_plane
+    from fractencode_tpu_torch.encode import encode_plane
+
+    def crop(img, t):  # the largest square of img that ranges and domain steps tile
+        m = img.shape[0] - img.shape[0] % (2 * t)
+        return np.ascontiguousarray(img[:m, :m])
+
+    def launched(counts, c, what):
+        """The one search instance config c selects: K3 without the
+        classifier, else K1 or K2 (the JAX package's route)."""
+        mode, width = tm.rank_mode(c.criterion, c.so_mode, c.s_max), width_of(c)
+        thr = c.rms_threshold > 0
+        kerns = (("search_dense",) if not c.use_classifier
+                 else ("search_classed", "search_classed2d"))
+        took = [k for k in kerns if counts.get(kernels.records[(k, mode, width, thr)]["name"])]
+        check(len(took) == 1, f"{what}: launched {took} of {kerns} at {mode}{width}")
+        return f"{took[0]}_{mode}{width}" + ("_thr" if thr else "")
+
+    # (a) the quadtree at every level from 32 px to 2 px
+    big = planes[2048]
+    big_t = torch.from_numpy(big)
+    for flags in ([], ["--noclassifier"], ["--compat"], ["--smax", "0.9"], RMS):
+        argv = [*QT_WIDE, *flags]
+        name = " ".join(argv)
+        card_equals_cpu(planes[256], argv, f"256 {name}")
+        qres, qout, counts = drive(kernels, name, big, argv, [], f"2048 {name}")
+        _, c, dcfg = parse(["--device", "cuda", *argv])
+        qcfg = QuadtreeConfig(min_size=2, max_size=32)
+        check_quadtree(qres, qout, 2048, qcfg, f"2048^2 {name}")
+        took = [launched(counts, dc.replace(c, source_size=l.domain_size,
+                                            target_size=l.range_size),
+                         f"{name} {l.range_size} px") for l in qres.levels]
+        enc_ms, dec_ms, (d, iters, _) = wall_times(
+            lambda: encode_plane_quadtree(big, c, qcfg, device="cuda"),
+            lambda e: decode_plane_quadtree(e, dcfg), reps=1)
+        check(np.array_equal(d.cpu().numpy(), qout), f"{name}: repeat decode differs")
+        db = float(psnr(big_t, d.cpu()))
+        check(db > 20.0, f"{name} PSNR {db:.4f} dB is implausibly low")
+        leaves = " ".join(f"{l.range_size}px:{int(l.accepted.sum())}" for l in qres.levels)
+        print(f"     {name}: card == CPU at 256^2 on every level; at 2048^2 leaves {leaves}; "
+              f"instances {', '.join(took)}; launches {counts}; encode {enc_ms:.3f} ms, "
+              f"decode {dec_ms:.3f} ms ({iters} steps, one warm run, host clock); "
+              f"PSNR {db:.4f} dB")
+
+    # (b) the grid at the other range sizes
+    for width, (source, target, full) in RANGE_GRIDS.items():
+        for nocls in ([], ["--noclassifier"]):
+            argv = ["--source", str(source), "--target", str(target), *nocls]
+            name = " ".join(argv)
+            small = crop(planes[256], target)
+            card_equals_cpu(small, argv, f"{small.shape[0]} {name}")
+            img = crop(planes[2048], target)
+            check(img.shape[0] == full, f"{name}: plane {img.shape[0]}")
+            res, out, counts = drive(kernels, name, img, argv, [], f"{full} {name}")
+            _, c, dcfg = parse(["--device", "cuda", *argv])
+            check_uniform(res, out, full, f"{full}^2 {name}")
+            took = launched(counts, c, name)
+            enc_ms, dec_ms, (d, iters, _) = wall_times(
+                lambda: encode_plane(img, c, device="cuda"), lambda e: decode_plane(e, dcfg),
+                reps=1)
+            check(np.array_equal(d.cpu().numpy(), out), f"{name}: repeat decode differs")
+            db = float(psnr(torch.from_numpy(img), d.cpu()))
+            check(db > 15.0, f"{name} PSNR {db:.4f} dB is implausibly low")
+            print(f"     {name}: card == CPU at {small.shape[0]}^2; at {full}^2 {took}, "
+                  f"launches {counts}; encode {enc_ms:.3f} ms, decode {dec_ms:.3f} ms "
+                  f"({iters} steps, one warm run, host clock); PSNR {db:.4f} dB")
+
+    # (c) each padded and K-slab instance: a path that launches it, then its
+    # parity at that path's config; K3 masked on a sharded 'domains' path
+    smooth = smooth_plane(512, SEED + 24)
+    mesh = make_mesh(1, 4, devices=[torch.device("cuda:0")] * 4)
+    fields = ("domain_idx", "transform", "s", "o", "distance", "valid")
+    for width, (source, target, _) in RANGE_GRIDS.items():
+        img, sm = crop(planes[512], target), crop(smooth, target)
+        for mode, key_flags in RANGE_KEYS.items():
+            for thr in (False, True):
+                for nocls in ([], ["--noclassifier"]):
+                    argv = ["--source", str(source), "--target", str(target), *key_flags,
+                            *nocls, *(RMS if thr else [])]
+                    name = " ".join(argv)
+                    _, _, counts = drive(kernels, name, img, argv, [], f"{img.shape[0]} {name}")
+                    _, c, _ = parse(["--device", "cuda", *argv])
+                    launched(counts, c, name)
+                    what = f"{img.shape[0]}^2 {name}"
+                    if nocls:
+                        k3_parity(img, c, what, plain_reps=1)
+                        if thr:
+                            k3_parity(sm, c, f"smooth {what}", plain_reps=1)
+                        continue
+                    k1_parity(img, c, what, plain_reps=1)
+                    k2_parity(img, c, f"{what}, forced K2", plain_reps=1)
+                    if thr:
+                        k1_parity(sm, c, f"smooth {what}", plain_reps=1)
+                        k2_parity(sm, c, f"smooth {what}, forced K2", plain_reps=1)
+                # K3 masked: a 'domains' path of the sharded batch encode
+                c = dc.replace(c, use_classifier=False)
+                frames = np.stack([crop(planes[256], target), crop(smooth[:256, :256], target)])
+                calls = []
+                kernels.zero()
+                with no_plain_search(), recorded(ts, "search_dense", calls):
+                    res = encode_batch_sharded(frames, c, mesh, "domains")
+                name = f"sharded domains {frames.shape[1]} {mode}{width}" + ("_thr" if thr else "")
+                kernels.read(name, [search_key(c, masked=True)])
+                for j in range(frames.shape[0]):
+                    single = encode_plane(frames[j], c, device="cuda")
+                    for f in fields:
+                        check(bitwise(getattr(res[j], f), getattr(single, f)),
+                              f"{name} frame {j} {f} differs from encode_plane")
+                masked_parity(kernels, calls[-1], f"{name}, last call", plain_reps=1)
+    for key, rec in kernels.records.items():
+        if len(key) > 2 and not isinstance(key[2], int) and key[3]:
+            check(rec.get("max_hit_share", 0.0) > 0, f"{rec['name']}: no range hit")
+    print("     every padded and K-slab instance launched by its path and bitwise equal "
+          "to its plain version; each `_thr` instance hit in one check")
+
+    # (d) the files
+    work = os.path.join(ROOT, "build", "smoke")
+    os.makedirs(work, exist_ok=True)
+    src = os.path.join(work, "range512.png")
+    Image.fromarray(planes[512]).save(src)
+    for argv in (QT_WIDE, ["--source", "8", "--target", "2"]):
+        name = " ".join(argv)
+        blobs, decoded = {}, {}
+        for device in ("cuda", "cpu"):
+            file = os.path.join(work, f"range_{device}.ft")
+            rc, _ = run_cli([src, *argv, "--device", device, "--out", file,
+                             "--result", os.path.join(work, "range_enc.png")])
+            check(rc == 0, f"{name} --out on {device}: exit {rc}")
+            with open(file, "rb") as f:
+                blobs[device] = f.read()
+            rc, _ = run_cli(["--decode-file", file, "--device", device,
+                             "--result", os.path.join(work, f"range_dec_{device}.png")])
+            check(rc == 0, f"{name} --decode-file on {device}: exit {rc}")
+            decoded[device] = np.asarray(Image.open(os.path.join(work,
+                                                                 f"range_dec_{device}.png")))
+        check(blobs["cuda"] == blobs["cpu"], f"512^2 {name}: the card's file differs")
+        check(np.array_equal(decoded["cuda"], decoded["cpu"]),
+              f"512^2 {name}: the card's decode of the file differs")
+        print(f"     512^2 {name}: --out on the card and the CPU, {len(blobs['cuda'])} "
+              "bytes each, equal; their --decode-file equal")
+    shutil.rmtree(work)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description="Smoke run of the port on one CUDA card.")
     ap.add_argument("--dp4a", metavar="DIR", help="a csrc/ directory with earlier designs "
@@ -1677,7 +1897,7 @@ def main(argv=None) -> int:
         ranges, sa, sa2, cb, rcls, dcls = level_inputs(img, c)
         prep = tm.classed_prep(ranges, sa, sa2, cb, rcls, dcls, c)
         plain_c = dataclasses.replace(c, backend="torch")
-        key = ("search_classed", tm.rank_mode(c.criterion, c.so_mode, c.s_max), k,
+        key = ("search_classed", tm.rank_mode(c.criterion, c.so_mode, c.s_max), width_of(c),
                c.rms_threshold > 0)
         nbytes = search_bytes(ranges.shape[0], cb.values.shape[0] * cb.values.shape[1], k,
                               prep["sa_s"] is not None)
@@ -1686,7 +1906,7 @@ def main(argv=None) -> int:
             key, lambda: tm.classed_kernel(prep, k, area, c),
             lambda scanned=None: tm.classed_kernel(prep, k, area, plain_c, scanned=scanned),
             f"{what}, {prep['ai_s'].shape[0]} sorted rows x {prep['ch_s'].shape[0]} "
-            "sorted columns", nbytes, plain_reps, real=rows)
+            "sorted columns", nbytes, plain_reps, real=rows, n=k)
         report_frontier(key, c, q[rows], sa, sa2, pairs, what)
 
     def k3_parity(img, c, what, masked=False, plain_reps=5):
@@ -1699,7 +1919,7 @@ def main(argv=None) -> int:
         prep = tm.dense_prep(ranges, sa, sa2, cb, rcls, dcls, c)
         check((prep["rcls"] is not None) == masked, "class mask")
         plain_c = dataclasses.replace(c, backend="torch")
-        key = ("search_dense", tm.rank_mode(c.criterion, c.so_mode, c.s_max), k,
+        key = ("search_dense", tm.rank_mode(c.criterion, c.so_mode, c.s_max), width_of(c),
                c.rms_threshold > 0) + (("masked",) if masked else ())
         nbytes = search_bytes(ranges.shape[0], prep["ch"].shape[0], k,
                               prep["sa"] is not None, masked)
@@ -1707,7 +1927,7 @@ def main(argv=None) -> int:
             key, lambda: tm.dense_kernel(prep, k, area, c),
             lambda scanned=None: tm.dense_kernel(prep, k, area, plain_c, scanned=scanned),
             f"{what}, {prep['ch'].shape[0]} columns"
-            + (", class mask" if masked else ""), nbytes, plain_reps)
+            + (", class mask" if masked else ""), nbytes, plain_reps, n=k)
         report_frontier(key, c, q, sa, sa2, pairs, what)
 
     def block_order(img, c, what):
@@ -2122,7 +2342,7 @@ def main(argv=None) -> int:
         prep = tm.classed_prep(ranges, sa, sa2, cb, rcls, dcls, c, force_no_pairs=True)
         check(prep["route"] == "search_classed2d", f"{what}: forced route {prep['route']}")
         plain_c = dataclasses.replace(c, backend="torch")
-        key = ("search_classed2d", tm.rank_mode(c.criterion, c.so_mode, c.s_max), k,
+        key = ("search_classed2d", tm.rank_mode(c.criterion, c.so_mode, c.s_max), width_of(c),
                c.rms_threshold > 0)
         nbytes = search_bytes(ranges.shape[0], cb.values.shape[0] * cb.values.shape[1], k,
                               prep["sa_s"] is not None)
@@ -2132,7 +2352,7 @@ def main(argv=None) -> int:
             lambda scanned=None: tm.classed_kernel(prep, k, area, plain_c, scanned=scanned,
                                                    splits=splits),
             f"{what}, {prep['ai_s'].shape[0]} sorted rows x {prep['ch_s'].shape[0]} "
-            "sorted columns", nbytes, plain_reps, real=rows)
+            "sorted columns", nbytes, plain_reps, real=rows, n=k)
         plan = mk.search_classed2d_cuda.plan
         print(f"      {plan['splits']} splits of {plan['width']} columns over "
               f"{plan['searched']} range tiles, partials {plan['partial_bytes']} bytes")
@@ -2347,6 +2567,13 @@ def main(argv=None) -> int:
     shard_phase(kernels, cfg, planes)
     print(f"     phase 23 took {time.perf_counter() - t23:.1f} s")
 
+    # -- 24. every range size
+    print("[24] range sizes: the padded instances (n = 4, 36, 100) and the K-slab form "
+          "(n = 1024)")
+    t24 = time.perf_counter()
+    range_phase(kernels, planes, k1_parity, k2_parity, k3_parity)
+    print(f"     phase 24 took {time.perf_counter() - t24:.1f} s")
+
     records = list(kernels.records.values())
     for rec in records:
         # K2 runs where the JAX package routes to it: at 8192^2 only its 'ls'
@@ -2354,7 +2581,7 @@ def main(argv=None) -> int:
         if not rec["name"].startswith("search_classed2d"):
             check(rec["launches"] > 0, f"{rec['name']} was launched by no path")
         check("ms" in rec and "bound_ms" in rec, f"{rec['name']} was not timed")
-    check(len(records) == 77, f"{len(records)} kernel records, not 77")
+    check(len(records) == 173, f"{len(records)} kernel records, not 173")
     print(json.dumps({"kernels": records}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

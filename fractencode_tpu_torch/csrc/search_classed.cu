@@ -1,6 +1,9 @@
 // Class-blocked all-pairs search with int8 operands: the 'ls', 'raw' and
 // 'general' keys at K = 16, 64 and 256 (4x4, 8x8 and 16x16 range blocks),
-// each with and without the early-accept frontier.
+// padded to K = 16, 64 and 256 for every other n up to 256 (2x2, 3x3, 5x5,
+// 6x6, 7x7, 9x9 to 15x15 ranges), and in the K-slab form above (17x17 and
+// larger; search_common.cuh's Geom), each with and without the early-accept
+// frontier.
 //
 // Replaces the TPU kernel `_pairs_kernel` (fractencode_tpu/ops/matcher_pallas.py,
 // reached through `fused_search_pairs`): its `ls_fast` int8 branch ('ls' at
@@ -45,7 +48,7 @@ namespace {
 
 using namespace fe;
 
-template <int K, int M, bool Frontier>
+template <int K, int M, int G, bool Frontier>
 __global__ void __launch_bounds__(mma::kThreads<K>)
 search_classed_kernel(const int* __restrict__ ai,            // [r_pad] rows of K int8
                       const signed char* __restrict__ ch,    // [m_pad] rows of K int8
@@ -61,7 +64,7 @@ search_classed_kernel(const int* __restrict__ ai,            // [r_pad] rows of 
                       float* __restrict__ q_out,        // [r_pad]
                       int* __restrict__ idx_out) {      // [r_pad]
   extern __shared__ int4 smem[];
-  auto& sm = *reinterpret_cast<mma::Smem<K, M, false, Frontier>*>(smem);
+  auto& sm = *reinterpret_cast<mma::Smem<K, M, false, Frontier, G>*>(smem);
   const int cls = tile_class[blockIdx.x];
   const int slice = blockIdx.y * mma::kBlockRows;  // the block's first row in the tile
   const long long row0 = static_cast<long long>(blockIdx.x) * block_r + slice;
@@ -71,7 +74,7 @@ search_classed_kernel(const int* __restrict__ ai,            // [r_pad] rows of 
                                 : n_load;
   float* __restrict__ q = q_out + row0;
   int* __restrict__ idx = idx_out + row0;
-  mma::search_rows<K, M, false, Frontier>(
+  mma::search_rows<K, M, false, Frontier, mma::Policy::Argmax, false, G>(
       sm, ai, row0, n_load, n_active, nullptr, ch, cl, sb, aux, nullptr,
       col_tile_start[cls] * block_m, col_end[cls], p,
       [&](int local, float best_q, int best_idx, bool) {
@@ -80,14 +83,15 @@ search_classed_kernel(const int* __restrict__ ai,            // [r_pad] rows of 
       });
 }
 
-template <int K, int M, bool Frontier>
+template <int K, int M, int G, bool Frontier>
 int launch(const void* ai, const void* ch, const void* cl, const void* sb,
            const void* aux, const void* tile_class, const void* col_tile_start,
            const void* col_end, const void* row_end, int nrt, int block_r, int block_m, const KeyParams& p,
            void* q_out, void* idx_out, void* stream) {
+  if (const int err = mma::check_geometry<K, G>(p)) return err;
   if (nrt <= 0 || block_r <= 0) return 0;
-  const auto kernel = search_classed_kernel<K, M, Frontier>;
-  constexpr size_t smem = sizeof(mma::Smem<K, M, false, Frontier>);
+  const auto kernel = search_classed_kernel<K, M, G, Frontier>;
+  constexpr size_t smem = sizeof(mma::Smem<K, M, false, Frontier, G>);
   if (const int err = mma::allow_smem(kernel, smem)) return err;
   const dim3 grid(nrt, (block_r + mma::kBlockRows - 1) / mma::kBlockRows);
   kernel<<<grid, mma::kThreads<K>, smem, static_cast<cudaStream_t>(stream)>>>(
@@ -106,33 +110,52 @@ int launch(const void* ai, const void* ch, const void* cl, const void* sb,
 // form with the frontier, all with one signature.  sa, sa2 [r_pad] are read
 // by the 'general' key and by the frontier; s_max, inv_n, inv_norm and
 // so_reference by 'general'; row_end, threshold, dist_scale and t_n by the
-// frontier.
+// frontier.  The padded instances (`<key><K>p`, K = 16, 64, 256) and the
+// K-slab form (`<key>_slab`) take n and the operands' row width kp (K, or
+// n rounded up to 256 bytes) after t_n; the K-slab form's sa, sa2 and sb are
+// float64.
 // Each launches on `stream` and returns cudaGetLastError() (0 on success).
+#define FE_SEARCH_CLASSED_PARAMS                                                        \
+  const void *ai, const void *ch, const void *cl, const void *sb, const void *aux,      \
+      const void *tile_class, const void *col_tile_start, const void *col_end,          \
+      const void *row_end, int nrt, int block_r, int block_m, const void *sa,           \
+      const void *sa2, float s_max, float inv_n, float inv_norm, int so_reference,      \
+      float threshold, float dist_scale, int t_n
+#define FE_SEARCH_CLASSED_CALL(MODE, K, G, FRONTIER, N, KP)                              \
+  const fe::KeyParams p{static_cast<const float*>(sa),                                  \
+                        static_cast<const float*>(sa2), s_max, inv_n, inv_norm,         \
+                        so_reference, threshold, dist_scale, t_n, N, KP};               \
+  return launch<K, MODE, G, FRONTIER>(ai, ch, cl, sb, aux, tile_class, col_tile_start,  \
+                                      col_end, row_end, nrt, block_r, block_m, p, q_out,\
+                                      idx_out, stream)
 #define FE_SEARCH_CLASSED_ENTRY(NAME, MODE, K, SUFFIX, FRONTIER)                        \
-  extern "C" int fe_search_classed_##NAME##K##SUFFIX(                                   \
-      const void* ai, const void* ch, const void* cl, const void* sb, const void* aux,  \
-      const void* tile_class, const void* col_tile_start, const void* col_end,          \
-      const void* row_end, int nrt, int block_r, int block_m, const void* sa,           \
-      const void* sa2, float s_max, float inv_n, float inv_norm, int so_reference,      \
-      float threshold, float dist_scale, int t_n, void* q_out, void* idx_out,           \
-      void* stream) {                                                                   \
-    const fe::KeyParams p{static_cast<const float*>(sa),                                \
-                          static_cast<const float*>(sa2), s_max, inv_n, inv_norm,       \
-                          so_reference, threshold, dist_scale, t_n};                    \
-    return launch<K, MODE, FRONTIER>(ai, ch, cl, sb, aux, tile_class, col_tile_start,   \
-                                     col_end, row_end, nrt, block_r, block_m, p, q_out, \
-                                     idx_out, stream);                                  \
+  extern "C" int fe_search_classed_##NAME##K##SUFFIX(FE_SEARCH_CLASSED_PARAMS,          \
+                                                     void* q_out, void* idx_out,        \
+                                                     void* stream) {                    \
+    FE_SEARCH_CLASSED_CALL(MODE, K, fe::kFixed, FRONTIER, K, K);                        \
   }
-#define FE_SEARCH_CLASSED_ENTRIES(NAME, MODE, K)   \
-  FE_SEARCH_CLASSED_ENTRY(NAME, MODE, K, , false) \
-  FE_SEARCH_CLASSED_ENTRY(NAME, MODE, K, _thr, true)
+#define FE_SEARCH_CLASSED_WIDE_ENTRY(NAME, MODE, TAG, K, G, SUFFIX, FRONTIER)           \
+  extern "C" int fe_search_classed_##NAME##TAG##SUFFIX(FE_SEARCH_CLASSED_PARAMS, int n, \
+                                                       int kp, void* q_out,             \
+                                                       void* idx_out, void* stream) {   \
+    FE_SEARCH_CLASSED_CALL(MODE, K, G, FRONTIER, n, kp);                                \
+  }
+#define FE_SEARCH_CLASSED_ENTRIES(NAME, MODE)                                            \
+  FE_SEARCH_CLASSED_ENTRY(NAME, MODE, 16, , false)                                       \
+  FE_SEARCH_CLASSED_ENTRY(NAME, MODE, 16, _thr, true)                                    \
+  FE_SEARCH_CLASSED_ENTRY(NAME, MODE, 64, , false)                                       \
+  FE_SEARCH_CLASSED_ENTRY(NAME, MODE, 64, _thr, true)                                    \
+  FE_SEARCH_CLASSED_ENTRY(NAME, MODE, 256, , false)                                      \
+  FE_SEARCH_CLASSED_ENTRY(NAME, MODE, 256, _thr, true)                                   \
+  FE_SEARCH_CLASSED_WIDE_ENTRY(NAME, MODE, 16p, 16, fe::kPadded, , false)                \
+  FE_SEARCH_CLASSED_WIDE_ENTRY(NAME, MODE, 16p, 16, fe::kPadded, _thr, true)             \
+  FE_SEARCH_CLASSED_WIDE_ENTRY(NAME, MODE, 64p, 64, fe::kPadded, , false)                \
+  FE_SEARCH_CLASSED_WIDE_ENTRY(NAME, MODE, 64p, 64, fe::kPadded, _thr, true)             \
+  FE_SEARCH_CLASSED_WIDE_ENTRY(NAME, MODE, 256p, 256, fe::kPadded, , false)              \
+  FE_SEARCH_CLASSED_WIDE_ENTRY(NAME, MODE, 256p, 256, fe::kPadded, _thr, true)           \
+  FE_SEARCH_CLASSED_WIDE_ENTRY(NAME, MODE, _slab, 256, fe::kSlab, , false)               \
+  FE_SEARCH_CLASSED_WIDE_ENTRY(NAME, MODE, _slab, 256, fe::kSlab, _thr, true)
 
-FE_SEARCH_CLASSED_ENTRIES(ls, fe::kLs, 16)
-FE_SEARCH_CLASSED_ENTRIES(ls, fe::kLs, 64)
-FE_SEARCH_CLASSED_ENTRIES(ls, fe::kLs, 256)
-FE_SEARCH_CLASSED_ENTRIES(raw, fe::kRaw, 16)
-FE_SEARCH_CLASSED_ENTRIES(raw, fe::kRaw, 64)
-FE_SEARCH_CLASSED_ENTRIES(raw, fe::kRaw, 256)
-FE_SEARCH_CLASSED_ENTRIES(general, fe::kGeneral, 16)
-FE_SEARCH_CLASSED_ENTRIES(general, fe::kGeneral, 64)
-FE_SEARCH_CLASSED_ENTRIES(general, fe::kGeneral, 256)
+FE_SEARCH_CLASSED_ENTRIES(ls, fe::kLs)
+FE_SEARCH_CLASSED_ENTRIES(raw, fe::kRaw)
+FE_SEARCH_CLASSED_ENTRIES(general, fe::kGeneral)

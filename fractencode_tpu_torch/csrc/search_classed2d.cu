@@ -1,7 +1,8 @@
 // Class-blocked all-pairs search split across blocks (K2): the function of
 // search_classed.cu (K1) on the same class-sorted layout, for the 'ls', 'raw'
-// and 'general' keys at K = 16, 64 and 256, each with and without the
-// early-accept frontier.
+// and 'general' keys at K = 16, 64 and 256, padded to them for the other n
+// up to 256, and in the K-slab form above (search_common.cuh's Geom), each
+// with and without the early-accept frontier.
 //
 // Replaces the TPU kernel `_classed_kernel` (fractencode_tpu/ops/matcher_pallas.py,
 // reached through `fused_search_classed`): its ls_fast int8 branch ('ls' at
@@ -62,7 +63,7 @@ __device__ __forceinline__ int splits_of(int cls, const int* __restrict__ col_ti
   return seg > 0 ? static_cast<int>((seg + width - 1) / width) : 0;
 }
 
-template <int K, int M, bool Frontier>
+template <int K, int M, int G, bool Frontier>
 __global__ void __launch_bounds__(mma::kThreads<K>)
 search_classed2d_kernel(const int* __restrict__ ai,            // [r_pad] rows of K int8
                         const signed char* __restrict__ ch,    // [m_pad] rows of K int8
@@ -78,7 +79,7 @@ search_classed2d_kernel(const int* __restrict__ ai,            // [r_pad] rows o
                         int* __restrict__ part_idx,       // [splits, stride]
                         unsigned char* __restrict__ part_hit) {  // [splits, stride]
   extern __shared__ int4 smem[];
-  auto& sm = *reinterpret_cast<mma::Smem<K, M, false, Frontier>*>(smem);
+  auto& sm = *reinterpret_cast<mma::Smem<K, M, false, Frontier, G>*>(smem);
   const int2 tc = tiles[blockIdx.x];
   const int tile = tc.x;
   const int cls = tc.y;
@@ -95,7 +96,7 @@ search_classed2d_kernel(const int* __restrict__ ai,            // [r_pad] rows o
   const int end = min(start + width, col_end[cls]);
   const long long at0 = static_cast<long long>(split) * stride +
                         static_cast<long long>(blockIdx.x) * block_r + slice;
-  mma::search_rows<K, M, false, Frontier>(
+  mma::search_rows<K, M, false, Frontier, mma::Policy::Argmax, false, G>(
       sm, ai, row0, n_load, n_active, nullptr, ch, cl, sb, aux, nullptr, start, end, p,
       [&](int local, float q, int idx, bool hit) {
         part_q[at0 + local] = q;
@@ -138,13 +139,14 @@ __global__ void classed2d_reduce_kernel(const float* __restrict__ part_q,
 
 constexpr int kReduceThreads = 256;
 
-template <int K, int M, bool Frontier>
+template <int K, int M, int G, bool Frontier>
 int launch(const void* ai, const void* ch, const void* cl, const void* sb,
            const void* aux, const void* tile_class, const void* col_tile_start,
            const void* col_end, const void* row_end, int nrt, int block_r, int block_m,
            int width, int n_splits, int searched, const KeyParams& p, const void* tiles,
            const void* tile_rank, void* part_q, void* part_idx, void* part_hit, void* q_out,
            void* idx_out, void* stream) {
+  if (const int err = mma::check_geometry<K, G>(p)) return err;
   if (nrt <= 0 || block_r <= 0) return 0;
   if (searched < 0 || searched > nrt || width <= 0 || n_splits <= 0 || n_splits > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
@@ -152,8 +154,8 @@ int launch(const void* ai, const void* ch, const void* cl, const void* sb,
   const long long r_pad = static_cast<long long>(nrt) * block_r;
   const long long stride = static_cast<long long>(searched) * block_r;
   if (searched > 0) {
-    const auto kernel = search_classed2d_kernel<K, M, Frontier>;
-    constexpr size_t smem = sizeof(mma::Smem<K, M, false, Frontier>);
+    const auto kernel = search_classed2d_kernel<K, M, G, Frontier>;
+    constexpr size_t smem = sizeof(mma::Smem<K, M, false, Frontier, G>);
     if (const int err = mma::allow_smem(kernel, smem)) return err;
     const dim3 grid(searched, (block_r + mma::kBlockRows - 1) / mma::kBlockRows, n_splits);
     kernel<<<grid, mma::kThreads<K>, smem, st>>>(
@@ -186,36 +188,53 @@ int launch(const void* ai, const void* ch, const void* cl, const void* sb,
 // key arguments the searched tiles in order ([searched, 2] i32: tile,
 // class), each tile's place among them ([nrt] i32, read for searched tiles
 // only) and the partials' buffers ([n_splits, searched * block_r] f32, i32
-// and u8), then the outputs.
+// and u8), then the outputs.  The padded instances (`<key><K>p`) and the
+// K-slab form (`<key>_slab`) take n and the row width kp after t_n, as K1's.
 // Each launches both kernels on `stream` and returns cudaGetLastError() (0 on
 // success).
+#define FE_SEARCH_CLASSED2D_HEAD                                                             \
+  const void *ai, const void *ch, const void *cl, const void *sb, const void *aux,           \
+      const void *tile_class, const void *col_tile_start, const void *col_end,               \
+      const void *row_end, int nrt, int block_r, int block_m, int width, int n_splits,       \
+      int searched, const void *sa, const void *sa2, float s_max, float inv_n,               \
+      float inv_norm, int so_reference, float threshold, float dist_scale, int t_n
+#define FE_SEARCH_CLASSED2D_TAIL                                                             \
+  const void *tiles, const void *tile_rank, void *part_q, void *part_idx, void *part_hit,    \
+      void *q_out, void *idx_out, void *stream
+#define FE_SEARCH_CLASSED2D_CALL(MODE, K, G, FRONTIER, N, KP)                                 \
+  const fe::KeyParams p{static_cast<const float*>(sa),                                       \
+                        static_cast<const float*>(sa2), s_max, inv_n, inv_norm,              \
+                        so_reference, threshold, dist_scale, t_n, N, KP};                    \
+  return launch<K, MODE, G, FRONTIER>(ai, ch, cl, sb, aux, tile_class, col_tile_start,       \
+                                      col_end, row_end, nrt, block_r, block_m, width,        \
+                                      n_splits, searched, p, tiles, tile_rank, part_q,       \
+                                      part_idx, part_hit, q_out, idx_out, stream)
 #define FE_SEARCH_CLASSED2D_ENTRY(NAME, MODE, K, SUFFIX, FRONTIER)                           \
-  extern "C" int fe_search_classed2d_##NAME##K##SUFFIX(                                      \
-      const void* ai, const void* ch, const void* cl, const void* sb, const void* aux,       \
-      const void* tile_class, const void* col_tile_start, const void* col_end,               \
-      const void* row_end, int nrt, int block_r, int block_m, int width, int n_splits,       \
-      int searched, const void* sa, const void* sa2, float s_max, float inv_n,               \
-      float inv_norm, int so_reference, float threshold, float dist_scale, int t_n,          \
-      const void* tiles, const void* tile_rank, void* part_q, void* part_idx,                \
-      void* part_hit, void* q_out, void* idx_out, void* stream) {                            \
-    const fe::KeyParams p{static_cast<const float*>(sa),                                     \
-                          static_cast<const float*>(sa2), s_max, inv_n, inv_norm,            \
-                          so_reference, threshold, dist_scale, t_n};                         \
-    return launch<K, MODE, FRONTIER>(ai, ch, cl, sb, aux, tile_class, col_tile_start,        \
-                                     col_end, row_end, nrt, block_r, block_m, width,         \
-                                     n_splits, searched, p, tiles, tile_rank, part_q,        \
-                                     part_idx, part_hit, q_out, idx_out, stream);            \
+  extern "C" int fe_search_classed2d_##NAME##K##SUFFIX(FE_SEARCH_CLASSED2D_HEAD,             \
+                                                       FE_SEARCH_CLASSED2D_TAIL) {           \
+    FE_SEARCH_CLASSED2D_CALL(MODE, K, fe::kFixed, FRONTIER, K, K);                           \
   }
-#define FE_SEARCH_CLASSED2D_ENTRIES(NAME, MODE, K)   \
-  FE_SEARCH_CLASSED2D_ENTRY(NAME, MODE, K, , false) \
-  FE_SEARCH_CLASSED2D_ENTRY(NAME, MODE, K, _thr, true)
+#define FE_SEARCH_CLASSED2D_WIDE_ENTRY(NAME, MODE, TAG, K, G, SUFFIX, FRONTIER)              \
+  extern "C" int fe_search_classed2d_##NAME##TAG##SUFFIX(FE_SEARCH_CLASSED2D_HEAD, int n,    \
+                                                         int kp, FE_SEARCH_CLASSED2D_TAIL) { \
+    FE_SEARCH_CLASSED2D_CALL(MODE, K, G, FRONTIER, n, kp);                                   \
+  }
+#define FE_SEARCH_CLASSED2D_ENTRIES(NAME, MODE)                                              \
+  FE_SEARCH_CLASSED2D_ENTRY(NAME, MODE, 16, , false)                                         \
+  FE_SEARCH_CLASSED2D_ENTRY(NAME, MODE, 16, _thr, true)                                      \
+  FE_SEARCH_CLASSED2D_ENTRY(NAME, MODE, 64, , false)                                         \
+  FE_SEARCH_CLASSED2D_ENTRY(NAME, MODE, 64, _thr, true)                                      \
+  FE_SEARCH_CLASSED2D_ENTRY(NAME, MODE, 256, , false)                                        \
+  FE_SEARCH_CLASSED2D_ENTRY(NAME, MODE, 256, _thr, true)                                     \
+  FE_SEARCH_CLASSED2D_WIDE_ENTRY(NAME, MODE, 16p, 16, fe::kPadded, , false)                  \
+  FE_SEARCH_CLASSED2D_WIDE_ENTRY(NAME, MODE, 16p, 16, fe::kPadded, _thr, true)               \
+  FE_SEARCH_CLASSED2D_WIDE_ENTRY(NAME, MODE, 64p, 64, fe::kPadded, , false)                  \
+  FE_SEARCH_CLASSED2D_WIDE_ENTRY(NAME, MODE, 64p, 64, fe::kPadded, _thr, true)               \
+  FE_SEARCH_CLASSED2D_WIDE_ENTRY(NAME, MODE, 256p, 256, fe::kPadded, , false)                \
+  FE_SEARCH_CLASSED2D_WIDE_ENTRY(NAME, MODE, 256p, 256, fe::kPadded, _thr, true)             \
+  FE_SEARCH_CLASSED2D_WIDE_ENTRY(NAME, MODE, _slab, 256, fe::kSlab, , false)                 \
+  FE_SEARCH_CLASSED2D_WIDE_ENTRY(NAME, MODE, _slab, 256, fe::kSlab, _thr, true)
 
-FE_SEARCH_CLASSED2D_ENTRIES(ls, fe::kLs, 16)
-FE_SEARCH_CLASSED2D_ENTRIES(ls, fe::kLs, 64)
-FE_SEARCH_CLASSED2D_ENTRIES(ls, fe::kLs, 256)
-FE_SEARCH_CLASSED2D_ENTRIES(raw, fe::kRaw, 16)
-FE_SEARCH_CLASSED2D_ENTRIES(raw, fe::kRaw, 64)
-FE_SEARCH_CLASSED2D_ENTRIES(raw, fe::kRaw, 256)
-FE_SEARCH_CLASSED2D_ENTRIES(general, fe::kGeneral, 16)
-FE_SEARCH_CLASSED2D_ENTRIES(general, fe::kGeneral, 64)
-FE_SEARCH_CLASSED2D_ENTRIES(general, fe::kGeneral, 256)
+FE_SEARCH_CLASSED2D_ENTRIES(ls, fe::kLs)
+FE_SEARCH_CLASSED2D_ENTRIES(raw, fe::kRaw)
+FE_SEARCH_CLASSED2D_ENTRIES(general, fe::kGeneral)

@@ -1,6 +1,8 @@
 // Dense search with int8 operands, optionally masked by class: the 'ls',
-// 'raw' and 'general' keys at K = 16, 64 and 256; each also with the
-// early-accept frontier, with or without the class mask.
+// 'raw' and 'general' keys at K = 16, 64 and 256, padded to them for the
+// other n up to 256, and in the K-slab form above (search_common.cuh's
+// Geom); each also with the early-accept frontier, with or without the class
+// mask.
 //
 // Replaces the TPU kernel `_search_kernel` (fractencode_tpu/ops/matcher_pallas.py,
 // reached through `fused_search`), which serves the search without the
@@ -41,7 +43,7 @@ namespace {
 
 using namespace fe;
 
-template <int K, int M, bool Masked, bool Frontier>
+template <int K, int M, int G, bool Masked, bool Frontier>
 __global__ void __launch_bounds__(mma::kThreads<K>)
 search_dense_kernel(const int* __restrict__ ai,            // [rows] rows of K int8
                     const signed char* __restrict__ ch,    // [>= m_valid] rows of K int8
@@ -55,10 +57,10 @@ search_dense_kernel(const int* __restrict__ ai,            // [rows] rows of K i
                     float* __restrict__ q_out,             // [rows]
                     int* __restrict__ idx_out) {           // [rows]
   extern __shared__ int4 smem[];
-  auto& sm = *reinterpret_cast<mma::Smem<K, M, Masked, Frontier>*>(smem);
+  auto& sm = *reinterpret_cast<mma::Smem<K, M, Masked, Frontier, G>*>(smem);
   const long long row0 = static_cast<long long>(blockIdx.x) * mma::kBlockRows;
   const int n = static_cast<int>(min(static_cast<long long>(mma::kBlockRows), rows - row0));
-  mma::search_rows<K, M, Masked, Frontier>(
+  mma::search_rows<K, M, Masked, Frontier, mma::Policy::Argmax, false, G>(
       sm, ai, row0, n, n, rcls, ch, cl, sb, aux, ccls, 0, m_valid, p,
       [&](int local, float q, int idx, bool) {
         q_out[row0 + local] = q;
@@ -66,13 +68,14 @@ search_dense_kernel(const int* __restrict__ ai,            // [rows] rows of K i
       });
 }
 
-template <int K, int M, bool Masked, bool Frontier>
+template <int K, int M, int G, bool Masked, bool Frontier>
 int launch(const void* ai, const void* ch, const void* cl, const void* sb,
            const void* aux, const void* rcls, const void* ccls, int rows, int m_valid,
            const KeyParams& p, void* q_out, void* idx_out, void* stream) {
+  if (const int err = mma::check_geometry<K, G>(p)) return err;
   if (rows <= 0) return 0;
-  const auto kernel = search_dense_kernel<K, M, Masked, Frontier>;
-  constexpr size_t smem = sizeof(mma::Smem<K, M, Masked, Frontier>);
+  const auto kernel = search_dense_kernel<K, M, G, Masked, Frontier>;
+  constexpr size_t smem = sizeof(mma::Smem<K, M, Masked, Frontier, G>);
   if (const int err = mma::allow_smem(kernel, smem)) return err;
   const int blocks = (rows + mma::kBlockRows - 1) / mma::kBlockRows;
   kernel<<<blocks, mma::kThreads<K>, smem, static_cast<cudaStream_t>(stream)>>>(
@@ -91,44 +94,51 @@ int launch(const void* ai, const void* ch, const void* cl, const void* sb,
 // means no class mask.  sa, sa2 [rows] are read
 // by the 'general' key and by the frontier; s_max, inv_n, inv_norm and
 // so_reference by 'general'; threshold, dist_scale and t_n by the frontier.
+// The padded instances (`<key><K>p`) and the K-slab form (`<key>_slab`) take
+// n and the row width kp after t_n, as K1's.
 // Each launches on `stream` and returns cudaGetLastError() (0 on success).
-#define FE_SEARCH_DENSE_SIGNATURE(NAME, K, SUFFIX)                                      \
-  extern "C" int fe_search_dense_##NAME##K##SUFFIX(                                     \
-      const void* ai, const void* ch, const void* cl, const void* sb, const void* aux,  \
-      const void* rcls, const void* ccls, int rows, int m_valid, const void* sa,        \
-      const void* sa2, float s_max, float inv_n, float inv_norm, int so_reference,      \
-      float threshold, float dist_scale, int t_n, void* q_out, void* idx_out,           \
-      void* stream)
-#define FE_KEY_PARAMS                                                                   \
+#define FE_SEARCH_DENSE_PARAMS                                                          \
+  const void *ai, const void *ch, const void *cl, const void *sb, const void *aux,      \
+      const void *rcls, const void *ccls, int rows, int m_valid, const void *sa,        \
+      const void *sa2, float s_max, float inv_n, float inv_norm, int so_reference,      \
+      float threshold, float dist_scale, int t_n
+#define FE_SEARCH_DENSE_CALL(MODE, K, G, FRONTIER, N, KP)                               \
   const fe::KeyParams p{static_cast<const float*>(sa), static_cast<const float*>(sa2), \
                         s_max, inv_n, inv_norm, so_reference, threshold, dist_scale,    \
-                        t_n}
-#define FE_SEARCH_DENSE_ENTRIES(NAME, MODE, K)                                          \
-  FE_SEARCH_DENSE_SIGNATURE(NAME, K, ) {                                                \
-    FE_KEY_PARAMS;                                                                      \
-    if (ccls != nullptr) {                                                              \
-      return launch<K, MODE, true, false>(ai, ch, cl, sb, aux, rcls, ccls, rows,        \
-                                          m_valid, p, q_out, idx_out, stream);          \
-    }                                                                                   \
-    return launch<K, MODE, false, false>(ai, ch, cl, sb, aux, rcls, ccls, rows,         \
-                                         m_valid, p, q_out, idx_out, stream);           \
+                        t_n, N, KP};                                                    \
+  if (ccls != nullptr) {                                                                \
+    return launch<K, MODE, G, true, FRONTIER>(ai, ch, cl, sb, aux, rcls, ccls, rows,    \
+                                              m_valid, p, q_out, idx_out, stream);      \
   }                                                                                     \
-  FE_SEARCH_DENSE_SIGNATURE(NAME, K, _thr) {                                            \
-    FE_KEY_PARAMS;                                                                      \
-    if (ccls != nullptr) {                                                              \
-      return launch<K, MODE, true, true>(ai, ch, cl, sb, aux, rcls, ccls, rows,         \
-                                         m_valid, p, q_out, idx_out, stream);           \
-    }                                                                                   \
-    return launch<K, MODE, false, true>(ai, ch, cl, sb, aux, rcls, ccls, rows, m_valid, \
-                                        p, q_out, idx_out, stream);                     \
+  return launch<K, MODE, G, false, FRONTIER>(ai, ch, cl, sb, aux, rcls, ccls, rows,     \
+                                             m_valid, p, q_out, idx_out, stream)
+#define FE_SEARCH_DENSE_ENTRY(NAME, MODE, K, SUFFIX, FRONTIER)                          \
+  extern "C" int fe_search_dense_##NAME##K##SUFFIX(FE_SEARCH_DENSE_PARAMS, void* q_out, \
+                                                   void* idx_out, void* stream) {       \
+    FE_SEARCH_DENSE_CALL(MODE, K, fe::kFixed, FRONTIER, K, K);                          \
   }
+#define FE_SEARCH_DENSE_WIDE_ENTRY(NAME, MODE, TAG, K, G, SUFFIX, FRONTIER)             \
+  extern "C" int fe_search_dense_##NAME##TAG##SUFFIX(FE_SEARCH_DENSE_PARAMS, int n,     \
+                                                     int kp, void* q_out,               \
+                                                     void* idx_out, void* stream) {     \
+    FE_SEARCH_DENSE_CALL(MODE, K, G, FRONTIER, n, kp);                                  \
+  }
+#define FE_SEARCH_DENSE_ENTRIES(NAME, MODE)                                             \
+  FE_SEARCH_DENSE_ENTRY(NAME, MODE, 16, , false)                                        \
+  FE_SEARCH_DENSE_ENTRY(NAME, MODE, 16, _thr, true)                                     \
+  FE_SEARCH_DENSE_ENTRY(NAME, MODE, 64, , false)                                        \
+  FE_SEARCH_DENSE_ENTRY(NAME, MODE, 64, _thr, true)                                     \
+  FE_SEARCH_DENSE_ENTRY(NAME, MODE, 256, , false)                                       \
+  FE_SEARCH_DENSE_ENTRY(NAME, MODE, 256, _thr, true)                                    \
+  FE_SEARCH_DENSE_WIDE_ENTRY(NAME, MODE, 16p, 16, fe::kPadded, , false)                 \
+  FE_SEARCH_DENSE_WIDE_ENTRY(NAME, MODE, 16p, 16, fe::kPadded, _thr, true)              \
+  FE_SEARCH_DENSE_WIDE_ENTRY(NAME, MODE, 64p, 64, fe::kPadded, , false)                 \
+  FE_SEARCH_DENSE_WIDE_ENTRY(NAME, MODE, 64p, 64, fe::kPadded, _thr, true)              \
+  FE_SEARCH_DENSE_WIDE_ENTRY(NAME, MODE, 256p, 256, fe::kPadded, , false)               \
+  FE_SEARCH_DENSE_WIDE_ENTRY(NAME, MODE, 256p, 256, fe::kPadded, _thr, true)            \
+  FE_SEARCH_DENSE_WIDE_ENTRY(NAME, MODE, _slab, 256, fe::kSlab, , false)                \
+  FE_SEARCH_DENSE_WIDE_ENTRY(NAME, MODE, _slab, 256, fe::kSlab, _thr, true)
 
-FE_SEARCH_DENSE_ENTRIES(ls, fe::kLs, 16)
-FE_SEARCH_DENSE_ENTRIES(ls, fe::kLs, 64)
-FE_SEARCH_DENSE_ENTRIES(ls, fe::kLs, 256)
-FE_SEARCH_DENSE_ENTRIES(raw, fe::kRaw, 16)
-FE_SEARCH_DENSE_ENTRIES(raw, fe::kRaw, 64)
-FE_SEARCH_DENSE_ENTRIES(raw, fe::kRaw, 256)
-FE_SEARCH_DENSE_ENTRIES(general, fe::kGeneral, 16)
-FE_SEARCH_DENSE_ENTRIES(general, fe::kGeneral, 64)
-FE_SEARCH_DENSE_ENTRIES(general, fe::kGeneral, 256)
+FE_SEARCH_DENSE_ENTRIES(ls, fe::kLs)
+FE_SEARCH_DENSE_ENTRIES(raw, fe::kRaw)
+FE_SEARCH_DENSE_ENTRIES(general, fe::kGeneral)

@@ -51,6 +51,19 @@
 // key).  A warp whose rows are all done stops, and the block stops at a
 // chunk's end once all its rows are (__syncthreads_or).
 
+// Padded instances (search_common.cuh's Geom) run this loop at their K over
+// operands zero past n.  The K-slab form (K = 256, n > 256) cannot keep a
+// row's A fragments in registers (K / 8 words a lane and m16 tile: 128 at
+// n = 1024) nor stage a chunk of whole rows (64 columns of 1040 bytes, two
+// operands, two buffers: 266,240 B at n = 1024, past the 227 KB a block may
+// hold).  So it walks each chunk slab by slab, 256 bytes of K at a time:
+// it stages the chunk's slab of ch and cl with cp.async, loads the warp's
+// rows' A fragments of that slab from device memory, and adds the products
+// into dh and dl, kept per lane in shared memory (each lane reads back only
+// what it wrote); then the chunk's keys and argmax run as above on those
+// sums.  dh stays exact in int32 while n <= 132,104; the key's dot = 8 dh +
+// dl is formed in int64.
+
 // What bounds it on the card: the epilogue.  The products cost 2 K int8
 // operations a pair on the tensor cores; the key and the argmax cost about
 // eight to forty more instructions a pair on the FP32 and integer pipes.
@@ -99,8 +112,8 @@ constexpr int kAWords = K / 8;
 // fused multiply-add or add whose exact result is representable, or the
 // single rounding that rank_key makes, so the keys are rank_key's bit for
 // bit (fast_key).
-template <int K, int M>
-constexpr bool kFastKey = (M == kLs || M == kRaw) && K <= 64;
+template <int K, int M, int G = kFixed>
+constexpr bool kFastKey = (M == kLs || M == kRaw) && K <= 64 && G == kFixed;
 constexpr int kMagicBits = 0x4B400000;
 constexpr float kMagic = 12582912.0f;
 
@@ -120,7 +133,7 @@ constexpr float kMagic = 12582912.0f;
 enum class Policy : int { Argmax = 0, MaxOnly = 1, PackedMax = 2, DotMax = 3 };
 
 // The per-column values of one chunk (stage_column).
-template <int K, int M, bool Masked, int N>
+template <int K, int M, int G, bool Masked, int N>
 struct Cols {
   static constexpr bool kX = kExact<K, M>;
   double var_bd[kX && M == kGeneral ? N : 1];  // Exact 'general': var16 / 16
@@ -128,9 +141,9 @@ struct Cols {
   float aux[kX ? 1 : N];                       // ls: inv_var_b / 16; raw, general: SumB2
   float sb[M == kLs || kX ? 1 : N];            // SumB
   float var_b[M == kGeneral && !kX ? N : 1];   // n SumB2 - SumB SumB
-  int sb2_16[kX ? N : 1];                      // Exact: 16 SumB2
+  Wide<G> sb2_16[kX ? N : 1];                  // Exact: 16 SumB2
   int cls[Masked ? N : 1];                     // column class (K3's class mask)
-  float fb[kFastKey<K, M> ? N : 1];            // fast_key: ls 4 SumB, raw 128 SumB - kMagic / 4
+  float fb[kFastKey<K, M, G> ? N : 1];         // fast_key: ls 4 SumB, raw 128 SumB - kMagic / 4
 };
 
 // rank_key's 'ls' and 'raw' keys at K <= 64 from the accumulators dh and dl
@@ -167,13 +180,23 @@ __device__ __forceinline__ float fast_key(int dh, int dl, int j, const S& s, flo
   }
 }
 
+// The K-slab form's sums of a chunk's products over the slabs, each lane's
+// dh and dl: [warp][n8 tile][m16 tile][dh, dl][register][lane], flat.  An
+// empty base elsewhere, so that the other instances' layout is unchanged.
+template <bool On, int N>
+struct SlabSums {
+  alignas(16) int acc[N];
+};
+template <int N>
+struct SlabSums<false, N> {};
+
 // The block's dynamic shared memory.
-template <int K, int M, bool Masked, bool Frontier>
-struct Smem {
+template <int K, int M, bool Masked, bool Frontier, int G = kFixed>
+struct Smem : SlabSums<G == kSlab, kWarps<K> * (kCols<K, Frontier> / 8) * kTiles<K> * 2 * 4 * 32> {
   static constexpr int kN = kCols<K, Frontier>;
   alignas(16) signed char ch[2][kN * kStride<K>];
   alignas(16) signed char cl[2][kN * kStride<K>];
-  Cols<K, M, Masked, kN> cols[2];
+  Cols<K, M, G, Masked, kN> cols[2];
   float keys[Frontier ? kWarps<K> : 1][Frontier ? kSub : 1][Frontier ? kKeyStride<K> : 1];
 };
 
@@ -273,9 +296,9 @@ __device__ __forceinline__ void merge_best(float& q, int& idx, float oq, int oid
 // (which cannot transpose): its words are loaded before the previous chunk
 // is searched and stored after it, as the column values are.
 template <int K, int M, bool Masked, bool Frontier, Policy Pol = Policy::Argmax,
-          bool Transposed = false, class Write>
+          bool Transposed = false, int G = kFixed, class Write>
 __device__ __forceinline__ void search_rows(
-    Smem<K, M, Masked, Frontier>& sm, const int* __restrict__ ai, long long row0, int n_load,
+    Smem<K, M, Masked, Frontier, G>& sm, const int* __restrict__ ai, long long row0, int n_load,
     int n_active, const int* __restrict__ rcls, const signed char* __restrict__ ch,
     const signed char* __restrict__ cl, const float* __restrict__ sb,
     const void* __restrict__ aux, const int* __restrict__ ccls, int start, int end,
@@ -285,6 +308,9 @@ __device__ __forceinline__ void search_rows(
   static_assert(Pol != Policy::DotMax || (K == 16 && kFastKey<K, M>),
                 "DotMax reads f32(dot) off accumulators started at kMagicBits");
   static_assert(!Transposed || (K == 16 && !Frontier), "the [16, m] layout is K5's");
+  static_assert(G != kSlab || (K == 256 && Pol == Policy::Argmax && !Transposed),
+                "the K-slab form walks slabs of 256 bytes");
+  constexpr bool kSlabbed = G == kSlab;
   constexpr int kT = kTiles<K>;
   constexpr int kRW = 16 * kT;  // rows per warp
   constexpr int kN = kCols<K, Frontier>;
@@ -299,27 +325,38 @@ __device__ __forceinline__ void search_rows(
   const int lane = threadIdx.x & 31;
   const int g = lane >> 2;
   const int t = lane & 3;
+  // the operands' row width in bytes, and the slabs of K bytes in it
+  const int kp = kSlabbed ? p.kp : K;
+  const int n_slabs = kSlabbed ? p.kp / K : 1;
 
-  // A fragments, straight from device memory: word w of a row is bytes 4w..
+  // A fragments, straight from device memory: word w of a row (of slab
+  // `slab`) is bytes 4w..
   int a[kT][kAW];
   int rows_local[kT][2];
 #pragma unroll
-  for (int mt = 0; mt < kT; ++mt) {
+  for (int mt = 0; mt < kT; ++mt)
 #pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int local = warp * kRW + mt * 16 + g + 8 * h;
-      rows_local[mt][h] = local;
-      const bool in = local < n_load;
-      const int* src = ai + (row0 + local) * (K / 4);
+    for (int h = 0; h < 2; ++h) rows_local[mt][h] = warp * kRW + mt * 16 + g + 8 * h;
+  auto load_a = [&](int slab) {
 #pragma unroll
-      for (int ks = 0; ks < (K == 16 ? 1 : K / 32); ++ks) {
-        a[mt][(K == 16 ? 0 : 4 * ks) + h] = in ? src[8 * ks + t] : 0;
-        if constexpr (K != 16) a[mt][4 * ks + 2 + h] = in ? src[8 * ks + 4 + t] : 0;
+    for (int mt = 0; mt < kT; ++mt) {
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int local = rows_local[mt][h];
+        const bool in = local < n_load;
+        const int* src = ai + (row0 + local) * (kSlabbed ? kp / 4 : K / 4) + slab * (K / 4);
+#pragma unroll
+        for (int ks = 0; ks < (K == 16 ? 1 : K / 32); ++ks) {
+          a[mt][(K == 16 ? 0 : 4 * ks) + h] = in ? src[8 * ks + t] : 0;
+          if constexpr (K != 16) a[mt][4 * ks + 2 + h] = in ? src[8 * ks + 4 + t] : 0;
+        }
       }
     }
-  }
-  // the rows' byte sums: A against a B of ones
-  Row<K> rw[kT][2];
+  };
+  load_a(0);
+  // the rows' byte sums: A against a B of ones (slab by slab in the K-slab
+  // form)
+  Row<K, G> rw[kT][2];
   float base_f[kT][2];
   int rc[kT][2];
   if constexpr (Pol != Policy::DotMax) {
@@ -330,10 +367,19 @@ __device__ __forceinline__ void search_rows(
       for (int i = 0; i < 2 * (K == 16 ? 1 : K / 32); ++i) ones[i] = 0x01010101;
       int s[4];
       tile_dot<K>(s, a[mt], ones);
+      if constexpr (kSlabbed) {
+        for (int slab = 1; slab < n_slabs; ++slab) {
+          load_a(slab);
+          int d[4];
+          tile_dot<K>(d, a[mt], ones);
+#pragma unroll
+          for (int i = 0; i < 4; ++i) s[i] += d[i];
+        }
+      }
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
         const int local = rows_local[mt][h];
-        rw[mt][h] = row_sums<K, M, false>(s[2 * h], row0 + local, local < n_load, p);
+        rw[mt][h] = row_sums<K, M, G, false>(s[2 * h], row0 + local, local < n_load, p);
         base_f[mt][h] = static_cast<float>(rw[mt][h].base);  // exact
         rc[mt][h] = Masked && local < n_load ? rcls[row0 + local] : 0;
       }
@@ -346,7 +392,7 @@ __device__ __forceinline__ void search_rows(
   const bool scan_active = Frontier && lane < kRW && scan_local < n_active;
   float hit_q = 0.0f;
   if constexpr (Frontier) {
-    if (scan_active) hit_q = row_sums<K, M, true>(0, row0 + scan_local, true, p).hit_q;
+    if (scan_active) hit_q = row_sums<K, M, G, true>(0, row0 + scan_local, true, p).hit_q;
   }
   bool done = !scan_active;  // the scanning lane's row has met its frontier
   float cand_q = kInitQ;     // its best over the sub-block where it hit
@@ -382,12 +428,14 @@ __device__ __forceinline__ void search_rows(
       bi[mt][h] = Pol == Policy::PackedMax ? INT_MIN : 0;
     }
 
-  auto stage = [&](int buf, int c0, int n_cols) {  // columns [c0, c0 + n_cols) -> buf
+  // columns [c0, c0 + n_cols) -> buf (their slab `slab` in the K-slab form)
+  auto stage = [&](int buf, int c0, int n_cols, int slab = 0) {
     if constexpr (!Transposed) {
       for (int i = threadIdx.x; i < n_cols * (K / 16); i += kThreads<K>) {
         const int j = i / (K / 16);
         const int w = i - j * (K / 16);
-        const long long src = (static_cast<long long>(c0) + j) * K + 16 * w;
+        const long long src = kSlabbed ? (static_cast<long long>(c0) + j) * kp + slab * K + 16 * w
+                                       : (static_cast<long long>(c0) + j) * K + 16 * w;
         cp_async16(&sm.ch[buf][j * kS + 16 * w], ch + src);
         cp_async16(&sm.cl[buf][j * kS + 16 * w], cl + src);
       }
@@ -397,7 +445,7 @@ __device__ __forceinline__ void search_rows(
   // the column values a thread stages per chunk: loaded into registers
   // before the previous chunk is searched, staged after it
   constexpr int kPer = (kN + kThreads<K> - 1) / kThreads<K>;
-  ColumnIn col_in[kPer];
+  ColumnIn<G> col_in[kPer];
   // Transposed: the groups of 4 columns a thread stages per chunk, and their
   // 16 rows' words of ch and cl
   constexpr int kPerT = Transposed ? (kN / 4 + kThreads<K> - 1) / kThreads<K> : 1;
@@ -408,7 +456,7 @@ __device__ __forceinline__ void search_rows(
       for (int i = 0; i < kPer; ++i) {
         const int j = threadIdx.x + i * kThreads<K>;
         if (j < n_cols) {
-          col_in[i] = load_column<K, M, Masked>(static_cast<long long>(c0) + j, sb, aux, ccls);
+          col_in[i] = load_column<K, M, G, Masked>(static_cast<long long>(c0) + j, sb, aux, ccls);
         }
       }
     }
@@ -436,10 +484,10 @@ __device__ __forceinline__ void search_rows(
       for (int i = 0; i < kPer; ++i) {
         const int j = threadIdx.x + i * kThreads<K>;
         if (j < n_cols) {
-          stage_column<K, M, Masked>(cs, j, col_in[i]);
-          if constexpr (kFastKey<K, M> && M == kLs) {
+          stage_column<K, M, G, Masked>(cs, j, col_in[i], p);
+          if constexpr (kFastKey<K, M, G> && M == kLs) {
             cs.fb[j] = static_cast<float>(cs.sb4[j]);  // exact
-          } else if constexpr (kFastKey<K, M>) {  // both steps exact
+          } else if constexpr (kFastKey<K, M, G>) {  // both steps exact
             cs.fb[j] = __fsub_rn(__fmul_rn(128.0f, cs.sb[j]), 0.25f * kMagic);
           }
         }
@@ -473,7 +521,7 @@ __device__ __forceinline__ void search_rows(
   const bool lm_cl = K == 16 ? (lm & 1) : (lm >> 1);
 
   // the products of n8 tiles [n0, n0 + 8 kNT) against the warp's rows
-  auto products = [&](int buf, int n0, int (&dh)[kNT][kT][4], int (&dl)[kNT][kT][4]) {
+  auto mma_products = [&](int buf, int n0, int (&dh)[kNT][kT][4], int (&dl)[kNT][kT][4]) {
     const signed char* base = (lm_cl ? sm.cl[buf] : sm.ch[buf]) + (n0 + lm_col) * kS + lm_off;
     int b[kNT][2][kBW];  // [tile][ch, cl][words]
     if constexpr (K == 16) {
@@ -499,7 +547,7 @@ __device__ __forceinline__ void search_rows(
           b[nt][1][2 * ks + 1] = r[3];
         }
     }
-    constexpr bool kFast = kFastKey<K, M>;
+    constexpr bool kFast = kFastKey<K, M, G>;
 #pragma unroll
     for (int nt = 0; nt < kNT; ++nt)
 #pragma unroll
@@ -507,6 +555,27 @@ __device__ __forceinline__ void search_rows(
         tile_dot<K>(dh[nt][mt], a[mt], b[nt][0], kFast && K != 16 ? kMagicBits : 0);
         tile_dot<K>(dl[nt][mt], a[mt], b[nt][1], kFast ? kMagicBits : 0);
       }
+  };
+  // the K-slab form's per-lane sum of n8 tile `tile`'s products (generic, so
+  // that only the K-slab form instantiates it)
+  auto acc_at = [&](auto& smem, int tile, int mt, int op, int i) -> int& {
+    return smem.acc[((((warp * (kN / 8) + tile) * kT + mt) * 2 + op) * 4 + i) * 32 + lane];
+  };
+  // what a step reads: the products, or the K-slab form's sums over the slabs
+  auto products = [&](int buf, int n0, int (&dh)[kNT][kT][4], int (&dl)[kNT][kT][4]) {
+    if constexpr (kSlabbed) {
+#pragma unroll
+      for (int nt = 0; nt < kNT; ++nt)
+#pragma unroll
+        for (int mt = 0; mt < kT; ++mt)
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            dh[nt][mt][i] = acc_at(sm, n0 / 8 + nt, mt, 0, i);
+            dl[nt][mt][i] = acc_at(sm, n0 / 8 + nt, mt, 1, i);
+          }
+    } else {
+      mma_products(buf, n0, dh, dl);
+    }
   };
 
   // One step: the keys of columns [n0, n0 + 8 kNT) of chunk buffer buf (the
@@ -543,12 +612,13 @@ __device__ __forceinline__ void search_rows(
               if constexpr (Pol == Policy::DotMax) {  // kMagic + dot, exact: f32(dot)
                 v = __fsub_rn(__int_as_float(8 * dh[nt][mt][2 * h + e] + dl[nt][mt][2 * h + e]),
                               kMagic);
-              } else if constexpr (kFastKey<K, M>) {
+              } else if constexpr (kFastKey<K, M, G>) {
                 v = fast_key<K, M>(dh[nt][mt][2 * h + e], dl[nt][mt][2 * h + e], j, cs,
                                    base_f[mt][h]);
               } else {
-                const int dot = 8 * dh[nt][mt][2 * h + e] + dl[nt][mt][2 * h + e];
-                v = rank_key<K, M, Masked>(dot, j, cs, rw[mt][h], p);
+                const Wide<G> dot =
+                    8 * static_cast<Wide<G>>(dh[nt][mt][2 * h + e]) + dl[nt][mt][2 * h + e];
+                v = rank_key<K, M, G, Masked>(dot, j, cs, rw[mt][h], p);
               }
               if constexpr (Frontier) {
                 // (class mask) a column of another class takes -3e38 before
@@ -716,6 +786,44 @@ __device__ __forceinline__ void search_rows(
     }
   };
 
+  if constexpr (kSlabbed) {
+    // chunk by chunk, one buffer: the sums of the products over the slabs,
+    // then the chunk's column values, then its keys
+    for (int c0 = start; c0 < end; c0 += chunk) {
+      const int n = min(chunk, end - c0);
+      for (int slab = 0; slab < n_slabs; ++slab) {
+        stage(0, c0, n, slab);
+        load_a(slab);
+        cp_async_wait_all();
+        __syncthreads();
+        // the n8 tiles that the chunk's steps read (step() rounds n up to 8 kNT)
+        for (int n0 = 0; n0 < n; n0 += 8 * kNT) {
+          int dh[kNT][kT][4], dl[kNT][kT][4];
+          mma_products(0, n0, dh, dl);
+#pragma unroll
+          for (int nt = 0; nt < kNT; ++nt)
+#pragma unroll
+            for (int mt = 0; mt < kT; ++mt)
+#pragma unroll
+              for (int i = 0; i < 4; ++i) {
+                int& sh = acc_at(sm, n0 / 8 + nt, mt, 0, i);
+                int& sl = acc_at(sm, n0 / 8 + nt, mt, 1, i);
+                sh = (slab ? sh : 0) + dh[nt][mt][i];
+                sl = (slab ? sl : 0) + dl[nt][mt][i];
+              }
+        }
+        __syncthreads();  // the buffer is staged again
+      }
+      load_cols(c0, n);
+      stage_cols(0, n);
+      __syncthreads();
+      search_chunk(0, c0, n);
+      if constexpr (Frontier) {  // the block stops once all its rows are done
+        if (!__syncthreads_or(!done)) break;
+      }
+      __syncthreads();
+    }
+  } else {
   if (start < end) {
     const int n = min(chunk, end - start);
     stage(0, start, n);
@@ -749,6 +857,7 @@ __device__ __forceinline__ void search_rows(
     if (next < end) stage_cols(buf ^ 1, n_next);
     cp_async_wait_all();
     __syncthreads();
+  }
   }
 
   // the quad's lanes
@@ -812,6 +921,26 @@ __device__ __forceinline__ void search_rows(
         }
       }
   }
+}
+
+// The most n the K-slab form takes: its dh sums, up to n * 128 * 127, stay
+// below 2^31 (ops/matcher_kernels.py's MAX_SLAB_N).
+constexpr int kMaxSlabN = 132104;
+
+// Whether an instance takes p's n and row width kp: n = K (fixed); n <= K,
+// kp = K (padded); 256 < n <= kMaxSlabN, kp = n rounded up to K = 256 (the
+// K-slab form).  cudaErrorInvalidValue otherwise.
+template <int K, int G>
+__host__ int check_geometry(const KeyParams& p) {
+  bool ok;
+  if constexpr (G == kFixed) {
+    ok = p.n == K && p.kp == K;
+  } else if constexpr (G == kPadded) {
+    ok = p.n >= 1 && p.n <= K && p.kp == K;
+  } else {
+    ok = p.n > 256 && p.n <= kMaxSlabN && p.kp % K == 0 && p.kp >= p.n && p.kp - p.n < K;
+  }
+  return ok ? 0 : static_cast<int>(cudaErrorInvalidValue);
 }
 
 // The dynamic shared memory of an instance, set as the kernel's limit where

@@ -3,9 +3,10 @@
 Every (domain, isometry) is sampled once per image into ``C[D, T, K]`` plus
 its per-vector sums.  Values are multiples of 0.25 in [0, 255], exact in
 f32.  The sums come from the exact integers sum(4B) and sum((4B)^2), each
-rounded once: SumB is exact in f32 up to K = 256, SumB2 only up to K = 16,
-so above that it is the correctly rounded value, the same on every device
-and in every summation order.
+rounded once: SumB is exact in f32 up to K = 256 and float64 above
+(``sum_dtype``), SumB2 exact in f32 only up to K = 16, so above that it is
+the correctly rounded value, the same on every device and in every
+summation order.
 """
 from __future__ import annotations
 
@@ -16,9 +17,9 @@ import torch
 
 from ..core.grid import Grid
 from ..core.sampler import all_tap_tables
-from ..ops.matcher_kernels import inv_var_b, key_sum_sq
+from ..ops.matcher_kernels import inv_var_b, key_sum_sq, sum_dtype
 
-__all__ = ["Codebook", "build_codebook", "extract_ranges"]
+__all__ = ["Codebook", "build_codebook", "extract_ranges", "range_sums"]
 
 
 @dataclasses.dataclass
@@ -26,7 +27,7 @@ class Codebook:
     """Sampled domain pool."""
 
     values: torch.Tensor  # [D, T, K] f32 — sampled (domain, isometry) vectors
-    sum: torch.Tensor  # [D, T] f32 — per-vector sums (SumB)
+    sum: torch.Tensor  # [D, T] f32 (float64 above K = 256) — per-vector sums (SumB)
     sum_sq: torch.Tensor  # [D, T] f32 — per-vector sums of squares (SumB2)
     grid: Grid  # domain grid
     inv_var: torch.Tensor  # [D, T] f32 guarded 1/var_b
@@ -80,11 +81,19 @@ def build_codebook(plane_f32: torch.Tensor, domain_grid: Grid, target_size: int,
 
     n = float(target_size * target_size)
     b4 = torch.round(values * 4.0).to(torch.int32)  # exact integers 4B <= 1020
-    sums = b4.sum(-1, dtype=torch.int32).to(torch.float32) * 0.25
-    sb2_16 = (b4 * b4).sum(-1, dtype=torch.int32)  # <= 256 * 1020^2 < 2^31
+    sums = b4.sum(-1, dtype=torch.int64).to(sum_dtype(n)) * 0.25
+    sb2_16 = (b4 * b4).sum(-1, dtype=torch.int64)  # <= n * 1020^2
     return Codebook(values=values, sum=sums,
                     sum_sq=sb2_16.to(torch.float32) * 0.0625, grid=domain_grid,
                     inv_var=inv_var_b(sums, key_sum_sq(sb2_16, n), n))
+
+
+def range_sums(ranges: torch.Tensor):
+    """(SumA, SumA2) of [R, n] range blocks, exact: f32 up to n = 256, where
+    every partial sum is an integer below 2^24, and float64 above
+    (``sum_dtype``)."""
+    r = ranges.to(sum_dtype(ranges.shape[-1]))
+    return r.sum(-1), (r * r).sum(-1)
 
 
 def extract_ranges(plane_f32: torch.Tensor, target_size: int) -> torch.Tensor:

@@ -23,7 +23,7 @@ from ..core.grid import Grid, uniform_grid
 from ..core.stats import block_sums_nonoverlapping, integral_image
 from ..params import EncoderConfig
 from ..utils.prng import prng_key
-from .codebook import build_codebook, extract_ranges
+from .codebook import build_codebook, extract_ranges, range_sums
 from .matcher import search_classed, search_dense
 from .vq import assign_codes, train_codebook
 
@@ -158,8 +158,7 @@ def encode_plane(plane, cfg: EncoderConfig | None = None, *,
     cb = build_codebook(plane_f32, domain_grid, cfg.target_size,
                         cfg.num_transforms, half=half)
     ranges = extract_ranges(plane_f32, cfg.target_size)
-    sum_a = ranges.sum(-1)
-    sum_a2 = (ranges * ranges).sum(-1)
+    sum_a, sum_a2 = range_sums(ranges)
     if cfg.vq_classes > 0:
         # learned pruning: the LBG codeword id as the class bin, on contrast-
         # and brightness-normalized vectors; the classed search runs on

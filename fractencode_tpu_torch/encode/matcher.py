@@ -39,8 +39,8 @@ import torch
 from ..ops import matcher_kernels as _mk
 from ..ops.matcher_kernels import (CT_BITS, DEFAULT_BM, DEFAULT_BR, INT8_MAX_K,
                                    PAIR_TILE_M, PAIR_TILE_R, _rank_tile,
-                                   _require_exact_k, _require_exact_sums,
-                                   inv_var_b, key_sum_sq, rank_mode,
+                                   _require_exact_sums, inv_var_b, kernel_width,
+                                   key_sum_sq, rank_mode, sum_dtype,
                                    rank_to_dist, search_classed2d_cuda,
                                    search_classed2d_torch, search_classed_cuda,
                                    search_classed_torch, search_dense_cuda,
@@ -77,18 +77,19 @@ def solve_so(sum_a, sum_a2, sum_b, sum_b2, sum_ab, n: float, so_mode: str,
     ``(SumA-1)*SumA`` denominator); 'ls' is the least-squares fit of
     ``range ~ s*domain + o``.  Numerator and denominator are integers (scaled
     by 4 and 16), formed in int64 and rounded once to f32, so ``s`` is one
-    correctly rounded division of them.  For K <= INT8_MAX_K the integers
+    correctly rounded division of them.  For n <= INT8_MAX_K the integers
     are rebuilt from the f32 sums, as the JAX package does (16*SumB2 from
-    the rounded f32 SumB2 at K = 64); above, ``sum_ab`` and ``sum_b2`` must
-    be the exact float64 sums (the port's exact rule for K = 256, where the
-    JAX package solves in f32).  ``o`` is formed with one rounding, as the
-    fused multiply-add that XLA:CPU emits for the JAX package:
-    ``SumA - s*SumB`` is exact in float64 (s has 24 significant bits, the
-    sums are multiples of 0.25 below 2^16), then rounded once to f32 and
-    multiplied by the f32 reciprocal of n (XLA:CPU compiles the division by
-    the constant n so; for n a power of two the two agree).
+    the rounded f32 SumB2 at n = 64); above, ``sum_ab`` and ``sum_b2`` must
+    be the exact float64 sums (the port's exact rule above n = 64, where the
+    JAX package solves in f32), and above F32_SUMS_MAX_K ``sum_a``,
+    ``sum_a2`` and ``sum_b`` are float64 too (``sum_dtype``).  ``o`` is
+    formed with one rounding, as the fused multiply-add that XLA:CPU emits
+    for the JAX package: ``SumA - s*SumB`` is exact in float64 (s has 24
+    significant bits, the sums are multiples of 0.25 below 2^29 while
+    n <= MAX_SLAB_N), then rounded once to f32 and multiplied by the f32
+    reciprocal of n (XLA:CPU compiles the division by the constant n so; for
+    n a power of two the two agree).
     """
-    _require_exact_k(n)
     _require_exact_sums(n, sum_ab=sum_ab, sum_b2=sum_b2)
     ni = int(n)
     sa_i = sum_a.to(torch.int64)
@@ -153,23 +154,29 @@ def _class_layout(classes01: torch.Tensor, block: int,
 
 def _int8_operands(ranges, cb: Codebook):
     """The int8 operands (matcher_pallas._int8_operands) in search order
-    m = d*T + (T-1-t): ai = A - 128 [R, K]; the 10-bit b4 = 4B [m, K] i16
-    and its split ch = b4 >> 3, cl = b4 & 7 [m, K] i8."""
-    d, t, k = cb.values.shape
-    b4_cols = torch.round(cb.values.flip(1).reshape(d * t, k) * 4.0).to(torch.int16)
+    m = d*T + (T-1-t), each row padded with zero bytes from n, the range's
+    pixel count, to the kernels' width K = ``kernel_width(n)``: ai = A - 128
+    [R, K] and the split ch = b4 >> 3, cl = b4 & 7 [m, K] i8 of the 10-bit
+    b4 = 4B; and b4 itself [m, n] i16, unpadded."""
+    d, t, n = cb.values.shape
+    b4_cols = torch.round(cb.values.flip(1).reshape(d * t, n) * 4.0).to(torch.int16)
     ai = (ranges.to(torch.int32) - 128).to(torch.int8)
-    return ai, (b4_cols >> 3).to(torch.int8), (b4_cols & 7).to(torch.int8), b4_cols
+    ch, cl = (b4_cols >> 3).to(torch.int8), (b4_cols & 7).to(torch.int8)
+    k = kernel_width(n)
+    if k > n:
+        ai, ch, cl = (torch.nn.functional.pad(x, (0, k - n)) for x in (ai, ch, cl))
+    return ai, ch, cl, b4_cols
 
 
-def _column_sums(b4, mode: str):
+def _column_sums(b4, mode: str, n: int):
     """Per-column SumB and the key's aux (inv_var_b for 'ls', SumB2
-    otherwise) of the integer columns b4 = 4B [M, K] i32: every sum is an
-    exact integer, rounded once, as the JAX package's cb.sum and cb.sum_sq
-    (see ``key_sum_sq`` for SumB2)."""
-    k = float(b4.shape[1])
-    sb = b4.sum(1, dtype=torch.int32).to(torch.float32) * 0.25
-    sb2 = key_sum_sq((b4 * b4).sum(1, dtype=torch.int32), k)
-    return sb, inv_var_b(sb, sb2, k) if mode == "ls" else sb2
+    otherwise) of the integer columns b4 = 4B [M, K] i32 of ranges of n
+    pixels (zero past n): every sum is an exact integer, rounded once, as the
+    JAX package's cb.sum and cb.sum_sq (see ``key_sum_sq`` for SumB2, and
+    ``sum_dtype`` for SumB)."""
+    sb = b4.sum(1, dtype=torch.int64).to(sum_dtype(n)) * 0.25
+    sb2 = key_sum_sq((b4 * b4).sum(1, dtype=torch.int64), n)
+    return sb, inv_var_b(sb, sb2, n) if mode == "ls" else sb2
 
 
 def _tiles(r: int, m: int, n_row_bins: int, n_col_bins: int, block_r: int,
@@ -241,17 +248,18 @@ def classed_prep(ranges, sum_a, sum_a2, cb: Codebook, range_classes,
     column bin no range tile visits; ``range_mask`` ([R] bool) parks excluded
     ranges in a reserved row bin whose tiles visit the empty column bin.
 
-    Returns a dict with ai_s [r_pad, K] i8; ch_s, cl_s [m_pad, K] i8; sb_s,
-    aux_s [m_pad] f32; sa_s, sa2_s [r_pad] f32 (for the 'general' key and the
-    frontier, else None); tile_class [nrt] i32; col_tile_start, col_tile_count, col_end
+    Returns a dict with ai_s [r_pad, K] i8; ch_s, cl_s [m_pad, K] i8
+    (K = ``kernel_width(n)``, n the range's pixel count, zero past n); sb_s,
+    aux_s [m_pad]; sa_s, sa2_s [r_pad] (for the 'general' key and the
+    frontier, else None; the sums in ``sum_dtype(n)``, aux as the key reads
+    it); tile_class [nrt] i32; col_tile_start, col_tile_count, col_end
     and row_end (the end of each class's real rows, 0 past the classes)
     [n_col_bins+1] i32; rpos [R]; inv_dom [m_pad/T] or inv_col [m_pad]; and
     b4_cols [m, K] i16 (4x the codebook values in search order); route
     ('search_classed' or 'search_classed2d'), n_pairs (None where the route
     did not need it), worst_pairs, p_cap and use_pairs.
     """
-    r, k = ranges.shape
-    _require_exact_k(k)
+    r, n = ranges.shape
     d, t, _ = cb.values.shape
     m = d * t
     dev = ranges.device
@@ -277,6 +285,7 @@ def classed_prep(ranges, sum_a, sum_a2, cb: Codebook, range_classes,
         return inv
 
     ai, ch, cl, b4_cols = _int8_operands(ranges, cb)
+    k = ai.shape[1]  # the operands' width
     inv_r = inverse(rpos, r_pad, r)
     ai_s = torch.cat([ai, ai.new_zeros(1, k)])[inv_r]
 
@@ -306,7 +315,7 @@ def classed_prep(ranges, sum_a, sum_a2, cb: Codebook, range_classes,
 
     # sorted per-column sums (padding rows are zero, so their sums are 0)
     mode = rank_mode(cfg.criterion, cfg.so_mode, cfg.s_max)
-    sb_s, aux_s = _column_sums(8 * ch_s.to(torch.int32) + cl_s.to(torch.int32), mode)
+    sb_s, aux_s = _column_sums(8 * ch_s.to(torch.int32) + cl_s.to(torch.int32), mode, n)
     if mode == "general" or cfg.rms_threshold > 0.0:
         zero = sum_a.new_zeros(1)
         sa_s = torch.cat([sum_a, zero])[inv_r]
@@ -382,7 +391,7 @@ def classed_kernel(prep: dict, k: int, domain_area: int, cfg: EncoderConfig,
         criterion=cfg.criterion, so_mode=cfg.so_mode, s_max=cfg.s_max,
         inv_norm=inv_norm(cfg, k, domain_area), sa_s=prep["sa_s"],
         sa2_s=prep["sa2_s"], threshold=cfg.rms_threshold, t_n=cfg.num_transforms,
-        **extra)
+        n=k, **extra)
 
 
 def classed_post(q_s, idx_s, rpos, inv_col, ranges, sum_a, sum_a2, cb: Codebook,
@@ -420,16 +429,17 @@ def _winners(ranges, sum_a, sum_a2, b4_cols, win_m, t: int, dist, key,
     """The SearchResult of search-order winners ``win_m`` (i64 [R]), with
     (s, o) solved from the exact integer sums over each winner's b4 row
     (``b4_cols``: 4x the codebook values in search order): as the f32
-    values of the JAX package's codebook for K <= INT8_MAX_K (SumB2 rounded
+    values of the JAX package's codebook for n <= INT8_MAX_K (SumB2 rounded
     once, as ``cb.sum_sq``), exact in float64 above (see ``solve_so``)."""
     k = ranges.shape[1]
     valid = dist < _BIG
-    # every sum is an exact i32: 4*SumAB <= 256*255*1020, 16*SumB2 <= 256*1020^2
+    # every sum is an exact integer, in int64 (16*SumB2 <= n*1020^2 passes
+    # 2^31 above n = 2064, 4*SumAB <= n*255*1020 above n = 8256)
     b4_win = b4_cols[win_m].to(torch.int32)  # [R, k]
-    ab4 = (ranges.to(torch.int32) * b4_win).sum(-1, dtype=torch.int32)
+    ab4 = (ranges.to(torch.int32) * b4_win).sum(-1, dtype=torch.int64)
     sum_ab = ab4.to(torch.float32 if k <= INT8_MAX_K else torch.float64) * 0.25
-    sb_win = b4_win.sum(-1, dtype=torch.int32).to(torch.float32) * 0.25
-    sb2_win = key_sum_sq((b4_win * b4_win).sum(-1, dtype=torch.int32), float(k))
+    sb_win = b4_win.sum(-1, dtype=torch.int64).to(sum_dtype(k)) * 0.25
+    sb2_win = key_sum_sq((b4_win * b4_win).sum(-1, dtype=torch.int64), float(k))
     s, o = solve_so(sum_a, sum_a2, sb_win, sb2_win, sum_ab, float(k),
                     cfg.so_mode, cfg.s_max)
     return SearchResult(
@@ -479,12 +489,12 @@ def dense_prep(ranges, sum_a, sum_a2, cb: Codebook, range_classes,
     ch, cl [M, K] i8; sb, aux [M] f32; sa, sa2 [R] f32 (for the 'general' key
     and the frontier, else None); rcls [R], ccls [M] i32, the class mask, with
     ``cfg.use_classifier`` and both class arrays given (else None); and
-    b4_cols [M, K] i16 (4x the codebook values)."""
-    _require_exact_k(ranges.shape[1])
+    b4_cols [M, n] i16 (4x the codebook values); the operands and sums as
+    ``classed_prep``'s."""
     t = cb.values.shape[1]
     ai, ch, cl, b4_cols = _int8_operands(ranges, cb)
     mode = rank_mode(cfg.criterion, cfg.so_mode, cfg.s_max)
-    sb, aux = _column_sums(b4_cols.to(torch.int32), mode)
+    sb, aux = _column_sums(b4_cols.to(torch.int32), mode, ranges.shape[1])
     if cfg.use_classifier and range_classes is not None:
         rcls = range_classes.to(torch.int32)
         ccls = torch.repeat_interleave(domain_classes.to(torch.int32), t)
@@ -509,7 +519,7 @@ def dense_kernel(prep: dict, k: int, domain_area: int, cfg: EncoderConfig,
         m_valid=prep["ch"].shape[0], criterion=cfg.criterion, so_mode=cfg.so_mode,
         s_max=cfg.s_max, inv_norm=inv_norm(cfg, k, domain_area),
         sa=prep["sa"], sa2=prep["sa2"], rcls=prep["rcls"], ccls=prep["ccls"],
-        threshold=cfg.rms_threshold, t_n=cfg.num_transforms,
+        threshold=cfg.rms_threshold, t_n=cfg.num_transforms, n=k,
         **_plain_only(cfg, scanned))
 
 
@@ -538,18 +548,17 @@ def _pair_scores(ranges, sum_a, sum_a2, cb: Codebook, cfg: EncoderConfig):
     each [RC, D, T] (the JAX package's ``_pair_scores``).  ``key`` is the
     minimized rank key, the negated key of the kernels; ``dist`` its
     distance.  SumAB comes exact from a float64 matmul (integers times
-    multiples of 0.25), in f32 for K <= INT8_MAX_K and float64 above (the
-    port's rule for K = 256), as do the codebook's SumB2 (``key_sum_sq``)."""
+    multiples of 0.25), in f32 for n <= INT8_MAX_K and float64 above (the
+    port's rule above n = 64), as do the codebook's SumB2 (``key_sum_sq``)."""
     k = ranges.shape[-1]
     n = float(k)
     d, t, _ = cb.values.shape
-    _require_exact_k(n)
     mode = rank_mode(cfg.criterion, cfg.so_mode, cfg.s_max)
     exact = torch.float32 if k <= INT8_MAX_K else torch.float64
     flat_cb = cb.values.reshape(d * t, k).to(torch.float64)
     sum_ab = (ranges.to(torch.float64) @ flat_cb.T).to(exact).reshape(-1, d, t)
     b4 = torch.round(cb.values * 4.0).to(torch.int32)
-    sb2 = key_sum_sq((b4 * b4).sum(-1, dtype=torch.int32), n)[None]
+    sb2 = key_sum_sq((b4 * b4).sum(-1, dtype=torch.int64), n)[None]
     sa, sa2, sb = sum_a[:, None, None], sum_a2[:, None, None], cb.sum[None]
     s, o = solve_so(sa, sa2, sb, sb2, sum_ab, n, cfg.so_mode, cfg.s_max)
     mode_kw = dict(criterion=cfg.criterion, so_mode=cfg.so_mode, s_max=cfg.s_max,

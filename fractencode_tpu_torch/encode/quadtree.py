@@ -29,7 +29,7 @@ from ..core.classify import classify_grid
 from ..core.grid import uniform_grid
 from ..core.stats import block_sums_nonoverlapping, integral_image
 from ..params import DecoderConfig, EncoderConfig
-from .codebook import build_codebook, extract_ranges
+from .codebook import build_codebook, extract_ranges, range_sums
 from .encoder import plane_on_device
 from .matcher import mask_ranges_result, search_classed, search_dense
 
@@ -125,7 +125,7 @@ def _encode_level(plane, plane_f32, cfg: EncoderConfig, range_size: int,
     cb = build_codebook(plane_f32, domain_grid, range_size, cfg.num_transforms,
                         half=half)
     ranges = extract_ranges(plane_f32, range_size)
-    sum_a, sum_a2 = ranges.sum(-1), (ranges * ranges).sum(-1)
+    sum_a, sum_a2 = range_sums(ranges)
     if cfg.use_classifier:
         ii = integral_image(plane)
         dcls = classify_grid(plane, domain_grid, ii=ii, sums2x2=sums2x2)

@@ -25,13 +25,21 @@ Each has two versions of the same function:
 
   * the plain PyTorch version (``search_classed_torch``,
     ``search_classed2d_torch``, ``search_dense_torch``), for the three rank
-    modes ('ls', 'raw', 'general') at every K up to MAX_K;
+    modes ('ls', 'raw', 'general') at every n up to MAX_SLAB_N;
   * the wrapper of the hand-written CUDA kernel (``search_classed_cuda`` on
     ``csrc/search_classed.cu``, ``search_classed2d_cuda`` on
     ``csrc/search_classed2d.cu``, ``search_dense_cuda`` on
-    ``csrc/search_dense.cu``), for the (mode, K) pairs in ``KERNEL_KEYS``.
-    It routes on the tensors' device: CPU tensors run the plain version;
-    CUDA tensors launch the kernel or raise.
+    ``csrc/search_dense.cu``), whose instances cover the same n
+    (``KERNEL_KEYS``).  It routes on the tensors' device: CPU tensors run the
+    plain version; CUDA tensors launch the kernel or raise.
+
+n and K.  n is the range's pixel count; K (``kernel_width``) the width of
+the int8 operand rows the searches take: n itself at n = 16, 64, 256 (the
+fixed instances), else n padded with zero bytes to 16, 64 or 256 (the padded
+instances, ``<K>p``), or above 256 to a multiple of 256 (the K-slab form,
+``_slab``).  Zero bytes add nothing to the dot or to a row's byte sum, so
+every key reads n, which each search takes as an argument, never from a
+shape.  Both versions take the very same padded tensors.
 
 Both take the early-accept frontier (``threshold > 0``, the TPU kernels'
 ``_apply_frontier``), the reference's scan exits
@@ -46,13 +54,14 @@ and the row scans nothing after g.  A row with no hit takes the plain
 argmax.  The definition does not depend on how the scan is tiled.
 
 The rank-key helpers below keep the JAX package's expression order, so that
-every key is the same f32 value (see ``rank_mode``).  One rule per K:
+every key is the same f32 value (see ``rank_mode``).  One rule per range of
+n:
 
-  * K <= INT8_MAX_K: the JAX package's expressions on the same f32 sums.
+  * n <= INT8_MAX_K: the JAX package's expressions on the same f32 sums.
     Its integers (4*SumB, 16*SumB2, 4*SumAB) are rebuilt from those f32
-    values, so where an f32 sum is rounded (SumB2 at K = 64) the rounded
+    values, so where an f32 sum is rounded (SumB2 at n = 64) the rounded
     value is what enters the key, as in the JAX package.
-  * INT8_MAX_K < K <= MAX_K: exact integers, each rounded once.  The JAX
+  * n > INT8_MAX_K: exact integers, each rounded once.  The JAX
     package computes these keys in f32, where their value depends on the
     summation order and on FMA contraction; the port departs from it on
     purpose (ROADMAP.md, parity contract).  The sums f32 cannot hold
@@ -61,6 +70,8 @@ every key is the same f32 value (see ``rank_mode``).  One rule per K:
     as below; 'raw' is f32(16q) / 16 with the integer 16q = 8*(4*SumAB) -
     16*SumB2; 'general' evaluates its residual in float64 from the exact
     sums, in one fixed order, and rounds once to f32 (``_rank_exact``).
+    Above F32_SUMS_MAX_K (the K-slab form) SumA2 leaves f32's 2^24, so
+    SumA, SumA2 and SumB come as float64 too (``sum_dtype``).
 """
 from __future__ import annotations
 
@@ -69,21 +80,27 @@ import struct
 
 import torch
 
-__all__ = ["INT8_MAX_K", "MAX_K", "KERNEL_KEYS", "DEFAULT_BR", "DEFAULT_BM",
-           "PAIR_TILE_R", "PAIR_TILE_M", "PAIR_CAP", "CT_BITS", "rank_mode",
+__all__ = ["INT8_MAX_K", "F32_SUMS_MAX_K", "MAX_SLAB_N", "WIDTHS", "KERNEL_KEYS",
+           "DEFAULT_BR", "DEFAULT_BM", "PAIR_TILE_R", "PAIR_TILE_M", "PAIR_CAP", "CT_BITS",
+           "kernel_width", "instance_width", "sum_dtype", "rank_mode",
            "inv_var_b", "key_sum_sq", "rank_to_dist", "search_classed_torch",
            "search_classed_cuda", "search_classed2d_torch", "search_classed2d_cuda",
            "search_dense_torch", "search_dense_cuda"]
 
-# Largest K for which the JAX package's keys are exact integers in i32 and
+# Largest n for which the JAX package's keys are exact integers in i32 and
 # it searches with int8 operands (matcher_pallas.py:41-44).
 INT8_MAX_K = 64
-# Largest K the port searches: the int8 operands hold up to it (4B <= 1020,
-# so ch = 4B >> 3 <= 127) and the dot sum(ai * b4) stays below 2^31.
-MAX_K = 256
-# The K of each CUDA kernel instantiation by rank mode (csrc/search_classed.cu
-# and csrc/search_dense.cu).
-KERNEL_KEYS = {"ls": (16, 64, 256), "raw": (16, 64, 256), "general": (16, 64, 256)}
+# Largest n whose sums SumA, SumA2 and SumB f32 holds exactly (SumA2 <=
+# 256 * 255^2 < 2^24); above, they are float64 (``sum_dtype``).
+F32_SUMS_MAX_K = 256
+# Largest n the searches take: the K-slab form sums ai . ch over its slabs in
+# int32, exact while n * 128 * 127 < 2^31 (csrc/search_mma.cuh kMaxSlabN).
+MAX_SLAB_N = 132104
+# The instances' widths (csrc/search_*.cu): the fixed K = 16, 64, 256 (n = K),
+# the padded ones (n below K, operands zero past n) and the K-slab form.
+WIDTHS = (16, 64, 256, "16p", "64p", "256p", "_slab")
+# The widths of each CUDA kernel's instances by rank mode.
+KERNEL_KEYS = {"ls": WIDTHS, "raw": WIDTHS, "general": WIDTHS}
 
 # The port's layout tiles: range rows and codebook columns per class-segment
 # alignment unit.  Results do not depend on them (only the padding does);
@@ -106,8 +123,10 @@ PAIR_CAP = 196608
 CT_BITS = 12
 
 # Columns K2 stages in shared memory per pass, by K (mma::kCols in
-# csrc/search_mma.cuh): its splits hold at least one.
-_CHUNK_COLS = {16: 512, 64: 128, 256: 64}
+# csrc/search_mma.cuh; the K-slab form's chunk is K = 256's): its splits hold
+# at least one.
+_CHUNK_COLS = {16: 512, 64: 128}
+_SLAB_CHUNK_COLS = 64
 # Range rows per K1 and K2 block (mma::kBlockRows in csrc/search_mma.cuh)
 _KROWS = 128
 # K2's blocks per SM when it chooses its split width (search_classed2d_cuda)
@@ -137,11 +156,48 @@ def rank_mode(criterion: str, so_mode: str, s_max: float) -> str:
     return "general"
 
 
-def _require_exact_k(n: float) -> None:
-    if n > MAX_K:
-        raise NotImplementedError(
-            f"K = {int(n)} > {MAX_K} (ranges above 16x16) is not ported yet "
-            "(ROADMAP.md queue 2, K1 beyond K = 256)")
+def kernel_width(n: int) -> int:
+    """K, the width of the int8 operand rows for ranges of n pixels: 16, 64
+    or 256, the least of them >= n, and above 256 n rounded up to a multiple
+    of 256 (the K-slab form's slabs).  Raises past MAX_SLAB_N."""
+    n = int(n)
+    if not 1 <= n <= MAX_SLAB_N:
+        raise ValueError(f"n = {n} pixels a range: the searches take 1 to {MAX_SLAB_N} "
+                         f"(the K-slab form's int32 sums of ai . ch, up to n * 128 * 127, "
+                         f"must stay below 2^31)")
+    for k in (16, 64, 256):
+        if n <= k:
+            return k
+    return -(-n // 256) * 256
+
+
+def instance_width(n: int, k: int):
+    """The width of the instance that searches ranges of n pixels on operand
+    rows of K bytes (``WIDTHS``): K itself where n = K in (16, 64, 256),
+    "<K>p" for n padded to K <= 256, "_slab" above; a ValueError where K is
+    not ``kernel_width(n)``."""
+    if k != kernel_width(n):
+        raise ValueError(f"operand rows of {k} bytes for n = {n}: the kernels take "
+                         f"{kernel_width(n)}")
+    if n == k and k <= F32_SUMS_MAX_K:
+        return k
+    return f"{k}p" if k <= F32_SUMS_MAX_K else "_slab"
+
+
+def sum_dtype(n: float) -> torch.dtype:
+    """The dtype of SumA, SumA2 and SumB for ranges of n pixels: f32, exact
+    up to F32_SUMS_MAX_K, and float64 above (exact: integers and quarters
+    below 2^53)."""
+    return torch.float32 if n <= F32_SUMS_MAX_K else torch.float64
+
+
+def _width_n(x: torch.Tensor, n) -> int:
+    """n, the range's pixel count: given, or (unpadded operands) the width of
+    the operand rows ``x``."""
+    n = x.shape[1] if n is None else int(n)
+    if not 1 <= n <= x.shape[1]:
+        raise ValueError(f"n = {n} on operand rows of {x.shape[1]} bytes")
+    return n
 
 
 def _require_exact_sums(n: float, **sums) -> None:
@@ -155,8 +211,9 @@ def _require_exact_sums(n: float, **sums) -> None:
 
 def key_sum_sq(sb2_16: torch.Tensor, n: float) -> torch.Tensor:
     """SumB2 as the keys and the solve read it, from the exact integer
-    16*SumB2: rounded once to f32 for K <= INT8_MAX_K (the JAX package's f32
-    sum, which is exact for K <= 16), exact float64 above."""
+    16*SumB2 (int64: it passes 2^31 above n = 2064): rounded once to f32 for
+    n <= INT8_MAX_K (the JAX package's f32 sum, which is exact for n <= 16),
+    exact float64 above."""
     if n <= INT8_MAX_K:
         return sb2_16.to(torch.float32) * 0.0625
     return sb2_16.to(torch.float64) * 0.0625
@@ -172,7 +229,6 @@ def inv_var_b(sb: torch.Tensor, sb2: torch.Tensor, n: float) -> torch.Tensor:
     wrap at K = 64, its difference does not); above, ``sb2`` is the exact
     float64 sum.
     """
-    _require_exact_k(n)
     _require_exact_sums(n, sb2=sb2)
     sb4 = (4.0 * sb).to(torch.int64)
     sb2_16 = (16.0 * sb2).to(torch.int64)
@@ -184,7 +240,6 @@ def inv_var_b(sb: torch.Tensor, sb2: torch.Tensor, n: float) -> torch.Tensor:
 
 def _cov_exact(ab, sa, sb, n: float):
     """cov = n*SumAB - SumA*SumB from the integers 4*cov, one rounding."""
-    _require_exact_k(n)
     _require_exact_sums(n, ab=ab)
     ab4 = (4.0 * ab).to(torch.int64)
     cov4 = int(n) * ab4 - sa.to(torch.int64) * (4.0 * sb).to(torch.int64)
@@ -200,9 +255,10 @@ def _rank_exact(ab, sa, sa2, sb, sb2, *, mode, so_mode, s_max, inv_norm, n):
     """The 'raw' and 'general' keys above INT8_MAX_K, from exact integers.
 
     ab (SumAB) and sb2 (SumB2) come as exact float64, sa, sa2 and sb as f32
-    (exact integers and quarters).  'raw': the integer 16q = 8*(4*SumAB) -
-    16*SumB2 (<= 532,684,800 at K = 256), rounded once to f32, then scaled
-    by 1/16 (exact).  'general': cov4, var16 = 16*var_b, var_a and the
+    or (above F32_SUMS_MAX_K) float64, exact integers and quarters either
+    way.  'raw': the integer 16q = 8*(4*SumAB) - 16*SumB2 (<= 532,684,800 at
+    n = 256, past 2^31 above n = 1024: int64), rounded once to f32, then
+    scaled by 1/16 (exact).  'general': cov4, var16 = 16*var_b, var_a and the
     'reference' denominator n*SumA2 - (SumA - 1)*SumA as int64; s, o and
     the residual e in float64 in the expression order of the f32 branch
     below (the C++ reference computes them in double); q = -f32(max(e, 0)
@@ -249,7 +305,6 @@ def _rank_tile(ab, sa, sa2, sb, aux, *, criterion, so_mode, s_max, inv_norm, n):
     """
     mode = rank_mode(criterion, so_mode, s_max)
     if n > INT8_MAX_K and mode != "ls":
-        _require_exact_k(n)
         _require_exact_sums(n, ab=ab, sb2=aux)
         return _rank_exact(ab, sa, sa2, sb, aux, mode=mode, so_mode=so_mode,
                            s_max=s_max, inv_norm=inv_norm, n=n)
@@ -282,9 +337,10 @@ def _rank_ls_int8(sa_i, dot, sb4, aux16, n: int):
     """The 'ls' key from the exact integer dot (matcher_pallas._rank_ls_int8).
 
     cov4 = 4*(n*SumAB - SumA*SumB) = n*dot + (128n - SumA)*sb4 with dot =
-    sum ai*(8ch + cl), exact in i32; q = f32(cov4)^2 * (aux/16).  cov4 is
-    formed in i32 for K <= INT8_MAX_K, as the JAX package does, and in int64
-    above (it reaches ~9e9 at K = 256).
+    sum ai*(8ch + cl); q = f32(cov4)^2 * (aux/16).  cov4 is formed in i32 for
+    n <= INT8_MAX_K, as the JAX package does (for n not a power of two too:
+    an integer, rounded once), and in int64 above (it reaches ~9e9 at
+    n = 256).
     """
     if n > INT8_MAX_K:
         dot, sa_i, sb4 = dot.to(torch.int64), sa_i.to(torch.int64), sb4.to(torch.int64)
@@ -297,11 +353,11 @@ def rank_to_dist(q, sa2, sa, *, criterion, so_mode, s_max, inv_norm, n: float):
     """Convert rank keys back to distances; q <= -_BIG/2 (no column) -> _BIG."""
     mode = rank_mode(criterion, so_mode, s_max)
     if mode == "raw":
-        dist = (sa2 - q) * inv_norm
+        # SumA2 rounded once to f32 (exact up to F32_SUMS_MAX_K)
+        dist = (sa2.to(torch.float32) - q) * inv_norm
     elif mode == "ls":
-        # SumA and SumA2 are exact in f32 up to K = 256 (SumA2 <= 256*255^2
-        # < 2^24); var_a is formed exactly in int64 and rounded once
-        _require_exact_k(n)
+        # SumA and SumA2 are exact (f32 up to F32_SUMS_MAX_K, float64 above);
+        # var_a is formed exactly in int64 and rounded once
         sa_i = sa.to(torch.int64)
         var_a = (int(n) * sa2.to(torch.int64) - sa_i * sa_i).to(torch.float32)
         dist = (var_a - q).clamp_min(0.0) * (inv_norm * (1.0 / n))
@@ -326,11 +382,12 @@ def _frontier_mask(hit, t_n: int):
     return keep, any_hit.squeeze(1), end
 
 
-def _plain_search(ai, ch, cl, sb, aux, segments, *, criterion: str, so_mode: str,
-                  s_max: float, inv_norm: float, sa=None, sa2=None, rcls=None,
-                  ccls=None, threshold: float = 0.0, t_n: int = 4, scanned=None,
-                  hit=None):
-    """The plain search: for each (r0, r1, c0, c1) in ``segments``, rows
+def _plain_search(ai, ch, cl, sb, aux, segments, *, n: int, criterion: str,
+                  so_mode: str, s_max: float, inv_norm: float, sa=None, sa2=None,
+                  rcls=None, ccls=None, threshold: float = 0.0, t_n: int = 4,
+                  scanned=None, hit=None):
+    """The plain search over ranges of ``n`` pixels (the operand rows may be
+    wider, zero past n): for each (r0, r1, c0, c1) in ``segments``, rows
     [r0, r1) of ``ai`` against columns [c0, c1), with the class mask
     ``rcls[r] == ccls[j]`` when both are given, and the early-accept
     frontier when ``threshold > 0`` (groups of ``t_n`` columns from c0; the
@@ -342,15 +399,16 @@ def _plain_search(ai, ch, cl, sb, aux, segments, *, criterion: str, so_mode: str
     receives whether each row's scan met the frontier.
 
     The dot sum(ai * (8*ch + cl)) comes exactly from matmuls: one of ai
-    against b4 = 8*ch + cl in float64 on the CPU (integers below 2^53); in
-    float32 with TF32 off on CUDA, one against b4 for K <= INT8_MAX_K (every
-    partial sum is an integer below 2^24) and one each against ch and cl
-    above (|sum| <= 256*128*127 < 2^24), combined in int32.  With the
-    frontier, columns go in chunks of whole groups, as in the CUDA kernels,
-    and rows that are done leave the chunks that follow.
+    against b4 = 8*ch + cl in float64 on the CPU (integers below 2^53); on
+    CUDA in float32 with TF32 off, one against b4 for n <= INT8_MAX_K (every
+    partial sum is an integer below 2^24) and one each against ch and cl up
+    to n = 1032 (|sum| <= n*128*127 < 2^24), combined in integers; above, one
+    against b4 in float64.  The dot is an int32, and an int64 above
+    F32_SUMS_MAX_K (it passes 2^31 above n = 16,448).  With the frontier,
+    columns go in chunks of whole groups, as in the CUDA kernels, and rows
+    that are done leave the chunks that follow.
     """
     r_pad, k = ai.shape
-    _require_exact_k(k)
     dev = ai.device
     mode = rank_mode(criterion, so_mode, s_max)
     frontier = threshold > 0.0
@@ -358,9 +416,11 @@ def _plain_search(ai, ch, cl, sb, aux, segments, *, criterion: str, so_mode: str
         raise ValueError("the frontier needs the per-row sa and sa2, and t_n >= 1")
     # the kernels compare with f32(threshold), as the JAX package does
     thr = torch.tensor(threshold, dtype=torch.float32, device=dev)
-    mm_dtype = torch.float32 if dev.type == "cuda" else torch.float64
+    f32_mm = dev.type == "cuda" and n <= 1032
+    mm_dtype = torch.float32 if f32_mm else torch.float64
     budget = (1 << 26) if dev.type == "cuda" else (1 << 21)
-    split = dev.type == "cuda" and k > INT8_MAX_K
+    split = f32_mm and n > INT8_MAX_K
+    dot_dtype = torch.int32 if n <= F32_SUMS_MAX_K else torch.int64
 
     q_out = torch.full((r_pad,), -_BIG, dtype=torch.float32, device=dev)
     idx_out = torch.zeros((r_pad,), dtype=torch.int32, device=dev)
@@ -373,16 +433,17 @@ def _plain_search(ai, ch, cl, sb, aux, segments, *, criterion: str, so_mode: str
     def dot_of(rows, j0, j1):
         a = a_mm[rows]
         if split:
-            return (8 * (a @ bh_mm[j0:j1].T).to(torch.int32)
-                    + (a @ bl_mm[j0:j1].T).to(torch.int32))
-        return (a @ b_mm[j0:j1].T).to(torch.int32)
+            return (8 * (a @ bh_mm[j0:j1].T).to(dot_dtype)
+                    + (a @ bl_mm[j0:j1].T).to(dot_dtype))
+        return (a @ b_mm[j0:j1].T).to(dot_dtype)
 
     if mode == "ls":
-        sa_i = ai.to(torch.int32).sum(1, dtype=torch.int32) + 128 * k
+        # SumA = the row's byte sum + 128 n (its zero bytes past n add nothing)
+        sa_i = ai.to(torch.int32).sum(1, dtype=torch.int32) + 128 * n
         sb4 = (4.0 * sb).to(torch.int32)
         aux16 = aux * 0.0625
     else:
-        ab_dtype = torch.float32 if k <= INT8_MAX_K else torch.float64
+        ab_dtype = torch.float32 if n <= INT8_MAX_K else torch.float64
         sb_ab = sb.to(ab_dtype)
     col = lambda x, rows: None if x is None else x[rows].unsqueeze(1)
 
@@ -409,13 +470,13 @@ def _plain_search(ai, ch, cl, sb, aux, segments, *, criterion: str, so_mode: str
                 dot = dot_of(rows, j0, j1)
                 if mode == "ls":
                     q = _rank_ls_int8(col(sa_i, rows), dot, sb4[None, j0:j1],
-                                      aux16[None, j0:j1], k)
+                                      aux16[None, j0:j1], n)
                 else:  # SumAB: exact in f32 up to INT8_MAX_K, in float64 above
                     ab = dot.to(ab_dtype) * 0.25 + 128.0 * sb_ab[None, j0:j1]
                     q = _rank_tile(ab, col(sa, rows), col(sa2, rows), sb[None, j0:j1],
                                    aux[None, j0:j1], criterion=criterion,
                                    so_mode=so_mode, s_max=s_max, inv_norm=inv_norm,
-                                   n=float(k))
+                                   n=float(n))
                 admit = None
                 if rcls is not None:
                     admit = col(rcls, rows) == ccls[None, j0:j1]
@@ -424,7 +485,7 @@ def _plain_search(ai, ch, cl, sb, aux, segments, *, criterion: str, so_mode: str
                 if frontier:
                     dist = rank_to_dist(q, col(sa2, rows), col(sa, rows),
                                         criterion=criterion, so_mode=so_mode,
-                                        s_max=s_max, inv_norm=inv_norm, n=float(k))
+                                        s_max=s_max, inv_norm=inv_norm, n=float(n))
                     keep, row_hit, end = _frontier_mask(dist <= thr, t_n)
                     q = torch.where(keep, q, -_BIG)
                 if scanned is not None:
@@ -479,11 +540,13 @@ def search_classed_torch(ai_s, ch_s, cl_s, sb_s, aux_s, tile_class,
                          col_tile_start, col_end, row_end, *, block_r: int,
                          block_m: int, criterion: str, so_mode: str, s_max: float,
                          inv_norm: float, sa_s=None, sa2_s=None,
-                         threshold: float = 0.0, t_n: int = 4, scanned=None):
+                         threshold: float = 0.0, t_n: int = 4, scanned=None, n=None):
     """Plain PyTorch version of K1, the class-blocked search.
 
     ai_s [R_pad, K] i8 (A - 128), ch_s/cl_s [M_pad, K] i8 (4B >> 3, 4B & 7),
-    sb_s/aux_s [M_pad] f32, tile_class [NRT] i32, col_tile_start/col_end/
+    each zero past ``n``, the range's pixel count (None: the operands are
+    unpadded, n = K); sb_s/aux_s [M_pad] f32 (``sum_dtype(n)`` for sb_s and
+    ``_aux_dtype`` for aux_s), tile_class [NRT] i32, col_tile_start/col_end/
     row_end [NC] i32; sa_s/sa2_s [R_pad] f32 for the 'general' mode and for
     the frontier (``threshold > 0``, groups of ``t_n`` columns from each
     class segment's start).  Returns (q [R_pad] f32, idx [R_pad] i32), idx a
@@ -491,11 +554,12 @@ def search_classed_torch(ai_s, ch_s, cl_s, sb_s, aux_s, tile_class,
     is searched, the layout's padding rows too (as the TPU kernel does);
     with it only the rows below ``row_end[c]``, and the padding rows keep
     (-_BIG, 0).  Above INT8_MAX_K, aux_s is float64 for 'raw' and
-    'general' (the exact SumB2).  ``scanned``: see ``_plain_search``.
+    'general' (the exact SumB2); above F32_SUMS_MAX_K sb_s, sa_s and sa2_s
+    are float64.  ``scanned``: see ``_plain_search``.
     """
     segments = _classed_segments(tile_class, col_tile_start, col_end, row_end,
                                  block_r, block_m, threshold > 0.0)
-    return _plain_search(ai_s, ch_s, cl_s, sb_s, aux_s, segments,
+    return _plain_search(ai_s, ch_s, cl_s, sb_s, aux_s, segments, n=_width_n(ai_s, n),
                          criterion=criterion, so_mode=so_mode, s_max=s_max,
                          inv_norm=inv_norm, sa=sa_s, sa2=sa2_s, threshold=threshold,
                          t_n=t_n, scanned=scanned)
@@ -512,7 +576,7 @@ def search_classed2d_torch(ai_s, ch_s, cl_s, sb_s, aux_s, tile_class,
                            block_m: int, criterion: str, so_mode: str, s_max: float,
                            inv_norm: float, sa_s=None, sa2_s=None,
                            threshold: float = 0.0, t_n: int = 4, splits=None,
-                           scanned=None):
+                           scanned=None, n=None):
     """Plain PyTorch version of K2, the 2-D class-blocked search: K1's
     function (``search_classed_torch``: the same arguments and result),
     computed split by split as the TPU kernel's 2-D grid does.
@@ -535,6 +599,7 @@ def search_classed2d_torch(ai_s, ch_s, cl_s, sb_s, aux_s, tile_class,
     width = max(longest, 1) if splits is None else splits
     _check_width(width, frontier, t_n)
     r_pad, dev = ai_s.shape[0], ai_s.device
+    n = _width_n(ai_s, n)
     q = torch.full((r_pad,), -_BIG, dtype=torch.float32, device=dev)
     idx = torch.zeros((r_pad,), dtype=torch.int32, device=dev)
     stopped = torch.zeros((r_pad,), dtype=torch.bool, device=dev)
@@ -543,7 +608,7 @@ def search_classed2d_torch(ai_s, ch_s, cl_s, sb_s, aux_s, tile_class,
                 for r0, r1, c0, c1 in segments if c0 + s0 < c1]
         hit = torch.zeros_like(stopped)
         part_scanned = None if scanned is None else torch.zeros_like(scanned)
-        q_s, i_s = _plain_search(ai_s, ch_s, cl_s, sb_s, aux_s, part, criterion=criterion,
+        q_s, i_s = _plain_search(ai_s, ch_s, cl_s, sb_s, aux_s, part, n=n, criterion=criterion,
                                  so_mode=so_mode, s_max=s_max, inv_norm=inv_norm,
                                  sa=sa_s, sa2=sa2_s, threshold=threshold, t_n=t_n,
                                  scanned=part_scanned, hit=hit)
@@ -559,11 +624,12 @@ def search_classed2d_torch(ai_s, ch_s, cl_s, sb_s, aux_s, tile_class,
 def search_dense_torch(ai, ch, cl, sb, aux, *, m_valid: int, criterion: str,
                        so_mode: str, s_max: float, inv_norm: float, sa=None,
                        sa2=None, rcls=None, ccls=None, threshold: float = 0.0,
-                       t_n: int = 4, scanned=None):
+                       t_n: int = 4, scanned=None, n=None):
     """Plain PyTorch version of K3, the dense search (``fused_search``).
 
-    ai [R, K] i8 (A - 128), ch/cl [M, K] i8 (4B >> 3, 4B & 7) and sb/aux [M]
-    f32 for columns in search order (aux is inv_var_b for 'ls', SumB2
+    ai [R, K] i8 (A - 128), ch/cl [M, K] i8 (4B >> 3, 4B & 7), each zero past
+    ``n`` (None: unpadded, n = K), and sb/aux [M] for columns in search
+    order (f32 but as in ``search_classed_torch``; aux is inv_var_b for 'ls', SumB2
     otherwise), M >= m_valid; sa/sa2 [R] f32 for the 'general' mode and for
     the frontier (``threshold > 0``, groups of ``t_n`` columns from column
     0); rcls [R] and ccls [M] i32 for the class mask (``use_classes``), or
@@ -573,7 +639,7 @@ def search_dense_torch(ai, ch, cl, sb, aux, *, m_valid: int, criterion: str,
     ``scanned``: see ``_plain_search``.
     """
     return _plain_search(ai, ch, cl, sb, aux, [(0, ai.shape[0], 0, m_valid)],
-                         criterion=criterion, so_mode=so_mode, s_max=s_max,
+                         n=_width_n(ai, n), criterion=criterion, so_mode=so_mode, s_max=s_max,
                          inv_norm=inv_norm, sa=sa, sa2=sa2, rcls=rcls, ccls=ccls,
                          threshold=threshold, t_n=t_n, scanned=scanned)
 
@@ -586,47 +652,42 @@ def _check(name, t, dtype, shape, device):
         raise ValueError(f"{name}: must be contiguous and 16-byte aligned")
 
 
-def _launch_mode(kernel: str, ai, criterion: str, so_mode: str, s_max: float):
-    """(mode, K) of a launch on CUDA tensors, or raise for what the kernel
-    does not cover."""
+def _launch_mode(ai, n, criterion: str, so_mode: str, s_max: float):
+    """(mode, width, n) of a launch on CUDA tensors (``instance_width``), or
+    raise for operands that no instance takes."""
     if ai.device.type != "cuda":
         raise ValueError(f"unsupported device {ai.device}")
-    mode = rank_mode(criterion, so_mode, s_max)
-    k = ai.shape[1]
-    if k not in KERNEL_KEYS[mode]:
-        raise NotImplementedError(
-            f"rank mode '{mode}' at K = {k}: the {kernel} CUDA kernel covers K in "
-            f"{KERNEL_KEYS[mode]} only (ROADMAP.md queue 2, K1 and K3 at other "
-            "range sizes)")
-    return mode, k
+    n = _width_n(ai, n)
+    return rank_mode(criterion, so_mode, s_max), instance_width(n, ai.shape[1]), n
 
 
-def _aux_dtype(mode: str, k: int):
+def _aux_dtype(mode: str, n: int):
     """The column aux the kernels read: f32, or the exact float64 SumB2 of
     the 'raw' and 'general' keys above INT8_MAX_K (``key_sum_sq``)."""
-    return torch.float64 if k > INT8_MAX_K and mode != "ls" else torch.float32
+    return torch.float64 if n > INT8_MAX_K and mode != "ls" else torch.float32
 
 
-def _key_args(mode, k, sa, sa2, rows, dev, *, so_mode, s_max, inv_norm, threshold,
-              t_n):
+def _key_args(mode, width, n, kp, sa, sa2, rows, dev, *, so_mode, s_max, inv_norm,
+              threshold, t_n):
     """The kernels' trailing key and frontier arguments: the sa and sa2
     pointers (read by 'general' and by the frontier), s_max, 1/n and
     inv_norm (ctypes.c_float rounds the Python doubles to the f32 values
     torch computes with), the so_mode flag; then f32(threshold), the hit
     test's distance scale (rank_to_dist's: inv_norm/n formed in double, then
-    rounded once, for 'ls'; inv_norm for 'raw') and t_n."""
+    rounded once, for 'ls'; inv_norm for 'raw') and t_n; and for the padded
+    and K-slab instances n and the row width kp."""
     frontier = threshold > 0.0
     if mode == "general" or frontier:
-        _check("sa", sa, torch.float32, (rows,), dev)
-        _check("sa2", sa2, torch.float32, (rows,), dev)
+        _check("sa", sa, sum_dtype(n), (rows,), dev)
+        _check("sa2", sa2, sum_dtype(n), (rows,), dev)
         ptrs = (sa.data_ptr(), sa2.data_ptr())
     else:
         ptrs = (None, None)
     if frontier and t_n < 1:
         raise ValueError(f"t_n {t_n} < 1")
-    scale = inv_norm * (1.0 / k) if mode == "ls" else inv_norm
-    return (*ptrs, s_max, 1.0 / k, inv_norm, int(so_mode == "reference"),
-            threshold, scale, t_n)
+    scale = inv_norm * (1.0 / n) if mode == "ls" else inv_norm
+    return (*ptrs, s_max, 1.0 / n, inv_norm, int(so_mode == "reference"),
+            threshold, scale, t_n) + (() if isinstance(width, int) else (n, kp))
 
 
 _KEY_ARGTYPES = ([ctypes.c_void_p] * 2 + [ctypes.c_float] * 3 + [ctypes.c_int]
@@ -643,21 +704,25 @@ _HEADS = {"search_classed": [ctypes.c_void_p] * 9 + [ctypes.c_int] * 3,
 _TAILS = {"search_classed2d": [ctypes.c_void_p] * 5}
 
 
-def _kernel_fn(kernel: str, mode: str, k: int, frontier: bool):
-    """The C entry point ``fe_<kernel>_<mode><k>``, ``..._thr`` with the
-    frontier (its library built and loaded on first use)."""
+def _kernel_fn(kernel: str, mode: str, width, frontier: bool):
+    """The C entry point ``fe_<kernel>_<mode><width>``, ``..._thr`` with the
+    frontier (its library built and loaded on first use); the padded and
+    K-slab instances take n and kp after the key arguments."""
     from ._build import load_library
 
-    fn = getattr(load_library(kernel), f"fe_{kernel}_{mode}{k}" + ("_thr" if frontier else ""))
-    fn.argtypes = _HEADS[kernel] + _KEY_ARGTYPES + _TAILS.get(kernel, []) + [ctypes.c_void_p] * 3
+    fn = getattr(load_library(kernel), f"fe_{kernel}_{mode}{width}"
+                 + ("_thr" if frontier else ""))
+    wide = [] if isinstance(width, int) else [ctypes.c_int] * 2
+    fn.argtypes = (_HEADS[kernel] + _KEY_ARGTYPES + wide + _TAILS.get(kernel, [])
+                   + [ctypes.c_void_p] * 3)
     fn.restype = ctypes.c_int
     return fn
 
 
 def _launch(kernel: str, key: tuple, rows: int, dev, *args):
     """Allocate (q, idx) of ``rows`` entries and launch the kernel of
-    ``key`` = (mode, K, frontier) on the current stream with ``args`` before
-    them; raise on a refused launch."""
+    ``key`` = (mode, width, frontier) on the current stream with ``args``
+    before them; raise on a refused launch."""
     fn = _kernel_fn(kernel, *key)
     with torch.cuda.device(dev):
         q = torch.empty((rows,), dtype=torch.float32, device=dev)
@@ -673,25 +738,25 @@ def search_classed_cuda(ai_s, ch_s, cl_s, sb_s, aux_s, tile_class,
                         col_tile_start, col_end, row_end, *, block_r: int,
                         block_m: int, criterion: str, so_mode: str, s_max: float,
                         inv_norm: float, sa_s=None, sa2_s=None,
-                        threshold: float = 0.0, t_n: int = 4):
+                        threshold: float = 0.0, t_n: int = 4, n=None):
     """K1's hand-written CUDA kernel, with the arguments and result of
     ``search_classed_torch``.
 
     CPU tensors run the plain version.  CUDA tensors launch
-    ``csrc/search_classed.cu`` (and add one to
-    ``search_classed_cuda.launches[(mode, K, frontier)]``), or raise
-    ``NotImplementedError`` for a config the kernel does not cover.
+    ``csrc/search_classed.cu``'s instance for n and the operands' width
+    (and add one to ``search_classed_cuda.launches[(mode, width,
+    frontier)]``), or raise ``ValueError`` for operands no instance takes.
     """
     kw = dict(block_r=block_r, block_m=block_m, criterion=criterion,
               so_mode=so_mode, s_max=s_max, inv_norm=inv_norm, sa_s=sa_s,
-              sa2_s=sa2_s, threshold=threshold, t_n=t_n)
+              sa2_s=sa2_s, threshold=threshold, t_n=t_n, n=n)
     if ai_s.device.type == "cpu":
         return search_classed_torch(ai_s, ch_s, cl_s, sb_s, aux_s, tile_class,
                                     col_tile_start, col_end, row_end, **kw)
     key, head, keys = _classed_launch_args(
         "search_classed", ai_s, ch_s, cl_s, sb_s, aux_s, tile_class, col_tile_start,
         col_end, row_end, block_r, block_m, criterion, so_mode, s_max, inv_norm,
-        sa_s, sa2_s, threshold, t_n)
+        sa_s, sa2_s, threshold, t_n, n)
     out = _launch("search_classed", key, ai_s.shape[0], ai_s.device, *head, *keys)
     search_classed_cuda.launches[key] += 1
     return out
@@ -699,11 +764,12 @@ def search_classed_cuda(ai_s, ch_s, cl_s, sb_s, aux_s, tile_class,
 
 def _classed_launch_args(kernel, ai_s, ch_s, cl_s, sb_s, aux_s, tile_class,
                          col_tile_start, col_end, row_end, block_r, block_m, criterion,
-                         so_mode, s_max, inv_norm, sa_s, sa2_s, threshold, t_n):
-    """Check K1's or K2's CUDA tensors; return the launch key (mode, K,
+                         so_mode, s_max, inv_norm, sa_s, sa2_s, threshold, t_n, n):
+    """Check K1's or K2's CUDA tensors; return the launch key (mode, width,
     frontier), the layout's pointers, nrt, block_r and block_m, and the key
     arguments (``_key_args``)."""
-    mode, k = _launch_mode(kernel, ai_s, criterion, so_mode, s_max)
+    mode, width, n = _launch_mode(ai_s, n, criterion, so_mode, s_max)
+    k = ai_s.shape[1]
     r_pad, m_pad = ai_s.shape[0], ch_s.shape[0]
     nrt, nc = tile_class.shape[0], col_end.shape[0]
     dev = ai_s.device
@@ -712,8 +778,8 @@ def _classed_launch_args(kernel, ai_s, ch_s, cl_s, sb_s, aux_s, tile_class,
     _check("ai_s", ai_s, torch.int8, (r_pad, k), dev)
     _check("ch_s", ch_s, torch.int8, (m_pad, k), dev)
     _check("cl_s", cl_s, torch.int8, (m_pad, k), dev)
-    _check("sb_s", sb_s, torch.float32, (m_pad,), dev)
-    _check("aux_s", aux_s, _aux_dtype(mode, k), (m_pad,), dev)
+    _check("sb_s", sb_s, sum_dtype(n), (m_pad,), dev)
+    _check("aux_s", aux_s, _aux_dtype(mode, n), (m_pad,), dev)
     _check("tile_class", tile_class, torch.int32, (nrt,), dev)
     _check("col_tile_start", col_tile_start, torch.int32, (nc,), dev)
     _check("col_end", col_end, torch.int32, (nc,), dev)
@@ -721,9 +787,9 @@ def _classed_launch_args(kernel, ai_s, ch_s, cl_s, sb_s, aux_s, tile_class,
     head = (ai_s.data_ptr(), ch_s.data_ptr(), cl_s.data_ptr(), sb_s.data_ptr(),
             aux_s.data_ptr(), tile_class.data_ptr(), col_tile_start.data_ptr(),
             col_end.data_ptr(), row_end.data_ptr(), nrt, block_r, block_m)
-    keys = _key_args(mode, k, sa_s, sa2_s, r_pad, dev, so_mode=so_mode, s_max=s_max,
-                     inv_norm=inv_norm, threshold=threshold, t_n=t_n)
-    return (mode, k, threshold > 0.0), head, keys
+    keys = _key_args(mode, width, n, k, sa_s, sa2_s, r_pad, dev, so_mode=so_mode,
+                     s_max=s_max, inv_norm=inv_norm, threshold=threshold, t_n=t_n)
+    return (mode, width, threshold > 0.0), head, keys
 
 
 def _split_plan(total: int, longest: int, searched: int, block_r: int, k: int,
@@ -736,13 +802,14 @@ def _split_plan(total: int, longest: int, searched: int, block_r: int, k: int,
     (q, idx, hit), 9 bytes, per searched row and split: their size follows
     the searched tiles, not the plane.  ``splits`` None chooses the width
     that gives the grid about ``_BLOCKS_PER_SM`` blocks per SM of ``sms``
-    over those columns, never less than one staged chunk (``_CHUNK_COLS``,
-    whole groups with the frontier) nor so little that the partials pass
+    over those columns, never less than one staged chunk (``_CHUNK_COLS`` by
+    the operands' width K; whole groups with the frontier) nor so little that the partials pass
     ``_PARTIALS_MAX_BYTES``; a search with many range tiles gets one split
     per segment."""
     rows = searched * block_r
     if splits is None:
-        step = _CHUNK_COLS[k] - (_CHUNK_COLS[k] % t_n if frontier else 0)
+        chunk = _CHUNK_COLS.get(k, _SLAB_CHUNK_COLS)
+        step = chunk - (chunk % t_n if frontier else 0)
         slices = -(-block_r // _KROWS)  # the grid's thread blocks per range tile
         width = max(step, -(-total * slices // (_BLOCKS_PER_SM * sms)))
         most = max(1, _PARTIALS_MAX_BYTES // max(9 * rows, 1))  # splits the bytes allow
@@ -759,14 +826,14 @@ def search_classed2d_cuda(ai_s, ch_s, cl_s, sb_s, aux_s, tile_class,
                           col_tile_start, col_end, row_end, *, block_r: int,
                           block_m: int, criterion: str, so_mode: str, s_max: float,
                           inv_norm: float, sa_s=None, sa2_s=None,
-                          threshold: float = 0.0, t_n: int = 4, splits=None):
+                          threshold: float = 0.0, t_n: int = 4, splits=None, n=None):
     """K2's hand-written CUDA kernel, with the arguments and result of
     ``search_classed2d_torch``.
 
     CPU tensors run the plain version.  CUDA tensors launch
-    ``csrc/search_classed2d.cu`` (and add one to
-    ``search_classed2d_cuda.launches[(mode, K, frontier)]``), or raise
-    ``NotImplementedError`` for a config the kernel does not cover.
+    ``csrc/search_classed2d.cu``'s instance for n and the operands' width
+    (and add one to ``search_classed2d_cuda.launches[(mode, width,
+    frontier)]``), or raise ``ValueError`` for operands no instance takes.
     ``splits`` (columns per split) None: chosen to fill the card
     (``_split_plan``, from three integers read back).  The plan of the last
     launch (columns per split, splits, searched tiles, the partials' bytes)
@@ -774,14 +841,14 @@ def search_classed2d_cuda(ai_s, ch_s, cl_s, sb_s, aux_s, tile_class,
     """
     kw = dict(block_r=block_r, block_m=block_m, criterion=criterion,
               so_mode=so_mode, s_max=s_max, inv_norm=inv_norm, sa_s=sa_s,
-              sa2_s=sa2_s, threshold=threshold, t_n=t_n, splits=splits)
+              sa2_s=sa2_s, threshold=threshold, t_n=t_n, splits=splits, n=n)
     if ai_s.device.type == "cpu":
         return search_classed2d_torch(ai_s, ch_s, cl_s, sb_s, aux_s, tile_class,
                                       col_tile_start, col_end, row_end, **kw)
     key, head, keys = _classed_launch_args(
         "search_classed2d", ai_s, ch_s, cl_s, sb_s, aux_s, tile_class, col_tile_start,
         col_end, row_end, block_r, block_m, criterion, so_mode, s_max, inv_norm,
-        sa_s, sa2_s, threshold, t_n)
+        sa_s, sa2_s, threshold, t_n, n)
     dev = ai_s.device
     seg = (col_end.to(torch.int64) - col_tile_start.to(torch.int64) * block_m).clamp_min(0)
     per_tile = seg[tile_class.to(torch.int64)]
@@ -789,20 +856,21 @@ def search_classed2d_cuda(ai_s, ch_s, cl_s, sb_s, aux_s, tile_class,
     rank = has.cumsum(0, dtype=torch.int32) - 1
     total, longest, searched = torch.stack([per_tile.sum(), per_tile.max(), has.sum()]).tolist()
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    width, n, nbytes = _split_plan(total, longest, searched, block_r, key[1], key[2], t_n,
-                                   splits, sms)
+    width, n_splits, nbytes = _split_plan(total, longest, searched, block_r, ai_s.shape[1],
+                                          key[2], t_n, splits, sms)
     # (tile, class) of the searched tiles in order; the others go to a last row
     tiles = torch.empty((searched + 1, 2), dtype=torch.int32, device=dev)
     ids = torch.arange(tile_class.shape[0], dtype=torch.int32, device=dev)
     tiles.index_copy_(0, torch.where(has, rank, searched).long(),
                       torch.stack([ids, tile_class], 1))
     # the partials (q, idx, hit) of every searched row and split
-    part = [torch.empty((n, searched * block_r), dtype=dt, device=dev)
+    part = [torch.empty((n_splits, searched * block_r), dtype=dt, device=dev)
             for dt in (torch.float32, torch.int32, torch.uint8)]
-    out = _launch("search_classed2d", key, ai_s.shape[0], dev, *head, width, n, searched,
-                  *keys, tiles.data_ptr(), rank.data_ptr(), *(t.data_ptr() for t in part))
+    out = _launch("search_classed2d", key, ai_s.shape[0], dev, *head, width, n_splits,
+                  searched, *keys, tiles.data_ptr(), rank.data_ptr(),
+                  *(t.data_ptr() for t in part))
     search_classed2d_cuda.launches[key] += 1
-    search_classed2d_cuda.plan = dict(width=width, splits=n, searched=searched,
+    search_classed2d_cuda.plan = dict(width=width, splits=n_splits, searched=searched,
                                       partial_bytes=nbytes)
     return out
 
@@ -810,22 +878,23 @@ def search_classed2d_cuda(ai_s, ch_s, cl_s, sb_s, aux_s, tile_class,
 def search_dense_cuda(ai, ch, cl, sb, aux, *, m_valid: int, criterion: str,
                       so_mode: str, s_max: float, inv_norm: float, sa=None,
                       sa2=None, rcls=None, ccls=None, threshold: float = 0.0,
-                      t_n: int = 4):
+                      t_n: int = 4, n=None):
     """K3's hand-written CUDA kernel, with the arguments and result of
     ``search_dense_torch``.
 
     CPU tensors run the plain version.  CUDA tensors launch
-    ``csrc/search_dense.cu`` (and add one to
-    ``search_dense_cuda.launches[(mode, K, frontier, masked)]``, masked
-    whether the class mask is given), or raise ``NotImplementedError`` for a
-    config the kernel does not cover.
+    ``csrc/search_dense.cu``'s instance for n and the operands' width (and
+    add one to ``search_dense_cuda.launches[(mode, width, frontier,
+    masked)]``, masked whether the class mask is given), or raise
+    ``ValueError`` for operands no instance takes.
     """
     kw = dict(m_valid=m_valid, criterion=criterion, so_mode=so_mode,
               s_max=s_max, inv_norm=inv_norm, sa=sa, sa2=sa2, rcls=rcls,
-              ccls=ccls, threshold=threshold, t_n=t_n)
+              ccls=ccls, threshold=threshold, t_n=t_n, n=n)
     if ai.device.type == "cpu":
         return search_dense_torch(ai, ch, cl, sb, aux, **kw)
-    mode, k = _launch_mode("search_dense", ai, criterion, so_mode, s_max)
+    mode, width, n = _launch_mode(ai, n, criterion, so_mode, s_max)
+    k = ai.shape[1]
     rows, m = ai.shape[0], ch.shape[0]
     dev = ai.device
     if not 0 <= m_valid <= m:
@@ -835,16 +904,16 @@ def search_dense_cuda(ai, ch, cl, sb, aux, *, m_valid: int, criterion: str,
     _check("ai", ai, torch.int8, (rows, k), dev)
     _check("ch", ch, torch.int8, (m, k), dev)
     _check("cl", cl, torch.int8, (m, k), dev)
-    _check("sb", sb, torch.float32, (m,), dev)
-    _check("aux", aux, _aux_dtype(mode, k), (m,), dev)
+    _check("sb", sb, sum_dtype(n), (m,), dev)
+    _check("aux", aux, _aux_dtype(mode, n), (m,), dev)
     if rcls is not None:
         _check("rcls", rcls, torch.int32, (rows,), dev)
         _check("ccls", ccls, torch.int32, (m,), dev)
         cls = (rcls.data_ptr(), ccls.data_ptr())
     else:
         cls = (None, None)
-    key = (mode, k, threshold > 0.0, rcls is not None)
-    args = _key_args(mode, k, sa, sa2, rows, dev, so_mode=so_mode, s_max=s_max,
+    key = (mode, width, threshold > 0.0, rcls is not None)
+    args = _key_args(mode, width, n, k, sa, sa2, rows, dev, so_mode=so_mode, s_max=s_max,
                      inv_norm=inv_norm, threshold=threshold, t_n=t_n)
     out = _launch("search_dense", key[:3], rows, dev,
                   ai.data_ptr(), ch.data_ptr(), cl.data_ptr(), sb.data_ptr(),
@@ -853,7 +922,7 @@ def search_dense_cuda(ai, ch, cl, sb, aux, *, m_valid: int, criterion: str,
     return out
 
 
-# launch counts by (mode, K, frontier); K3's also by whether it was masked
+# launch counts by (mode, width, frontier); K3's also by whether it was masked
 search_classed_cuda.launches = {(mode, k, thr): 0 for mode, ks in KERNEL_KEYS.items()
                                 for k in ks for thr in (False, True)}
 search_classed2d_cuda.launches = dict(search_classed_cuda.launches)

@@ -55,7 +55,7 @@ from ..core.classify import classify_grid
 from ..core.grid import uniform_grid
 from ..core.stats import integral_image
 from ..decode.decoder import _decode_core
-from ..encode.codebook import Codebook, build_codebook, extract_ranges
+from ..encode.codebook import Codebook, build_codebook, extract_ranges, range_sums
 from ..encode.encoder import ARRAY_FIELDS, EncodeResult, plane_on_device
 from ..encode.matcher import _BIG, SearchResult, search, search_classed, search_dense
 from ..params import DecoderConfig, EncoderConfig
@@ -100,7 +100,7 @@ def _range_arrays(plane, cfg: EncoderConfig, ii=None):
     if cfg.use_classifier:
         rcls = classify_grid(plane, uniform_grid(w, h, cfg.target_size, cfg.target_size),
                              ii=ii)
-    return ranges, ranges.sum(-1), (ranges * ranges).sum(-1), rcls
+    return (ranges, *range_sums(ranges), rcls)
 
 
 def _plane_search_arrays(plane, cfg: EncoderConfig, r_lo: int, r_count: int):

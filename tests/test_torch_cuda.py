@@ -7,6 +7,7 @@ may be absent (tests/conftest.py imports it): ``python -m pytest
 tests/test_torch_cuda.py -q --noconftest``.
 """
 import dataclasses
+import functools
 import os
 import subprocess
 import sys
@@ -35,7 +36,7 @@ def _inputs(img, cfg, device):
     """(ranges, SumA, SumA2, codebook, range classes, domain classes)."""
     from fractencode_tpu_torch.core.classify import classify_grid
     from fractencode_tpu_torch.core.grid import uniform_grid
-    from fractencode_tpu_torch.encode.codebook import build_codebook, extract_ranges
+    from fractencode_tpu_torch.encode.codebook import build_codebook, extract_ranges, range_sums
 
     n = img.shape[0]
     p = torch.from_numpy(img).to(device)
@@ -44,8 +45,7 @@ def _inputs(img, cfg, device):
     rg = uniform_grid(n, n, cfg.target_size, cfg.target_size)
     cb = build_codebook(pf, dg, cfg.target_size, cfg.num_transforms)
     ranges = extract_ranges(pf, cfg.target_size)
-    return (ranges, ranges.sum(-1), (ranges * ranges).sum(-1), cb,
-            classify_grid(p, rg), classify_grid(p, dg))
+    return (ranges, *range_sums(ranges), cb, classify_grid(p, rg), classify_grid(p, dg))
 
 
 def _prep(img, cfg, device, **blocks):
@@ -366,23 +366,35 @@ def test_quadtree_noclassifier_cuda_equals_cpu(cuda):
             assert_bitwise(getattr(lg, f), getattr(lc, f), f"{lg.range_size} px {f}")
 
 
-@pytest.mark.parametrize("cfg", [T.REFERENCE_COMPAT(source_size=8, target_size=2),
-                                 T.EncoderConfig(s_max=1.0, source_size=8, target_size=2),
-                                 T.EncoderConfig(source_size=8, target_size=2)])
-def test_uncovered_configs_raise_on_cuda(cuda, cfg):
-    """Configs no kernel covers (K = 4, under each key, with and without
-    the classifier) raise on CUDA (no fallback), and run there with
-    backend='torch' like on the CPU.  Winners, validity and distances come
-    from exact integer keys."""
-    img = random_plane(64)
+# (source, target) of the range sizes the padded instances (n = 4, 36, 100)
+# and the K-slab form (n = 1024) serve
+RANGE_SIZES = {4: (8, 2), 36: (12, 6), 100: (20, 10), 1024: (64, 32)}
+
+
+@pytest.mark.parametrize("n", sorted(RANGE_SIZES))
+@pytest.mark.parametrize("make", [T.REFERENCE_COMPAT,
+                                  functools.partial(T.EncoderConfig, s_max=1.0),
+                                  T.EncoderConfig], ids=["raw", "general", "ls"])
+def test_uncovered_configs_raise_on_cuda(cuda, make, n):
+    """Range sizes whose n is not 16, 64 or 256 (under each key, with and
+    without the classifier) launch the padded instances or the K-slab form
+    on CUDA: every field of the encode bitwise against the CPU's, and the
+    same with backend='torch' (the plain version on the card)."""
+    source, target = RANGE_SIZES[n]
+    size = 120 if n in (36, 100) else 128  # a multiple of the range size
+    img = random_plane(size)
+    width = mk.instance_width(n, mk.kernel_width(n))
     for use_classifier in (True, False):
-        c = dataclasses.replace(cfg, use_classifier=use_classifier)
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            T.encode_plane(img, c, device=cuda)
-        rg = T.encode_plane(img, dataclasses.replace(c, backend="torch"), device=cuda)
+        c = make(source_size=source, target_size=target, use_classifier=use_classifier)
+        launches = (mk.search_classed_cuda if use_classifier else mk.search_dense_cuda).launches
+        before = sum(v for key, v in launches.items() if key[1] == width)
+        rg = T.encode_plane(img, c, device=cuda)
+        assert sum(v for key, v in launches.items() if key[1] == width) == before + 1
+        rt = T.encode_plane(img, dataclasses.replace(c, backend="torch"), device=cuda)
         rc = T.encode_plane(img, c, device="cpu")
-        for f in ("domain_idx", "transform", "valid", "distance"):
+        for f in ("domain_idx", "transform", "valid", "distance", "s", "o"):
             assert_bitwise(getattr(rg, f), getattr(rc, f), f)
+            assert_bitwise(getattr(rt, f), getattr(rc, f), f)
 
 
 @pytest.mark.parametrize("operands", OPERANDS)

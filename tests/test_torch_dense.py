@@ -161,11 +161,18 @@ def test_dense_keys_dominate_classed(pname):
 
 
 def test_dense_refusals():
-    """Uncovered configs raise naming their ROADMAP item (no fallback)."""
-    img = random_plane(64)
-    with pytest.raises(NotImplementedError, match="ROADMAP.*K1 beyond K = 256"):
-        T.encode_plane(img, T.REFERENCE_COMPAT(use_classifier=False, source_size=64,
-                                               target_size=32), device="cpu")
+    """32x32 ranges (n = 1024, the K-slab form) without the classifier run
+    as the JAX package's do (its oracle; winners exactly, the rest to
+    test_torch_range_sizes.py's n > 256 tolerances); backend 'cuda' with CPU
+    tensors still raises (no fallback), and CPU tensors launch no kernel."""
+    from test_torch_range_sizes import assert_results, jax_general_sampling
+
+    img = random_plane(128)
+    kw = dict(use_classifier=False, source_size=64, target_size=32)
+    with jax_general_sampling():
+        rj = J.encode_plane(img, J.REFERENCE_COMPAT(**kw))
+    rt = T.encode_plane(img, T.REFERENCE_COMPAT(**kw), device="cpu")
+    assert_results(1024, "raw", rj, rt)
     with pytest.raises(ValueError, match="CUDA"):
         T.encode_plane(img, T.EncoderConfig(use_classifier=False, backend="cuda"),
                        device="cpu")

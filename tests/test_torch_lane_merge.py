@@ -499,3 +499,117 @@ def test_micro_step_policies_match_plain(variant, tiles, revisit):
     q_e, i_e = micro_emulate(q, words, n, policy, br, bm, ni, nj)
     assert_same(q_e, i_e, q_p, i_p)
     assert bool((q_p[(ni - 1) * br:] == K_INIT).all()) == revisit  # the tile no word visits
+
+
+# ---------------------------------------------------------------------------
+# the padded instances and the K-slab form (csrc/search_common.cuh's Geom):
+# operands of n bytes a row at the kernels' width K, zero past n
+
+
+def width_operands(rows: int, cols: int, n: int, seed: int, extreme: bool = False):
+    """Operands of ranges of n pixels at K = kernel_width(n), zero past n:
+    ``operands``' small values with repeated columns (ties), or (extreme)
+    the int8 operands' whole ranges (ai -128..127, ch 0..127, cl 0..7), so
+    that the K-slab form's int32 sums grow large.  SumA = 0 and SumA2 in
+    0..7: with inv_norm = n the 'ls' distance is n SumA2 - q, so the rows
+    of SumA2 0 hit often and the others rarely or never."""
+    rng = np.random.default_rng(seed)
+    k = mk.kernel_width(n)
+    lo, hi = (-128, 128) if extreme else (-3, 4)
+    ai = rng.integers(lo, hi, (rows, n))
+    ch = rng.integers(0, 128 if extreme else 4, (cols, n))
+    cl = rng.integers(0, 8, (cols, n))
+    if not extreme:
+        rep = np.flatnonzero(rng.random(cols) < 0.4)
+        ch[rep], cl[rep] = ch[rep - 1], cl[rep - 1]
+    pad = lambda x: torch.from_numpy(np.pad(x, ((0, 0), (0, k - n))).astype(np.int8))
+    sa = torch.zeros(rows)
+    sa2 = torch.from_numpy(rng.integers(0, 8, rows).astype(np.float32))
+    return (pad(ai), pad(ch), pad(cl), torch.zeros(cols), torch.ones(cols), sa, sa2)
+
+
+def slab_dots(ai, ch, cl, chunk: int = 64, slab: int = 256):
+    """The K-slab form's dot of every pair: per chunk of ``chunk`` columns,
+    dh = ai . ch and dl = ai . cl summed slab by slab (``slab`` bytes of the
+    rows at a time), each running sum checked to stay inside the kernel's
+    int32 accumulators, then dot = 8 dh + dl in int64."""
+    rows, k = ai.shape
+    cols = ch.shape[0]
+    dh = torch.zeros((rows, cols), dtype=torch.int64)
+    dl = torch.zeros_like(dh)
+    for c0 in range(0, cols, chunk):
+        c = slice(c0, c0 + chunk)
+        for s0 in range(0, k, slab):
+            s = slice(s0, s0 + slab)
+            dh[:, c] += ai[:, s].long() @ ch[c, s].long().T
+            dl[:, c] += ai[:, s].long() @ cl[c, s].long().T
+            assert int(dh[:, c].abs().max()) < 2 ** 31 and int(dl[:, c].abs().max()) < 2 ** 31
+    return 8 * dh + dl
+
+
+def width_keys(dot, ai, sa, sa2, n: int):
+    """(keys, hits) of every pair from its dot: the table key (SumA from the
+    row's bytes and 128 n) and rank_to_dist's distance against the
+    threshold, at n."""
+    sa_i = ai.long().sum(1, keepdim=True) + 128 * n
+    q = table_key(sa_i, dot, None, None, n)
+    kw = dict(KW, inv_norm=float(n))
+    dist = mk.rank_to_dist(q, sa2[:, None], sa[:, None], n=float(n), **kw)
+    return q, dist <= torch.tensor(THRESHOLD, dtype=torch.float32)
+
+
+WIDTH_SCANS = [(False, 4), (True, 3), (True, 4), (True, 8)]
+
+
+@pytest.mark.parametrize("frontier,t_n", WIDTH_SCANS,
+                         ids=[f"{'thr' if f else 'plain'}-t{t}" for f, t in WIDTH_SCANS])
+@pytest.mark.parametrize("n", [4, 9, 36, 49, 100, 144])
+def test_padded_widths_match_plain(n, frontier, t_n):
+    """The padded instances: K3's scan at K = kernel_width(n) (16, 64 or 256)
+    in its chunks (mma::kCols: 512, 128 with the frontier at K = 16; 128 at
+    64; 64 at 256) over operands zero past n, the keys reading n, gives the
+    plain version's result at n; the zero bytes leave every dot as the
+    unpadded operands' dot."""
+    k = mk.kernel_width(n)
+    assert k > n
+    ai, ch, cl, sb, aux, sa, sa2 = width_operands(160, 500, n, seed=n + t_n)
+    b4 = 8 * ch.long() + cl.long()
+    dot = ai.long() @ b4.T
+    assert torch.equal(dot, ai[:, :n].long() @ b4[:, :n].T)
+    q, hit = width_keys(dot, ai, sa, sa2, n)
+    chunk = {16: 128 if frontier else 512, 64: 128, 256: 64}[k]
+    q_p, i_p = mk.search_dense_torch(ai, ch, cl, sb, aux, m_valid=500, sa=sa, sa2=sa2,
+                                     threshold=THRESHOLD if frontier else 0.0, t_n=t_n,
+                                     n=n, **dict(KW, inv_norm=float(n)))
+    q_e, i_e, hit_e = emulate(q, hit, None, 0, 500, chunk, frontier, t_n)
+    assert_same(q_e, i_e, q_p, i_p)
+    if frontier:
+        assert 0 < int(hit_e.sum()) < 160
+
+
+@pytest.mark.parametrize("frontier,t_n", WIDTH_SCANS,
+                         ids=[f"{'thr' if f else 'plain'}-t{t}" for f, t in WIDTH_SCANS])
+@pytest.mark.parametrize("n", [257, 1024, 2500])
+def test_slab_sums_match_plain(n, frontier, t_n):
+    """The K-slab form: its dots from dh and dl summed slab by slab in int32
+    over chunks of 64 columns (on operands at the int8 ranges' ends, so the
+    sums grow large) are the plain version's dots, and its scan over them
+    gives the plain version's result at n."""
+    ai, ch, cl, sb, aux, sa, sa2 = width_operands(48, 200, n, seed=n + t_n, extreme=True)
+    assert ai.shape[1] == -(-n // 256) * 256
+    dot = slab_dots(ai, ch, cl)
+    assert torch.equal(dot, ai.double().matmul((8 * ch.double() + cl.double()).T).long())
+    q, hit = width_keys(dot, ai, sa, sa2, n)
+    q_p, i_p = mk.search_dense_torch(ai, ch, cl, sb, aux, m_valid=200, sa=sa, sa2=sa2,
+                                     threshold=THRESHOLD if frontier else 0.0, t_n=t_n,
+                                     n=n, **dict(KW, inv_norm=float(n)))
+    q_e, i_e, hit_e = emulate(q, hit, None, 0, 200, 64, frontier, t_n)
+    assert_same(q_e, i_e, q_p, i_p)
+    if frontier:
+        assert 0 < int(hit_e.sum()) < 48
+
+
+def test_slab_sum_bound():
+    """The K-slab form's dh sums, at most n * 128 * 127 in magnitude, stay
+    inside int32 up to MAX_SLAB_N and leave it just above."""
+    assert mk.MAX_SLAB_N * 128 * 127 < 2 ** 31 <= (mk.MAX_SLAB_N + 1) * 128 * 127

@@ -24,6 +24,7 @@ from fractencode_tpu.ops.matcher_pallas import DEFAULT_BM, DEFAULT_BR
 from fractencode_tpu_torch.core.classify import classify_grid as t_classify
 from fractencode_tpu_torch.encode.codebook import build_codebook as t_codebook
 from fractencode_tpu_torch.encode.codebook import extract_ranges as t_ranges
+from fractencode_tpu_torch.encode.codebook import range_sums
 from fractencode_tpu_torch.ops import matcher_kernels as mk
 
 PLANES = planes()
@@ -51,8 +52,7 @@ def _port_inputs(img, cfg):
     rg = uniform_grid(w, h, cfg.target_size, cfg.target_size)
     cb = t_codebook(pf, dg, cfg.target_size, cfg.num_transforms)
     ranges = t_ranges(pf, cfg.target_size)
-    return (ranges, ranges.sum(-1), (ranges * ranges).sum(-1), cb,
-            t_classify(p, rg), t_classify(p, dg))
+    return (ranges, *range_sums(ranges), cb, t_classify(p, rg), t_classify(p, dg))
 
 
 _j_prep = jax.jit(jm.classed_prep, static_argnames=("cfg", "force_no_pairs"))
@@ -216,10 +216,16 @@ def test_general_rank_mode(cfg_kw):
     dict(criterion="raw", so_mode="reference", source_size=64, target_size=32),
 ])
 def test_unported_configs_raise(cfg_kw):
-    """Ranges above 16x16 (K = 1024; the 'raw' key runs at K = 256 since it
-    was ported)."""
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        T.encode_plane(random_plane(64), T.EncoderConfig(**cfg_kw), device="cpu")
+    """Ranges above 16x16 (n = 1024, the K-slab form) encode as the JAX
+    package's do (its oracle; winners exactly, the rest to
+    test_torch_range_sizes.py's n > 256 tolerances)."""
+    from test_torch_range_sizes import assert_results, jax_general_sampling
+
+    img = random_plane(128, 9)
+    with jax_general_sampling():
+        rj = J.encode_plane(img, J.EncoderConfig(**cfg_kw))
+    rt = T.encode_plane(img, T.EncoderConfig(**cfg_kw), device="cpu")
+    assert_results(1024, "raw", rj, rt)
 
 
 def test_cpu_routing_and_launch_count():

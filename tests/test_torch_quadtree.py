@@ -191,12 +191,41 @@ def test_jax_decodes_port_encode():
 
 
 def test_quadtree_refuses_unported_options():
-    """A 32 px level (K = 1024) raises naming its ROADMAP item; the 'raw'
-    and 'general' keys run at 16 px (tests/test_torch_quadtree_compat.py)."""
-    with pytest.raises(NotImplementedError, match="ROADMAP.*beyond K = 256"):
-        tq.encode_plane_quadtree(PLANES["smooth64"],
-                                 T.REFERENCE_COMPAT(use_classifier=False),
-                                 tq.QuadtreeConfig(max_size=32), device="cpu")
+    """A 32 px level (n = 1024, the K-slab form) under the 'raw' key without
+    the classifier runs as the JAX package's does: leaves and winners of
+    every level exactly, s, o and error bitwise at 8 and 4 px, to the 'raw'
+    key's K = 256 tolerances (test_torch_keys256.py) at 16 px and to
+    test_torch_range_sizes.py's n > 256 ones at
+    32 px (the JAX side samples its codebook on its general path, which
+    compiles in a fraction of a second at 32 px); a plane not aligned to the
+    coarsest range size still raises."""
+    import test_torch_keys256 as k256
+    from test_torch_range_sizes import (N_WIDE_O_ATOL, N_WIDE_O_RTOL, N_WIDE_Q_RTOL,
+                                        N_WIDE_S_ATOL, N_WIDE_S_RTOL, jax_general_sampling)
+
+    img = PLANES["smooth128"]  # 'raw' errors: its 32 px leaves need a threshold of 400
+    with jax_general_sampling():
+        rj = jq.encode_plane_quadtree(img, J.REFERENCE_COMPAT(use_classifier=False),
+                                      jq.QuadtreeConfig(max_size=32, error_threshold=400.0))
+    rt = tq.encode_plane_quadtree(img, T.REFERENCE_COMPAT(use_classifier=False),
+                                  tq.QuadtreeConfig(max_size=32, error_threshold=400.0),
+                                  device="cpu")
+    assert [l.range_size for l in rt.levels] == [32, 16, 8, 4]
+    assert int(rt.levels[0].accepted.sum()) > 0, "vacuous: no 32 px leaf"
+    tols = {16: dict(s=(k256.S_RTOL, k256.S_ATOL), o=(k256.O_RTOL, k256.O_ATOL),
+                     error=(k256.Q_RTOL, 0.0)),
+            32: dict(s=(N_WIDE_S_RTOL, N_WIDE_S_ATOL), o=(N_WIDE_O_RTOL, N_WIDE_O_ATOL),
+                     error=(N_WIDE_Q_RTOL, 0.0))}
+    for lj, lt in zip(rj.levels, rt.levels, strict=True):
+        for f in LEVEL_FIELDS:
+            a, b = np.asarray(getattr(lj, f)), getattr(lt, f).numpy()
+            if lj.range_size < 16 or f in ("domain_idx", "transform", "accepted"):
+                assert_bitwise(a, b, f"{lj.range_size} px {f}")
+            else:
+                rtol, atol = tols[lj.range_size][f]
+                np.testing.assert_allclose(b, a, rtol=rtol, atol=atol,
+                                           err_msg=f"{lj.range_size} px {f}")
+    assert rj.num_leaves == rt.num_leaves
     with pytest.raises(ValueError, match="aligned"):
         tq.encode_plane_quadtree(PLANES["smooth64"][:56, :56], device="cpu")
 
