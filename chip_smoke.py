@@ -120,6 +120,9 @@ Phases, each of which must pass (any failure exits non-zero):
      single frames' sum); then per form the host ms a frame, the card's
      busy share under torch.profiler (one warm run) and the host syncs a
      frame with their lines (torch.cuda.set_sync_debug_mode("warn"));
+     encode_batch_stacked and decode_batch_stacked must replay their CUDA
+     graphs (utils.graphs) for every frame of a warm call and sync at most
+     once a call (the frames' upload; the MSEs' read);
  21. --vq-classes 4: the CLI path card == CPU at 512^2; the VQ labels and
      codebook steps card == CPU at 512^2, 2048^2 and 4096^2 (the subsample
      branch); then the 2048^2 and 4096^2 paths (K1 at 2048^2; the route's
@@ -163,9 +166,29 @@ Phases, each of which must pass (any failure exits non-zero):
      where it must hit), K3's masked ones on 'domains' paths of the sharded
      batch encode; the files (--out, --decode-file) of the --qt-min 2
      --qt-max 32 path and of --source 8 --target 2 at 512^2, card == CPU
-     byte for byte.
+     byte for byte;
+ 25. the main path on its CUDA graphs (graph_phase; utils.graphs, one
+     graph for each (shape, config, device), the counterpart of the JAX
+     package's jitted encode and decode): every path of GRAPH_PATHS
+     (default, --compat, --smax 0.9, --rms 10, --noclassifier, config 1,
+     --source 8 --target 2) at 512^2 and the default at 2048^2, where the
+     predicate (matcher.replays_graph) must take the graph: encode_plane's
+     first call (eager), its second (the capture and a replay) and a third
+     replay on another plane, bitwise equal to the eager encode and (at
+     512^2) the CPU's, one launch of the path's kernel a call, the last one
+     seen by torch.profiler as that one kernel instance, the earlier result
+     unchanged by the later call; the CLI's pyramid decode of it, eager then
+     captured and replayed, equal to the eager decode and (at 512^2) the
+     CPU's; then the eager and the graph forms in turns (host clock, medians
+     of 7) of the 16 x 512^2 encode_batch_stacked and decode_batch_stacked
+     and the 2048^2 encode_plane, each with the card's busy share and its host
+     syncs a frame by line; a graph form may sync once a call at most; the
+     card memory held by the graphs and tables, and after graphs.clear().
 Every path is driven with the launch counts set to 0 just before it and
-read just after; each must launch the kernels it names.  Each search
+read just after; each must launch the kernels it names.  A graph's capture
+launches nothing and counts nothing; each replay adds the launches its
+capture recorded (utils.graphs), so a call counts alike on either form, and
+phase 25 holds one replay's count against what torch.profiler saw run.  Each search
 kernel's record keeps the times of its last parity check, which is at the
 shape of a path that launches it, and its bound there: the larger of 2n
 int8 operations per (range, column) pair the search needs (n the range's
@@ -204,8 +227,10 @@ go to build/smoke/ in the checkout, which it removes at the end.
 from __future__ import annotations
 
 import argparse
+import collections
 import contextlib
 import dataclasses
+import gc
 import gzip
 import io
 import json
@@ -299,6 +324,17 @@ RMS_PATHS = {
        for kernel, nocls in (("search_classed", ""), ("search_dense", " --noclassifier"))
        for (mode, k), argv in KEY_PATHS.items()
        if (kernel, mode, k) != ("search_classed", "raw", 16)},
+}
+# phase 25's paths: every CLI config whose encode replays a CUDA graph
+# (matcher.replays_graph), each with the kernel instance it launches
+GRAPH_PATHS = {
+    "default": ([], ("search_classed", "ls", 16, False)),
+    "--compat": (["--compat"], ("search_classed", "raw", 16, False)),
+    "--smax 0.9": (["--smax", "0.9"], ("search_classed", "general", 16, False)),
+    "--rms 10": (RMS, ("search_classed", "ls", 16, True)),
+    "--noclassifier": (["--noclassifier"], ("search_dense", "ls", 16, False)),
+    "config 1": ([*CONFIG1, "--noclassifier"], ("search_dense", "ls", 64, False)),
+    "2x2 ranges": (["--source", "8", "--target", "2"], ("search_classed", "ls", "16p", False)),
 }
 # the paths of phase 17, each with the kernel instances its encode launches
 BITSTREAM_PATHS = {
@@ -1042,7 +1078,6 @@ def host_syncs(fn):
     """(fn()'s result, Counter of the host syncs it made by file:line), as
     torch's sync debug mode reports them (each a warning from the Python
     line whose op waited for the card)."""
-    import collections
     import warnings
 
     import torch
@@ -1061,7 +1096,11 @@ def host_syncs(fn):
                 else path.split("site-packages/")[-1])
         return f"{path}:{w.lineno}"
 
-    sites = collections.Counter(site(w) for w in caught if "synchroniz" in str(w.message))
+    # the mode's own warning on being switched on ("Synchronization debug
+    # mode is a prototype feature ...") is no sync
+    sites = collections.Counter(site(w) for w in caught
+                                if "synchroniz" in str(w.message)
+                                and "prototype" not in str(w.message))
     return out, sites
 
 
@@ -1092,6 +1131,7 @@ def batch_form(name, fn, frames):
              else f"busy {busy:.4f} of a {window:.3f} ms run")
           + f"; {per:g} host syncs a frame: "
           + ", ".join(f"{site} x{n / frames:g}" for site, n in sites.most_common()))
+    return sum(sites.values())
 
 
 def batch_phase(kernels, cfg, dcfg):
@@ -1106,6 +1146,7 @@ def batch_phase(kernels, cfg, dcfg):
     from fractencode_tpu_torch.encode.quadtree import (QuadtreeConfig,
                                                        encode_batch_quadtree_stacked,
                                                        encode_plane_quadtree)
+    from fractencode_tpu_torch.utils import graphs
 
     k1 = ("search_classed", "ls", 16, False)
     frames = np.stack([natural_plane(512, SEED + 1000 + i) for i in range(16)])
@@ -1160,12 +1201,212 @@ def batch_phase(kernels, cfg, dcfg):
 
     print("     per form (host clock; busy share by torch.profiler; host syncs by "
           "torch.cuda.set_sync_debug_mode, by port line):")
-    batch_form("encode_batch_stacked 16 x 512^2",
-               lambda: encode_batch_stacked(frames, cfg, device="cuda"), 16)
-    batch_form("decode_batch_stacked 16 x 512^2 (pyramid)",
-               lambda: decode_batch_stacked(stacked, dcfg), 16)
+    for name, fn in (("encode_batch_stacked 16 x 512^2",
+                      lambda: encode_batch_stacked(frames, cfg, device="cuda")),
+                     ("decode_batch_stacked 16 x 512^2 (pyramid)",
+                      lambda: decode_batch_stacked(stacked, dcfg))):
+        # on their CUDA graphs (phase 25): every frame of a warm call
+        # replays, and a call syncs once at most (the frames' upload, or the
+        # MSEs' read)
+        form = "encode_plane" if name.startswith("encode") else "decode_plane"
+        before = graphs.calls[form, "replay"]
+        syncs = batch_form(name, fn, 16)
+        check(syncs <= 1, f"{name}: {syncs} host syncs in a call, above one")
+        check(graphs.calls[form, "replay"] - before >= 16 * 3,
+              f"{name}: its frames did not replay the graph")
     batch_form("encode_batch_quadtree_stacked 8 x 1024^2",
                lambda: encode_batch_quadtree_stacked(qframes, cfg, qcfg, device="cuda"), 8)
+
+
+def host_turns(runs, rounds=7):
+    """{key: host-clock ms}: the median over ``rounds`` of one run of each of
+    ``runs`` (key -> fn, each ending in a synchronize), taken in turns,
+    forward then backward, after one warmup each."""
+    for fn in runs.values():
+        fn()
+    samples = {key: [] for key in runs}
+    order = list(runs)
+    for r in range(rounds):
+        for key in order if r % 2 == 0 else order[::-1]:
+            t0 = time.perf_counter()
+            runs[key]()
+            samples[key].append(1e3 * (time.perf_counter() - t0))
+    return {key: statistics.median(v) for key, v in samples.items()}
+
+
+def search_launches():
+    """The search wrappers' launch counts (K1, K2, K3), summed."""
+    from fractencode_tpu_torch.ops import matcher_kernels as mk
+
+    return sum(sum(f.launches.values()) for f in (
+        mk.search_classed_cuda, mk.search_classed2d_cuda, mk.search_dense_cuda))
+
+
+def search_kernels_run(fn):
+    """(fn()'s result, Counter of the search kernels (K1, K2, K3) the card
+    ran in it, by name, as torch.profiler saw them)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        out = fn()
+        torch.cuda.synchronize()
+    ran = collections.Counter()
+    for e in prof.key_averages():
+        if re.search(r"::search_\w+_kernel<", e.key):
+            ran[e.key] += e.count
+    return out, ran
+
+
+def kernel_template(key):
+    """The kernel template instance a GRAPH_PATHS key launches, as the
+    profiler names it (csrc/search_classed.cu, search_dense.cu)."""
+    kernel, mode, k, thr = key
+    args = [str(k).rstrip("p"), str(("ls", "raw", "general").index(mode)),
+            "1" if str(k).endswith("p") else "0"]  # fe::Mode, fe::Geom
+    if kernel == "search_dense":
+        args.append("false")  # no class mask
+    args.append("true" if thr else "false")
+    return f"{kernel}_kernel<{', '.join(args)}>"
+
+
+def graph_phase(kernels):
+    """Phase 25: the main path on its CUDA graphs (utils.graphs).  Every
+    path of GRAPH_PATHS at 512^2, and the default at 2048^2: the predicate
+    takes it; encode_plane's first call (eager), its second (the capture
+    and a replay) and a third replay (on another plane, which must leave the
+    earlier result unchanged) equal the eager encode and, at 512^2, the
+    CPU's, bitwise, with one launch of the path's kernel per call, and
+    torch.profiler sees the third call run that one kernel instance; then
+    the CLI's pyramid decode of the result, its eager call and its capture
+    and replay equal to the eager decode and the CPU's.  Then the eager and graph forms in turns (host clock,
+    medians of 7) of the 16 x 512^2 encode_batch_stacked and
+    decode_batch_stacked and the 2048^2 encode_plane, each with the card's
+    busy share (torch.profiler) and its host syncs by line, and the card
+    memory the graphs and tables hold."""
+    import torch
+
+    from fractencode_tpu_torch import decode_plane, encode_plane
+    from fractencode_tpu_torch.decode import decoder as dec
+    from fractencode_tpu_torch.encode import encoder as enc
+    from fractencode_tpu_torch.utils import graphs, tables
+
+    fields = ("domain_idx", "transform", "s", "o", "distance", "valid")
+    pyramid = parse(["--device", "cuda"])[2]  # the CLI's pyramid decode
+
+    def same(a, b):
+        return all(bitwise(getattr(a, f), getattr(b, f)) for f in fields)
+
+    cases = [(name, argv, key, 512) for name, (argv, key) in GRAPH_PATHS.items()]
+    for name, argv, key, n in cases + [("default", [], GRAPH_PATHS["default"][1], 2048)]:
+        _, cfg, _ = parse(["--device", "cuda", *argv])
+        img, other = natural_plane(n, SEED + 2500), natural_plane(n, SEED + 2501)
+        check(enc._replays(n, n, cfg, torch.device("cuda")),
+              f"{name} at {n}^2: the predicate refuses the graph")
+        eager = [enc._result(enc._encode_arrays(torch.from_numpy(p).cuda(), cfg), n, n, cfg)
+                 for p in (img, other)]
+        graphs.clear()
+        before = collections.Counter(graphs.calls)
+        kernels.zero()
+        first = encode_plane(img, cfg, device="cuda")
+        second = encode_plane(img, cfg, device="cuda")
+        kept = dataclasses.replace(second, **{f: getattr(second, f).clone() for f in fields})
+        added = search_launches()
+        third, ran = search_kernels_run(lambda: encode_plane(other, cfg, device="cuda"))
+        added = search_launches() - added
+        counts = kernels.read(f"graph {name} {n}^2", [key])
+        form = {f: graphs.calls["encode_plane", f] - before["encode_plane", f]
+                for f in ("eager", "capture", "replay")}
+        check(form == {"eager": 1, "capture": 1, "replay": 2},
+              f"{name} at {n}^2: encode_plane took {form}, not an eager call, a capture "
+              "and 2 replays")
+        check(counts == {kernels.records[key]["name"]: 3},
+              f"{name} at {n}^2: launches {counts}, not one a call")
+        # the replay's count is the capture's; the profiler sees what ran
+        check(sum(ran.values()) == added == 1
+              and all(kernel_template(key) in k for k in ran),
+              f"{name} at {n}^2: a replay counted {added} launches, the profiler saw "
+              f"{dict(ran)}, not one {kernel_template(key)}")
+        check(same(first, eager[0]) and same(second, eager[0]) and same(third, eager[1]),
+              f"{name} at {n}^2: the graph's encode differs from the eager one")
+        check(same(second, kept), f"{name} at {n}^2: a later call changed an earlier result")
+        cpu = encode_plane(img, cfg, device="cpu") if n == 512 else None
+        check(cpu is None or same(second, cpu), f"{name} at {n}^2: card differs from CPU")
+        d_eager = dec._decode_core(second, pyramid)
+        d_graph = [decode_plane(second, pyramid) for _ in range(2)]
+        d_cpu = [decode_plane(cpu, pyramid)] if cpu is not None else []
+        for out, it, mse in d_graph + d_cpu:
+            check(bitwise(out, d_eager[0]) and (it, mse) == d_eager[1:],
+                  f"{name} at {n}^2: the pyramid decode differs from the eager one")
+        dform = {f: graphs.calls["decode_plane", f] - before["decode_plane", f]
+                 for f in ("eager", "capture", "replay")}
+        check(dform == {"eager": 1, "capture": 1, "replay": 1},
+              f"{name} at {n}^2: decode_plane took {dform}, not an eager call, a capture "
+              "and a replay")
+        print(f"     {name} at {n}^2: form graph (1 eager call, then 1 capture, 2 replays); "
+              "encode == eager" + (" == CPU" if cpu is not None else "")
+              + f" bitwise, launches {counts}; the profiler saw the last replay run "
+              f"{dict(ran)}; pyramid decode graph (1 eager call, then 1 capture, 1 replay) "
+              "== eager"
+              + (" == CPU" if cpu is not None else "")
+              + f" ({d_eager[1]} steps, mse {d_eager[2]:.6g})")
+    graphs.clear()
+
+    cfg = parse(["--device", "cuda"])[1]
+    frames = np.stack([natural_plane(512, SEED + 1000 + i) for i in range(16)])  # phase 20's
+    stacked = enc.encode_batch_stacked(frames, cfg, device="cuda")
+    big = natural_plane(2048, SEED + 2048)
+
+    def timed_forms(name, frames_n, make):
+        """One form's eager and graph runs in turns: host ms a frame, busy
+        share, host syncs a frame with their lines."""
+        runs = {form: make(form == "graph") for form in ("eager", "graph")}
+        synced = {}
+        for form, fn in runs.items():
+            def run(fn=fn):
+                out = fn()
+                torch.cuda.synchronize()
+                return out
+            synced[form] = run
+            run()  # a graph's first call of a key is eager; host_turns' warmup captures
+        ms = host_turns(synced)
+        line = [f"     {name}:"]
+        out = {}
+        for form, fn in runs.items():
+            busy, _ = device_busy(synced[form], reps=1)
+            _, sites = host_syncs(fn)
+            per = sum(sites.values()) / frames_n
+            out[form] = (ms[form] / frames_n, busy, sum(sites.values()))
+            line.append(f"{form} {ms[form] / frames_n:.3f} host ms a frame, busy "
+                        + ("not measured" if busy is None else f"{busy:.4f}")
+                        + f", {per:g} host syncs a frame ("
+                        + (", ".join(f"{site} x{k / frames_n:g}"
+                                     for site, k in sites.most_common()) or "none") + ");")
+        print(" ".join(line))
+        check(out["graph"][2] <= 1, f"{name}: the graph form synced {out['graph'][2]} times "
+                                    "in a call, above one")
+        return out
+
+    print("     eager and graph forms in turns (host clock, medians of 7; busy share by "
+          "torch.profiler; host syncs by torch.cuda.set_sync_debug_mode):")
+    timed_forms("encode_batch_stacked 16 x 512^2", 16, lambda graph: lambda: enc._encode_batch(
+        enc.plane_on_device(frames, "cuda"), cfg, graph))
+    timed_forms("decode_batch_stacked 16 x 512^2 (pyramid)", 16,
+                lambda graph: lambda: dec._decode_batch(stacked, pyramid, graph))
+    timed_forms("encode_plane 2048^2", 1, lambda graph: (
+        lambda: encode_plane(big, cfg, device="cuda")) if graph else (
+        lambda: enc._encode_arrays(enc.plane_on_device(big, "cuda"), cfg)))
+    check(enc._replays(2048, 2048, cfg, torch.device("cuda")), "2048^2 takes no graph")
+    held = (f"{len(graphs._GRAPHS)} graphs and {len(tables._TABLES)} tables "
+            f"({sum(t.nbytes for t in tables._TABLES.values())} bytes) kept: card memory "
+            f"allocated {torch.cuda.memory_allocated()}, reserved "
+            f"{torch.cuda.memory_reserved()} bytes")
+    graphs.clear()
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"     after the timings, {held}; after graphs.clear() (graphs, their pools and "
+          f"the tables): allocated {torch.cuda.memory_allocated()}, reserved "
+          f"{torch.cuda.memory_reserved()} bytes")
 
 
 def vq_labels(img, cfg, device):
@@ -2573,6 +2814,13 @@ def main(argv=None) -> int:
     t24 = time.perf_counter()
     range_phase(kernels, planes, k1_parity, k2_parity, k3_parity)
     print(f"     phase 24 took {time.perf_counter() - t24:.1f} s")
+
+    # -- 25. the main path on CUDA graphs
+    print("[25] the encode and the pyramid decode on their CUDA graphs, against the "
+          "eager forms and the CPU")
+    t25 = time.perf_counter()
+    graph_phase(kernels)
+    print(f"     phase 25 took {time.perf_counter() - t25:.1f} s")
 
     records = list(kernels.records.values())
     for rec in records:

@@ -13,6 +13,7 @@ import functools
 import numpy as np
 import torch
 
+from ..utils.tables import device_table
 from .stats import quadrant_sums
 
 __all__ = ["classify_from_quadrants", "classify_grid"]
@@ -52,6 +53,16 @@ _PAIR_I = np.array([0, 0, 0, 1, 1, 2], np.int32)
 _PAIR_J = np.array([1, 2, 3, 2, 3, 3], np.int32)
 
 
+def _pair_table() -> np.ndarray:
+    """[2, 6]: the pairs' first and second quadrants."""
+    return np.stack([_PAIR_I, _PAIR_J])
+
+
+def _bit_weights() -> np.ndarray:
+    """[6]: the order code's bit of each pair."""
+    return 1 << np.arange(6)
+
+
 @functools.lru_cache(maxsize=None)
 def _order_code_table() -> np.ndarray:
     """[4096] i32: 12-bit pairwise-order code -> class, by evaluating the 24
@@ -76,12 +87,13 @@ def classify_from_quadrants(quads: torch.Tensor) -> torch.Tensor:
     """[N] i32 class in {-1, 0..5} from [N, 4] quadrant sums (a1..a4)."""
     a = quads if quads.dtype == torch.float32 else quads.to(torch.int32)
     dev = quads.device
-    ai = a[..., torch.as_tensor(_PAIR_I, dtype=torch.int64, device=dev)]  # [N, 6]
-    aj = a[..., torch.as_tensor(_PAIR_J, dtype=torch.int64, device=dev)]
-    w = torch.as_tensor(1 << np.arange(6), dtype=torch.int32, device=dev)
+    pairs = device_table(_pair_table, device=dev)
+    ai = a[..., pairs[0]]  # [N, 6]
+    aj = a[..., pairs[1]]
+    w = device_table(_bit_weights, device=dev, dtype=torch.int32)
     code = ((ai > aj).to(torch.int32) * w).sum(-1, dtype=torch.int32) + (
         ((aj > ai).to(torch.int32) * w).sum(-1, dtype=torch.int32) << 6)
-    table = torch.as_tensor(_order_code_table(), device=dev)
+    table = device_table(_order_code_table, device=dev, dtype=torch.int32)
     return table[code.to(torch.int64)]
 
 

@@ -8,6 +8,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..utils.tables import device_table
 from .grid import Grid
 
 __all__ = ["integral_image", "grid_block_sums", "block_sums_nonoverlapping",
@@ -21,11 +22,17 @@ def integral_image(plane: torch.Tensor) -> torch.Tensor:
     return torch.nn.functional.pad(s, (1, 0, 1, 0))
 
 
-def _window_sums(ii: torch.Tensor, ox: np.ndarray, oy: np.ndarray, w: int,
-                 h: int) -> torch.Tensor:
-    """Sums of h x w windows at origins (ox, oy) from an integral image."""
-    ox = torch.as_tensor(ox, dtype=torch.int64, device=ii.device)
-    oy = torch.as_tensor(oy, dtype=torch.int64, device=ii.device)
+def _grid_origins(grid: Grid) -> np.ndarray:
+    """[2, num_items] the grid's (origin_x, origin_y)."""
+    return np.stack(grid.origins())
+
+
+def _window_sums(ii: torch.Tensor, grid: Grid, w: int, h: int, dx: int = 0,
+                 dy: int = 0) -> torch.Tensor:
+    """Sums of h x w windows at the grid's origins shifted by (dx, dy), from
+    an integral image (the origins uploaded once, ``utils.tables``)."""
+    ox, oy = device_table(_grid_origins, grid, device=ii.device)
+    ox, oy = ox + dx, oy + dy
     return ii[oy + h, ox + w] - ii[oy, ox + w] - ii[oy + h, ox] + ii[oy, ox]
 
 
@@ -34,8 +41,7 @@ def grid_block_sums(plane: torch.Tensor, grid: Grid,
     """[num_items] i32 per-block pixel sums for a (possibly overlapping) grid."""
     if ii is None:
         ii = integral_image(plane)
-    ox, oy = grid.origins()
-    return _window_sums(ii, ox, oy, grid.block_size, grid.block_size)
+    return _window_sums(ii, grid, grid.block_size, grid.block_size)
 
 
 def block_sums_nonoverlapping(plane: torch.Tensor, block_size: int) -> torch.Tensor:
@@ -75,11 +81,10 @@ def quadrant_sums(plane: torch.Tensor, grid: Grid, ii: torch.Tensor | None = Non
         return torch.stack([pick(0, 0), pick(0, 1), pick(1, 0), pick(1, 1)], dim=1)
     if ii is None:
         ii = integral_image(plane)
-    ox, oy = grid.origins()
     q = [
-        _window_sums(ii, ox, oy, half, half),
-        _window_sums(ii, ox + half, oy, half, half),
-        _window_sums(ii, ox, oy + half, half, half),
-        _window_sums(ii, ox + half, oy + half, half, half),
+        _window_sums(ii, grid, half, half),
+        _window_sums(ii, grid, half, half, dx=half),
+        _window_sums(ii, grid, half, half, dy=half),
+        _window_sums(ii, grid, half, half, dx=half, dy=half),
     ]
     return torch.stack(q, dim=1)

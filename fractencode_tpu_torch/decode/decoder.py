@@ -9,7 +9,9 @@ sample the isometry-mapped domain (2x2 average), apply ``s*v + o``, clamp to
 One step is a gather of every range's K domain samples through static tap
 tables, an affine map and a reshape; ranges tile the image, so there is no
 scatter.  The loops run in Python: the flat loop reads one MSE and one cycle
-flag back per step for its exit tests, the pyramid loop runs a fixed count.
+flag back per step for its exit tests, the pyramid loop runs a fixed count,
+which on the card is one CUDA graph (``utils.graphs``; the counterpart of
+the JAX package's jitted ``decode_plane``) whose MSE is read once.
 """
 from __future__ import annotations
 
@@ -21,8 +23,10 @@ import torch
 
 from ..core.sampler import all_tap_tables
 from ..core.transform import NUM_TRANSFORMS
-from ..encode.encoder import EncodeResult
+from ..encode.encoder import ARRAY_FIELDS, EncodeResult
 from ..params import DecoderConfig
+from ..utils import graphs
+from ..utils.tables import device_table
 
 __all__ = ["decode_plane", "decode_batch_stacked", "decode_steps_py",
            "build_decode_tables", "sample_domains", "half_res_image", "pyramid_factors"]
@@ -86,6 +90,16 @@ def _patch_tap_tables(source_size: int, target_size: int, width: int,
     return tuple(pos), tap_idx
 
 
+def _patch_tap_idx(source_size: int, target_size: int, width: int) -> np.ndarray:
+    """``_patch_tap_tables``' tap_idx."""
+    return _patch_tap_tables(source_size, target_size, width)[1]
+
+
+def _patch_positions(source_size: int, target_size: int, width: int) -> np.ndarray:
+    """[2, U]: ``_patch_tap_tables``' positions as (rows, columns)."""
+    return np.array(_patch_tap_tables(source_size, target_size, width)[0]).T
+
+
 def build_decode_tables(domain_idx, transform, width, height, source_size,
                         target_size, domain_step,
                         num_transforms: int = NUM_TRANSFORMS):
@@ -109,26 +123,24 @@ def build_decode_tables(domain_idx, transform, width, height, source_size,
     if domain_step % 2 == 0 and domain_step >= 2:
         patch = _patch_tap_tables(source_size, target_size, width)
         if patch is not None:
-            pos, tap_idx = patch
+            pos = patch[0]
             # only the isometries the search considered
-            tap_idx = torch.as_tensor(tap_idx[:num_transforms], dtype=torch.int64,
-                                      device=dev)
+            tap_idx = device_table(_patch_tap_idx, source_size, target_size, width,
+                                   device=dev)[:num_transforms]
             ny = (height - source_size) // domain_step + 1
             code = dom * num_transforms + tr
             # the U patch positions as index tensors, plus the patch extent
-            pos_yx = (torch.tensor([p[0] for p in pos], dtype=torch.int64, device=dev),
-                      torch.tensor([p[1] for p in pos], dtype=torch.int64, device=dev),
-                      max(p[0] for p in pos) + 1, max(p[1] for p in pos) + 1)
+            pys, pxs = device_table(_patch_positions, source_size, target_size, width,
+                                    device=dev)
+            pos_yx = (pys, pxs, max(p[0] for p in pos) + 1, max(p[1] for p in pos) + 1)
             return "cb", (code, pos_yx, tap_idx, ny, nx, domain_step // 2)
 
-    half = _half_res_taps(source_size, target_size, width)
-    if half is not None and domain_step % 2 == 0:
+    if _half_res_taps(source_size, target_size, width) is not None and domain_step % 2 == 0:
         origin_half = (oy // 2) * (width // 2) + ox // 2
-        taps = torch.as_tensor(half, dtype=torch.int64, device=dev)
+        taps = device_table(_half_res_taps, source_size, target_size, width, device=dev)
         return "half", origin_half[:, None] + taps[tr]
 
-    taps = torch.as_tensor(_global_tap_tables(source_size, target_size, width),
-                           dtype=torch.int64, device=dev)
+    taps = device_table(_global_tap_tables, source_size, target_size, width, device=dev)
     origin_flat = oy * width + ox
     return "full", origin_flat[:, None, None] + taps[tr]
 
@@ -205,6 +217,12 @@ def _decode_step(img_u8, tables, s, o, height, width, target_size, o_is_mean=Fal
             .permute(0, 2, 1, 3).reshape(height, width))
 
 
+def _mean_offsets(kb: int, nxr: int) -> np.ndarray:
+    """[kb^2] offsets of a domain's range blocks in the [R] block-mean grid."""
+    di, dj = np.meshgrid(np.arange(kb), np.arange(kb), indexing="ij")
+    return di.reshape(-1) * nxr + dj.reshape(-1)
+
+
 def _mean_init_image(result: EncodeResult, dcfg: DecoderConfig):
     """Piecewise-constant start image from the block-mean fixed point, or
     None when the geometry does not qualify (``initial='means'``).
@@ -229,9 +247,7 @@ def _mean_init_image(result: EncodeResult, dcfg: DecoderConfig):
         dom = result.domain_idx.to(torch.int64)
         oy = (dom // nxd) * (step // ts)  # domain origin in range-block units
         ox = (dom % nxd) * (step // ts)
-        di, dj = np.meshgrid(np.arange(kb), np.arange(kb), indexing="ij")
-        offs = torch.as_tensor(di.reshape(-1) * nxr + dj.reshape(-1),
-                               dtype=torch.int64, device=dom.device)
+        offs = device_table(_mean_offsets, kb, nxr, device=dom.device)
         gather_idx = (oy * nxr + ox)[:, None] + offs[None, :]
         mu = torch.full((ny * nxr,), float(dcfg.initial_value), dtype=torch.float32,
                         device=dom.device)
@@ -304,16 +320,80 @@ def _pyramid_init(result: EncodeResult, s, o, dcfg: DecoderConfig):
     return _coarse_to_fine(fs, step_at, h, w, dcfg, s.device)
 
 
-def _step_mse(nxt: torch.Tensor, img: torch.Tensor) -> np.float32:
-    """Inter-iterate MSE as f32: the squared differences summed exactly,
-    rounded once to f32, then multiplied by the f32 reciprocal of the area
-    (XLA:CPU compiles the JAX loop's division by the constant area so)."""
+def _step_mse(nxt: torch.Tensor, img: torch.Tensor) -> torch.Tensor:
+    """Inter-iterate MSE as a 0-d f32 tensor on the images' device, read
+    nothing back: the squared differences summed exactly, rounded once to
+    f32, then multiplied by the f32 reciprocal of the area (XLA:CPU compiles
+    the JAX loop's division by the constant area so)."""
     d = nxt.to(torch.int32) - img.to(torch.int32)
-    total = int((d * d).sum().item())
-    return np.float32(total) * (np.float32(1.0) / np.float32(nxt.numel()))
+    recip = float(np.float32(1.0) / np.float32(nxt.numel()))
+    return (d * d).sum().to(torch.float32) * recip
+
+
+def _full_steps(dcfg: DecoderConfig) -> int:
+    """The pyramid decode's full-resolution steps (see
+    DecoderConfig.pyramid_full_steps)."""
+    return min(dcfg.pyramid_full_steps, dcfg.max_iterations)
+
+
+def _has_pyramid(result: EncodeResult, dcfg: DecoderConfig) -> bool:
+    """Whether ``result``'s decode starts from a pyramid and so runs a fixed
+    count of steps (and may replay a CUDA graph), from its geometry alone."""
+    return dcfg.pyramid and bool(pyramid_factors(
+        result.height, result.width, result.target_size, result.source_size,
+        result.domain_step, max_levels=dcfg.pyramid_levels))
+
+
+def _full_res(step, start, dcfg: DecoderConfig):
+    """``_full_steps`` full-resolution steps from a pyramid ``start``:
+    (image, mse as ``_step_mse`` gives it)."""
+    img = prev = start
+    for _ in range(_full_steps(dcfg)):
+        img, prev = step(img), img
+    return img, _step_mse(img, prev)
+
+
+def _pyramid_decode(result: EncodeResult, dcfg: DecoderConfig):
+    """(image, mse) of the pyramid decode (``_has_pyramid``): the
+    coarse-to-fine start image, then ``_full_res``."""
+    h, w = result.height, result.width
+    tables = _build_indices(result)
+    s = torch.where(result.valid, result.s, 0.0)
+    o = torch.where(result.valid, result.o, 0.0)
+
+    def step(img):
+        return _decode_step(img, tables, s, o, h, w, result.target_size,
+                            result.o_is_mean)
+
+    return _full_res(step, _pyramid_init(result, s, o, dcfg), dcfg)
+
+
+# the arrays a decode reads; the other fields of an EncodeResult are its
+# geometry
+_DECODE_FIELDS = ("domain_idx", "transform", "s", "o", "valid")
+
+
+def _frame_decode(result: EncodeResult, dcfg: DecoderConfig, graph: bool):
+    """``_pyramid_decode`` of ``result``, eager or through its CUDA graph,
+    one for each (geometry, config, device) (``utils.graphs``: the outputs
+    are the graph's own, overwritten by the next frame)."""
+    if not graph:
+        return _pyramid_decode(result, dcfg)
+    geometry = {f.name: getattr(result, f.name) for f in dataclasses.fields(result)
+                if f.name not in ARRAY_FIELDS}
+
+    def decode(*arrays):
+        return _pyramid_decode(EncodeResult(**dict(zip(_DECODE_FIELDS, arrays)),
+                                            distance=None, **geometry), dcfg)
+
+    return graphs.replay("decode_plane", (dcfg, *geometry.items()), decode,
+                         *(getattr(result, f) for f in _DECODE_FIELDS))
 
 
 def _decode_core(result: EncodeResult, dcfg: DecoderConfig, ran_steps: bool = False):
+    if _has_pyramid(result, dcfg):
+        img, mse = _pyramid_decode(result, dcfg)
+        return img, _full_steps(dcfg), float(mse)
     h, w = result.height, result.width
     tables = _build_indices(result)
     s = torch.where(result.valid, result.s, 0.0)
@@ -328,8 +408,7 @@ def _decode_core(result: EncodeResult, dcfg: DecoderConfig, ran_steps: bool = Fa
         mi = _mean_init_image(result, dcfg)
         if mi is not None:
             init = mi
-    start = _pyramid_init(result, s, o, dcfg) if dcfg.pyramid else None
-    return _fixed_point(step, init, start, dcfg, ran_steps)
+    return _fixed_point(step, init, None, dcfg, ran_steps)
 
 
 def _fixed_point(step, init, start, dcfg: DecoderConfig, ran_steps: bool = False):
@@ -343,14 +422,11 @@ def _fixed_point(step, init, start, dcfg: DecoderConfig, ran_steps: bool = False
     stall_rtol for stall_window steps).  The flat loop's iterations follow
     the reference's count (the step that met an exit is not counted), or
     with ``ran_steps`` every step run, as the JAX package's sharded decode
-    counts them.
+    counts them.  It reads the MSE and the cycle test back at every step.
     """
     if start is not None:
-        n_full = min(dcfg.pyramid_full_steps, dcfg.max_iterations)
-        img = prev = start
-        for _ in range(n_full):
-            img, prev = step(img), img
-        return img, n_full, float(_step_mse(img, prev))
+        img, mse = _full_res(step, start, dcfg)
+        return img, _full_steps(dcfg), float(mse)
 
     eps = np.float32(dcfg.epsilon)
     keep = np.float32(1.0 - dcfg.stall_rtol)
@@ -359,7 +435,7 @@ def _fixed_point(step, init, start, dcfg: DecoderConfig, ran_steps: bool = False
     mse = best = np.float32(np.inf)
     while steps < dcfg.max_iterations and not done:
         nxt = step(img)
-        mse = _step_mse(nxt, img)
+        mse = np.float32(_step_mse(nxt, img).item())
         cycle = torch.equal(nxt, prev)
         since = 0 if mse < best * keep else since + 1
         best = min(best, mse)
@@ -385,22 +461,47 @@ def decode_plane(result: EncodeResult, dcfg: DecoderConfig = DecoderConfig(), *,
                  device: torch.device | str | None = None):
     """Decode to a fixed point on ``device`` (default: the result's).
     Returns (plane u8 [H, W] tensor, iterations int, mse float); iterations
-    follow the reference's count (``Encoder2.hpp:76-88``)."""
-    return _decode_core(_to_device(result, device), dcfg)
+    follow the reference's count (``Encoder2.hpp:76-88``).  The pyramid
+    decode (``dcfg.pyramid`` where the geometry has a level) is one CUDA
+    graph on the card, whose MSE is read once; the flat loop reads its exit
+    tests back at every step and runs eagerly."""
+    result = _to_device(result, device)
+    if not _has_pyramid(result, dcfg):
+        return _decode_core(result, dcfg)
+    graph = result.s.device.type == "cuda"
+    img, mse = _frame_decode(result, dcfg, graph)
+    return (img.clone() if graph else img), _full_steps(dcfg), float(mse)
 
 
 def decode_batch_stacked(result: EncodeResult, dcfg: DecoderConfig = DecoderConfig()):
     """Decode a stacked batch (arrays with a leading [B] axis, as
     ``encode_batch_stacked`` gives them) on the result's device, frame after
-    frame through ``decode_plane``'s core with each frame's ``distance``
-    zeroed, as the JAX package's does.  Returns ([B, H, W] u8, [B] i32
-    iterations, [B] f32 mse) tensors; the last two on the CPU."""
+    frame as ``decode_plane`` does with each frame's ``distance`` zeroed, as
+    the JAX package's does.  Returns ([B, H, W] u8, [B] i32 iterations, [B]
+    f32 mse) tensors; the last two on the CPU.  The pyramid decode writes
+    each frame into its row of the preallocated outputs and reads the MSEs
+    back once for the batch."""
+    return _decode_batch(result, dcfg, result.s.device.type == "cuda")
+
+
+def _decode_batch(result: EncodeResult, dcfg: DecoderConfig, graph: bool):
+    """``decode_batch_stacked``, the pyramid decode's frames eager or
+    through the graph."""
+    b = result.domain_idx.shape[0]
+    frames = (dataclasses.replace(
+        result, domain_idx=result.domain_idx[i], transform=result.transform[i],
+        s=result.s[i], o=result.o[i], distance=torch.zeros_like(result.s[i]),
+        valid=result.valid[i]) for i in range(b))
+    if _has_pyramid(result, dcfg):
+        outs = mses = None
+        for i, frame in enumerate(frames):
+            img, mse = _frame_decode(frame, dcfg, graph)
+            if outs is None:
+                outs, mses = img.new_empty((b, *img.shape)), mse.new_empty((b,))
+            outs[i], mses[i] = img, mse
+        return outs, torch.full((b,), _full_steps(dcfg), dtype=torch.int32), mses.cpu()
     outs, iters, mses = [], [], []
-    for i in range(result.domain_idx.shape[0]):
-        frame = dataclasses.replace(
-            result, domain_idx=result.domain_idx[i], transform=result.transform[i],
-            s=result.s[i], o=result.o[i], distance=torch.zeros_like(result.s[i]),
-            valid=result.valid[i])
+    for frame in frames:
         out, it, mse = _decode_core(frame, dcfg)
         outs.append(out)
         iters.append(it)

@@ -18,6 +18,7 @@ import torch
 from ..core.grid import Grid
 from ..core.sampler import all_tap_tables
 from ..ops.matcher_kernels import inv_var_b, key_sum_sq, sum_dtype
+from ..utils.tables import device_table
 
 __all__ = ["Codebook", "build_codebook", "extract_ranges", "range_sums"]
 
@@ -39,6 +40,12 @@ def _block_pixel_offsets(block_size: int, stride: int) -> np.ndarray:
     return (ys * stride + xs).reshape(-1).astype(np.int64)
 
 
+def _half_origins(grid: Grid, width: int) -> np.ndarray:
+    """[D] flat index of each domain's origin in the [H/2, W/2] half image."""
+    ox, oy = grid.origins()
+    return (oy.astype(np.int64) // 2) * (width // 2) + ox // 2
+
+
 def build_codebook(plane_f32: torch.Tensor, domain_grid: Grid, target_size: int,
                    num_transforms: int, half: torch.Tensor | None = None) -> Codebook:
     """Sample all domain blocks under the first ``num_transforms`` isometries.
@@ -55,25 +62,24 @@ def build_codebook(plane_f32: torch.Tensor, domain_grid: Grid, target_size: int,
     h, w = plane_f32.shape
     dev = plane_f32.device
     sw = domain_grid.block_size
-    ox, oy = domain_grid.origins()
-
-    def on_device(a):
-        return torch.as_tensor(np.asarray(a, dtype=np.int64), device=dev)
 
     # gather indices are built on the device from the small origin and tap
-    # tables (the full [D, T, K] index would be a 33 MB copy at 2048^2)
-    half_taps = _half_res_taps(sw, target_size, w)
-    if half_taps is not None and domain_grid.step % 2 == 0:
-        taps = on_device(half_taps[:num_transforms])  # [T, K]
+    # tables (the full [D, T, K] index would be a 33 MB copy at 2048^2),
+    # each uploaded once (utils.tables)
+    if _half_res_taps(sw, target_size, w) is not None and domain_grid.step % 2 == 0:
+        taps = device_table(_half_res_taps, sw, target_size, w,
+                            device=dev)[:num_transforms]  # [T, K]
         if half is None:
             half = half_res_image(plane_f32)
-        origin_half = on_device((oy.astype(np.int64) // 2) * (w // 2) + ox // 2)  # [D]
+        origin_half = device_table(_half_origins, domain_grid, w, device=dev)  # [D]
         values = half.reshape(-1)[origin_half[:, None, None] + taps[None]]
     else:
         flat = plane_f32.reshape(-1)
-        origins = on_device(domain_grid.flat_origins(stride=w))
-        blocks = flat[origins[:, None] + on_device(_block_pixel_offsets(sw, w))[None, :]]
-        taps = on_device(all_tap_tables(sw, target_size)[:num_transforms])  # [T, K, 4]
+        origins = device_table(Grid.flat_origins, domain_grid, w, device=dev)
+        blocks = flat[origins[:, None]
+                      + device_table(_block_pixel_offsets, sw, w, device=dev)[None, :]]
+        taps = device_table(all_tap_tables, sw, target_size,
+                            device=dev)[:num_transforms]  # [T, K, 4]
         acc = blocks[:, taps[:, :, 0]]
         for j in range(1, 4):
             acc = acc + blocks[:, taps[:, :, j]]

@@ -8,8 +8,11 @@ the classifier, no classes and the dense search (``matcher.search_dense``).
 The per-range result plays the role of ``grid_encode_data_t``
 (``encode/datatypes.h:8-26``).
 
-The batch forms run the single-plane encode frame by frame (the JAX package
-streams frames through ``lax.map``) and stack the results.
+On the card, where ``matcher.replays_graph`` allows, the encode of a plane
+is one CUDA graph (``utils.graphs``), the counterpart of the JAX package's
+jitted ``encode_plane``.  The batch forms run it frame by frame (the JAX
+package streams frames through ``lax.map`` in one program) into
+preallocated [B, R] arrays.
 """
 from __future__ import annotations
 
@@ -22,9 +25,10 @@ from ..core.classify import classify_grid
 from ..core.grid import Grid, uniform_grid
 from ..core.stats import block_sums_nonoverlapping, integral_image
 from ..params import EncoderConfig
+from ..utils import graphs
 from ..utils.prng import prng_key
 from .codebook import build_codebook, extract_ranges, range_sums
-from .matcher import search_classed, search_dense
+from .matcher import replays_graph, search_classed, search_dense
 from .vq import assign_codes, train_codebook
 
 __all__ = ["EncodeResult", "ARRAY_FIELDS", "encode_plane", "encode_batch",
@@ -133,17 +137,9 @@ def _vq_classes(ranges: torch.Tensor, cb, cfg: EncoderConfig):
     return rcls - 1, dcls - 1
 
 
-def encode_plane(plane, cfg: EncoderConfig | None = None, *,
-                 device: torch.device | str | None = None) -> EncodeResult:
-    """Encode one [H, W] u8 plane (numpy array or tensor) on ``device``
-    (default: the tensor's device, or the card for a numpy array; see
-    ``plane_on_device``)."""
-    cfg = cfg or EncoderConfig()
-    plane = plane_on_device(plane, device)
+def _encode_arrays(plane: torch.Tensor, cfg: EncoderConfig) -> tuple:
+    """The six per-range arrays (``ARRAY_FIELDS``) of one [H, W] u8 plane."""
     h, w = plane.shape
-    if h % cfg.target_size or w % cfg.target_size:
-        raise ValueError("image not aligned to range grid")  # partition2.hpp:119
-
     plane_f32 = plane.to(torch.float32)
     domain_grid = uniform_grid(w, h, cfg.source_size, cfg.domain_step)
     range_grid = uniform_grid(w, h, cfg.target_size, cfg.target_size)
@@ -174,27 +170,82 @@ def encode_plane(plane, cfg: EncoderConfig | None = None, *,
                              domain_classes, cfg)
     else:
         res = search_dense(ranges, sum_a, sum_a2, cb, None, None, cfg)
-    return EncodeResult(
-        domain_idx=res.domain_idx, transform=res.transform, s=res.s, o=res.o,
-        distance=res.distance, valid=res.valid, width=w, height=h,
-        source_size=cfg.source_size, target_size=cfg.target_size,
-        domain_step=cfg.domain_step, num_transforms=cfg.num_transforms)
+    return tuple(getattr(res, f) for f in ARRAY_FIELDS)
+
+
+def _replays(h: int, w: int, cfg: EncoderConfig, device) -> bool:
+    """Whether the encode of an [h, w] plane on ``device`` runs in a CUDA
+    graph (``matcher.replays_graph``), decided before any work."""
+    r = (h // cfg.target_size) * (w // cfg.target_size)
+    m = uniform_grid(w, h, cfg.source_size, cfg.domain_step).num_items * cfg.num_transforms
+    return replays_graph(r, m, cfg, device)
+
+
+def _frame_arrays(plane: torch.Tensor, cfg: EncoderConfig, graph: bool) -> tuple:
+    """``_encode_arrays`` of one plane, eager or through its graph; the
+    graph's outputs are its own, overwritten by the next frame."""
+    if not graph:
+        return _encode_arrays(plane, cfg)
+    return graphs.replay("encode_plane", (cfg,), lambda p: _encode_arrays(p, cfg), plane)
+
+
+def _result(arrays, h: int, w: int, cfg: EncoderConfig) -> EncodeResult:
+    return EncodeResult(**dict(zip(ARRAY_FIELDS, arrays)), width=w, height=h,
+                        source_size=cfg.source_size, target_size=cfg.target_size,
+                        domain_step=cfg.domain_step, num_transforms=cfg.num_transforms)
+
+
+def _check_aligned(h: int, w: int, cfg: EncoderConfig) -> None:
+    if h % cfg.target_size or w % cfg.target_size:
+        raise ValueError("image not aligned to range grid")  # partition2.hpp:119
+
+
+def encode_plane(plane, cfg: EncoderConfig | None = None, *,
+                 device: torch.device | str | None = None) -> EncodeResult:
+    """Encode one [H, W] u8 plane (numpy array or tensor) on ``device``
+    (default: the tensor's device, or the card for a numpy array; see
+    ``plane_on_device``).  On the card, where ``matcher.replays_graph``
+    allows, the encode is one CUDA graph for each (shape, config, device),
+    run eagerly at its first call and captured at its second
+    (``utils.graphs``); a replay's result is a copy of the graph's outputs."""
+    cfg = cfg or EncoderConfig()
+    plane = plane_on_device(plane, device)
+    h, w = plane.shape
+    _check_aligned(h, w, cfg)
+    graph = _replays(h, w, cfg, plane.device)
+    arrays = _frame_arrays(plane, cfg, graph)
+    if graph:
+        arrays = tuple(x.clone() for x in arrays)
+    return _result(arrays, h, w, cfg)
 
 
 def encode_batch_stacked(planes, cfg: EncoderConfig | None = None, *,
                          device: torch.device | str | None = None) -> EncodeResult:
     """Encode a [B, H, W] u8 batch (numpy array or tensor) on ``device``
     (``plane_on_device``'s rule) and return ONE EncodeResult whose arrays
-    carry a leading batch axis ([B, R]).  Frames run one after another
-    through ``encode_plane``, so each equals its single-plane encode."""
+    carry a leading batch axis ([B, R]).  Frames run one after another as in
+    ``encode_plane``, each into its row of the preallocated arrays, so each
+    equals its single-plane encode; on the graph, the call reads nothing
+    back from the card."""
     cfg = cfg or EncoderConfig()
     planes = plane_on_device(planes, device)
     _, h, w = planes.shape
-    frames = [encode_plane(p, cfg) for p in planes]
-    return EncodeResult(
-        **{f: torch.stack([getattr(r, f) for r in frames]) for f in ARRAY_FIELDS},
-        width=w, height=h, source_size=cfg.source_size, target_size=cfg.target_size,
-        domain_step=cfg.domain_step, num_transforms=cfg.num_transforms)
+    _check_aligned(h, w, cfg)
+    return _encode_batch(planes, cfg, _replays(h, w, cfg, planes.device))
+
+
+def _encode_batch(planes: torch.Tensor, cfg: EncoderConfig, graph: bool) -> EncodeResult:
+    """``encode_batch_stacked`` of a [B, H, W] u8 tensor, its frames eager
+    or through the graph."""
+    b, h, w = planes.shape
+    rows = None
+    for i in range(b):
+        arrays = _frame_arrays(planes[i], cfg, graph)
+        if rows is None:
+            rows = [x.new_empty((b, *x.shape)) for x in arrays]
+        for row, x in zip(rows, arrays):
+            row[i] = x
+    return _result(rows, h, w, cfg)
 
 
 def encode_batch(planes, cfg: EncoderConfig | None = None, *,

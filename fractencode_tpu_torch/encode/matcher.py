@@ -50,7 +50,7 @@ from .codebook import Codebook
 
 __all__ = ["SearchResult", "solve_so", "inv_norm", "select_best", "search", "classed_prep",
            "classed_kernel", "classed_post", "mask_ranges_result", "search_classed",
-           "dense_prep", "dense_kernel", "search_dense"]
+           "dense_prep", "dense_kernel", "search_dense", "replays_graph"]
 
 _BIG = 3.0e38
 _NUM_CLASS_BINS = 7  # classifier bins -1..5 shifted to 0..6
@@ -212,6 +212,26 @@ def _classed_statics(r: int, m: int, masked_domains: bool = False,
     use_pairs = pm_pad // pbm < (1 << CT_BITS)
     worst_pairs = (pr_pad // pbr) * (pm_pad // pbm) + pr_pad // pbr
     return (*layout, worst_pairs, min(worst_pairs, _mk.PAIR_CAP), use_pairs)
+
+
+def replays_graph(r: int, m: int, cfg: EncoderConfig, device) -> bool:
+    """Whether the search of ``r`` ranges against ``m`` search-order
+    columns under ``cfg`` on ``device`` runs inside a CUDA graph
+    (``utils.graphs``): only where nothing it does reads back to the host.
+    That is a card under backend 'auto' or 'cuda', no VQ classes (the
+    k-means reads back at every step), and a route fixed by the shapes:
+    the dense search (K3), or K1 where the JAX package's pair list fits in
+    every case (``use_pairs`` and ``worst_pairs <= p_cap``, so
+    ``classed_prep`` counts no pairs).  K2 reads its split plan back
+    (``ops.matcher_kernels._split_plan``)."""
+    if torch.device(device).type != "cuda" or cfg.backend == "torch" or cfg.vq_classes:
+        return False
+    if not cfg.use_classifier:
+        return r > 0 and m > 0
+    if r == 0 or m == 0:
+        return False
+    *_, worst_pairs, p_cap, use_pairs = _classed_statics(r, m)
+    return use_pairs and worst_pairs <= p_cap
 
 
 def _pair_count(r_counts, c_counts, r: int, m: int, n_row_bins: int,

@@ -1,0 +1,131 @@
+"""CUDA graphs over the encode and the decode: the port's counterpart of the
+JAX package's jitted ``encode_plane``, ``encode_batch_stacked``,
+``decode_plane`` and ``decode_batch_stacked``, each one device program.
+
+``replay`` runs a function of CUDA tensors eagerly at the first call of a
+key (the function's name, its configuration and geometry, and its inputs'
+shapes, dtypes and device), captures it at the second and replays it from
+then on.  Its callers decide whether a call
+goes through here from the shape, the configuration, the backend and the
+device alone, before any work (``encode.matcher.replays_graph``,
+``decode.decoder``): a function captured here makes no read back to the
+host, and its tables are on the device (``utils.tables``).  A capture that
+fails raises; nothing falls back to the eager form.
+"""
+from __future__ import annotations
+
+import collections
+import dataclasses
+
+import torch
+
+from . import tables
+
+__all__ = ["replay", "calls", "clear"]
+
+# graphs kept at once, and keys seen once and not yet captured; the least
+# recently used is dropped, a graph's memory pool with it
+_MAX_GRAPHS = 16
+
+# calls by (name, "eager", "capture" or "replay"): which form each call took
+# (a capturing call replays too)
+calls: collections.Counter = collections.Counter()
+
+
+@dataclasses.dataclass
+class _Graph:
+    graph: torch.cuda.CUDAGraph
+    inputs: tuple  # static inputs, filled before each replay
+    outputs: tuple  # static outputs, in the graph's memory pool
+    launches: tuple  # (counter dict, key, launches) the capture recorded
+    tables: dict  # the device tables the graph reads, kept alive with it
+
+
+_GRAPHS: collections.OrderedDict = collections.OrderedDict()
+# key -> the device tables its eager first call read
+_SEEN: collections.OrderedDict = collections.OrderedDict()
+
+
+def _counters():
+    """The kernel wrappers' launch counters, which count a replay's
+    launches as an eager call's."""
+    from ..ops import matcher_kernels as mk
+
+    return (mk.search_classed_cuda.launches, mk.search_classed2d_cuda.launches,
+            mk.search_dense_cuda.launches)
+
+
+def _capture(fn, inputs, used: dict) -> _Graph:
+    """Capture ``fn`` on static copies of ``inputs``' layout (torch.cuda.
+    graph: a side stream, the graph's own memory pool), the tables ``used``
+    by its eager run back in their cache.  The kernel wrappers count their
+    launches while they are captured; those counts are taken back and kept
+    for the replays."""
+    static = tuple(torch.empty_like(x, memory_format=torch.contiguous_format)
+                   for x in inputs)
+    counters = _counters()
+    before = [dict(c) for c in counters]
+    graph = torch.cuda.CUDAGraph()
+    try:
+        with (tables.recorded(used) as read, torch.cuda.device(static[0].device),
+              torch.cuda.graph(graph)):
+            outputs = tuple(fn(*static))
+    finally:
+        launches = tuple((c, k, n - b.get(k, 0)) for c, b in zip(counters, before)
+                         for k, n in c.items() if n != b.get(k, 0))
+        for c, k, n in launches:
+            c[k] -= n
+    return _Graph(graph, static, outputs, launches, read)
+
+
+def replay(name: str, statics: tuple, fn, *inputs) -> tuple:
+    """``fn(*inputs)``, a tuple of CUDA tensors from CUDA tensors, through
+    the graph of (``name``, ``statics``, the inputs' shapes, dtypes and
+    device); ``statics`` holds everything else ``fn``'s work depends on.
+
+    The first call of a key runs ``fn`` eagerly on the current stream and
+    returns its result, so a caller that calls once pays for no capture; that
+    run builds and loads the kernels and uploads the tables, the capture's
+    warm-up.  The second call captures the graph; it and every later call
+    copy ``inputs`` into the graph's static inputs and replay it on the
+    current stream.  A replay's result is the graph's own outputs, which the
+    next call of the key overwrites, so callers copy them out."""
+    key = (name, statics, tuple((x.shape, x.dtype, x.device) for x in inputs))
+    entry = _GRAPHS.get(key)
+    if entry is None:
+        used = _SEEN.pop(key, None)
+        if used is None:
+            with tables.recorded() as used:
+                out = tuple(fn(*inputs))
+            _SEEN[key] = used
+            _drop(_SEEN)
+            calls[name, "eager"] += 1
+            return out
+        entry = _GRAPHS[key] = _capture(fn, inputs, used)
+        _drop(_GRAPHS)
+        calls[name, "capture"] += 1
+    _GRAPHS.move_to_end(key)
+    for static, x in zip(entry.inputs, inputs):
+        static.copy_(x)
+    entry.graph.replay()
+    for counter, k, n in entry.launches:
+        counter[k] += n
+    calls[name, "replay"] += 1
+    return entry.outputs
+
+
+def _drop(cache: collections.OrderedDict, keep: int = _MAX_GRAPHS) -> None:
+    """Drop ``cache``'s least recently used entries past ``keep``, each
+    graph's memory pool with it."""
+    while len(cache) > keep:
+        entry = cache.popitem(last=False)[1]
+        if isinstance(entry, _Graph):
+            entry.graph.reset()
+
+
+def clear() -> None:
+    """Drop every graph and its memory pool, the keys seen once, and the
+    device tables (``utils.tables``)."""
+    _drop(_GRAPHS, 0)
+    _SEEN.clear()
+    tables.clear()

@@ -855,3 +855,88 @@ def test_sharded_encode_on_the_card(cuda, strategy, monkeypatch):
             single = T.encode_plane(frames[i], cfg, device=cuda)
             for f in ("domain_idx", "transform", "s", "o", "distance", "valid"):
                 assert_bitwise(getattr(res, f), getattr(single, f), f"frame {i} {f}")
+
+
+# the configs the encode's CUDA graph takes (matcher.replays_graph), by CLI
+# flags
+GRAPH_PATHS = {"default": [], "compat": ["--compat"], "smax": ["--smax", "0.9"],
+               "rms": ["--rms", "10"], "noclassifier": ["--noclassifier"],
+               "config1": ["--source", "16", "--target", "8", "--transforms", "8",
+                           "--noclassifier"],
+               "ranges2": ["--source", "8", "--target", "2"]}
+
+
+def _graph_config(path):
+    from fractencode_tpu_torch import cli
+
+    return cli._config_from_args(cli.build_parser().parse_args(GRAPH_PATHS[path]))
+
+
+def _search_launches():
+    return (sum(mk.search_classed_cuda.launches.values())
+            + sum(mk.search_classed2d_cuda.launches.values())
+            + sum(mk.search_dense_cuda.launches.values()))
+
+
+@pytest.mark.parametrize("path", list(GRAPH_PATHS))
+def test_graph_equals_eager_on_the_card(cuda, path):
+    """encode_plane on its CUDA graph, for each config the graph takes: the
+    first call (eager), the second (the capture and a replay) and the third
+    (a replay) bitwise equal to the eager encode and to the CPU's; a later
+    call on another plane leaves
+    the earlier result unchanged; each replay adds the one launch its
+    capture recorded; the pyramid decode's graph equals its eager form."""
+    from fractencode_tpu_torch.decode import decoder as dec
+    from fractencode_tpu_torch.encode import encoder as enc
+    from fractencode_tpu_torch.utils import graphs
+
+    fields = ("domain_idx", "transform", "s", "o", "distance", "valid")
+    cfg = _graph_config(path)
+    a, b = random_plane(128, 60), random_plane(128, 61)
+    assert enc._replays(128, 128, cfg, cuda)
+    graphs.clear()
+    eager = [enc._result(enc._encode_arrays(torch.from_numpy(p).to(cuda), cfg), 128, 128, cfg)
+             for p in (a, b)]
+    before, replays = _search_launches(), graphs.calls["encode_plane", "replay"]
+    firsts = graphs.calls["encode_plane", "eager"]
+    first = T.encode_plane(a, cfg, device=cuda)
+    second = T.encode_plane(a, cfg, device=cuda)
+    kept = {f: getattr(second, f).clone() for f in fields}
+    third = T.encode_plane(b, cfg, device=cuda)
+    assert _search_launches() == before + 3
+    assert graphs.calls["encode_plane", "replay"] == replays + 2
+    assert graphs.calls["encode_plane", "eager"] == firsts + 1
+    cpu = T.encode_plane(a, cfg, device="cpu")
+    for f in fields:
+        assert_bitwise(getattr(second, f), kept[f], f"{f} overwritten by a later call")
+        for what, res in (("first", first), ("replay", second), ("cpu", cpu)):
+            assert_bitwise(getattr(res, f), getattr(eager[0], f), f"{what} {f}")
+        assert_bitwise(getattr(third, f), getattr(eager[1], f), f"other plane {f}")
+
+    dcfg = T.DecoderConfig(pyramid=True)
+    img, iters, mse = dec._decode_core(second, dcfg)
+    replays = graphs.calls["decode_plane", "replay"]
+    for res in (second, second, cpu):
+        out, it, m = T.decode_plane(res, dcfg)
+        assert_bitwise(out, img, "pyramid decode")
+        assert (it, m) == (iters, mse)
+    assert graphs.calls["decode_plane", "replay"] == replays + 1
+
+
+def test_graph_batch_reads_nothing_back(cuda):
+    """Once captured, encode_batch_stacked of a batch on the card makes no
+    host sync (the sync debug mode raises on one), and its frames equal
+    encode_plane's."""
+    cfg = T.EncoderConfig()
+    frames = torch.from_numpy(_distinct_frames(3, 128)).to(cuda)
+    T.encode_batch_stacked(frames, cfg)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        stacked = T.encode_batch_stacked(frames, cfg)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    for i in range(3):
+        single = T.encode_plane(frames[i], cfg)
+        for f in ("domain_idx", "transform", "s", "o", "distance", "valid"):
+            assert_bitwise(getattr(stacked, f)[i], getattr(single, f), f"frame {i} {f}")
