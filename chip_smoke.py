@@ -183,7 +183,29 @@ Phases, each of which must pass (any failure exits non-zero):
      of 7) of the 16 x 512^2 encode_batch_stacked and decode_batch_stacked
      and the 2048^2 encode_plane, each with the card's busy share and its host
      syncs a frame by line; a graph form may sync once a call at most; the
-     card memory held by the graphs and tables, and after graphs.clear().
+     card memory held by the graphs and tables, and after graphs.clear();
+ 26. the JAX package's remaining device loops on CUDA graphs (loop_phase):
+     the quadtree pyramid (encode_plane_quadtree, one graph where
+     quadtree._replays holds) for default, --noclassifier, --compat, --smax
+     0.9, --rms 10 at 512^2 and 2048^2 and --qt-min 2 at 512^2: the first
+     call eager, the second the capture and a replay, a third a replay on
+     another plane, every level bitwise equal to the per-level eager encode
+     and (512^2) the CPU's, K1/K3 launches a call equal to the eager
+     encode's, torch.profiler naming the instances the third call ran, the
+     earlier result unchanged; its pyramid and flat decodes graph == eager
+     (== CPU); the flat loop (graphs.while_loop: chunks of predicated steps,
+     the exit flag read once a chunk) of decode_batch_stacked and
+     decode_plane on phase 20's 16 x 512^2 frames (--compat and default
+     encodes) and on 64^2 crops of the golden Lenna and a noise plane,
+     graph == eager chunks (== CPU), with exits on the epsilon, the period-2
+     cycle, the stall and max_iterations; --vq-classes 4 at 512^2 and 2048^2
+     (the k-means' start, its chunks and the encode as graphs): codebook,
+     labels, steps and winners graph == eager == CPU (winners at 512^2);
+     then eager and graph forms in turns (host ms, busy share, host syncs a
+     frame by line) of the 8 x 1024^2 encode_batch_quadtree_stacked, the
+     2048^2 quadtree encode and its pyramid decode, the 2048^2 flat decode
+     and the 2048^2 VQ encode; the chunk length's sweep (flat decode: 1, 4,
+     8, 16 and eager 1; VQ: 1, 8, 32); the card memory the graphs hold.
 Every path is driven with the launch counts set to 0 just before it and
 read just after; each must launch the kernels it names.  A graph's capture
 launches nothing and counts nothing; each replay adds the launches its
@@ -1270,6 +1292,44 @@ def kernel_template(key):
     return f"{kernel}_kernel<{', '.join(args)}>"
 
 
+def timed_forms(name, frames_n, make, graph_syncs=1):
+    """One form's eager and graph runs in turns (``make(graph)`` gives each,
+    a function of no arguments): host ms a frame, busy share, host syncs a
+    frame with their lines; prints them and returns {form: (host ms a
+    frame, busy share, host syncs a call)}.  The graph form syncs
+    ``graph_syncs`` times a call at most."""
+    import torch
+
+    runs = {form: make(form == "graph") for form in ("eager", "graph")}
+    synced = {}
+    for form, fn in runs.items():
+        def run(fn=fn):
+            out = fn()
+            torch.cuda.synchronize()
+            return out
+        synced[form] = run
+        run()  # a graph's first call of a key is eager; host_turns' warmup captures
+    ms = host_turns(synced)
+    line = [f"     {name}:"]
+    out = {}
+    for form, fn in runs.items():
+        busy, _ = device_busy(synced[form], reps=1)
+        _, sites = host_syncs(fn)
+        per = sum(sites.values()) / frames_n
+        out[form] = (ms[form] / frames_n, busy, sum(sites.values()))
+        line.append(f"{form} {ms[form] / frames_n:.3f} host ms a frame, busy "
+                    + ("not measured" if busy is None else f"{busy:.4f}")
+                    + f", {per:g} host syncs a frame ("
+                    + (", ".join(f"{site} x{k / frames_n:g}"
+                                 for site, k in sites.most_common()) or "none") + ");")
+    print(" ".join(line))
+    check(out["graph"][2] <= graph_syncs, f"{name}: the graph form synced "
+                                          f"{out['graph'][2]} times in a call, above "
+                                          f"{graph_syncs}")
+    return out
+
+
+
 def graph_phase(kernels):
     """Phase 25: the main path on its CUDA graphs (utils.graphs).  Every
     path of GRAPH_PATHS at 512^2, and the default at 2048^2: the predicate
@@ -1357,36 +1417,6 @@ def graph_phase(kernels):
     stacked = enc.encode_batch_stacked(frames, cfg, device="cuda")
     big = natural_plane(2048, SEED + 2048)
 
-    def timed_forms(name, frames_n, make):
-        """One form's eager and graph runs in turns: host ms a frame, busy
-        share, host syncs a frame with their lines."""
-        runs = {form: make(form == "graph") for form in ("eager", "graph")}
-        synced = {}
-        for form, fn in runs.items():
-            def run(fn=fn):
-                out = fn()
-                torch.cuda.synchronize()
-                return out
-            synced[form] = run
-            run()  # a graph's first call of a key is eager; host_turns' warmup captures
-        ms = host_turns(synced)
-        line = [f"     {name}:"]
-        out = {}
-        for form, fn in runs.items():
-            busy, _ = device_busy(synced[form], reps=1)
-            _, sites = host_syncs(fn)
-            per = sum(sites.values()) / frames_n
-            out[form] = (ms[form] / frames_n, busy, sum(sites.values()))
-            line.append(f"{form} {ms[form] / frames_n:.3f} host ms a frame, busy "
-                        + ("not measured" if busy is None else f"{busy:.4f}")
-                        + f", {per:g} host syncs a frame ("
-                        + (", ".join(f"{site} x{k / frames_n:g}"
-                                     for site, k in sites.most_common()) or "none") + ");")
-        print(" ".join(line))
-        check(out["graph"][2] <= 1, f"{name}: the graph form synced {out['graph'][2]} times "
-                                    "in a call, above one")
-        return out
-
     print("     eager and graph forms in turns (host clock, medians of 7; busy share by "
           "torch.profiler; host syncs by torch.cuda.set_sync_debug_mode):")
     timed_forms("encode_batch_stacked 16 x 512^2", 16, lambda graph: lambda: enc._encode_batch(
@@ -1407,6 +1437,325 @@ def graph_phase(kernels):
     print(f"     after the timings, {held}; after graphs.clear() (graphs, their pools and "
           f"the tables): allocated {torch.cuda.memory_allocated()}, reserved "
           f"{torch.cuda.memory_reserved()} bytes")
+
+
+# phase 26's quadtree paths: each CLI config whose pyramid replays one CUDA
+# graph (quadtree._replays), at 512^2 and 2048^2 ("--qt-min 2" at 512^2)
+QT_GRAPH_PATHS = {"default": [], "--noclassifier": ["--noclassifier"],
+                  "--compat": ["--compat"], "--smax 0.9": ["--smax", "0.9"],
+                  "--rms 10": ["--rms", "10"], "--qt-min 2": ["--qt-min", "2"]}
+
+
+def qt_config(argv):
+    """(EncoderConfig, QuadtreeConfig, DecoderConfig) the CLI parses from
+    ``--quadtree`` and ``argv``."""
+    from fractencode_tpu_torch.encode.quadtree import QuadtreeConfig
+
+    args, cfg, dcfg = parse(["--device", "cuda", "--quadtree", *argv])
+    return cfg, QuadtreeConfig(min_size=args.qt_min, max_size=args.qt_max,
+                               error_threshold=args.qt_threshold), dcfg
+
+
+def launch_keys(kernels):
+    """The search wrappers' launches since ``kernels.zero``, by record key."""
+    return collections.Counter({record_key(kernel, key): n
+                                for kernel, w in kernels.wrappers.items()
+                                for key, n in w.launches.items() if n})
+
+
+def level_arrays(res):
+    """A QuadtreeResult's level arrays, coarse to fine, as one list."""
+    from fractencode_tpu_torch.encode.quadtree import LEVEL_ARRAY_FIELDS
+
+    return [getattr(l, f) for l in res.levels for f in LEVEL_ARRAY_FIELDS]
+
+
+def flat_exit(dcfg, it, mse, rerun):
+    """Which of the flat loop's tests ended a decode of ``it`` iterations
+    and final ``mse``: "epsilon", "max_iterations" (no test met), "cycle"
+    or "stall" (``rerun(dcfg)`` decodes again: without the stall test, a
+    decode that stalled runs on)."""
+    if np.float32(mse) < np.float32(dcfg.epsilon):
+        return "epsilon"
+    if it == dcfg.max_iterations:
+        return "max_iterations"
+    if dcfg.stall_window == 0:
+        return "cycle"
+    return "stall" if rerun(dataclasses.replace(dcfg, stall_window=0))[1] > it else "cycle"
+
+
+def quadtree_graphs(kernels):
+    """Phase 26's quadtree part: each QT_GRAPH_PATHS config on its graph,
+    three calls against the per-level eager encode, and its decodes."""
+    import torch
+
+    from fractencode_tpu_torch.encode import quadtree as tq
+    from fractencode_tpu_torch.utils import graphs
+
+    cuda = torch.device("cuda")
+    flat_dcfg = parse(["--device", "cuda", "--compat"])[2]
+    check(not flat_dcfg.pyramid, "--compat's decode is not the flat loop")
+    for name, argv in QT_GRAPH_PATHS.items():
+        for n in (512,) if name == "--qt-min 2" else (512, 2048):
+            cfg, qcfg, dcfg = qt_config(argv)
+            img, other = natural_plane(n, SEED + 2600), natural_plane(n, SEED + 2601)
+            check(tq._replays(n, n, cfg, qcfg, cuda),
+                  f"--quadtree {name} at {n}^2: the predicate refuses the graph")
+            graphs.clear()
+            kernels.zero()
+            eager = [tq._quadtree_arrays(torch.from_numpy(img).cuda(), cfg, qcfg)]
+            per_call = launch_keys(kernels)
+            eager.append(tq._quadtree_arrays(torch.from_numpy(other).cuda(), cfg, qcfg))
+            per_other = launch_keys(kernels) - per_call
+            kernels.zero()
+            before = collections.Counter(graphs.calls)
+            first = tq.encode_plane_quadtree(img, cfg, qcfg, device="cuda")
+            check(launch_keys(kernels) == per_call, f"--quadtree {name} at {n}^2: the "
+                  f"first call launched {launch_keys(kernels)}, eager {per_call}")
+            second = tq.encode_plane_quadtree(img, cfg, qcfg, device="cuda")
+            kept = [x.clone() for x in level_arrays(second)]
+            two = launch_keys(kernels)
+            third, ran = search_kernels_run(
+                lambda: tq.encode_plane_quadtree(other, cfg, qcfg, device="cuda"))
+            added = launch_keys(kernels) - two
+            counts = kernels.read(f"quadtree graph {name} {n}^2", list(per_call))
+            form = {f: graphs.calls["encode_plane_quadtree", f]
+                    - before["encode_plane_quadtree", f] for f in ("eager", "capture", "replay")}
+            check(form == {"eager": 1, "capture": 1, "replay": 2},
+                  f"--quadtree {name} at {n}^2: {form}, not an eager call, a capture and "
+                  "2 replays")
+            check(two == per_call + per_call and added == per_other,
+                  f"--quadtree {name} at {n}^2: the calls launched {two}, then {added}; the "
+                  f"eager encodes {per_call}, {per_other}")
+            want = collections.Counter({kernel_template(k): c for k, c in added.items()})
+            seen = collections.Counter()
+            for key, c in ran.items():
+                seen.update({t: c for t in want if t in key})
+            check(seen == want and sum(ran.values()) == sum(added.values()),
+                  f"--quadtree {name} at {n}^2: the profiler saw {dict(ran)} in the third "
+                  f"call, which counted {dict(want)}")
+            for res, arrays, what in ((first, eager[0], "first"), (second, eager[0], "second"),
+                                      (third, eager[1], "third")):
+                check(all(bitwise(a, b) for a, b in zip(level_arrays(res), arrays, strict=True)),
+                      f"--quadtree {name} at {n}^2: the {what} call differs from the eager "
+                      "encode")
+            check(all(bitwise(a, b) for a, b in zip(level_arrays(second), kept)),
+                  f"--quadtree {name} at {n}^2: a later call changed an earlier result")
+            cpu = tq.encode_plane_quadtree(img, cfg, qcfg, device="cpu") if n == 512 else None
+            check(cpu is None or all(bitwise(a, b) for a, b in zip(level_arrays(cpu), eager[0])),
+                  f"--quadtree {name} at {n}^2: card differs from CPU")
+            decodes = []
+            for d in dict.fromkeys((dcfg, flat_dcfg)):
+                img_e, it_e, mse_e = tq._decode(second, d, graph=False)
+                want_d = (int(it_e), float(mse_e))
+                outs = [tq.decode_plane_quadtree(second, d) for _ in range(3)]
+                outs += [tq.decode_plane_quadtree(cpu, d)] if cpu is not None else []
+                for out, it, mse in outs:
+                    check(bitwise(out, img_e) and (it, mse) == want_d,
+                          f"--quadtree {name} at {n}^2: decode_plane_quadtree "
+                          f"(pyramid={d.pyramid}) differs from its eager form")
+                decodes.append(f"{'pyramid' if d.pyramid else 'flat'} {want_d[0]} steps, "
+                               f"mse {want_d[1]:.6g}")
+            print(f"     --quadtree {name} at {n}^2: graph (1 eager call, 1 capture, 2 "
+                  "replays), every level == the per-level eager encode"
+                  + (" == CPU" if cpu is not None else "")
+                  + f" bitwise; launches {dict(counts)} in 3 calls, as eager; the profiler "
+                  f"saw the third call run {dict(seen)}; decodes graph == eager"
+                  + (" == CPU" if cpu is not None else "") + ": " + "; ".join(decodes))
+    graphs.clear()
+
+
+def flat_decodes():
+    """Phase 26's flat loop: decode_plane (--compat) and decode_batch_stacked
+    of phase 20's 16 x 512^2 frames on the graph, equal to the eager chunks,
+    with the exit each decode took, and the golden Lenna crops' decodes
+    whose exits are the cycle and the stall."""
+    import torch
+
+    from fractencode_tpu_torch import decode_plane, encode_batch_stacked, encode_plane
+    from fractencode_tpu_torch.decode import decoder as dec
+    from fractencode_tpu_torch.image import load_gray
+    from fractencode_tpu_torch.params import DecoderConfig
+
+    frames = np.stack([natural_plane(512, SEED + 1000 + i) for i in range(16)])  # phase 20's
+    exits = collections.Counter()
+    for argv in (["--compat"], []):
+        _, cfg, dcfg = parse(["--device", "cuda", *argv])
+        dcfg = dataclasses.replace(dcfg, pyramid=False)
+        stacked = encode_batch_stacked(frames, cfg, device="cuda")
+        outs, iters, mses = dec._decode_batch(stacked, dcfg, graph=True)
+        e_outs, e_iters, e_mses = dec._decode_batch(stacked, dcfg, graph=False)
+        check(bitwise(outs, e_outs) and bitwise(iters, e_iters) and bitwise(mses, e_mses),
+              f"{argv}: the flat decode_batch_stacked differs from its eager chunks")
+        frame0 = dataclasses.replace(stacked, **{f: getattr(stacked, f)[0] for f in (
+            "domain_idx", "transform", "s", "o", "distance", "valid")})
+        one = decode_plane(frame0, dcfg)
+        check(bitwise(one[0], outs[0]) and one[1:] == (int(iters[0]), float(mses[0])),
+              f"{argv}: decode_plane of frame 0 differs from the batch's")
+        for i in range(16):
+            frame = dataclasses.replace(frame0, **{f: getattr(stacked, f)[i] for f in (
+                "domain_idx", "transform", "s", "o", "valid")})
+            exits[flat_exit(dcfg, int(iters[i]), float(mses[i]),
+                            lambda d, frame=frame: decode_plane(frame, d))] += 1
+        print(f"     16 x 512^2 {' '.join(argv) or 'default'} encode, flat decode "
+              f"(stall window {dcfg.stall_window}): decode_batch_stacked graph == eager "
+              f"chunks (pixels, iterations, MSE); iterations {iters.tolist()}")
+    lenna = load_gray(os.path.join(GOLDEN, "lenna128_input.png"))
+    cases = (("lenna 64^2 crop at (0, 0)", lenna[:64, :64], DecoderConfig(stall_window=0)),
+             ("64^2 noise", np.random.default_rng(1).integers(0, 256, (64, 64), np.uint8),
+              DecoderConfig()),
+             ("lenna 64^2 crop at (32, 32)", lenna[32:96, 32:96], DecoderConfig(max_iterations=3)))
+    for what, img, d in cases:
+        res = encode_plane(img, parse(["--device", "cuda"])[1], device="cuda")
+        out, it, mse = decode_plane(res, d)
+        e_img, e_it, e_mse = dec._flat_decode(res, d, graph=False)
+        cpu = decode_plane(res, d, device="cpu")
+        check(bitwise(out, e_img) and bitwise(out, cpu[0]) and (it, mse) == cpu[1:]
+              == (int(e_it), float(e_mse)), f"{what}: the flat decode's forms differ")
+        exit_ = flat_exit(d, it, mse, lambda d2, res=res: decode_plane(res, d2))
+        exits[exit_] += 1
+        print(f"     {what}: flat decode graph == eager == CPU, {it} iterations, mse "
+              f"{mse:.6g}, exit {exit_}")
+    check(all(exits[e] for e in ("epsilon", "cycle", "stall", "max_iterations")),
+          f"the flat decodes' exits {dict(exits)} miss a test")
+    print(f"     exits of the flat decodes above: {dict(exits)}")
+    return frames
+
+
+def vq_graphs():
+    """Phase 26's VQ part: --vq-classes 4 at 512^2 and 2048^2 on the graphs,
+    labels, codebook, steps and winners against the eager stages and the
+    CPU."""
+    import torch
+
+    from fractencode_tpu_torch import encode_plane
+    from fractencode_tpu_torch.encode import encoder as enc, vq
+    from fractencode_tpu_torch.utils import graphs
+    from fractencode_tpu_torch.utils.prng import prng_key
+
+    _, cfg, _ = parse(["--device", "cuda", "--vq-classes", "4"])
+    for n in (512, 2048):
+        img = natural_plane(n, SEED + n)  # the main planes'
+        p = torch.from_numpy(img).cuda()
+        check(enc._replays(n, n, cfg, torch.device("cuda")), f"VQ at {n}^2 takes no graph")
+        start = enc._vq_start(p, cfg)
+        cb_e, steps_e = vq._kmeans(*start, vq.MAX_STEPS, vq.EPSILON, graph=False)
+        eager = enc._encode_arrays(p, cfg, cb_e)
+        graphs.clear()
+        before = collections.Counter(graphs.calls)
+        results = [encode_plane(img, cfg, device="cuda") for _ in range(3)]
+        form = {k: graphs.calls[k] - before[k] for k in graphs.calls if graphs.calls[k] - before[k]}
+        for res in results:
+            check(all(bitwise(getattr(res, f), x) for f, x in zip(enc.ARRAY_FIELDS, eager)),
+                  f"VQ at {n}^2: the graph's encode differs from the eager stages")
+        labels = {}
+        for dev in ("cuda", "cpu"):
+            pf = torch.from_numpy(img).to(dev)
+            cb, ranges, *_ = enc._inputs(pf, cfg)
+            dvec, _ = enc._vq_vectors(ranges, cb)
+            book, dcls, steps = vq.train_codebook(dvec, prng_key(cfg.vq_seed), cfg.vq_classes,
+                                                  sample_limit=enc._vq_limit(dvec.shape[0], cfg))
+            labels[dev] = (book, enc._vq_labels(ranges, cb, book), steps)
+        (b_g, (r_g, d_g), s_g), (b_c, (r_c, d_c), s_c) = labels["cuda"], labels["cpu"]
+        check(s_g == s_c == int(steps_e) and bitwise(b_g, b_c) and bitwise(b_g, cb_e)
+              and bitwise(r_g, r_c) and bitwise(d_g, d_c),
+              f"VQ at {n}^2: codebook, labels or steps differ between the graph, the eager "
+              "loop and the CPU")
+        cpu = encode_plane(img, cfg, device="cpu") if n == 512 else None
+        check(cpu is None or all(bitwise(getattr(cpu, f), x)
+                                 for f, x in zip(enc.ARRAY_FIELDS, eager)),
+              f"VQ at {n}^2: card differs from CPU")
+        print(f"     --vq-classes 4 at {n}^2: {s_g} k-means steps; codebook, labels and "
+              "steps graph == eager == CPU; winners of 3 encode_plane calls (graphs "
+              f"{form}) == eager" + (" == CPU" if cpu is not None else "") + " bitwise")
+    graphs.clear()
+
+
+def loop_phase(kernels):
+    """Phase 26: the JAX package's remaining device loops on CUDA graphs:
+    the quadtree pyramid and its decodes (quadtree_graphs), the flat decode
+    (flat_decodes), VQ's k-means (vq_graphs); then the eager and graph
+    forms in turns, the chunk length's sweep, and the card memory the graphs
+    hold."""
+    import torch
+
+    from fractencode_tpu_torch import decode_plane, encode_plane
+    from fractencode_tpu_torch.decode import decoder as dec
+    from fractencode_tpu_torch.encode import encoder as enc, quadtree as tq, vq
+    from fractencode_tpu_torch.utils import graphs, tables
+
+    quadtree_graphs(kernels)
+    flat_decodes()
+    vq_graphs()
+
+    big = natural_plane(2048, SEED + 2048)
+    cfg, qcfg, pyr = qt_config([])
+    qframes = np.stack([natural_plane(1024, SEED + 2000 + i) for i in range(8)])  # phase 20's
+    qres = tq.encode_plane_quadtree(big, cfg, qcfg, device="cuda")
+    _, ccfg, flat = parse(["--device", "cuda", "--compat"])
+    res = enc.encode_plane(big, ccfg, device="cuda")
+    _, it, _ = decode_plane(res, flat)
+    _, vcfg, _ = parse(["--device", "cuda", "--vq-classes", "4"])
+    p_big = torch.from_numpy(big).cuda()
+    _, vq_steps = vq._kmeans(*enc._vq_start(p_big, vcfg), vq.MAX_STEPS, vq.EPSILON, graph=False)
+    vq_steps = int(vq_steps)
+
+    def vq_eager():
+        p = enc.plane_on_device(big, "cuda")
+        book, _ = vq._kmeans(*enc._vq_start(p, vcfg), vq.MAX_STEPS, vq.EPSILON, graph=False)
+        return enc._encode_arrays(p, vcfg, book)
+
+    print("     eager and graph forms in turns (host clock, medians of 7; busy share by "
+          "torch.profiler; host syncs by torch.cuda.set_sync_debug_mode; the flat loops "
+          f"read their exit flag once a chunk of {dec._CHUNK} steps):")
+    timed_forms("encode_batch_quadtree_stacked 8 x 1024^2", 8, lambda graph: lambda: (
+        tq._encode_batch(enc.plane_on_device(qframes, "cuda"), cfg, qcfg, graph)))
+    timed_forms("encode_plane_quadtree 2048^2", 1, lambda graph: (
+        lambda: tq.encode_plane_quadtree(big, cfg, qcfg, device="cuda")) if graph else (
+        lambda: tq._quadtree_arrays(enc.plane_on_device(big, "cuda"), cfg, qcfg)))
+    timed_forms("decode_plane_quadtree 2048^2 (pyramid)", 1, lambda graph: (
+        lambda: tq.decode_plane_quadtree(qres, pyr)) if graph else (
+        lambda: float(tq._decode(qres, pyr, graph=False)[2])))
+    steps = min(it + 1, flat.max_iterations)  # the exit step runs, uncounted
+    timed_forms(f"decode_plane 2048^2 --compat (flat, {it} iterations)", 1, lambda graph: (
+        lambda: decode_plane(res, flat)) if graph else (
+        lambda: [float(x) for x in dec._flat_decode(res, flat, graph=False)[1:]]),
+        graph_syncs=-(-steps // dec._CHUNK) + 2)
+    timed_forms(f"encode_plane 2048^2 --vq-classes 4 ({vq_steps} k-means steps)", 1,
+                lambda graph: (lambda: encode_plane(big, vcfg, device="cuda")) if graph
+                else vq_eager, graph_syncs=-(-vq_steps // vq._CHUNK) + 1)
+
+    def chunked(module, c, fn):
+        def run():
+            module._CHUNK = c
+            out = fn()
+            torch.cuda.synchronize()
+            return out
+        return run
+
+    chunk = (dec._CHUNK, vq._CHUNK)
+    try:
+        ms = host_turns({c: chunked(dec, c, lambda: decode_plane(res, flat))
+                         for c in (1, 4, 8, 16)}
+                        | {"eager 1": chunked(dec, 1, lambda: float(
+                            dec._flat_decode(res, flat, graph=False)[2]))})
+        print(f"     chunk length, 2048^2 flat decode (host ms, in turns, medians of 7): "
+              + ", ".join(f"{c} {t:.3f}" for c, t in ms.items()))
+        ms = host_turns({c: chunked(vq, c, lambda: encode_plane(big, vcfg, device="cuda"))
+                         for c in (1, 8, 32)})
+        print(f"     chunk length, 2048^2 --vq-classes 4 encode: "
+              + ", ".join(f"{c} {t:.3f}" for c, t in ms.items()))
+    finally:
+        dec._CHUNK, vq._CHUNK = chunk
+    held = (f"{len(graphs._GRAPHS)} graphs and {len(tables._TABLES)} tables "
+            f"({sum(t.nbytes for t in tables._TABLES.values())} bytes) kept: card memory "
+            f"allocated {torch.cuda.memory_allocated()}, reserved "
+            f"{torch.cuda.memory_reserved()} bytes")
+    graphs.clear()
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"     after the timings, {held}; after graphs.clear(): allocated "
+          f"{torch.cuda.memory_allocated()}, reserved {torch.cuda.memory_reserved()} bytes")
 
 
 def vq_labels(img, cfg, device):
@@ -2821,6 +3170,13 @@ def main(argv=None) -> int:
     t25 = time.perf_counter()
     graph_phase(kernels)
     print(f"     phase 25 took {time.perf_counter() - t25:.1f} s")
+
+    # -- 26. the JAX package's remaining device loops on CUDA graphs
+    print("[26] the quadtree pyramid and its batch, the flat decode (grid and quadtree) "
+          "and VQ's k-means on CUDA graphs, against their eager forms and the CPU")
+    t26 = time.perf_counter()
+    loop_phase(kernels)
+    print(f"     phase 26 took {time.perf_counter() - t26:.1f} s")
 
     records = list(kernels.records.values())
     for rec in records:

@@ -8,10 +8,12 @@ sample the isometry-mapped domain (2x2 average), apply ``s*v + o``, clamp to
 
 One step is a gather of every range's K domain samples through static tap
 tables, an affine map and a reshape; ranges tile the image, so there is no
-scatter.  The loops run in Python: the flat loop reads one MSE and one cycle
-flag back per step for its exit tests, the pyramid loop runs a fixed count,
-which on the card is one CUDA graph (``utils.graphs``; the counterpart of
-the JAX package's jitted ``decode_plane``) whose MSE is read once.
+scatter.  The pyramid loop runs a fixed count, which on the card is one
+CUDA graph (``utils.graphs``; the counterpart of the JAX package's jitted
+``decode_plane``) whose MSE is read once.  The flat loop carries its exit
+tests on the device (``graphs.while_loop``, the counterpart of its
+``lax.while_loop``): chunks of predicated steps, one CUDA graph on the
+card, the exit flag read once a chunk.
 """
 from __future__ import annotations
 
@@ -338,7 +340,7 @@ def _full_steps(dcfg: DecoderConfig) -> int:
 
 def _has_pyramid(result: EncodeResult, dcfg: DecoderConfig) -> bool:
     """Whether ``result``'s decode starts from a pyramid and so runs a fixed
-    count of steps (and may replay a CUDA graph), from its geometry alone."""
+    count of steps, from its geometry alone."""
     return dcfg.pyramid and bool(pyramid_factors(
         result.height, result.width, result.target_size, result.source_size,
         result.domain_step, max_levels=dcfg.pyramid_levels))
@@ -351,6 +353,57 @@ def _full_res(step, start, dcfg: DecoderConfig):
     for _ in range(_full_steps(dcfg)):
         img, prev = step(img), img
     return img, _step_mse(img, prev)
+
+
+# flat-loop steps a chunk: the host reads the exit flag once a chunk, and a
+# chunk runs on past the exit by up to _CHUNK - 1 steps that change nothing
+# (chip_smoke.py phase 26 times 1, 4, 8 and 16; PERF.md)
+_CHUNK = 8
+
+
+def _loop_body(step, dcfg: DecoderConfig):
+    """One step of the flat loop over its carry (image, previous image,
+    steps, mse, done, best mse, steps since the best improved), with the JAX
+    package's exit tests: epsilon, an exact period-2 cycle (u8 truncation
+    can trap a few pixels flip-flopping forever), or a stall (no
+    improvement by stall_rtol for stall_window steps); in f32 and i32, as
+    the JAX package's ``lax.while_loop`` body."""
+    eps = float(np.float32(dcfg.epsilon))
+    keep = float(np.float32(1.0 - dcfg.stall_rtol))
+
+    def body(carry):
+        img, prev, steps, _, _, best, since = carry
+        nxt = step(img)
+        mse = _step_mse(nxt, img)
+        since = torch.where(mse < best * keep, 0, since + 1)
+        done = (mse < eps) | (nxt == prev).all()
+        if dcfg.stall_window > 0:
+            done = done | (since >= dcfg.stall_window)
+        return nxt, img, steps + 1, mse, done, torch.minimum(best, mse), since
+
+    return body
+
+
+def _flat_loop(name: str, statics: tuple, make_step, arrays: tuple, init, dcfg: DecoderConfig,
+               graph: bool, ran_steps: bool = False):
+    """The flat decode loop from ``init`` (``graphs.while_loop``:
+    ``make_step(*arrays)`` is the decode step; on the card with ``graph``,
+    chunks replay one CUDA graph per (``name``, ``statics``, dcfg)), as
+    (image, iterations, mse), the last two 0-d device tensors.  Iterations
+    follow the reference's count (the step that met an exit is not counted),
+    or with ``ran_steps`` every step run, as the JAX package's sharded
+    decode counts them."""
+    dev = init.device
+    inf = torch.full((), np.inf, dtype=torch.float32, device=dev)
+    zero = torch.zeros((), dtype=torch.int32, device=dev)
+    # prev differs from any first iterate
+    carry = (init, init ^ 1, zero, inf, torch.zeros((), dtype=torch.bool, device=dev),
+             inf, zero)
+    img, _, steps, mse, done, _, _ = graphs.while_loop(
+        name, (dcfg, *statics), lambda *a: _loop_body(make_step(*a), dcfg),
+        lambda c: (c[2] < dcfg.max_iterations) & ~c[4], arrays, carry,
+        graph=graph, chunk=_CHUNK)
+    return img, (steps if ran_steps else steps - done.to(torch.int32)), mse
 
 
 def _pyramid_decode(result: EncodeResult, dcfg: DecoderConfig):
@@ -373,14 +426,19 @@ def _pyramid_decode(result: EncodeResult, dcfg: DecoderConfig):
 _DECODE_FIELDS = ("domain_idx", "transform", "s", "o", "valid")
 
 
+def _geometry(result: EncodeResult) -> dict:
+    """``result``'s fields other than its arrays."""
+    return {f.name: getattr(result, f.name) for f in dataclasses.fields(result)
+            if f.name not in ARRAY_FIELDS}
+
+
 def _frame_decode(result: EncodeResult, dcfg: DecoderConfig, graph: bool):
     """``_pyramid_decode`` of ``result``, eager or through its CUDA graph,
     one for each (geometry, config, device) (``utils.graphs``: the outputs
     are the graph's own, overwritten by the next frame)."""
     if not graph:
         return _pyramid_decode(result, dcfg)
-    geometry = {f.name: getattr(result, f.name) for f in dataclasses.fields(result)
-                if f.name not in ARRAY_FIELDS}
+    geometry = _geometry(result)
 
     def decode(*arrays):
         return _pyramid_decode(EncodeResult(**dict(zip(_DECODE_FIELDS, arrays)),
@@ -390,60 +448,41 @@ def _frame_decode(result: EncodeResult, dcfg: DecoderConfig, graph: bool):
                          *(getattr(result, f) for f in _DECODE_FIELDS))
 
 
-def _decode_core(result: EncodeResult, dcfg: DecoderConfig, ran_steps: bool = False):
-    if _has_pyramid(result, dcfg):
-        img, mse = _pyramid_decode(result, dcfg)
-        return img, _full_steps(dcfg), float(mse)
+def _flat_decode(result: EncodeResult, dcfg: DecoderConfig, graph: bool,
+                 ran_steps: bool = False):
+    """``_flat_loop`` over ``result``'s decode step from the flat start image,
+    or from the block-mean fixed point (``initial='means'``, computed before
+    the loop where the geometry qualifies)."""
     h, w = result.height, result.width
-    tables = _build_indices(result)
-    s = torch.where(result.valid, result.s, 0.0)
-    o = torch.where(result.valid, result.o, 0.0)
-
-    def step(img):
-        return _decode_step(img, tables, s, o, h, w, result.target_size,
-                            result.o_is_mean)
-
-    init = torch.full((h, w), dcfg.initial_value, dtype=torch.uint8, device=s.device)
+    geometry = _geometry(result)
+    init = torch.full((h, w), dcfg.initial_value, dtype=torch.uint8, device=result.s.device)
     if dcfg.initial == "means":
         mi = _mean_init_image(result, dcfg)
         if mi is not None:
             init = mi
-    return _fixed_point(step, init, None, dcfg, ran_steps)
+
+    def make_step(*arrays):
+        frame = EncodeResult(**dict(zip(_DECODE_FIELDS, arrays)), distance=None, **geometry)
+        tables = _build_indices(frame)
+        s = torch.where(frame.valid, frame.s, 0.0)
+        o = torch.where(frame.valid, frame.o, 0.0)
+        return lambda img: _decode_step(img, tables, s, o, h, w, frame.target_size,
+                                        frame.o_is_mean)
+
+    return _flat_loop("decode_plane_flat", tuple(geometry.items()), make_step,
+                      tuple(getattr(result, f) for f in _DECODE_FIELDS), init, dcfg,
+                      graph, ran_steps)
 
 
-def _fixed_point(step, init, start, dcfg: DecoderConfig, ran_steps: bool = False):
-    """The decode loop, as (image, iterations, mse).
-
-    From a pyramid ``start`` image: a fixed count of full-res steps, capped
-    by an explicit iteration limit (see DecoderConfig.pyramid_full_steps).
-    Without one (None), from ``init``: the flat loop with the JAX package's
-    exit tests: epsilon, an exact period-2 cycle (u8 truncation can trap a
-    few pixels flip-flopping forever), or a stall (no improvement by
-    stall_rtol for stall_window steps).  The flat loop's iterations follow
-    the reference's count (the step that met an exit is not counted), or
-    with ``ran_steps`` every step run, as the JAX package's sharded decode
-    counts them.  It reads the MSE and the cycle test back at every step.
-    """
-    if start is not None:
-        img, mse = _full_res(step, start, dcfg)
+def _decode_core(result: EncodeResult, dcfg: DecoderConfig, ran_steps: bool = False):
+    """(image, iterations int, mse float): the pyramid decode eagerly, or
+    the flat loop, its chunks on their CUDA graph on the card."""
+    if _has_pyramid(result, dcfg):
+        img, mse = _pyramid_decode(result, dcfg)
         return img, _full_steps(dcfg), float(mse)
-
-    eps = np.float32(dcfg.epsilon)
-    keep = np.float32(1.0 - dcfg.stall_rtol)
-    img, prev = init, init ^ 1  # prev differs from any first iterate
-    steps, done, since = 0, False, 0
-    mse = best = np.float32(np.inf)
-    while steps < dcfg.max_iterations and not done:
-        nxt = step(img)
-        mse = np.float32(_step_mse(nxt, img).item())
-        cycle = torch.equal(nxt, prev)
-        since = 0 if mse < best * keep else since + 1
-        best = min(best, mse)
-        stalled = dcfg.stall_window > 0 and since >= dcfg.stall_window
-        img, prev = nxt, img
-        steps += 1
-        done = bool(mse < eps) or cycle or stalled
-    return img, (steps - 1 if done and not ran_steps else steps), float(mse)
+    graph = result.s.device.type == "cuda"
+    img, it, mse = _flat_decode(result, dcfg, graph, ran_steps)
+    return (img.clone() if graph else img), int(it), float(mse)
 
 
 def _to_device(result, device):
@@ -461,10 +500,10 @@ def decode_plane(result: EncodeResult, dcfg: DecoderConfig = DecoderConfig(), *,
                  device: torch.device | str | None = None):
     """Decode to a fixed point on ``device`` (default: the result's).
     Returns (plane u8 [H, W] tensor, iterations int, mse float); iterations
-    follow the reference's count (``Encoder2.hpp:76-88``).  The pyramid
-    decode (``dcfg.pyramid`` where the geometry has a level) is one CUDA
-    graph on the card, whose MSE is read once; the flat loop reads its exit
-    tests back at every step and runs eagerly."""
+    follow the reference's count (``Encoder2.hpp:76-88``).  On the card the
+    pyramid decode (``dcfg.pyramid`` where the geometry has a level) is one
+    CUDA graph whose MSE is read once, and the flat loop's chunks replay
+    one, its exit flag read once a chunk (``graphs.while_loop``)."""
     result = _to_device(result, device)
     if not _has_pyramid(result, dcfg):
         return _decode_core(result, dcfg)
@@ -478,36 +517,36 @@ def decode_batch_stacked(result: EncodeResult, dcfg: DecoderConfig = DecoderConf
     ``encode_batch_stacked`` gives them) on the result's device, frame after
     frame as ``decode_plane`` does with each frame's ``distance`` zeroed, as
     the JAX package's does.  Returns ([B, H, W] u8, [B] i32 iterations, [B]
-    f32 mse) tensors; the last two on the CPU.  The pyramid decode writes
-    each frame into its row of the preallocated outputs and reads the MSEs
-    back once for the batch."""
+    f32 mse) tensors; the last two on the CPU.  Each frame is written into
+    its row of the preallocated outputs, and the iterations and MSEs are
+    read back once for the batch."""
     return _decode_batch(result, dcfg, result.s.device.type == "cuda")
 
 
 def _decode_batch(result: EncodeResult, dcfg: DecoderConfig, graph: bool):
-    """``decode_batch_stacked``, the pyramid decode's frames eager or
-    through the graph."""
+    """``decode_batch_stacked``, its frames eager or through the graphs."""
     b = result.domain_idx.shape[0]
-    frames = (dataclasses.replace(
-        result, domain_idx=result.domain_idx[i], transform=result.transform[i],
-        s=result.s[i], o=result.o[i], distance=torch.zeros_like(result.s[i]),
-        valid=result.valid[i]) for i in range(b))
-    if _has_pyramid(result, dcfg):
-        outs = mses = None
-        for i, frame in enumerate(frames):
-            img, mse = _frame_decode(frame, dcfg, graph)
-            if outs is None:
-                outs, mses = img.new_empty((b, *img.shape)), mse.new_empty((b,))
-            outs[i], mses[i] = img, mse
+    pyramid = _has_pyramid(result, dcfg)
+    outs = iters = mses = None
+    for i in range(b):
+        frame = dataclasses.replace(
+            result, domain_idx=result.domain_idx[i], transform=result.transform[i],
+            s=result.s[i], o=result.o[i], distance=torch.zeros_like(result.s[i]),
+            valid=result.valid[i])
+        if pyramid:
+            (img, mse), it = _frame_decode(frame, dcfg, graph), None
+        else:
+            img, it, mse = _flat_decode(frame, dcfg, graph)
+        if outs is None:
+            outs = img.new_empty((b, *img.shape))
+            iters = torch.empty((b,), dtype=torch.int32, device=img.device)
+            mses = mse.new_empty((b,))
+        outs[i], mses[i] = img, mse
+        if it is not None:
+            iters[i] = it
+    if pyramid:
         return outs, torch.full((b,), _full_steps(dcfg), dtype=torch.int32), mses.cpu()
-    outs, iters, mses = [], [], []
-    for frame in frames:
-        out, it, mse = _decode_core(frame, dcfg)
-        outs.append(out)
-        iters.append(it)
-        mses.append(mse)
-    return (torch.stack(outs), torch.tensor(iters, dtype=torch.int32),
-            torch.tensor(mses, dtype=torch.float32))
+    return outs, iters.cpu(), mses.cpu()
 
 
 def decode_steps_py(result: EncodeResult, dcfg: DecoderConfig = DecoderConfig(),

@@ -29,7 +29,8 @@ from ..utils import graphs
 from ..utils.prng import prng_key
 from .codebook import build_codebook, extract_ranges, range_sums
 from .matcher import replays_graph, search_classed, search_dense
-from .vq import assign_codes, train_codebook
+from . import vq
+from .vq import assign_codes
 
 __all__ = ["EncodeResult", "ARRAY_FIELDS", "encode_plane", "encode_batch",
            "encode_batch_stacked", "encode_stats", "default_device", "plane_on_device"]
@@ -122,27 +123,38 @@ def _normalize_affine(v: torch.Tensor) -> torch.Tensor:
     return c * (1.0 / torch.sqrt(var + 1.0)).float()
 
 
+def _vq_vectors(ranges: torch.Tensor, cb):
+    """(domain vectors, range vectors) of the VQ bins: the identity-isometry
+    domains and the ranges, contrast- and brightness-normalized."""
+    return _normalize_affine(cb.values[:, 0, :]), _normalize_affine(ranges)
+
+
+def _vq_limit(d: int, cfg: EncoderConfig):
+    return cfg.vq_sample_limit if cfg.vq_sample_limit < d else None
+
+
+def _vq_labels(ranges: torch.Tensor, cb, codebook: torch.Tensor):
+    """(range_classes, domain_classes): each vector's nearest codeword id,
+    in the classifier's value convention (the class layout shifts by +1, so
+    codeword ids 0..N-1 are returned as -1..N-2 -> bins 0..N-1)."""
+    dvec, rvec = _vq_vectors(ranges, cb)
+    return assign_codes(rvec, codebook) - 1, assign_codes(dvec, codebook) - 1
+
+
 def _vq_classes(ranges: torch.Tensor, cb, cfg: EncoderConfig):
-    """(range_classes, domain_classes) from a learned LBG codebook, in the
-    classifier's value convention
-    (the class layout shifts by +1, so codeword ids 0..N-1 are returned as
-    -1..N-2 -> bins 0..N-1)."""
-    dvec = _normalize_affine(cb.values[:, 0, :])  # identity-isometry domains
-    rvec = _normalize_affine(ranges)
-    d = dvec.shape[0]
-    limit = cfg.vq_sample_limit if cfg.vq_sample_limit < d else None
-    codebook, dcls, _ = train_codebook(dvec, prng_key(cfg.vq_seed), cfg.vq_classes,
-                                       sample_limit=limit)
-    rcls = assign_codes(rvec, codebook)
-    return rcls - 1, dcls - 1
+    """``_vq_labels`` of a learned LBG codebook, trained here."""
+    dvec, _ = _vq_vectors(ranges, cb)
+    codebook, _, _ = vq.train_codebook(dvec, prng_key(cfg.vq_seed), cfg.vq_classes,
+                                       sample_limit=_vq_limit(dvec.shape[0], cfg))
+    return _vq_labels(ranges, cb, codebook)
 
 
-def _encode_arrays(plane: torch.Tensor, cfg: EncoderConfig) -> tuple:
-    """The six per-range arrays (``ARRAY_FIELDS``) of one [H, W] u8 plane."""
+def _inputs(plane: torch.Tensor, cfg: EncoderConfig):
+    """(codebook, ranges, SumA, SumA2, 2x2 box sums or None) of one [H, W] u8
+    plane."""
     h, w = plane.shape
     plane_f32 = plane.to(torch.float32)
     domain_grid = uniform_grid(w, h, cfg.source_size, cfg.domain_step)
-    range_grid = uniform_grid(w, h, cfg.target_size, cfg.target_size)
     # one 2x2 box-sum pass feeds both the codebook's half image (x0.25,
     # exact) and the classifier's quadrant sums
     if h % 2 == 0 and w % 2 == 0:
@@ -150,19 +162,37 @@ def _encode_arrays(plane: torch.Tensor, cfg: EncoderConfig) -> tuple:
         half = sums2x2.to(torch.float32) * 0.25
     else:
         sums2x2 = half = None
-
     cb = build_codebook(plane_f32, domain_grid, cfg.target_size,
                         cfg.num_transforms, half=half)
     ranges = extract_ranges(plane_f32, cfg.target_size)
-    sum_a, sum_a2 = range_sums(ranges)
+    return (cb, ranges, *range_sums(ranges), sums2x2)
+
+
+def _vq_start(plane: torch.Tensor, cfg: EncoderConfig) -> tuple:
+    """The k-means' inputs for one plane's VQ bins (``vq._start``)."""
+    cb, ranges, *_ = _inputs(plane, cfg)
+    dvec, _ = _vq_vectors(ranges, cb)
+    return vq._start(dvec, prng_key(cfg.vq_seed), cfg.vq_classes,
+                     _vq_limit(dvec.shape[0], cfg))
+
+
+def _encode_arrays(plane: torch.Tensor, cfg: EncoderConfig, codebook=None) -> tuple:
+    """The six per-range arrays (``ARRAY_FIELDS``) of one [H, W] u8 plane.
+    With ``vq_classes``, ``codebook`` is the trained VQ codebook, or None to
+    train it here."""
+    h, w = plane.shape
+    cb, ranges, sum_a, sum_a2, sums2x2 = _inputs(plane, cfg)
     if cfg.vq_classes > 0:
         # learned pruning: the LBG codeword id as the class bin, on contrast-
         # and brightness-normalized vectors; the classed search runs on
         # these bins as on the classifier's (use_classifier forced on)
-        range_classes, domain_classes = _vq_classes(ranges, cb, cfg)
+        range_classes, domain_classes = (_vq_classes(ranges, cb, cfg) if codebook is None
+                                         else _vq_labels(ranges, cb, codebook))
         res = search_classed(ranges, sum_a, sum_a2, cb, range_classes, domain_classes,
                              dataclasses.replace(cfg, use_classifier=True))
     elif cfg.use_classifier:
+        domain_grid = uniform_grid(w, h, cfg.source_size, cfg.domain_step)
+        range_grid = uniform_grid(w, h, cfg.target_size, cfg.target_size)
         ii = integral_image(plane)
         domain_classes = classify_grid(plane, domain_grid, ii=ii, sums2x2=sums2x2)
         range_classes = classify_grid(plane, range_grid, ii=ii, sums2x2=sums2x2)
@@ -183,9 +213,18 @@ def _replays(h: int, w: int, cfg: EncoderConfig, device) -> bool:
 
 def _frame_arrays(plane: torch.Tensor, cfg: EncoderConfig, graph: bool) -> tuple:
     """``_encode_arrays`` of one plane, eager or through its graph; the
-    graph's outputs are its own, overwritten by the next frame."""
+    graph's outputs are its own, overwritten by the next frame.  With
+    ``vq_classes`` the graph form is three: the k-means' start, its chunks
+    (``vq._kmeans``) and the encode given the trained codebook (the start
+    and the encode each build the codebook and the ranges)."""
     if not graph:
         return _encode_arrays(plane, cfg)
+    if cfg.vq_classes > 0:
+        start = graphs.replay("encode_plane_vq_start", (cfg,),
+                              lambda p: _vq_start(p, cfg), plane)
+        codebook, _ = vq._kmeans(*start, vq.MAX_STEPS, vq.EPSILON, graph=True)
+        return graphs.replay("encode_plane", (cfg,),
+                             lambda p, c: _encode_arrays(p, cfg, c), plane, codebook)
     return graphs.replay("encode_plane", (cfg,), lambda p: _encode_arrays(p, cfg), plane)
 
 

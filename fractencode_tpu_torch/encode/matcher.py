@@ -214,23 +214,24 @@ def _classed_statics(r: int, m: int, masked_domains: bool = False,
     return (*layout, worst_pairs, min(worst_pairs, _mk.PAIR_CAP), use_pairs)
 
 
-def replays_graph(r: int, m: int, cfg: EncoderConfig, device) -> bool:
+def replays_graph(r: int, m: int, cfg: EncoderConfig, device,
+                  masked_ranges: bool = False) -> bool:
     """Whether the search of ``r`` ranges against ``m`` search-order
     columns under ``cfg`` on ``device`` runs inside a CUDA graph
     (``utils.graphs``): only where nothing it does reads back to the host.
-    That is a card under backend 'auto' or 'cuda', no VQ classes (the
-    k-means reads back at every step), and a route fixed by the shapes:
-    the dense search (K3), or K1 where the JAX package's pair list fits in
-    every case (``use_pairs`` and ``worst_pairs <= p_cap``, so
-    ``classed_prep`` counts no pairs).  K2 reads its split plan back
-    (``ops.matcher_kernels._split_plan``)."""
-    if torch.device(device).type != "cuda" or cfg.backend == "torch" or cfg.vq_classes:
+    That is a card under backend 'auto' or 'cuda', and a route fixed by the
+    shapes: the dense search (K3), or K1 where the JAX package's pair list
+    fits in every case (``use_pairs`` and ``worst_pairs <= p_cap``, so
+    ``classed_prep`` counts no pairs), for a layout with the reserved row
+    bin of ``masked_ranges`` (a quadtree level under the coverage mask).  K2
+    reads its split plan back (``ops.matcher_kernels._split_plan``)."""
+    if torch.device(device).type != "cuda" or cfg.backend == "torch":
         return False
-    if not cfg.use_classifier:
+    if not cfg.use_classifier and not cfg.vq_classes:
         return r > 0 and m > 0
     if r == 0 or m == 0:
         return False
-    *_, worst_pairs, p_cap, use_pairs = _classed_statics(r, m)
+    *_, worst_pairs, p_cap, use_pairs = _classed_statics(r, m, masked_ranges=masked_ranges)
     return use_pairs and worst_pairs <= p_cap
 
 

@@ -12,12 +12,15 @@ Decode composes per-level decode steps with per-pixel masks: every level's
 grid tiles the plane, so each produces a full image, and the output takes
 each pixel from the level that holds its leaf.
 
-The JAX package runs the pyramid as one fused program or level by level;
-PyTorch runs eagerly, so there is one form here, the per-level loop.  The
-batch forms run it frame by frame (the JAX package's ``lax.map``) and stack
-each level's arrays; the sharded forms run each data shard's frames on its
-own device (``parallel.mesh``); the FTQ1 bitstream is
-``codec/bitstream_quadtree.py``.
+The JAX package runs the pyramid as one fused program, or level by level
+for a progress reporter; so does the port: on the card, where every level's
+route is fixed by its shape (``_replays``), the pyramid is one CUDA graph
+(``utils.graphs``), and the per-level loop runs eagerly otherwise.  The
+batch forms run it frame by frame (the JAX package's ``lax.map``) into
+preallocated level arrays; the sharded forms run each data shard's frames
+on its own device (``parallel.mesh``); the decode is one graph from the
+pyramid, or the flat loop's chunks (``graphs.while_loop``); the FTQ1
+bitstream is ``codec/bitstream_quadtree.py``.
 """
 from __future__ import annotations
 
@@ -29,9 +32,10 @@ from ..core.classify import classify_grid
 from ..core.grid import uniform_grid
 from ..core.stats import block_sums_nonoverlapping, integral_image
 from ..params import DecoderConfig, EncoderConfig
+from ..utils import graphs
 from .codebook import build_codebook, extract_ranges, range_sums
 from .encoder import plane_on_device
-from .matcher import mask_ranges_result, search_classed, search_dense
+from .matcher import mask_ranges_result, replays_graph, search_classed, search_dense
 
 __all__ = ["QuadtreeConfig", "QuadtreeLevel", "QuadtreeResult",
            "encode_plane_quadtree", "encode_batch_quadtree",
@@ -86,6 +90,10 @@ class QuadtreeLevel:
     # parameterization; see the JAX package's codec.bitstream)
     o_is_mean: bool = False
     num_transforms: int = 8  # isometries the search considered
+
+
+# QuadtreeLevel's per-range arrays
+LEVEL_ARRAY_FIELDS = ("domain_idx", "transform", "s", "o", "error", "accepted")
 
 
 @dataclasses.dataclass
@@ -146,35 +154,22 @@ def _upsample_mask(mask2d: torch.Tensor) -> torch.Tensor:
     return mask2d.repeat_interleave(2, 0).repeat_interleave(2, 1)
 
 
-def encode_plane_quadtree(plane, cfg: EncoderConfig | None = None,
-                          qcfg: QuadtreeConfig | None = None, reporter=None, *,
-                          device: torch.device | str | None = None
-                          ) -> QuadtreeResult:
-    """Adaptive-depth encode of one [H, W] u8 plane (numpy array or tensor)
-    on ``device`` (default: the tensor's, or the card for a numpy array; see
-    ``encoder.plane_on_device``): coarse blocks where they fit, fine where
-    needed.  ``cfg`` (its ``rms_threshold`` among the rest, not
-    ``vq_classes``) applies at every level; ``reporter`` (a
-    ``utils.ProgressReporter``) logs each level done."""
-    cfg = cfg or EncoderConfig()
-    qcfg = qcfg or QuadtreeConfig()
-    plane = plane_on_device(plane, device)
+def _quadtree_arrays(plane: torch.Tensor, cfg: EncoderConfig, qcfg: QuadtreeConfig,
+                     reporter=None) -> tuple:
+    """Every level's six arrays (``LEVEL_ARRAY_FIELDS``, coarse to fine) of
+    one [H, W] u8 plane, as one flat tuple: the per-level encodes and the
+    selection cascade.  ``reporter`` logs each level done."""
     h, w = plane.shape
-    if h % qcfg.max_size or w % qcfg.max_size:
-        raise ValueError("image not aligned to the coarsest range size")
     plane_f32 = plane.to(torch.float32)
-    levels = []
+    arrays = []
     covered = None  # [ny, nx] bool at the current level's resolution
     sizes = qcfg.level_sizes
     for i, rs in enumerate(sizes):
         ds = rs * qcfg.domain_ratio
-        step = ds // qcfg.lattice
-        lcfg = dataclasses.replace(cfg, source_size=ds, target_size=rs,
-                                   lattice=qcfg.lattice)
         range_mask = (None if covered is None or not qcfg.mask_covered
                       else ~covered.reshape(-1))
-        res, err = _encode_level(plane, plane_f32, lcfg, rs, ds, step,
-                                 range_mask=range_mask)
+        res, err = _encode_level(plane, plane_f32, _level_config(cfg, qcfg, rs), rs, ds,
+                                 ds // qcfg.lattice, range_mask=range_mask)
         ny, nx = h // rs, w // rs
         if covered is None:
             covered = torch.zeros((ny, nx), dtype=torch.bool, device=plane.device)
@@ -183,19 +178,92 @@ def encode_plane_quadtree(plane, cfg: EncoderConfig | None = None,
         else:
             accept2d = ~covered & (err.reshape(ny, nx) <= qcfg.error_threshold)
         covered = covered | accept2d
-        levels.append(QuadtreeLevel(
-            domain_idx=res.domain_idx, transform=res.transform, s=res.s,
-            o=res.o, error=err, accepted=accept2d.reshape(-1), range_size=rs,
-            domain_size=ds, domain_step=step, num_transforms=cfg.num_transforms))
+        arrays += [res.domain_idx, res.transform, res.s, res.o, err, accept2d.reshape(-1)]
         if i < len(sizes) - 1:
             covered = _upsample_mask(covered)
         if reporter is not None:
             reporter.log(i + 1, len(sizes))
+    return tuple(arrays)
+
+
+def _level_config(cfg: EncoderConfig, qcfg: QuadtreeConfig, rs: int) -> EncoderConfig:
+    """The uniform-grid config of the level of ``rs`` px ranges (the levels
+    search without VQ bins)."""
+    return dataclasses.replace(cfg, source_size=rs * qcfg.domain_ratio, target_size=rs,
+                               lattice=qcfg.lattice, vq_classes=0)
+
+
+def _replays(h: int, w: int, cfg: EncoderConfig, qcfg: QuadtreeConfig, device) -> bool:
+    """Whether the quadtree encode of an [h, w] plane on ``device`` runs in
+    one CUDA graph, decided before any work: every level's route is fixed
+    by its shape (``matcher.replays_graph``), each level past the first
+    under the coverage mask when ``mask_covered``, as the JAX package's
+    route statics take it."""
+    for i, rs in enumerate(qcfg.level_sizes):
+        lcfg = _level_config(cfg, qcfg, rs)
+        r = (h // rs) * (w // rs)
+        m = (uniform_grid(w, h, lcfg.source_size, lcfg.domain_step).num_items
+             * cfg.num_transforms)
+        if not replays_graph(r, m, lcfg, device,
+                             masked_ranges=i > 0 and qcfg.mask_covered):
+            return False
+    return True
+
+
+def _frame_levels(plane: torch.Tensor, cfg: EncoderConfig, qcfg: QuadtreeConfig,
+                  graph: bool) -> tuple:
+    """``_quadtree_arrays`` of one plane, eager or through its CUDA graph
+    (the counterpart of the JAX package's ``_encode_quadtree_fused``); the
+    graph's outputs are its own, overwritten by the next frame."""
+    if not graph:
+        return _quadtree_arrays(plane, cfg, qcfg)
+    return graphs.replay("encode_plane_quadtree", (cfg, qcfg),
+                         lambda p: _quadtree_arrays(p, cfg, qcfg), plane)
+
+
+def _levels(arrays, h: int, w: int, cfg: EncoderConfig, qcfg: QuadtreeConfig
+            ) -> QuadtreeResult:
+    """The QuadtreeResult of ``_quadtree_arrays``' flat tuple."""
+    nf = len(LEVEL_ARRAY_FIELDS)
+    levels = [QuadtreeLevel(**dict(zip(LEVEL_ARRAY_FIELDS, arrays[nf * i:nf * (i + 1)])),
+                            range_size=rs, domain_size=rs * qcfg.domain_ratio,
+                            domain_step=rs * qcfg.domain_ratio // qcfg.lattice,
+                            num_transforms=cfg.num_transforms)
+              for i, rs in enumerate(qcfg.level_sizes)]
     return QuadtreeResult(levels=levels, width=w, height=h)
 
 
-# QuadtreeLevel's per-range arrays
-LEVEL_ARRAY_FIELDS = ("domain_idx", "transform", "s", "o", "error", "accepted")
+def _check_aligned(h: int, w: int, qcfg: QuadtreeConfig) -> None:
+    if h % qcfg.max_size or w % qcfg.max_size:
+        raise ValueError("image not aligned to the coarsest range size")
+
+
+def encode_plane_quadtree(plane, cfg: EncoderConfig | None = None,
+                          qcfg: QuadtreeConfig | None = None, reporter=None, *,
+                          device: torch.device | str | None = None
+                          ) -> QuadtreeResult:
+    """Adaptive-depth encode of one [H, W] u8 plane (numpy array or tensor)
+    on ``device`` (default: the tensor's, or the card for a numpy array; see
+    ``encoder.plane_on_device``): coarse blocks where they fit, fine where
+    needed.  ``cfg`` (its ``rms_threshold`` among the rest, not
+    ``vq_classes``) applies at every level.  On the card, where ``_replays``
+    allows, the whole pyramid is one CUDA graph for each (shape, config,
+    device), run eagerly at its first call and captured at its second
+    (``utils.graphs``); a replay's result is a copy of the graph's outputs.
+    ``reporter`` (a ``utils.ProgressReporter``) logs each level done, from
+    the per-level eager loop, as the JAX package does."""
+    cfg = cfg or EncoderConfig()
+    qcfg = qcfg or QuadtreeConfig()
+    plane = plane_on_device(plane, device)
+    h, w = plane.shape
+    _check_aligned(h, w, qcfg)
+    if reporter is not None:
+        return _levels(_quadtree_arrays(plane, cfg, qcfg, reporter), h, w, cfg, qcfg)
+    graph = _replays(h, w, cfg, qcfg, plane.device)
+    arrays = _frame_levels(plane, cfg, qcfg, graph)
+    if graph:
+        arrays = tuple(x.clone() for x in arrays)
+    return _levels(arrays, h, w, cfg, qcfg)
 
 
 def encode_batch_quadtree_stacked(planes, cfg: EncoderConfig | None = None,
@@ -205,20 +273,31 @@ def encode_batch_quadtree_stacked(planes, cfg: EncoderConfig | None = None,
     """Quadtree-encode a [B, H, W] u8 batch (numpy array or tensor) on
     ``device`` (``encoder.plane_on_device``'s rule) and return ONE
     QuadtreeResult whose level arrays carry a leading batch axis.  Frames run
-    one after another through ``encode_plane_quadtree``, so each equals its
-    single-plane encode."""
+    one after another as in ``encode_plane_quadtree`` (the JAX package's
+    ``lax.map``), each into its row of the preallocated arrays, so each
+    equals its single-plane encode; on the graph, the call reads nothing
+    back from the card."""
     cfg = cfg or EncoderConfig()
     qcfg = qcfg or QuadtreeConfig()
     planes = plane_on_device(planes, device)
     _, h, w = planes.shape
-    if h % qcfg.max_size or w % qcfg.max_size:
-        raise ValueError("image not aligned to the coarsest range size")
-    frames = [encode_plane_quadtree(p, cfg, qcfg) for p in planes]
-    levels = [dataclasses.replace(level, **{
-                  f: torch.stack([getattr(r.levels[i], f) for r in frames])
-                  for f in LEVEL_ARRAY_FIELDS})
-              for i, level in enumerate(frames[0].levels)]
-    return QuadtreeResult(levels=levels, width=w, height=h)
+    _check_aligned(h, w, qcfg)
+    return _encode_batch(planes, cfg, qcfg, _replays(h, w, cfg, qcfg, planes.device))
+
+
+def _encode_batch(planes: torch.Tensor, cfg: EncoderConfig, qcfg: QuadtreeConfig,
+                  graph: bool) -> QuadtreeResult:
+    """``encode_batch_quadtree_stacked`` of a [B, H, W] u8 tensor, its frames
+    eager or through the graph."""
+    b, h, w = planes.shape
+    rows = None
+    for i in range(b):
+        arrays = _frame_levels(planes[i], cfg, qcfg, graph)
+        if rows is None:
+            rows = [x.new_empty((b, *x.shape)) for x in arrays]
+        for row, x in zip(rows, arrays):
+            row[i] = x
+    return _levels(rows, h, w, cfg, qcfg)
 
 
 def encode_batch_quadtree(planes, cfg: EncoderConfig | None = None,
@@ -249,8 +328,7 @@ def encode_batch_quadtree_sharded(planes, cfg: EncoderConfig | None,
     qcfg = qcfg or QuadtreeConfig()
     planes = plane_on_device(planes, mesh.devices[0][0])
     _, h, w = planes.shape
-    if h % qcfg.max_size or w % qcfg.max_size:
-        raise ValueError("image not aligned to the coarsest range size")
+    _check_aligned(h, w, qcfg)
     return [encode_plane_quadtree(p, cfg, qcfg, device=devices[0])
             for p, devices in zip(planes, mesh.frame_devices(planes.shape[0]))]
 
@@ -286,20 +364,35 @@ def _quadtree_step_at(levels, h: int, w: int, f: int):
     return step
 
 
-def _pyramid_init_quadtree(levels, h: int, w: int, dcfg: DecoderConfig):
-    """Coarse-to-fine start image for the quadtree loop, or None (the
-    uniform decoder's scheme with composite steps, at the scales every
-    level supports)."""
-    from ..decode.decoder import _coarse_to_fine, pyramid_factors
+def _pyramid_factors(levels, h: int, w: int, dcfg: DecoderConfig) -> tuple:
+    """The coarse-to-fine scale factors every level supports (the uniform
+    decoder's ``pyramid_factors``), coarsest first, from the geometry."""
+    from ..decode.decoder import pyramid_factors
 
     fs = None
     for l in levels:
         lf = pyramid_factors(h, w, l.range_size, l.domain_size, l.domain_step,
                              max_levels=dcfg.pyramid_levels)
         fs = set(lf) if fs is None else fs & set(lf)
-    return _coarse_to_fine(tuple(sorted(fs or (), reverse=True)),
-                           lambda f: _quadtree_step_at(levels, h, w, f), h, w,
-                           dcfg, levels[0].s.device)
+    return tuple(sorted(fs or (), reverse=True))
+
+
+# the level arrays a decode reads
+_DECODE_FIELDS = ("domain_idx", "transform", "s", "o", "accepted")
+
+
+def _decode_levels(arrays, geometry) -> list:
+    """Decode-only levels (no ``error``) from their arrays (``_DECODE_FIELDS``
+    level after level) and their geometry (``_level_geometry``)."""
+    nf = len(_DECODE_FIELDS)
+    return [QuadtreeLevel(**dict(zip(_DECODE_FIELDS, arrays[nf * i:nf * (i + 1)])),
+                          error=None, **g) for i, g in enumerate(geometry)]
+
+
+def _level_geometry(l: QuadtreeLevel) -> dict:
+    return dict(range_size=l.range_size, domain_size=l.domain_size,
+                domain_step=l.domain_step, o_is_mean=l.o_is_mean,
+                num_transforms=l.num_transforms)
 
 
 def decode_plane_quadtree(result: QuadtreeResult,
@@ -307,15 +400,43 @@ def decode_plane_quadtree(result: QuadtreeResult,
                           device: torch.device | str | None = None):
     """Fixed-point decode of a quadtree encode on ``device`` (default: the
     result's), with the uniform decoder's loop and exits.  Returns (u8
-    [H, W] tensor, iterations int, mse float)."""
-    from ..decode.decoder import _fixed_point, _to_device
+    [H, W] tensor, iterations int, mse float).  On the card the pyramid
+    decode is one CUDA graph, and the flat loop's chunks replay one
+    (``graphs.while_loop``), each for a (geometry, config, device)."""
+    from ..decode.decoder import _to_device
 
-    levels = [_to_device(l, device) for l in result.levels]
+    result = dataclasses.replace(result, levels=[_to_device(l, device) for l in result.levels])
+    graph = result.levels[0].s.device.type == "cuda"
+    img, it, mse = _decode(result, dcfg, graph)
+    return (img.clone() if graph else img), int(it), float(mse)
+
+
+def _decode(result: QuadtreeResult, dcfg: DecoderConfig, graph: bool):
+    """``decode_plane_quadtree``'s (image, iterations, mse), eager or
+    through its graphs; the image is a graph's own output with ``graph``."""
+    from ..decode.decoder import _coarse_to_fine, _flat_loop, _full_res, _full_steps
+
+    levels = result.levels
     h, w = result.height, result.width
-    init = torch.full((h, w), dcfg.initial_value, dtype=torch.uint8,
-                      device=levels[0].s.device)
-    start = _pyramid_init_quadtree(levels, h, w, dcfg) if dcfg.pyramid else None
-    return _fixed_point(_quadtree_step_at(levels, h, w, 1), init, start, dcfg)
+    dev = levels[0].s.device
+    geometry = tuple(_level_geometry(l) for l in levels)
+    statics = (h, w, *(tuple(g.items()) for g in geometry))
+    arrays = tuple(getattr(l, f) for l in levels for f in _DECODE_FIELDS)
+    fs = _pyramid_factors(levels, h, w, dcfg) if dcfg.pyramid else ()
+    if fs:
+        def decode(*arrays):
+            ls = _decode_levels(arrays, geometry)
+            start = _coarse_to_fine(fs, lambda f: _quadtree_step_at(ls, h, w, f), h, w,
+                                    dcfg, dev)
+            return _full_res(_quadtree_step_at(ls, h, w, 1), start, dcfg)
+
+        img, mse = (graphs.replay("decode_plane_quadtree", (dcfg, *statics), decode, *arrays)
+                    if graph else decode(*arrays))
+        return img, _full_steps(dcfg), mse
+    init = torch.full((h, w), dcfg.initial_value, dtype=torch.uint8, device=dev)
+    return _flat_loop("decode_plane_quadtree_flat", statics,
+                      lambda *a: _quadtree_step_at(_decode_levels(a, geometry), h, w, 1),
+                      arrays, init, dcfg, graph)
 
 
 def decode_batch_quadtree_sharded(results: list[QuadtreeResult], mesh,

@@ -1,6 +1,8 @@
 """CUDA graphs over the encode and the decode: the port's counterpart of the
-JAX package's jitted ``encode_plane``, ``encode_batch_stacked``,
-``decode_plane`` and ``decode_batch_stacked``, each one device program.
+JAX package's jitted programs (``encode_plane``, ``encode_batch_stacked``,
+the quadtree pyramid, ``decode_plane``, ``decode_batch_stacked``,
+``decode_plane_quadtree``), each one device program, and of its
+``lax.while_loop`` (``while_loop``: the flat decode, the k-means).
 
 ``replay`` runs a function of CUDA tensors eagerly at the first call of a
 key (the function's name, its configuration and geometry, and its inputs'
@@ -21,7 +23,7 @@ import torch
 
 from . import tables
 
-__all__ = ["replay", "calls", "clear"]
+__all__ = ["replay", "while_loop", "calls", "clear"]
 
 # graphs kept at once, and keys seen once and not yet captured; the least
 # recently used is dropped, a graph's memory pool with it
@@ -112,6 +114,35 @@ def replay(name: str, statics: tuple, fn, *inputs) -> tuple:
         counter[k] += n
     calls[name, "replay"] += 1
     return entry.outputs
+
+
+def while_loop(name: str, statics: tuple, make_body, cond, consts: tuple, carry: tuple,
+               *, graph: bool, chunk: int) -> tuple:
+    """The counterpart of ``lax.while_loop``: ``carry`` (a tuple of tensors)
+    advanced by ``make_body(*consts)(carry)`` while ``cond(carry)`` (a 0-d
+    bool tensor) holds.  Steps run in chunks of ``chunk``, each guarded by
+    ``cond``: a step taken after the loop has ended leaves the carry as it
+    was, so the result is the loop's whatever the chunk length.  The host
+    reads ``cond`` once a chunk.  With ``graph`` each chunk replays one CUDA
+    graph per (``name``, ``statics``, chunk, shapes) (``replay``; a chunk's
+    outputs are copied into the graph's inputs for the next); without, it
+    runs eagerly.  Returns the final carry (a graph's own outputs with
+    ``graph``, overwritten by the key's next call)."""
+    n = len(consts)
+
+    def run(*tensors):
+        body, state = make_body(*tensors[:n]), tensors[n:]
+        for _ in range(chunk):
+            go = cond(state)
+            state = tuple(torch.where(go, new, old) for new, old in zip(body(state), state))
+        return (*state, cond(state))
+
+    while True:
+        out = (replay(name, (*statics, chunk), run, *consts, *carry) if graph
+               else run(*consts, *carry))
+        carry = out[:-1]
+        if not out[-1].item():
+            return carry
 
 
 def _drop(cache: collections.OrderedDict, keep: int = _MAX_GRAPHS) -> None:

@@ -940,3 +940,127 @@ def test_graph_batch_reads_nothing_back(cuda):
         single = T.encode_plane(frames[i], cfg)
         for f in ("domain_idx", "transform", "s", "o", "distance", "valid"):
             assert_bitwise(getattr(stacked, f)[i], getattr(single, f), f"frame {i} {f}")
+
+
+# the quadtree configs whose pyramid replays one CUDA graph, by CLI flags
+QT_GRAPH_PATHS = {"default": [], "noclassifier": ["--noclassifier"], "compat": ["--compat"],
+                  "smax": ["--smax", "0.9"], "rms": ["--rms", "10"],
+                  "qtmin2": ["--qt-min", "2"]}
+
+
+@pytest.mark.parametrize("path", list(QT_GRAPH_PATHS))
+def test_quadtree_graph_equals_eager_on_the_card(cuda, path):
+    """encode_plane_quadtree on its CUDA graph: the first call (eager), the
+    second (the capture and a replay) and the third (a replay on another
+    plane) bitwise equal to the per-level eager encode and the CPU's, each
+    replay adding the eager call's launches, a later call leaving the
+    earlier result unchanged; the batch replays the graph frame by frame;
+    the pyramid and flat decodes of the result equal their eager forms."""
+    from fractencode_tpu_torch import cli
+    from fractencode_tpu_torch.encode import quadtree as tq
+    from fractencode_tpu_torch.utils import graphs
+
+    args = cli.build_parser().parse_args(["--quadtree", *QT_GRAPH_PATHS[path]])
+    cfg = cli._config_from_args(args)
+    qcfg = tq.QuadtreeConfig(min_size=args.qt_min, max_size=args.qt_max,
+                             error_threshold=args.qt_threshold)
+    a, b = _smooth(128, 62), random_plane(128, 63)
+    assert tq._replays(128, 128, cfg, qcfg, cuda)
+    graphs.clear()
+    eager = [tq._quadtree_arrays(torch.from_numpy(p).to(cuda), cfg, qcfg) for p in (a, b)]
+    calls = lambda: {f: graphs.calls["encode_plane_quadtree", f]
+                     for f in ("eager", "capture", "replay")}
+    before = calls()
+    launches = []
+    results = []
+    for p in (a, a, b):
+        n = _search_launches()
+        results.append(tq.encode_plane_quadtree(p, cfg, qcfg, device=cuda))
+        launches.append(_search_launches() - n)
+    after = calls()
+    assert {f: after[f] - before[f] for f in after} == {"eager": 1, "capture": 1, "replay": 2}
+    assert launches == [len(qcfg.level_sizes)] * 3
+    cpu = tq.encode_plane_quadtree(a, cfg, qcfg, device="cpu")
+    flat = lambda r: [getattr(l, f) for l in r.levels for f in tq.LEVEL_ARRAY_FIELDS]
+    for res, want in zip(results + [cpu], [eager[0], eager[0], eager[1], eager[0]]):
+        for x, y in zip(flat(res), want, strict=True):
+            assert_bitwise(x, y, path)
+    for x, y in zip(flat(results[0]), flat(results[1])):
+        assert_bitwise(x, y, "an earlier result changed")
+
+    stacked = tq.encode_batch_quadtree_stacked(np.stack([a, b]), cfg, qcfg, device=cuda)
+    for i, want in enumerate(eager):
+        for x, y in zip(flat(stacked), want):
+            assert_bitwise(x[i], y, f"batch frame {i}")
+
+    for dcfg in (T.DecoderConfig(pyramid=True), T.DecoderConfig(max_iterations=40)):
+        outs = [tq.decode_plane_quadtree(results[1], dcfg) for _ in range(3)]
+        want = tq.decode_plane_quadtree(cpu, dcfg)
+        for out, it, mse in outs:
+            assert_bitwise(out, want[0], f"decode pyramid={dcfg.pyramid}")
+            assert (it, mse) == want[1:]
+
+
+@pytest.mark.parametrize("chunk", [1, 3, 8])
+@pytest.mark.parametrize("dname", ["flat", "nostall", "means", "cap5"])
+def test_flat_decode_graph_equals_eager_on_the_card(cuda, dname, chunk, monkeypatch):
+    """The flat loop's chunks on their CUDA graph: decode_plane's pixels,
+    iterations and MSE equal the eager chunks' on the card and the CPU's,
+    at every chunk length, a chunk replaying one graph; the batch's flat
+    branch equals the single frames."""
+    from fractencode_tpu_torch.decode import decoder as dec
+    from fractencode_tpu_torch.utils import graphs
+
+    dcfg = {"flat": T.DecoderConfig(), "nostall": T.DecoderConfig(stall_window=0),
+            "means": T.DecoderConfig(initial="means"),
+            "cap5": T.DecoderConfig(max_iterations=5)}[dname]
+    monkeypatch.setattr(dec, "_CHUNK", chunk)
+    frames = np.stack([_smooth(128, 64), random_plane(128, 65)])
+    stacked = T.encode_batch_stacked(frames, T.EncoderConfig(), device=cuda)
+    singles = T.encode_batch(frames, T.EncoderConfig(), device=cuda)
+    graphs.clear()
+    for i, res in enumerate(singles):
+        img, it, mse = dec._flat_decode(res, dcfg, graph=False)
+        want = (int(it), float(mse))
+        replays = graphs.calls["decode_plane_flat", "replay"]
+        for _ in range(2):
+            out, iters, m = T.decode_plane(res, dcfg)
+            assert_bitwise(out, img, f"frame {i}")
+            assert (iters, m) == want
+        cpu = T.decode_plane(res, dcfg, device="cpu")
+        assert_bitwise(cpu[0], img, f"frame {i} cpu")
+        assert cpu[1:] == want
+        # the step that meets an exit runs but is not counted
+        steps = min(want[0] + 1, dcfg.max_iterations)
+        assert graphs.calls["decode_plane_flat", "replay"] - replays >= 2 * -(-steps // chunk) - 2
+    outs, iters, mses = T.decode_batch_stacked(stacked, dcfg)
+    for i, res in enumerate(singles):
+        out, it, mse = T.decode_plane(res, dcfg)
+        assert_bitwise(outs[i], out, f"batch frame {i}")
+        assert (int(iters[i]), float(mses[i])) == (it, mse)
+
+
+@pytest.mark.parametrize("num_codes,limit", [(4, 65536), (3, 400)])
+def test_vq_graph_equals_eager_on_the_card(cuda, num_codes, limit):
+    """The VQ encode on its graphs (the k-means' start, its chunks, the
+    encode given the codebook): eager == capture == replay == CPU bitwise,
+    one K1 launch a call; train_codebook's device loop on the card equals
+    the CPU's."""
+    from fractencode_tpu_torch.encode import encoder as enc
+    from fractencode_tpu_torch.utils import graphs
+
+    cfg = T.EncoderConfig(vq_classes=num_codes, vq_sample_limit=limit)
+    a, b = random_plane(256, 66), _smooth(256, 67)
+    assert enc._replays(256, 256, cfg, cuda)
+    graphs.clear()
+    eager = [enc._encode_arrays(torch.from_numpy(p).to(cuda), cfg) for p in (a, b)]
+    before = sum(mk.search_classed_cuda.launches.values())
+    results = [T.encode_plane(p, cfg, device=cuda) for p in (a, a, b)]
+    assert sum(mk.search_classed_cuda.launches.values()) == before + 3
+    assert graphs.calls["encode_plane_vq_start", "replay"] >= 2
+    assert graphs.calls["train_codebook", "replay"] > 0
+    cpu = T.encode_plane(a, cfg, device="cpu")
+    fields = ("domain_idx", "transform", "s", "o", "distance", "valid")
+    for res, want in zip(results + [cpu], [eager[0], eager[0], eager[1], eager[0]]):
+        for f, y in zip(fields, want):
+            assert_bitwise(getattr(res, f), y, f)

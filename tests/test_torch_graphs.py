@@ -68,12 +68,13 @@ def test_predicate_matches_the_jax_route_statics(side, geometry):
     assert tm.replays_graph(r, m, dataclasses.replace(cfg, use_classifier=False), "cuda")
 
 
-@pytest.mark.parametrize("cfg", [EncoderConfig(backend="torch"), EncoderConfig(vq_classes=3),
+@pytest.mark.parametrize("cfg", [EncoderConfig(backend="torch"),
+                                 EncoderConfig(vq_classes=3, backend="torch"),
                                  EncoderConfig(use_classifier=False, backend="torch")],
                          ids=["torch", "vq", "dense-torch"])
 def test_predicate_refuses(cfg):
-    """The plain versions, VQ (a host loop), the CPU and an empty plane
-    never replay."""
+    """The plain versions (with the classifier, VQ bins or neither), the
+    CPU and an empty plane never replay."""
     r, m = _geometry(512, 16, 4)
     assert not tm.replays_graph(r, m, cfg, "cuda")
     assert not tm.replays_graph(r, m, EncoderConfig(), "cpu")
@@ -182,13 +183,20 @@ def test_refused_config_reads_back(side, monkeypatch):
 
 
 def test_flat_decode_reads_back(monkeypatch):
-    """The flat loop reads its exit tests at every step (it stays eager)."""
+    """The flat loop carries its exit tests on the device: a chunk of steps
+    reads nothing back, and the loop reads its exit flag once a chunk, then
+    the iterations and the MSE once, at every chunk length."""
     res = encoder.encode_plane(random_plane(64, 14), EncoderConfig(), device="cpu")
     dcfg = DecoderConfig(max_iterations=5)
     assert not dec._has_pyramid(res, dcfg)
-    _, rec = _recorded(monkeypatch, dec._decode_core, res, dcfg)
-    assert aten._local_scalar_dense.default in rec.reads
-    assert aten.equal.default in rec.reads
+    dec._decode_core(res, dcfg)  # the tables
+    for chunk in (1, 3):
+        monkeypatch.setattr(dec, "_CHUNK", chunk)
+        (_, iters, _), rec = _recorded(monkeypatch, dec._decode_core, res, dcfg)
+        # the step that meets an exit runs but is not counted
+        chunks = -(-min(iters + 1, dcfg.max_iterations) // chunk)
+        assert rec.reads == [aten._local_scalar_dense.default] * (chunks + 2), chunk
+        assert rec.uploads == []
 
 
 def test_cpu_calls_take_no_graph():
