@@ -89,15 +89,18 @@ Phases, each of which must pass (any failure exits non-zero):
      a hit share above 0 in one check; then K2 against K1 on the same prep
      (bitwise, CUDA events, median of 5; with --dp4a each also in turns with
      its dp4a design) at 512^2 and 2048^2 and on the
-     2048^2 quadtree's levels with their coverage masks; then at 8192^2
-     the default and --rms 10 paths through cli._encode_one (each launching
-     K2 and not K1, whose route the JAX package's pair-list overflow
-     decides), with K2 against K1 on their preps, encode and decode wall
-     times, PSNR, the split count and the partials' bytes, and K2 against
-     its plain version at the path's own split plan on a sample of the
-     range tiles (the first and last of each class: the plain version of
-     the whole plane would take minutes); and --quadtree at 8192^2 with the
-     route each level took;
+     2048^2 quadtree's levels with their coverage masks, and on its masked
+     8 px and 4 px levels K2 with the width it picks on the device against
+     one split a segment (in turns); then at 8192^2
+     the default and --rms 10 paths through cli._encode_one (the counted
+     route, which the JAX package's pair-list overflow decides on the
+     device, taking K2: K2 and K1, over empty segments, launch once each),
+     with K2 against K1 on their preps, encode and decode wall times, PSNR,
+     the split count and the partials' bytes, and K2 against its plain
+     version at the path's own split plan on a sample of the range tiles
+     (the first and last of each class: the plain version of the whole
+     plane would take minutes); and --quadtree at 8192^2 with the route
+     each level took (K1 at every level, K2 too where it is counted);
  19. K4 and K5, the pair-list step microbenchmark (ops/micro_kernels.py):
      at the JAX script's shapes and draws (fractencode_tpu_torch.scripts.
      micro_kernel: 8 x 64 tiles of 512 x 4096 at K = 16), each of the five
@@ -205,7 +208,23 @@ Phases, each of which must pass (any failure exits non-zero):
      frame by line) of the 8 x 1024^2 encode_batch_quadtree_stacked, the
      2048^2 quadtree encode and its pyramid decode, the 2048^2 flat decode
      and the 2048^2 VQ encode; the chunk length's sweep (flat decode: 1, 4,
-     8, 16 and eager 1; VQ: 1, 8, 32); the card memory the graphs hold.
+     8, 16 and eager 1; VQ: 1, 8, 32); the card memory the graphs hold;
+ 27. the counted and K2 routes on CUDA graphs (counted_phase): at 512^2
+     and 2048^2 with PAIR_CAP patched just below the smallest search's
+     n_pairs (K2 taken) and to the largest (K1 taken), encode_plane and
+     encode_plane_quadtree: the first call eager, the capture, a replay on
+     another plane, bitwise equal to the eager encode and (512^2) the
+     CPU's, K1 and K2 launched by each counted search; at 4096^2
+     encode_plane, encode_plane_quadtree, --vq-classes 4 and a 2 x 4096^2
+     encode_batch_stacked, and at 8192^2 the default and --rms 10
+     encode_plane and encode_plane_quadtree: the graph bitwise equal to the
+     eager form, then both in turns (host ms, busy share, host syncs a call;
+     medians of 5 at 4096^2, 3 at 8192^2), with the card memory after each
+     capture and after graphs.clear(); the counted route's untaken kernel
+     alone over its empty segments on the 4096^2 (K2) and 8192^2 (K1)
+     preps; K2 ls16 on the 8192^2 prep with the width it picks on the
+     device against the width its class counts give on the host (in turns,
+     at most 1.05x).
 Every path is driven with the launch counts set to 0 just before it and
 read just after; each must launch the kernels it names.  A graph's capture
 launches nothing and counts nothing; each replay adds the launches its
@@ -1292,12 +1311,12 @@ def kernel_template(key):
     return f"{kernel}_kernel<{', '.join(args)}>"
 
 
-def timed_forms(name, frames_n, make, graph_syncs=1):
+def timed_forms(name, frames_n, make, graph_syncs=1, rounds=7):
     """One form's eager and graph runs in turns (``make(graph)`` gives each,
-    a function of no arguments): host ms a frame, busy share, host syncs a
-    frame with their lines; prints them and returns {form: (host ms a
-    frame, busy share, host syncs a call)}.  The graph form syncs
-    ``graph_syncs`` times a call at most."""
+    a function of no arguments; medians of ``rounds``): host ms a frame,
+    busy share, host syncs a frame with their lines; prints them and
+    returns {form: (host ms a frame, busy share, host syncs a call)}.  The
+    graph form syncs ``graph_syncs`` times a call at most."""
     import torch
 
     runs = {form: make(form == "graph") for form in ("eager", "graph")}
@@ -1309,7 +1328,7 @@ def timed_forms(name, frames_n, make, graph_syncs=1):
             return out
         synced[form] = run
         run()  # a graph's first call of a key is eager; host_turns' warmup captures
-    ms = host_turns(synced)
+    ms = host_turns(synced, rounds)
     line = [f"     {name}:"]
     out = {}
     for form, fn in runs.items():
@@ -1461,6 +1480,29 @@ def launch_keys(kernels):
     return collections.Counter({record_key(kernel, key): n
                                 for kernel, w in kernels.wrappers.items()
                                 for key, n in w.launches.items() if n})
+
+
+@contextlib.contextmanager
+def prep_routes(routes):
+    """Append (route, take_k2, n_pairs) of each classed_prep made inside
+    to ``routes`` (the last two read back; None off the counted route).
+    Eager calls only: a read would break a capture."""
+    from fractencode_tpu_torch.encode import matcher as tm
+
+    prep = tm.classed_prep
+
+    def spy(*args, **kwargs):
+        out = prep(*args, **kwargs)
+        counted = out["route"] == "counted"
+        routes.append((out["route"], bool(out["take_k2"]) if counted else None,
+                       int(out["n_pairs"]) if counted else None))
+        return out
+
+    tm.classed_prep = spy
+    try:
+        yield routes
+    finally:
+        tm.classed_prep = prep
 
 
 def level_arrays(res):
@@ -1756,6 +1798,321 @@ def loop_phase(kernels):
     torch.cuda.empty_cache()
     print(f"     after the timings, {held}; after graphs.clear(): allocated "
           f"{torch.cuda.memory_allocated()}, reserved {torch.cuda.memory_reserved()} bytes")
+
+
+def result_arrays(res):
+    """An EncodeResult's arrays (encoder.ARRAY_FIELDS) as one list."""
+    from fractencode_tpu_torch.encode.encoder import ARRAY_FIELDS
+
+    return [getattr(res, f) for f in ARRAY_FIELDS]
+
+
+def graph_memory(what):
+    """Print the card memory allocated and reserved (torch.cuda) after
+    ``what``."""
+    import torch
+
+    print(f"     memory after {what}: allocated {torch.cuda.memory_allocated()}, reserved "
+          f"{torch.cuda.memory_reserved()} bytes")
+
+
+def counted_forms():
+    """{form: (the eager arrays of a numpy plane, the public call of a numpy
+    plane on a device -> its arrays as one list)} of phase 27(a)'s encodes:
+    the grid and the quadtree, default config."""
+    import torch
+
+    from fractencode_tpu_torch import encode_plane
+    from fractencode_tpu_torch.encode import encoder as enc, quadtree as tq
+
+    cfg, qcfg, _ = qt_config([])
+    return {"encode_plane": (
+        lambda p: list(enc._encode_arrays(torch.from_numpy(p).cuda(), cfg)),
+        lambda p, dev="cuda": result_arrays(encode_plane(p, cfg, device=dev))),
+        "encode_plane_quadtree": (
+        lambda p: list(tq._quadtree_arrays(torch.from_numpy(p).cuda(), cfg, qcfg)),
+        lambda p, dev="cuda": level_arrays(tq.encode_plane_quadtree(p, cfg, qcfg,
+                                                                    device=dev)))}
+
+
+def counted_parity(kernels):
+    """Phase 27(a): at 512^2 and 2048^2, with PAIR_CAP patched just below
+    the smallest search's n_pairs of two planes (every search K2), to the
+    largest (K1), and for the grid to the smaller plane's n_pairs where the
+    two differ (the capture takes one branch and a replay the other),
+    encode_plane and encode_plane_quadtree on their graphs: the first call
+    (eager), the capture and a replay on the other plane bitwise equal to
+    the eager encode and (512^2) the CPU's, each counted search launching K1
+    and K2."""
+    from fractencode_tpu_torch.ops import matcher_kernels as mk
+    from fractencode_tpu_torch.utils import graphs
+
+    cap = mk.PAIR_CAP
+    try:
+        for n in (512, 2048):
+            img, other = natural_plane(n, SEED + 2700), natural_plane(n, SEED + 2701)
+            for form, (eager, call) in counted_forms().items():
+                mk.PAIR_CAP = 4
+                pairs = []
+                for p in (img, other):
+                    found = []
+                    with prep_routes(found):
+                        eager(p)
+                    pairs.append([r[2] for r in found])
+                every = pairs[0] + pairs[1]
+                caps = [("K2", min(every) - 1), ("K1", max(every))]
+                if form == "encode_plane" and pairs[0] != pairs[1]:
+                    caps.append(("both", min(pairs[0][0], pairs[1][0])))
+                for branch, c in caps:
+                    mk.PAIR_CAP = c
+                    graphs.clear()
+                    routes = []
+                    with prep_routes(routes):
+                        want = [eager(p) for p in (img, other)]
+                    searches = len(routes) // 2
+                    counted = sum(r[0] == "counted" for r in routes) // 2
+                    taken = {r[1] for r in routes if r[0] == "counted"}
+                    check(counted and all(r[0] in ("counted", "search_classed") for r in routes)
+                          and taken == {"K2": {True}, "K1": {False}, "both": {False, True}}[branch],
+                          f"{form} {n}^2 cap {c}: routes {routes}, not {branch} taken")
+                    before = collections.Counter(graphs.calls)
+                    kernels.zero()
+                    got = [call(p) for p in (img, img, other)]
+                    counts = launch_keys(kernels)
+                    kernels.read(f"counted {form} {n}^2 {branch}", [])
+                    calls = {f: graphs.calls[form, f] - before[form, f]
+                             for f in ("eager", "capture", "replay")}
+                    check(calls == {"eager": 1, "capture": 1, "replay": 2},
+                          f"{form} {n}^2 {branch}: {calls}, not an eager call, a capture "
+                          "and 2 replays")
+                    k1 = sum(v for k, v in counts.items() if k[0] == "search_classed")
+                    k2 = sum(v for k, v in counts.items() if k[0] == "search_classed2d")
+                    check((k1, k2) == (3 * searches, 3 * counted),
+                          f"{form} {n}^2 {branch}: K1 {k1}, K2 {k2} launches in 3 calls, "
+                          f"not {3 * searches} and {3 * counted}")
+                    cpu = [call(img, "cpu")] if n == 512 else []
+                    for res, exp in zip(got + cpu, [want[0], want[0], want[1], want[0]]):
+                        check(all(bitwise(a, b) for a, b in zip(res, exp, strict=True)),
+                              f"{form} {n}^2 {branch}: the graph's encode differs from "
+                              "the eager encode or the CPU's")
+                    print(f"     {form} {n}^2, PAIR_CAP {c} ({branch} taken; n_pairs "
+                          f"{pairs[0]}, other plane {pairs[1]}): {counted} of {searches} "
+                          "searches counted; graph (1 eager call, 1 capture, 2 replays) == "
+                          "eager" + (" == CPU" if cpu else "") + f" bitwise; K1 {k1}, K2 {k2} "
+                          "launches in 3 calls")
+    finally:
+        mk.PAIR_CAP = cap
+        graphs.clear()
+
+
+def untaken_launch(prep, c, what):
+    """The counted route's untaken kernel alone on ``prep``, over the empty
+    class segments matcher._counted gives it (CUDA events, median of 5),
+    beside the taken one's time; every row keeps (-3e38, 0)."""
+    from fractencode_tpu_torch.encode import matcher as tm
+    from fractencode_tpu_torch.ops import matcher_kernels as mk
+
+    k, area = c.target_size ** 2, c.source_size ** 2
+    args, kw = tm._search_args(prep, k, area, c, {})
+    empty = (prep["col_tile_start"] * prep["block_m"]).contiguous()
+    k2 = bool(prep["take_k2"])
+    untaken = mk.search_classed_cuda if k2 else mk.search_classed2d_cuda
+    ms, (q, idx) = cuda_ms(lambda: untaken(*args[:7], empty, *args[8:], **kw))
+    check(bool((q == -3.0e38).all()) and not bool(idx.any()),
+          f"{what}: the untaken kernel's empty launch wrote a result")
+    taken_ms, _ = cuda_ms(lambda: tm.classed_kernel(
+        dict(prep, route="search_classed2d" if k2 else "search_classed"), k, area, c), 1)
+    print(f"     {what}: the untaken K{1 if k2 else 2}'s empty launch {ms:.4f} ms (median "
+          f"of 5), the taken K{2 if k2 else 1} {taken_ms:.4f} ms (one run)")
+    return ms
+
+
+def k2_plan(prep):
+    """The last K2 launch's plan (search_classed2d_cuda.plan) read back: the
+    host's shape plan, the device's split width, the splits of ``prep``'s
+    longest segment and the work items."""
+    from fractencode_tpu_torch.ops import matcher_kernels as mk
+
+    plan = dict(mk.search_classed2d_cuda.plan)
+    plan.update(width=int(plan["width"]), splits=int(plan["splits"].max()),
+                work=int(plan["work"]))
+    return plan
+
+
+def k2_plan_turns(prep, c, what, other, other_width, rounds=3):
+    """K2 on ``prep`` with the width it picks on the device against the
+    width ``other_width`` given on the host (named ``other``), in turns
+    (device, other, other, device; CUDA events, medians of ``rounds``),
+    (q, idx) bitwise equal; returns both means."""
+    from fractencode_tpu_torch.encode import matcher as tm
+
+    k, area = c.target_size ** 2, c.source_size ** 2
+    k2 = dict(prep, route="search_classed2d")
+    runs = {"device": lambda: tm.classed_kernel(k2, k, area, c),
+            other: lambda: tm.classed_kernel(k2, k, area, c, splits=other_width)}
+    ms, out, plans = {name: [] for name in runs}, {}, {}
+    for name in ("device", other, other, "device"):
+        t, out[name] = cuda_ms(runs[name], rounds)
+        ms[name].append(t)
+        plans[name] = k2_plan(k2)
+    check(bitwise(out["device"][0], out[other][0]) and bitwise(out["device"][1],
+                                                                out[other][1]),
+          f"{what}: K2 with the device's width differs from {other}")
+    mine, theirs = (statistics.mean(ms[name]) for name in runs)
+    p, q = plans["device"], plans[other]
+    print(f"     {what}: K2 with the device's width {mine:.4f} ms ({p['splits']} split(s) "
+          f"of {p['width']} columns, {p['work']} of {p['items']} work items), {other} "
+          f"{theirs:.4f} ms ({q['splits']} split(s) of {q['width']} columns, {q['work']} of "
+          f"{q['items']}), ratio {mine / theirs:.4f} (in turns, medians of {rounds}); "
+          "(q, idx) bitwise")
+    return mine, theirs
+
+
+def counts_width(prep, c):
+    """The split width K2 picks from ``prep``'s class counts, on the host
+    (the plan before the device picked it)."""
+    import torch
+
+    from fractencode_tpu_torch.ops import matcher_kernels as mk
+
+    seg = (prep["col_end"].long() - prep["col_tile_start"].long() * prep["block_m"]).clamp_min(0)
+    total = int(seg[prep["tile_class"].long()].sum())
+    m_pad, sms = prep["ch_s"].shape[0], torch.cuda.get_device_properties(0).multi_processor_count
+    step, _ = mk._k2_plan(prep["tile_class"].shape[0], m_pad, prep["block_r"],
+                          c.target_size ** 2, c.rms_threshold > 0, c.num_transforms, None, sms)
+    return int(mk._k2_width(torch.tensor(total), step, prep["block_r"], m_pad, sms))
+
+
+def one_split_width(prep, c):
+    """A split width that gives ``prep``'s longest segment one split (whole
+    groups with the frontier)."""
+    seg = prep["col_end"].long() - prep["col_tile_start"].long() * prep["block_m"]
+    t_n = c.num_transforms
+    return -(-max(int(seg.max()), 1) // t_n) * t_n
+
+
+def counted_phase(kernels, planes):
+    """Phase 27: the counted and K2 routes on CUDA graphs: (a)
+    counted_parity; (b) at 4096^2 encode_plane, encode_plane_quadtree,
+    --vq-classes 4 and a 2 x 4096^2 encode_batch_stacked, eager and graph
+    in turns (medians of 5), the graph bitwise equal to the eager form; (c)
+    at 8192^2 the default and --rms 10 encode_plane and the quadtree the
+    same (medians of 3), then K2 ls16 with the device's width against the
+    counts' width on the host; (d)
+    the card memory after each size's captures and after graphs.clear().
+    ``planes``: natural planes by side, made here where missing."""
+    import torch
+
+    from fractencode_tpu_torch import encode_plane
+    from fractencode_tpu_torch.encode import encoder as enc, matcher as tm, quadtree as tq, vq
+    from fractencode_tpu_torch.utils import graphs
+
+    t0 = time.perf_counter()
+    counted_parity(kernels)
+    print(f"     (a) took {time.perf_counter() - t0:.1f} s")
+    cfg, qcfg, _ = qt_config([])
+    _, vcfg, _ = parse(["--device", "cuda", "--vq-classes", "4"])
+    _, rcfg, _ = parse(["--device", "cuda", *RMS])
+    cuda = torch.device("cuda")
+    results = {}
+
+    def same_forms(name, eager, graph_call):
+        """The graph form's second call (a capture and a replay) bitwise
+        equal to the eager form, the memory after the capture."""
+        want = eager()
+        graph_call()
+        got = graph_call()
+        check(all(bitwise(a, b) for a, b in zip(got, want, strict=True)),
+              f"{name}: the graph's encode differs from the eager one")
+        graph_memory(f"the {name} capture")
+
+    def plane_forms(name, img, c, rounds, syncs=1):
+        check(enc._replays(img.shape[0], img.shape[1], c, cuda), f"{name} takes no graph")
+        same_forms(name, lambda: enc._encode_arrays(enc.plane_on_device(img, "cuda"), c),
+                   lambda: result_arrays(encode_plane(img, c, device="cuda")))
+        results[name] = timed_forms(name, 1, lambda graph: (
+            lambda: encode_plane(img, c, device="cuda")) if graph else (
+            lambda: enc._encode_arrays(enc.plane_on_device(img, "cuda"), c)),
+            graph_syncs=syncs, rounds=rounds)
+
+    def quadtree_forms(name, img, rounds):
+        check(tq._replays(img.shape[0], img.shape[1], cfg, qcfg, cuda), f"{name} takes no graph")
+        same_forms(name, lambda: tq._quadtree_arrays(enc.plane_on_device(img, "cuda"), cfg, qcfg),
+                   lambda: level_arrays(tq.encode_plane_quadtree(img, cfg, qcfg, device="cuda")))
+        results[name] = timed_forms(name, 1, lambda graph: (
+            lambda: tq.encode_plane_quadtree(img, cfg, qcfg, device="cuda")) if graph else (
+            lambda: tq._quadtree_arrays(enc.plane_on_device(img, "cuda"), cfg, qcfg)),
+            rounds=rounds)
+
+    print("     (b) 4096^2, eager and graph forms in turns (host clock, medians of 5; busy "
+          "share by torch.profiler; host syncs by torch.cuda.set_sync_debug_mode):")
+    t0 = time.perf_counter()
+    n4 = 4096
+    img4 = planes.get(n4)
+    img4 = natural_plane(n4, SEED + n4) if img4 is None else img4
+    graphs.clear()
+    plane_forms(f"encode_plane {n4}^2", img4, cfg, 5)
+    quadtree_forms(f"encode_plane_quadtree {n4}^2", img4, 5)
+    p4 = torch.from_numpy(img4).cuda()
+    _, steps = vq._kmeans(*enc._vq_start(p4, vcfg), vq.MAX_STEPS, vq.EPSILON, graph=False)
+    steps = int(steps)
+    del p4
+
+    def vq_eager():
+        p = enc.plane_on_device(img4, "cuda")
+        book, _ = vq._kmeans(*enc._vq_start(p, vcfg), vq.MAX_STEPS, vq.EPSILON, graph=False)
+        return list(enc._encode_arrays(p, vcfg, book))
+
+    same_forms(f"encode_plane {n4}^2 --vq-classes 4", vq_eager,
+               lambda: result_arrays(encode_plane(img4, vcfg, device="cuda")))
+    results["vq"] = timed_forms(
+        f"encode_plane {n4}^2 --vq-classes 4 ({steps} k-means steps)", 1,
+        lambda graph: (lambda: encode_plane(img4, vcfg, device="cuda")) if graph else vq_eager,
+        graph_syncs=-(-steps // vq._CHUNK) + 1, rounds=5)
+    frames = np.stack([img4, img4[::-1]])  # two distinct frames
+    same_forms(f"encode_batch_stacked 2 x {n4}^2",
+               lambda: result_arrays(enc._encode_batch(enc.plane_on_device(frames, "cuda"),
+                                                       cfg, False)),
+               lambda: result_arrays(enc._encode_batch(enc.plane_on_device(frames, "cuda"),
+                                                       cfg, True)))
+    results["batch"] = timed_forms(f"encode_batch_stacked 2 x {n4}^2", 2, lambda graph: (
+        lambda: enc._encode_batch(enc.plane_on_device(frames, "cuda"), cfg, graph)), rounds=5)
+    del frames
+    graphs.clear()
+    gc.collect()
+    torch.cuda.empty_cache()
+    graph_memory(f"graphs.clear() after {n4}^2")
+    prep = tm.classed_prep(*level_inputs(img4, cfg), cfg)
+    check(prep["route"] == "counted", f"{n4}^2: route {prep['route']}")
+    untaken_launch(prep, cfg, f"{n4}^2")
+    del prep
+    print(f"     (b) took {time.perf_counter() - t0:.1f} s")
+
+    print("     (c) 8192^2, eager and graph forms in turns (medians of 3):")
+    t0 = time.perf_counter()
+    n8 = 8192
+    img8 = planes.get(n8)
+    img8 = natural_plane(n8, SEED + n8) if img8 is None else img8
+    plane_forms(f"encode_plane {n8}^2", img8, cfg, 3)
+    plane_forms(f"encode_plane {n8}^2 --rms 10", img8, rcfg, 3)
+    quadtree_forms(f"encode_plane_quadtree {n8}^2", img8, 3)
+    graphs.clear()
+    gc.collect()
+    torch.cuda.empty_cache()
+    graph_memory(f"graphs.clear() after {n8}^2")
+    prep = tm.classed_prep(*level_inputs(img8, cfg), cfg)
+    check(prep["route"] == "counted" and bool(prep["take_k2"]),
+          f"{n8}^2: route {prep['route']}, take_k2 {prep['take_k2']}")
+    untaken_launch(prep, cfg, f"{n8}^2")
+    mine, counts_ms = k2_plan_turns(prep, cfg, f"K2 ls16 at {n8}^2", "the counts' width",
+                                    counts_width(prep, cfg))
+    check(mine <= 1.05 * counts_ms, f"K2 at {n8}^2: the device's width {mine:.4f} ms "
+                                    f"above 1.05x the counts' {counts_ms:.4f} ms")
+    del prep
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"     (c) took {time.perf_counter() - t0:.1f} s")
+    return results
 
 
 def vq_labels(img, cfg, device):
@@ -2269,16 +2626,21 @@ def range_phase(kernels, planes, k1_parity, k2_parity, k3_parity):
         m = img.shape[0] - img.shape[0] % (2 * t)
         return np.ascontiguousarray(img[:m, :m])
 
-    def launched(counts, c, what):
-        """The one search instance config c selects: K3 without the
-        classifier, else K1 or K2 (the JAX package's route)."""
+    def launched(counts, c, what, route=None):
+        """The search instance config c selects: K3 without the classifier,
+        else K1 or K2 (the JAX package's route), or on the counted route
+        (``route``: prep_routes' record) both, K2 taken or not."""
         mode, width = tm.rank_mode(c.criterion, c.so_mode, c.s_max), width_of(c)
         thr = c.rms_threshold > 0
         kerns = (("search_dense",) if not c.use_classifier
                  else ("search_classed", "search_classed2d"))
         took = [k for k in kerns if counts.get(kernels.records[(k, mode, width, thr)]["name"])]
+        tag = f"_{mode}{width}" + ("_thr" if thr else "")
+        if route is not None and route[0] == "counted":
+            check(took == list(kerns), f"{what}: launched {took} on the counted route")
+            return f"counted (K{2 if route[1] else 1} taken){tag}"
         check(len(took) == 1, f"{what}: launched {took} of {kerns} at {mode}{width}")
-        return f"{took[0]}_{mode}{width}" + ("_thr" if thr else "")
+        return took[0] + tag
 
     # (a) the quadtree at every level from 32 px to 2 px
     big = planes[2048]
@@ -2287,13 +2649,17 @@ def range_phase(kernels, planes, k1_parity, k2_parity, k3_parity):
         argv = [*QT_WIDE, *flags]
         name = " ".join(argv)
         card_equals_cpu(planes[256], argv, f"256 {name}")
-        qres, qout, counts = drive(kernels, name, big, argv, [], f"2048 {name}")
+        routes = []
+        with prep_routes(routes):
+            qres, qout, counts = drive(kernels, name, big, argv, [], f"2048 {name}")
         _, c, dcfg = parse(["--device", "cuda", *argv])
         qcfg = QuadtreeConfig(min_size=2, max_size=32)
         check_quadtree(qres, qout, 2048, qcfg, f"2048^2 {name}")
+        routes = routes or [None] * len(qres.levels)  # none without the classifier
         took = [launched(counts, dc.replace(c, source_size=l.domain_size,
                                             target_size=l.range_size),
-                         f"{name} {l.range_size} px") for l in qres.levels]
+                         f"{name} {l.range_size} px", route)
+                for l, route in zip(qres.levels, routes, strict=True)]
         enc_ms, dec_ms, (d, iters, _) = wall_times(
             lambda: encode_plane_quadtree(big, c, qcfg, device="cuda"),
             lambda e: decode_plane_quadtree(e, dcfg), reps=1)
@@ -2315,10 +2681,12 @@ def range_phase(kernels, planes, k1_parity, k2_parity, k3_parity):
             card_equals_cpu(small, argv, f"{small.shape[0]} {name}")
             img = crop(planes[2048], target)
             check(img.shape[0] == full, f"{name}: plane {img.shape[0]}")
-            res, out, counts = drive(kernels, name, img, argv, [], f"{full} {name}")
+            routes = []
+            with prep_routes(routes):
+                res, out, counts = drive(kernels, name, img, argv, [], f"{full} {name}")
             _, c, dcfg = parse(["--device", "cuda", *argv])
             check_uniform(res, out, full, f"{full}^2 {name}")
-            took = launched(counts, c, name)
+            took = launched(counts, c, name, routes[0] if routes else None)
             enc_ms, dec_ms, (d, iters, _) = wall_times(
                 lambda: encode_plane(img, c, device="cuda"), lambda e: decode_plane(e, dcfg),
                 reps=1)
@@ -2411,7 +2779,8 @@ def main(argv=None) -> int:
                     "of search_classed.cu, search_classed2d.cu, search_dense.cu and "
                     "micro_step.cu (e.g. micro_step.cu's dp4a design), timed against "
                     "these in turns")
-    dp4a = ap.parse_args(argv).dp4a
+    args = ap.parse_args(argv)
+    dp4a = args.dp4a
     import torch
 
     if not torch.cuda.is_available():
@@ -2943,9 +3312,9 @@ def main(argv=None) -> int:
                                                    splits=splits),
             f"{what}, {prep['ai_s'].shape[0]} sorted rows x {prep['ch_s'].shape[0]} "
             "sorted columns", nbytes, plain_reps, real=rows, n=k)
-        plan = mk.search_classed2d_cuda.plan
-        print(f"      {plan['splits']} splits of {plan['width']} columns over "
-              f"{plan['searched']} range tiles, partials {plan['partial_bytes']} bytes")
+        plan = k2_plan(prep)
+        print(f"      {plan['splits']} splits of {plan['width']} columns, {plan['work']} of "
+              f"{plan['items']} work items, partials {plan['partial_bytes']} bytes")
         report_frontier(key, c, q[rows], sa, sa2, pairs, what)
         return plan
 
@@ -2980,7 +3349,7 @@ def main(argv=None) -> int:
         ms1, (q1, i1) = cuda_ms(run1, k1_reps or reps)
         ms2, (q2, i2) = cuda_ms(run2, reps)
         check(bitwise(q1, q2) and bitwise(i1, i2), f"K2 differs from K1 at {what}")
-        plan = dict(mk.search_classed2d_cuda.plan)
+        plan = k2_plan(prep)
         earlier = earlier1 = None
         if kernels.dp4a:
             ms1, earlier1 = turns(run1, what, kernels.dp4a, k1_reps or reps)
@@ -2995,8 +3364,8 @@ def main(argv=None) -> int:
               + f", K2 {ms2:.4f} ms"
               + ("" if earlier is None else f" (--dp4a build {earlier:.4f} ms in turns)")
               + f" ({plan['splits']} splits of "
-              f"{plan['width']} columns over {plan['searched']} range tiles, partials "
-              f"{plan['partial_bytes']} bytes; K1 "
+              f"{plan['width']} columns, {plan['work']} of {plan['items']} work items, "
+              f"partials {plan['partial_bytes']} bytes; K1 "
               f"{'median of 5' if (k1_reps or reps) > 1 else 'one run'}, K2 "
               f"{'median of 5' if reps > 1 else 'one run'}); (q, idx) bitwise equal; "
               f"{rows.shape[0]} rows, {pairs} same-class pairs, bound {bound_ms:.4f} ms "
@@ -3033,8 +3402,8 @@ def main(argv=None) -> int:
             f"{width} columns", search_bytes(real.shape[0], prep["b4_cols"].shape[0], k,
                                             prep["sa_s"] is not None),
             plain_reps=1, real=real)
-        check(mk.search_classed2d_cuda.plan["splits"] == plan["splits"],
-              f"{what}: the sample ran {mk.search_classed2d_cuda.plan['splits']} splits")
+        ran = k2_plan(sub)["splits"]
+        check(ran == plan["splits"], f"{what}: the sample ran {ran} splits")
         sampled = keep.repeat_interleave(br)
         check(bitwise(full[0][sampled], q_k[sampled]) and bitwise(full[1][sampled], i_k[sampled]),
               f"{what}: the path's K2 differs from its plain version on the sampled tiles")
@@ -3061,20 +3430,29 @@ def main(argv=None) -> int:
         searched = ranges.shape[0] if mask is None else int(mask.sum())
         k1_vs_k2(prep, c, f"2048^2 quadtree {l.range_size} px level ({searched} ranges "
                           "searched)")
+        if mask is not None and l.range_size <= 8:
+            # the fine levels' few searched tiles: the splits fill the card
+            k2_plan_turns(prep, c, f"2048^2 quadtree {l.range_size} px level", "one split",
+                          one_split_width(prep, c), rounds=5)
 
-    # the 8192^2 paths: the JAX package's pair list overflows there, so both
-    # route to K2
+    # the 8192^2 paths: the JAX package's pair list may overflow there, and
+    # overflows on these planes, so the counted route takes K2: K1 launches
+    # too, over empty segments (the lax.cond's untaken branch)
     n8 = 8192
-    huge = natural_plane(n8, SEED + n8)
+    huge = planes[n8] = natural_plane(n8, SEED + n8)
     huge_t = torch.from_numpy(huge)
     for name, argv, expect in (("8192 default", [], ("ls", 16, False)),
                                ("8192 --rms 10", RMS, ("ls", 16, True))):
-        res, out, counts = drive(kernels, name, huge, argv, [("search_classed2d", *expect)],
-                                 f"{name} cuda")
-        k1 = [n for n in counts if n.startswith("search_classed_")]
-        check(not k1 and counts == {kernels.records[("search_classed2d", *expect)]["name"]: 1},
-              f"{name}: launches {counts}, not K2's {expect} once")
-        plan = mk.search_classed2d_cuda.plan
+        routes = []
+        with prep_routes(routes):
+            res, out, counts = drive(kernels, name, huge, argv,
+                                     [("search_classed2d", *expect),
+                                      ("search_classed", *expect)], f"{name} cuda")
+        check([r[:2] for r in routes] == [("counted", True)]
+              and counts == {kernels.records[(kern, *expect)]["name"]: 1
+                             for kern in ("search_classed", "search_classed2d")},
+              f"{name}: routes {routes}, launches {counts}, not K2 taken and K1 and "
+              f"K2's {expect} once each")
         check_uniform(res, out, n8, f"{n8}^2 {name}")
         _, c, dcfg_p = parse(["--device", "cuda", *argv])
         enc_ms, dec_ms, (d, iters, _) = wall_times(
@@ -3085,9 +3463,11 @@ def main(argv=None) -> int:
         check(db > 20.0, f"{name} PSNR {db:.4f} dB is implausibly low")
         ranges, sa, sa2, cb, rcls, dcls = level_inputs(huge, c)
         prep = tm.classed_prep(ranges, sa, sa2, cb, rcls, dcls, c)
-        check(prep["route"] == "search_classed2d",
+        check(prep["route"] == "counted" and bool(prep["take_k2"]),
               f"{name}: route {prep['route']}, n_pairs {prep['n_pairs']}")
+        prep_pairs = prep["n_pairs"]
         whole = k1_vs_k2(prep, c, f"{n8}^2 {name[5:]} prep", k1_reps=1)
+        plan = whole["plan"]
         key = ("search_classed2d", *expect)
         k2_sampled(prep, c, whole["plan"], whole["out"], f"{n8}^2 {name[5:]} prep")
         if not expect[2]:
@@ -3100,26 +3480,34 @@ def main(argv=None) -> int:
             if whole["dp4a_ms"] is not None:
                 rec.update(sample_dp4a_ms=rec.get("dp4a_ms"), dp4a_ms=whole["dp4a_ms"])
         del prep, ranges, cb, whole
-        print(f"     {n8}^2 {name[5:]}: launches {counts}; route K2 (worst_pairs "
+        print(f"     {n8}^2 {name[5:]}: launches {counts}; route counted, K2 taken "
+              f"(worst_pairs "
               f"{tm._classed_statics((n8 // 4) ** 2, ((n8 - 16) // 8 + 1) ** 2 * 4)[4]}, "
-              f"n_pairs above the cap {mk.PAIR_CAP}); {plan['splits']} split(s) of "
+              f"n_pairs {int(prep_pairs)} above the cap {mk.PAIR_CAP}); {plan['splits']} "
+              f"split(s) of "
               f"{plan['width']} columns, partials {plan['partial_bytes']} bytes; encode "
               f"{enc_ms:.3f} ms, decode {dec_ms:.3f} ms ({iters} full-res steps, one warm "
               f"run, host clock); PSNR {db:.4f} dB")
     name = "8192 --quadtree"
-    qres, qout, counts = drive(kernels, name, huge, ["--quadtree"], [], f"{name} cuda")
+    level_routes = []
+    with prep_routes(level_routes):
+        qres, qout, counts = drive(kernels, name, huge, ["--quadtree"], [], f"{name} cuda")
     check_quadtree(qres, qout, n8, qcfg, f"{n8}^2 --quadtree")
     routes = []
-    for l in qres.levels:
+    for l, route in zip(qres.levels, level_routes, strict=True):
+        # K1 launches at every level; K2 too where the route is counted
         k = l.range_size ** 2
-        took = [kern for kern in ("search_classed", "search_classed2d")
-                if counts.get(kernels.records[(kern, "ls", k, False)]["name"])]
-        check(len(took) == 1, f"{name} {l.range_size} px level: launched {took}")
-        routes.append(f"{l.range_size}px:{took[0]}")
+        launched = {kern: counts.get(kernels.records[(kern, "ls", k, False)]["name"], 0)
+                    for kern in ("search_classed", "search_classed2d")}
+        check(launched == {"search_classed": 1,
+                           "search_classed2d": int(route[0] == "counted")},
+              f"{name} {l.range_size} px level: route {route}, launched {launched}")
+        routes.append(f"{l.range_size}px:" + ("K1" if route[0] == "search_classed" else
+                                              f"counted, K{2 if route[1] else 1} taken"))
     db = float(psnr(huge_t, torch.from_numpy(qout)))
     check(db > 20.0, f"{name} PSNR {db:.4f} dB is implausibly low")
     leaves = " ".join(f"{l.range_size}px:{int(l.accepted.sum())}" for l in qres.levels)
-    print(f"     {n8}^2 --quadtree: routes {' '.join(routes)}; launches {counts}; leaves "
+    print(f"     {n8}^2 --quadtree: routes {'; '.join(routes)}; launches {counts}; leaves "
           f"{leaves}; PSNR {db:.4f} dB")
     print(f"     phase 18 took {time.perf_counter() - t18:.1f} s")
 
@@ -3177,6 +3565,13 @@ def main(argv=None) -> int:
     t26 = time.perf_counter()
     loop_phase(kernels)
     print(f"     phase 26 took {time.perf_counter() - t26:.1f} s")
+
+    # -- 27. the counted and K2 routes on CUDA graphs
+    print("[27] the counted and K2 routes on CUDA graphs: the 4096^2 and 8192^2 "
+          "encodes as one device program")
+    t27 = time.perf_counter()
+    counted_phase(kernels, planes)
+    print(f"     phase 27 took {time.perf_counter() - t27:.1f} s")
 
     records = list(kernels.records.values())
     for rec in records:

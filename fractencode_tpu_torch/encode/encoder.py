@@ -8,10 +8,11 @@ the classifier, no classes and the dense search (``matcher.search_dense``).
 The per-range result plays the role of ``grid_encode_data_t``
 (``encode/datatypes.h:8-26``).
 
-On the card, where ``matcher.replays_graph`` allows, the encode of a plane
-is one CUDA graph (``utils.graphs``), the counterpart of the JAX package's
-jitted ``encode_plane``.  The batch forms run it frame by frame (the JAX
-package streams frames through ``lax.map`` in one program) into
+On the card (``matcher.replays_graph``: every classed and dense encode of
+a non-empty plane, whatever route the class counts take), the encode of a
+plane is one CUDA graph (``utils.graphs``), the counterpart of the JAX
+package's jitted ``encode_plane``.  The batch forms run it frame by frame
+(the JAX package streams frames through ``lax.map`` in one program) into
 preallocated [B, R] arrays.
 """
 from __future__ import annotations

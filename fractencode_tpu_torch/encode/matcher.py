@@ -10,10 +10,13 @@ brightness class, in three stages, as the JAX package's
   * ``classed_prep``: a counting sort lays ranges and codebook columns out
     by class in tile-aligned segments and converts them to the kernel's
     int8 operands; it also takes the JAX package's route between its two
-    class-blocked kernels (K1, or K2 where K1's pair list would overflow);
+    class-blocked kernels (K1, or K2 where K1's pair list would overflow),
+    on the device where the class counts decide it;
   * ``classed_kernel``: the search over each range tile's class segment
     (``ops.matcher_kernels``, K1 or K2 by the route: the CUDA kernel or its
-    plain version; both give the same result);
+    plain version; both give the same result; where the device decides, the
+    card runs both, the untaken one over empty segments, as the JAX
+    package's ``lax.cond`` compiles both);
   * ``classed_post``: unsorts the winners and solves (s, o) for each.
 
 ``search_dense`` (the JAX package's ``search_pallas``) ranks every pair, for
@@ -214,40 +217,31 @@ def _classed_statics(r: int, m: int, masked_domains: bool = False,
     return (*layout, worst_pairs, min(worst_pairs, _mk.PAIR_CAP), use_pairs)
 
 
-def replays_graph(r: int, m: int, cfg: EncoderConfig, device,
-                  masked_ranges: bool = False) -> bool:
+def replays_graph(r: int, m: int, cfg: EncoderConfig, device) -> bool:
     """Whether the search of ``r`` ranges against ``m`` search-order
     columns under ``cfg`` on ``device`` runs inside a CUDA graph
-    (``utils.graphs``): only where nothing it does reads back to the host.
-    That is a card under backend 'auto' or 'cuda', and a route fixed by the
-    shapes: the dense search (K3), or K1 where the JAX package's pair list
-    fits in every case (``use_pairs`` and ``worst_pairs <= p_cap``, so
-    ``classed_prep`` counts no pairs), for a layout with the reserved row
-    bin of ``masked_ranges`` (a quadtree level under the coverage mask).  K2
-    reads its split plan back (``ops.matcher_kernels._split_plan``)."""
-    if torch.device(device).type != "cuda" or cfg.backend == "torch":
-        return False
-    if not cfg.use_classifier and not cfg.vq_classes:
-        return r > 0 and m > 0
-    if r == 0 or m == 0:
-        return False
-    *_, worst_pairs, p_cap, use_pairs = _classed_statics(r, m, masked_ranges=masked_ranges)
-    return use_pairs and worst_pairs <= p_cap
+    (``utils.graphs``): a card under backend 'auto' or 'cuda', and a search
+    with rows and columns.  Every route reads nothing back there: the dense
+    search (K3), K1, K2 (its plan from the shapes) and the route the class
+    counts decide (both kernels, ``classed_kernel``)."""
+    return (torch.device(device).type == "cuda" and cfg.backend != "torch"
+            and r > 0 and m > 0)
 
 
 def _pair_count(r_counts, c_counts, r: int, m: int, n_row_bins: int,
-                n_col_bins: int) -> int:
+                n_col_bins: int) -> torch.Tensor:
     """The length of the JAX package's pair list, its ``n_pairs``
-    (``fractencode_tpu/encode/matcher.py:504-509``): at its tiles, every
-    range tile of a class pairs with each column tile of that class, or
-    with one dummy where there is none, and every other range tile (padding,
-    masked ranges) with one.  ``r_counts``/``c_counts``: the ranges and
-    columns of the seven class bins, read back from the card here."""
+    (``fractencode_tpu/encode/matcher.py:504-509``), a 0-d int64 tensor on
+    the counts' device: at its tiles, every range tile of a class pairs with
+    each column tile of that class, or with one dummy where there is none,
+    and every other range tile (padding, masked ranges) with one.
+    ``r_counts``/``c_counts``: the ranges and columns of the class bins."""
     pbr, pbm, pr_pad, _ = _tiles(r, m, n_row_bins, n_col_bins, PAIR_TILE_R, PAIR_TILE_M)
-    rc, cc = torch.stack([r_counts[:_NUM_CLASS_BINS], c_counts[:_NUM_CLASS_BINS]]).tolist()
-    tiles = [-(-n // pbr) for n in rc]
-    pairs = sum(t * max(-(-c // pbm), 1) for t, c in zip(tiles, cc))
-    return pairs + pr_pad // pbr - sum(tiles)
+    rc = r_counts[:_NUM_CLASS_BINS].to(torch.int64)
+    cc = c_counts[:_NUM_CLASS_BINS].to(torch.int64)
+    tiles = -(-rc // pbr)
+    pairs = (tiles * (-(-cc // pbm)).clamp_min(1)).sum()
+    return pairs + (pr_pad // pbr - tiles.sum())
 
 
 def classed_prep(ranges, sum_a, sum_a2, cb: Codebook, range_classes,
@@ -259,11 +253,12 @@ def classed_prep(ranges, sum_a, sum_a2, cb: Codebook, range_classes,
 
     The route is the JAX package's (``fractencode_tpu/encode/matcher.py:
     590-602``): K2 (``search_classed2d``) where its pair list cannot be used
-    (``use_pairs`` False, 16K planes and up), where ``force_no_pairs`` asks
-    for it, or where the list could overflow its cap (``worst_pairs >
-    PAIR_CAP``, 4K planes and up) and this layout's ``n_pairs`` does; K1
-    (``search_classed``) otherwise.  Only the last case reads anything back
-    from the card (the class counts).
+    (``use_pairs`` False, 16K planes and up) or where ``force_no_pairs``
+    asks for it; K1 (``search_classed``) where the list fits in every case;
+    and where it could overflow its cap (``worst_pairs > PAIR_CAP``, 4K
+    planes and up), ``counted``: the layout's ``n_pairs`` decides on the
+    device, K2 where ``take_k2 = n_pairs > p_cap`` (the negation of the JAX
+    package's ``lax.cond`` predicate), K1 otherwise.  Nothing is read back.
 
     ``domain_mask`` ([D] bool) parks geometry-invalid domains in a reserved
     column bin no range tile visits; ``range_mask`` ([R] bool) parks excluded
@@ -277,8 +272,9 @@ def classed_prep(ranges, sum_a, sum_a2, cb: Codebook, range_classes,
     and row_end (the end of each class's real rows, 0 past the classes)
     [n_col_bins+1] i32; rpos [R]; inv_dom [m_pad/T] or inv_col [m_pad]; and
     b4_cols [m, K] i16 (4x the codebook values in search order); route
-    ('search_classed' or 'search_classed2d'), n_pairs (None where the route
-    did not need it), worst_pairs, p_cap and use_pairs.
+    ('search_classed', 'search_classed2d' or 'counted'); n_pairs (0-d i64)
+    and take_k2 (0-d bool) on the device for the 'counted' route, else
+    None; worst_pairs, p_cap and use_pairs.
     """
     r, n = ranges.shape
     d, t, _ = cb.values.shape
@@ -356,12 +352,13 @@ def classed_prep(ranges, sum_a, sum_a2, cb: Codebook, range_classes,
     row_end = torch.zeros_like(col_end)
     row_end[:_NUM_CLASS_BINS] = (r_seg_start + r_counts)[:_NUM_CLASS_BINS]
 
-    n_pairs = None
+    n_pairs = take_k2 = None
     if not use_pairs or force_no_pairs:
         route = "search_classed2d"
     elif worst_pairs > _mk.PAIR_CAP:
+        route = "counted"
         n_pairs = _pair_count(r_counts, c_counts, r, m, n_row_bins, n_col_bins)
-        route = "search_classed2d" if n_pairs > p_cap else "search_classed"
+        take_k2 = n_pairs > p_cap
     else:
         route = "search_classed"
     return dict(ai_s=ai_s, ch_s=ch_s, cl_s=cl_s, sb_s=sb_s, aux_s=aux_s,
@@ -370,7 +367,8 @@ def classed_prep(ranges, sum_a, sum_a2, cb: Codebook, range_classes,
                 col_tile_count=col_tile_count, col_end=col_end, row_end=row_end,
                 rpos=rpos, inv_col=inv_col, inv_dom=inv_dom,
                 block_r=block_r, block_m=block_m, route=route, n_pairs=n_pairs,
-                worst_pairs=worst_pairs, p_cap=p_cap, use_pairs=use_pairs)
+                take_k2=take_k2, worst_pairs=worst_pairs, p_cap=p_cap,
+                use_pairs=use_pairs)
 
 
 def _plain_only(cfg: EncoderConfig, scanned) -> dict:
@@ -389,7 +387,11 @@ def classed_kernel(prep: dict, k: int, domain_area: int, cfg: EncoderConfig,
 
     ``prep['route']`` picks K1 or K2.  ``cfg.backend`` 'torch' forces the
     plain version; otherwise the CUDA wrapper routes on the device (CPU
-    tensors run the plain version), and 'cuda' requires CUDA tensors.
+    tensors run the plain version), and 'cuda' requires CUDA tensors.  The
+    'counted' route is the JAX package's ``lax.cond`` on ``take_k2``: on the
+    card both kernels launch, the untaken one over empty segments
+    (``_counted``), and the taken one's result is kept, so nothing is read
+    back; the plain version reads the flag and runs the taken search alone.
     ``scanned`` (backend 'torch' only): see ``ops.matcher_kernels.
     _plain_search``.  ``splits`` (K2 only): its columns per split, chosen
     by the wrapper when None.
@@ -397,22 +399,46 @@ def classed_kernel(prep: dict, k: int, domain_area: int, cfg: EncoderConfig,
     if cfg.backend == "cuda" and prep["ai_s"].device.type != "cuda":
         raise ValueError("backend='cuda' needs tensors on a CUDA device")
     plain = cfg.backend == "torch"
-    extra = _plain_only(cfg, scanned)
-    if prep["route"] == "search_classed2d":
-        search = search_classed2d_torch if plain else search_classed2d_cuda
-        extra["splits"] = splits
-    elif splits is not None:
+    route = prep["route"]
+    if route == "counted" and (plain or prep["ai_s"].device.type != "cuda"):
+        route = "search_classed2d" if bool(prep["take_k2"]) else "search_classed"
+    if splits is not None and route == "search_classed":
         raise ValueError("splits is K2's: the route is K1")
-    else:
-        search = search_classed_torch if plain else search_classed_cuda
-    return search(
-        prep["ai_s"], prep["ch_s"], prep["cl_s"], prep["sb_s"], prep["aux_s"],
-        prep["tile_class"], prep["col_tile_start"], prep["col_end"], prep["row_end"],
-        block_r=prep["block_r"], block_m=prep["block_m"],
-        criterion=cfg.criterion, so_mode=cfg.so_mode, s_max=cfg.s_max,
-        inv_norm=inv_norm(cfg, k, domain_area), sa_s=prep["sa_s"],
-        sa2_s=prep["sa2_s"], threshold=cfg.rms_threshold, t_n=cfg.num_transforms,
-        n=k, **extra)
+    args, kw = _search_args(prep, k, domain_area, cfg, _plain_only(cfg, scanned))
+    if route == "counted":
+        return _counted(prep, args, kw, splits)
+    if route == "search_classed2d":
+        return (search_classed2d_torch if plain else search_classed2d_cuda)(
+            *args, splits=splits, **kw)
+    return (search_classed_torch if plain else search_classed_cuda)(*args, **kw)
+
+
+def _search_args(prep: dict, k: int, domain_area: int, cfg: EncoderConfig, extra: dict):
+    """The positional and keyword arguments K1 and K2 take for ``prep``
+    (``col_end`` eighth)."""
+    args = (prep["ai_s"], prep["ch_s"], prep["cl_s"], prep["sb_s"], prep["aux_s"],
+            prep["tile_class"], prep["col_tile_start"], prep["col_end"], prep["row_end"])
+    kw = dict(block_r=prep["block_r"], block_m=prep["block_m"],
+              criterion=cfg.criterion, so_mode=cfg.so_mode, s_max=cfg.s_max,
+              inv_norm=inv_norm(cfg, k, domain_area), sa_s=prep["sa_s"],
+              sa2_s=prep["sa2_s"], threshold=cfg.rms_threshold, t_n=cfg.num_transforms,
+              n=k, **extra)
+    return args, kw
+
+
+def _counted(prep: dict, args: tuple, kw: dict, splits=None):
+    """The 'counted' route without a host read, the counterpart of the JAX
+    package's ``lax.cond(n_pairs <= p_cap, K1, K2)``: K1 and K2 (their
+    wrappers) each on a copy of ``col_end`` in which the untaken route's
+    class segments end where they start, so that kernel scans no column and
+    writes the initial (q, idx) to every row; the taken one's result is
+    kept by ``take_k2``."""
+    start = prep["col_tile_start"] * prep["block_m"]
+    end, flag = prep["col_end"], prep["take_k2"]
+    q1, i1 = search_classed_cuda(*args[:7], torch.where(flag, start, end), *args[8:], **kw)
+    q2, i2 = search_classed2d_cuda(*args[:7], torch.where(flag, end, start), *args[8:],
+                                   splits=splits, **kw)
+    return torch.where(flag, q2, q1), torch.where(flag, i2, i1)
 
 
 def classed_post(q_s, idx_s, rpos, inv_col, ranges, sum_a, sum_a2, cb: Codebook,

@@ -13,14 +13,14 @@ grid tiles the plane, so each produces a full image, and the output takes
 each pixel from the level that holds its leaf.
 
 The JAX package runs the pyramid as one fused program, or level by level
-for a progress reporter; so does the port: on the card, where every level's
-route is fixed by its shape (``_replays``), the pyramid is one CUDA graph
-(``utils.graphs``), and the per-level loop runs eagerly otherwise.  The
-batch forms run it frame by frame (the JAX package's ``lax.map``) into
-preallocated level arrays; the sharded forms run each data shard's frames
-on its own device (``parallel.mesh``); the decode is one graph from the
-pyramid, or the flat loop's chunks (``graphs.while_loop``); the FTQ1
-bitstream is ``codec/bitstream_quadtree.py``.
+for a progress reporter; so does the port: on the card (``_replays``) the
+pyramid is one CUDA graph (``utils.graphs``), and the per-level loop runs
+eagerly otherwise.  The batch forms run it frame by frame (the JAX
+package's ``lax.map``) into preallocated level arrays; the sharded forms
+run each data shard's frames on its own device (``parallel.mesh``); the
+decode is one graph from the pyramid, or the flat loop's chunks
+(``graphs.while_loop``); the FTQ1 bitstream is
+``codec/bitstream_quadtree.py``.
 """
 from __future__ import annotations
 
@@ -195,17 +195,14 @@ def _level_config(cfg: EncoderConfig, qcfg: QuadtreeConfig, rs: int) -> EncoderC
 
 def _replays(h: int, w: int, cfg: EncoderConfig, qcfg: QuadtreeConfig, device) -> bool:
     """Whether the quadtree encode of an [h, w] plane on ``device`` runs in
-    one CUDA graph, decided before any work: every level's route is fixed
-    by its shape (``matcher.replays_graph``), each level past the first
-    under the coverage mask when ``mask_covered``, as the JAX package's
-    route statics take it."""
-    for i, rs in enumerate(qcfg.level_sizes):
+    one CUDA graph, decided before any work: every level's search may
+    (``matcher.replays_graph``)."""
+    for rs in qcfg.level_sizes:
         lcfg = _level_config(cfg, qcfg, rs)
         r = (h // rs) * (w // rs)
         m = (uniform_grid(w, h, lcfg.source_size, lcfg.domain_step).num_items
              * cfg.num_transforms)
-        if not replays_graph(r, m, lcfg, device,
-                             masked_ranges=i > 0 and qcfg.mask_covered):
+        if not replays_graph(r, m, lcfg, device):
             return False
     return True
 

@@ -131,11 +131,6 @@ _SLAB_CHUNK_COLS = 64
 _KROWS = 128
 # K2's blocks per SM when it chooses its split width (search_classed2d_cuda)
 _BLOCKS_PER_SM = 4
-# the most bytes K2's chosen split width may give its partials: past them it
-# takes wider splits (a long segment among many short ones)
-_PARTIALS_MAX_BYTES = 1 << 30
-# the most splits the CUDA grid takes (its z dimension)
-_MAX_SPLITS = 65535
 
 _BIG = 3.0e38
 _BIG_I = 2**31 - 1
@@ -596,7 +591,7 @@ def search_classed2d_torch(ai_s, ch_s, cl_s, sb_s, aux_s, tile_class,
     segments = _classed_segments(tile_class, col_tile_start, col_end, row_end,
                                  block_r, block_m, frontier)
     longest = max((c1 - c0 for _, _, c0, c1 in segments), default=0)
-    width = max(longest, 1) if splits is None else splits
+    width = max(longest, t_n) if splits is None else splits
     _check_width(width, frontier, t_n)
     r_pad, dev = ai_s.shape[0], ai_s.device
     n = _width_n(ai_s, n)
@@ -695,13 +690,13 @@ _KEY_ARGTYPES = ([ctypes.c_void_p] * 2 + [ctypes.c_float] * 3 + [ctypes.c_int]
 
 
 # each kernel's arguments before the key arguments: pointers, then ints
-# (K2: also its split width and count and its searched tiles' count), and
-# after them (K2: its searched tiles, each tile's rank among them, then its
+# (K2: also its grid's work items), and after them (K2: its split width, its
+# work items' count, the work items, each tile's first among them, then its
 # partials)
 _HEADS = {"search_classed": [ctypes.c_void_p] * 9 + [ctypes.c_int] * 3,
-          "search_classed2d": [ctypes.c_void_p] * 9 + [ctypes.c_int] * 6,
+          "search_classed2d": [ctypes.c_void_p] * 9 + [ctypes.c_int] * 4,
           "search_dense": [ctypes.c_void_p] * 7 + [ctypes.c_int] * 2}
-_TAILS = {"search_classed2d": [ctypes.c_void_p] * 5}
+_TAILS = {"search_classed2d": [ctypes.c_void_p] * 7}
 
 
 def _kernel_fn(kernel: str, mode: str, width, frontier: bool):
@@ -792,34 +787,64 @@ def _classed_launch_args(kernel, ai_s, ch_s, cl_s, sb_s, aux_s, tile_class,
     return (mode, width, threshold > 0.0), head, keys
 
 
-def _split_plan(total: int, longest: int, searched: int, block_r: int, k: int,
-                frontier: bool, t_n: int, splits, sms: int):
-    """K2's (columns per split, splits of the longest segment, partials'
-    bytes), from the columns the range tiles search: ``total`` over all
-    tiles, ``longest`` of one tile, and ``searched``, the tiles with any.
+def _k2_plan(nrt: int, m_pad: int, block_r: int, k: int, frontier: bool, t_n: int,
+             splits, sms: int):
+    """K2's plan from the layout's shapes alone, so that nothing is read
+    back: (step, items).  ``step`` is the split width with ``splits``
+    (columns per split) given, else the unit the width the device picks
+    (``_k2_work``) is a multiple of: one staged chunk (``_CHUNK_COLS`` by
+    the operands' width K), whole groups with the frontier.  ``items``, the
+    grid's x, bounds the (range tile, split) pairs that do work: a tile's
+    segment holds at most the ``m_pad`` sorted columns, and a width chosen
+    for the ``_BLOCKS_PER_SM`` blocks per SM of ``sms`` splits the columns
+    of all the tiles into fewer than that many blocks beyond one a tile."""
+    if splits is not None:
+        _check_width(splits, frontier, t_n)
+        return splits, max(1, nrt * -(-m_pad // splits))
+    chunk = _CHUNK_COLS.get(k, _SLAB_CHUNK_COLS)
+    step = chunk - (chunk % t_n if frontier else 0)
+    slices = -(-block_r // _KROWS)  # the grid's thread blocks per range tile
+    items = min(nrt * -(-m_pad // step), nrt + -(-_BLOCKS_PER_SM * sms // slices))
+    return step, max(1, items)
 
-    The grid runs over the searched tiles only, and the partials hold
-    (q, idx, hit), 9 bytes, per searched row and split: their size follows
-    the searched tiles, not the plane.  ``splits`` None chooses the width
-    that gives the grid about ``_BLOCKS_PER_SM`` blocks per SM of ``sms``
-    over those columns, never less than one staged chunk (``_CHUNK_COLS`` by
-    the operands' width K; whole groups with the frontier) nor so little that the partials pass
-    ``_PARTIALS_MAX_BYTES``; a search with many range tiles gets one split
-    per segment."""
-    rows = searched * block_r
-    if splits is None:
-        chunk = _CHUNK_COLS.get(k, _SLAB_CHUNK_COLS)
-        step = chunk - (chunk % t_n if frontier else 0)
-        slices = -(-block_r // _KROWS)  # the grid's thread blocks per range tile
-        width = max(step, -(-total * slices // (_BLOCKS_PER_SM * sms)))
-        most = max(1, _PARTIALS_MAX_BYTES // max(9 * rows, 1))  # splits the bytes allow
-        width = max(width, -(-longest // most))
-        splits = -(-width // step) * step
-    _check_width(splits, frontier, t_n)
-    n = max(1, -(-longest // splits))
-    if n > _MAX_SPLITS:
-        raise ValueError(f"{n} splits of {splits} columns: the grid takes {_MAX_SPLITS}")
-    return splits, n, 9 * n * rows
+
+def _k2_width(total, step: int, block_r: int, m_pad: int, sms: int):
+    """The split width K2 picks for the ``total`` columns its range tiles
+    search (a tensor): the multiple of ``step`` that gives the grid about
+    ``_BLOCKS_PER_SM`` blocks per SM of ``sms``, at least one step and at
+    most the ``m_pad`` columns a segment can hold; a search with many range
+    tiles gets one split a segment."""
+    slices = -(-block_r // _KROWS)
+    width = (-(-total * slices // (_BLOCKS_PER_SM * sms))).clamp(step, max(step, m_pad))
+    return -(-width // step) * step
+
+
+def _k2_work(tile_class, col_tile_start, col_end, *, block_m: int, block_r: int,
+             m_pad: int, step: int, items: int, auto: bool, sms: int):
+    """K2's work on the device, made with torch ops and read back by
+    nothing: (width, 0-d i32, the columns a split: ``step``, or with
+    ``auto`` ``_k2_width`` of the searched columns; splits [nrt] i64, each
+    tile's splits, 0 where it has no columns; work [items, 4] i32, (range
+    tile, class, first column, end column) of each split that has columns,
+    in tile then split order, the rows past them not read; n_work, 0-d i32,
+    their count; first [nrt] i32, each tile's first row in work)."""
+    cls = tile_class.to(torch.int64)
+    start = col_tile_start.to(torch.int64)[cls] * block_m
+    end = col_end.to(torch.int64)[cls]
+    seg = (end - start).clamp_min(0)
+    width = (_k2_width(seg.sum(), step, block_r, m_pad, sms) if auto
+             else seg.new_full((), step))
+    n = -(-seg // width)
+    ends = n.cumsum(0)
+    first = ends - n
+    j = torch.arange(items, dtype=torch.int64, device=seg.device)
+    # each item's tile; nrt past the last, which the padding below serves
+    tile = torch.searchsorted(ends, j, right=True)
+    pad = lambda x: torch.cat([x, x.new_zeros(1)])[tile]
+    col = pad(start) + (j - pad(first)) * width
+    work = torch.stack([tile, pad(cls), col, torch.minimum(col + width, pad(end))], 1)
+    return (width.to(torch.int32), n, work.to(torch.int32), n.sum(dtype=torch.int32),
+            first.to(torch.int32))
 
 
 def search_classed2d_cuda(ai_s, ch_s, cl_s, sb_s, aux_s, tile_class,
@@ -834,10 +859,14 @@ def search_classed2d_cuda(ai_s, ch_s, cl_s, sb_s, aux_s, tile_class,
     ``csrc/search_classed2d.cu``'s instance for n and the operands' width
     (and add one to ``search_classed2d_cuda.launches[(mode, width,
     frontier)]``), or raise ``ValueError`` for operands no instance takes.
-    ``splits`` (columns per split) None: chosen to fill the card
-    (``_split_plan``, from three integers read back).  The plan of the last
-    launch (columns per split, splits, searched tiles, the partials' bytes)
-    is kept in ``search_classed2d_cuda.plan``.
+    The launch reads nothing back: the grid and the partials are sized from
+    the shapes (``_k2_plan``), and the split width and the (range tile,
+    split) work list are made on the device (``_k2_work``; ``splits``,
+    columns per split, None: chosen there to fill the card).  The plan of
+    the last launch is kept in ``search_classed2d_cuda.plan``: the host's
+    step, work items the grid runs over, range tiles and partials' bytes,
+    and the device's ``width``, ``splits`` (each tile's) and ``work`` (their
+    sum): reading them waits for the launch.
     """
     kw = dict(block_r=block_r, block_m=block_m, criterion=criterion,
               so_mode=so_mode, s_max=s_max, inv_norm=inv_norm, sa_s=sa_s,
@@ -850,28 +879,24 @@ def search_classed2d_cuda(ai_s, ch_s, cl_s, sb_s, aux_s, tile_class,
         col_end, row_end, block_r, block_m, criterion, so_mode, s_max, inv_norm,
         sa_s, sa2_s, threshold, t_n, n)
     dev = ai_s.device
-    seg = (col_end.to(torch.int64) - col_tile_start.to(torch.int64) * block_m).clamp_min(0)
-    per_tile = seg[tile_class.to(torch.int64)]
-    has = per_tile > 0  # the tiles the grid runs over
-    rank = has.cumsum(0, dtype=torch.int32) - 1
-    total, longest, searched = torch.stack([per_tile.sum(), per_tile.max(), has.sum()]).tolist()
+    nrt = tile_class.shape[0]
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    width, n_splits, nbytes = _split_plan(total, longest, searched, block_r, ai_s.shape[1],
-                                          key[2], t_n, splits, sms)
-    # (tile, class) of the searched tiles in order; the others go to a last row
-    tiles = torch.empty((searched + 1, 2), dtype=torch.int32, device=dev)
-    ids = torch.arange(tile_class.shape[0], dtype=torch.int32, device=dev)
-    tiles.index_copy_(0, torch.where(has, rank, searched).long(),
-                      torch.stack([ids, tile_class], 1))
-    # the partials (q, idx, hit) of every searched row and split
-    part = [torch.empty((n_splits, searched * block_r), dtype=dt, device=dev)
+    step, items = _k2_plan(nrt, ch_s.shape[0], block_r, ai_s.shape[1], key[2], t_n, splits,
+                           sms)
+    width, n, work, n_work, first = _k2_work(tile_class, col_tile_start, col_end,
+                                          block_m=block_m, block_r=block_r,
+                                          m_pad=ch_s.shape[0], step=step, items=items,
+                                          auto=splits is None, sms=sms)
+    # the partials (q, idx, hit) of every row of a work item
+    part = [torch.empty((items * block_r,), dtype=dt, device=dev)
             for dt in (torch.float32, torch.int32, torch.uint8)]
-    out = _launch("search_classed2d", key, ai_s.shape[0], dev, *head, width, n_splits,
-                  searched, *keys, tiles.data_ptr(), rank.data_ptr(),
+    out = _launch("search_classed2d", key, ai_s.shape[0], dev, *head, items, *keys,
+                  width.data_ptr(), n_work.data_ptr(), work.data_ptr(), first.data_ptr(),
                   *(t.data_ptr() for t in part))
     search_classed2d_cuda.launches[key] += 1
-    search_classed2d_cuda.plan = dict(width=width, splits=n_splits, searched=searched,
-                                      partial_bytes=nbytes)
+    search_classed2d_cuda.plan = dict(step=step, items=items, tiles=nrt,
+                                      partial_bytes=9 * items * block_r, width=width,
+                                      splits=n, work=n_work)
     return out
 
 

@@ -9,10 +9,12 @@ key (the function's name, its configuration and geometry, and its inputs'
 shapes, dtypes and device), captures it at the second and replays it from
 then on.  Its callers decide whether a call
 goes through here from the shape, the configuration, the backend and the
-device alone, before any work (``encode.matcher.replays_graph``,
-``decode.decoder``): a function captured here makes no read back to the
-host, and its tables are on the device (``utils.tables``).  A capture that
-fails raises; nothing falls back to the eager form.
+device alone, before any work (``encode.matcher.replays_graph``: every
+classed and dense search of rows and columns on the card, the route the
+class counts decide included; ``decode.decoder``): a function captured
+here makes no read back to the host, and its tables are on the device
+(``utils.tables``).  A capture that fails raises; nothing falls back to the
+eager form.
 """
 from __future__ import annotations
 

@@ -546,7 +546,7 @@ def test_classed2d_kernel_matches_plain(cuda, case, frontier, operands):
         assert_bitwise(i_k, i_p, f"idx, splits {splits}")
     assert mk.search_classed2d_cuda.launches[(mode, k, frontier)] == before + 2
     assert mk.search_classed_cuda.launches == k1
-    assert mk.search_classed2d_cuda.plan["splits"] > 1
+    assert int(mk.search_classed2d_cuda.plan["splits"].max()) > 1
 
 
 @pytest.mark.parametrize("threshold", [0.0, 10.0])
@@ -563,15 +563,16 @@ def test_classed2d_matches_classed_on_the_card(cuda, threshold):
         torch.cuda.synchronize()
         assert_bitwise(q1, q2, f"q, splits {splits}")
         assert_bitwise(i1, i2, f"idx, splits {splits}")
-        assert n is None or mk.search_classed2d_cuda.plan["splits"] == n
+        assert n is None or int(mk.search_classed2d_cuda.plan["splits"].max()) == n
 
 
 @pytest.mark.parametrize("threshold", [0.0, 10.0])
 def test_classed2d_few_searched_tiles(cuda, threshold):
     """A range mask that leaves 200 of 16,384 ranges (a fine quadtree
-    level's coverage): K2 at the width it picks (many splits) against its
-    plain version, (q, idx) of every sorted row bitwise, with the partials
-    sized by the searched tiles, not by r_pad."""
+    level's coverage): K2 at the width it picks on the device (many splits)
+    against its plain version, (q, idx) of every sorted row bitwise, with
+    the partials sized by the shapes' bound on the work items, about r_pad's
+    rows, not by r_pad times the splits."""
     cfg = T.EncoderConfig(rms_threshold=threshold)
     img = _smooth(512, 19)
     ranges, *rest = _inputs(img, cfg, cuda)
@@ -585,8 +586,9 @@ def test_classed2d_few_searched_tiles(cuda, threshold):
     assert_bitwise(q_k, q_p, "q")
     assert_bitwise(i_k, i_p, "idx")
     plan, r_pad = mk.search_classed2d_cuda.plan, prep["ai_s"].shape[0]
-    assert plan["splits"] > 1
-    assert plan["partial_bytes"] * 4 < 9 * plan["splits"] * r_pad
+    splits = int(plan["splits"].max())
+    assert splits > 1 and int(plan["work"]) <= plan["items"]
+    assert plan["partial_bytes"] == 9 * plan["items"] * prep["block_r"] < 9 * splits * r_pad
 
 
 def test_classed2d_wrapper_refuses_bad_inputs(cuda):
@@ -607,6 +609,145 @@ def test_classed2d_wrapper_refuses_bad_inputs(cuda):
     with pytest.raises(ValueError, match="multiple"):
         mk.search_classed2d_cuda(*args, **kw, splits=0)
     assert mk.search_classed2d_cuda.launches == before
+
+
+# K2's instance families beyond CASES' fixed widths: the padded K = 16
+# instance (n = 4) and the K-slab form (n = 1024), by geometry
+WIDE = {"16p": dict(source_size=8, target_size=2), "slab": dict(source_size=64,
+                                                                 target_size=32)}
+
+
+@pytest.mark.parametrize("frontier", [False, True], ids=["plain", "thr"])
+@pytest.mark.parametrize("case", CASES + [(key, w) for key in ("ls", "raw", "general-ls")
+                                          for w in WIDE], ids=lambda c: f"{c[0]}{c[1]}")
+def test_classed2d_device_searched_matches_plain(cuda, case, frontier):
+    """Each K2 family (every key at K = 16, 64, 256, padded 16p and the
+    K-slab form, plain and _thr) with its searched tiles' count on the
+    device and the shape plan: no host sync in the launch (the sync debug
+    mode raises on one), (q, idx) bitwise against the plain version, the
+    grid over the shapes' bound on the work items."""
+    key, k = case
+    geometry = WIDE[k] if k in WIDE else GEOMETRY[k]
+    cfg = T.EncoderConfig(**geometry, **KEYS[key], rms_threshold=10.0 if frontier else 0.0)
+    prep = _prep(_smooth(256, 21), cfg, cuda, force_no_pairs=True)
+    n, area = cfg.target_size ** 2, cfg.source_size ** 2
+    q_p, i_p = tm.classed_kernel(prep, n, area, dataclasses.replace(cfg, backend="torch"))
+    tm.classed_kernel(prep, n, area, cfg)  # the build
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        q_k, i_k = tm.classed_kernel(prep, n, area, cfg)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    assert_bitwise(q_k, q_p, "q")
+    assert_bitwise(i_k, i_p, "idx")
+    plan = mk.search_classed2d_cuda.plan
+    assert plan["tiles"] == prep["tile_class"].shape[0]
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    assert int(plan["work"]) <= plan["items"] <= plan["tiles"] + 4 * sms
+
+
+def _n_pairs(make, monkeypatch):
+    """Each counted search's n_pairs in ``make()`` with the cap at 4."""
+    n_pairs = []
+    prep = tm.classed_prep
+    monkeypatch.setattr(tm, "classed_prep", lambda *a, **k: (
+        lambda p: n_pairs.append(int(p["n_pairs"])) or p)(prep(*a, **k)))
+    monkeypatch.setattr(mk, "PAIR_CAP", 4)
+    make()
+    monkeypatch.setattr(tm, "classed_prep", prep)
+    return n_pairs
+
+
+def _arrays(res):
+    from fractencode_tpu_torch.encode.encoder import ARRAY_FIELDS
+
+    return [getattr(res, f) for f in ARRAY_FIELDS]
+
+
+def _launches():
+    return (sum(mk.search_classed_cuda.launches.values()),
+            sum(mk.search_classed2d_cuda.launches.values()))
+
+
+@pytest.mark.parametrize("form,branch", [(f, b) for f in ("plane", "batch", "quadtree")
+                                         for b in ("k2", "k1")]
+                         + [("plane", "mixed"), ("batch", "mixed")])
+def test_counted_route_graph_equals_eager_on_the_card(cuda, form, branch, monkeypatch):
+    """At 512^2 with the cap just below the two planes' smallest n_pairs (K2
+    taken), at their largest (K1 taken), or for the grid at the smaller
+    plane's (the capture takes one branch, the replay on the other plane
+    the other): encode_plane, encode_batch_stacked and
+    encode_plane_quadtree take their graph; the eager first call, the
+    capture and a replay equal the eager encode and the CPU's bitwise; a
+    counted search launches both kernels (the counters count both), and a
+    warm call makes no host sync."""
+    from fractencode_tpu_torch.encode import encoder as enc, quadtree as tq
+    from fractencode_tpu_torch.utils import graphs
+
+    cfg, qcfg = T.EncoderConfig(), tq.QuadtreeConfig()
+    a, b = _smooth(512, 64), random_plane(512, 65)
+    if form == "quadtree":
+        eager = lambda p: tq._quadtree_arrays(torch.from_numpy(p).to(cuda), cfg, qcfg)
+        call = lambda p, dev=cuda: [getattr(l, f) for l in tq.encode_plane_quadtree(
+            p, cfg, qcfg, device=dev).levels for f in tq.LEVEL_ARRAY_FIELDS]
+        assert tq._replays(512, 512, cfg, qcfg, cuda)
+    else:
+        eager = lambda p: enc._encode_arrays(torch.from_numpy(p).to(cuda), cfg)
+        if form == "plane":
+            call = lambda p, dev=cuda: _arrays(T.encode_plane(p, cfg, device=dev))
+        else:
+            call = lambda p, dev=cuda: [x[1] for x in _arrays(T.encode_batch_stacked(
+                np.stack([p, p]), cfg, device=dev))]
+        assert enc._replays(512, 512, cfg, cuda)
+    n_a, n_b = (_n_pairs(lambda: eager(p), monkeypatch) for p in (a, b))
+    assert n_a and n_b
+    if branch == "mixed":
+        assert n_a != n_b
+        cap = min(n_a[0], n_b[0])
+    else:
+        cap = min(n_a + n_b) - 1 if branch == "k2" else max(n_a + n_b)
+    monkeypatch.setattr(mk, "PAIR_CAP", cap)
+    routes = []
+    prep = tm.classed_prep
+    monkeypatch.setattr(tm, "classed_prep", lambda *a_, **k: (
+        lambda p: routes.append((p["route"], p["take_k2"])) or p)(prep(*a_, **k)))
+    graphs.clear()
+    want = [eager(p) for p in (a, b)]
+    torch.cuda.synchronize()
+    # the searches of one encode, and its counted ones (the others static K1)
+    searches = len(routes) // 2
+    counted = [r for r, _ in routes].count("counted") // 2
+    taken = {bool(t) for r, t in routes if r == "counted"}
+    assert counted and taken == {"k2": {True}, "k1": {False}, "mixed": {False, True}}[branch]
+    assert all(r in ("counted", "search_classed") for r, _ in routes)
+    frames = 2 if form == "batch" else 1
+    before = _launches()
+    results = [call(p) for p in (a, a, b)]
+    # every search launches K1, a counted one K2 too, in each of 3 calls
+    assert tuple(x - y for x, y in zip(_launches(), before)) == (
+        3 * frames * searches, 3 * frames * counted)
+    name = "encode_plane_quadtree" if form == "quadtree" else "encode_plane"
+    assert graphs.calls[name, "capture"] >= 1 and graphs.calls[name, "replay"] >= 2
+    cpu = call(a, "cpu")
+    for got, exp in zip(results + [cpu], [want[0], want[0], want[1], want[0]]):
+        for x, y in zip(got, exp, strict=True):
+            assert_bitwise(x, y, f"{form} {branch}")
+    for x, y in zip(results[0], results[1]):
+        assert_bitwise(x, y, "an earlier result changed")
+    plane = torch.from_numpy(a).to(cuda)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        if form == "quadtree":
+            tq.encode_plane_quadtree(plane, cfg, qcfg)
+        elif form == "plane":
+            T.encode_plane(plane, cfg)
+        else:
+            T.encode_batch_stacked(torch.stack([plane, plane]), cfg)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
 
 
 def test_cli_without_a_card_exits_nonzero(cuda, tmp_path):

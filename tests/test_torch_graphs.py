@@ -7,6 +7,7 @@ The graphs themselves run on the card: tests/test_torch_cuda.py.
 import collections
 import contextlib
 import dataclasses
+import functools
 
 import numpy as np
 import pytest
@@ -53,17 +54,26 @@ def _geometry(side, source, target, transforms=4):
                          ids=["4px", "8px", "16px"])
 @pytest.mark.parametrize("side", [64, 512, 2048, 4096, 8192, 16384])
 def test_predicate_matches_the_jax_route_statics(side, geometry):
-    """A classed encode replays exactly where the JAX package's route is K1
-    whatever the classes: its pair list usable and never past its cap."""
+    """A classed encode replays at every size, whichever route the JAX
+    package's statics (the port's, equal) give it: K1 where its pair list
+    always fits (to 2048^2 at 4 px), the route the class counts decide on
+    the device where the list could overflow (4096^2 and 8192^2), K2 where
+    the list cannot be used (16384^2)."""
     ds, rs = geometry
     r, m = _geometry(side, ds, rs)
-    *_, worst, p_cap, use_pairs = jm._classed_statics(r, m, J.EncoderConfig())
+    js = jm._classed_statics(r, m, J.EncoderConfig())
+    assert tm._classed_statics(r, m)[4:] == js[4:]
+    *_, worst, p_cap, use_pairs = js
     cfg = EncoderConfig(source_size=ds, target_size=rs)
-    assert tm.replays_graph(r, m, cfg, "cuda") == (use_pairs and worst <= p_cap)
-    assert encoder._replays(side, side, cfg, torch.device("cuda")) == (
-        use_pairs and worst <= p_cap)
-    if side <= 2048 and rs == 4:
-        assert tm.replays_graph(r, m, cfg, "cuda")
+    for backend in ("auto", "cuda"):
+        c = dataclasses.replace(cfg, backend=backend)
+        assert tm.replays_graph(r, m, c, "cuda")
+        assert encoder._replays(side, side, c, torch.device("cuda"))
+    if rs == 4:
+        route = ("search_classed" if use_pairs and worst <= p_cap
+                 else "counted" if use_pairs else "search_classed2d")
+        assert route == ("search_classed" if side <= 2048 else
+                         "counted" if side <= 8192 else "search_classed2d")
     # the dense route is static at every size
     assert tm.replays_graph(r, m, dataclasses.replace(cfg, use_classifier=False), "cuda")
 
@@ -169,17 +179,106 @@ def test_graph_stages_read_nothing_back(path, side, monkeypatch):
     assert (iters, float(mse)) == (dcfg.pyramid_full_steps, mse_public)
 
 
+def _routes(monkeypatch):
+    """The routes classed_kernel is given, in order (a list it fills)."""
+    routes = []
+    kernel = tm.classed_kernel
+
+    def spy(prep, *args, **kwargs):
+        routes.append(prep["route"] if prep["route"] != "counted"
+                      else ("counted", bool(prep["take_k2"])))
+        return kernel(prep, *args, **kwargs)
+
+    monkeypatch.setattr(tm, "classed_kernel", spy)
+    return routes
+
+
 @pytest.mark.parametrize("side", [64, 128])
 def test_refused_config_reads_back(side, monkeypatch):
     """With PAIR_CAP patched to 4 the route counts the pair list from the
-    class counts: the predicate refuses, and the encode does read back."""
+    class counts, on the device: the predicate takes the graph, and the
+    encode reads nothing back and uploads nothing."""
     monkeypatch.setattr(mk, "PAIR_CAP", 4)
     cfg = EncoderConfig()
-    assert not encoder._replays(side, side, cfg, torch.device("cuda"))
+    assert encoder._replays(side, side, cfg, torch.device("cuda"))
     plane = torch.from_numpy(random_plane(side, 13))
     encoder._encode_arrays(plane, cfg)
+    routes = _routes(monkeypatch)
     _, rec = _recorded(monkeypatch, encoder._encode_arrays, plane, cfg)
-    assert "tolist" in rec.reads and rec.uploads == []
+    assert routes == [("counted", True)]
+    assert (rec.reads, rec.uploads) == ([], [])
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_reference(kind):
+    """The JAX package's encode of the counted tests' 64^2 plane on the CPU
+    (its route there does not depend on the cap), and its decoded u8
+    pixels: encode_plane and decode_plane, or the quadtree pair."""
+    img = random_plane(64, 17)
+    if kind == "grid":
+        res = J.encode_plane(img, J.EncoderConfig())
+        out, _, _ = J.decode_plane(res, J.DecoderConfig(pyramid=True))
+        return img, res, np.asarray(out)
+    import fractencode_tpu.encode.quadtree as jq
+
+    res = jq.encode_plane_quadtree(img, J.EncoderConfig(), jq.QuadtreeConfig())
+    out, _, _ = jq.decode_plane_quadtree(res, J.DecoderConfig(pyramid=True))
+    return img, res, np.asarray(out)
+
+
+@pytest.mark.parametrize("branch", ["k2", "k1"])
+@pytest.mark.parametrize("kind", ["grid", "quadtree"])
+def test_counted_route_matches_jax(kind, branch, monkeypatch):
+    """With the cap just below the smallest search's n_pairs (every search
+    takes K2) or at the largest (every one K1, its list still able to
+    overflow): the stages read nothing back and upload nothing; the encode
+    equals the static route's (the cap unpatched) bitwise, and the JAX
+    package's on the CPU, bitwise but for s and o at the quadtree's 16 px
+    level (K = 256: to test_torch_quadtree.py's tolerances, the parity
+    contract); the decoded pixels equal the JAX package's bitwise."""
+    from test_torch_quadtree import O_ATOL, O_RTOL, S_ATOL, S_RTOL
+
+    from fractencode_tpu_torch.encode import quadtree as tq
+
+    img, rj, out_j = _jax_reference(kind)
+    plane = torch.from_numpy(img)
+    cfg, qcfg = EncoderConfig(), tq.QuadtreeConfig()
+    encode = ((lambda p: encoder._encode_arrays(p, cfg)) if kind == "grid"
+              else (lambda p: tq._quadtree_arrays(p, cfg, qcfg)))
+    static = encode(plane)
+    prep = tm.classed_prep
+    n_pairs = []
+    monkeypatch.setattr(tm, "classed_prep", lambda *a, **k: (
+        lambda out: n_pairs.append(int(out["n_pairs"])) or out)(prep(*a, **k)))
+    monkeypatch.setattr(mk, "PAIR_CAP", 4)
+    encode(plane)  # the tables, and each search's n_pairs
+    monkeypatch.setattr(tm, "classed_prep", prep)
+    monkeypatch.setattr(mk, "PAIR_CAP", min(n_pairs) - 1 if branch == "k2" else max(n_pairs))
+    routes = _routes(monkeypatch)
+    arrays, rec = _recorded(monkeypatch, encode, plane)
+    assert routes == [("counted", branch == "k2")] * (1 if kind == "grid" else 3)
+    assert (rec.reads, rec.uploads) == ([], [])
+    for x, y in zip(arrays, static, strict=True):
+        assert_bitwise(x, y, "the static route's encode")
+    pyramid = DecoderConfig(pyramid=True)
+    if kind == "grid":
+        rt = encoder._result(arrays, 64, 64, cfg)
+        pairs, fields = [(rj, rt)], ("domain_idx", "transform", "s", "o", "valid")
+        out_t = dec.decode_plane(rt, pyramid)[0]
+    else:
+        rt = tq._levels(arrays, 64, 64, cfg, qcfg)
+        pairs, fields = list(zip(rj.levels, rt.levels, strict=True)), (
+            "domain_idx", "transform", "s", "o", "accepted")
+        out_t = tq.decode_plane_quadtree(rt, pyramid)[0]
+    tols = dict(s=(S_RTOL, S_ATOL), o=(O_RTOL, O_ATOL))
+    for lj, lt in pairs:
+        for f in fields:
+            a, b = np.asarray(getattr(lj, f)), getattr(lt, f)
+            if getattr(lt, "range_size", 0) == 16 and f in tols:
+                np.testing.assert_allclose(b.numpy(), a, *tols[f], err_msg=f)
+            else:
+                assert_bitwise(a, b, f)
+    assert_bitwise(out_j, out_t, "decoded pixels")
 
 
 def test_flat_decode_reads_back(monkeypatch):

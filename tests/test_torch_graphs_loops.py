@@ -190,44 +190,56 @@ SIDES = [64, 512, 2048, 4096, 8192, 16384]
 @pytest.mark.parametrize("mask_covered", [True, False])
 @pytest.mark.parametrize("side", SIDES)
 def test_quadtree_predicate_matches_the_jax_route_statics(side, mask_covered):
-    """The quadtree replays exactly where every level's JAX route is K1
-    whatever the classes, each level past the first with the coverage
-    mask's reserved row bin; without the classifier (K3) at every size."""
+    """The quadtree replays at every size, whichever route each level's JAX
+    route statics (the port's, equal, each level past the first with the
+    coverage mask's reserved row bin) give it; without the classifier (K3)
+    too; never on the CPU or with the plain versions."""
     qcfg = tq.QuadtreeConfig(mask_covered=mask_covered)
     fits = []
     for i, rs in enumerate(qcfg.level_sizes):
         ds = rs * qcfg.domain_ratio
         r = (side // rs) ** 2
         m = uniform_grid(side, side, ds, ds // qcfg.lattice).num_items * 4
-        *_, worst, p_cap, use_pairs = jm._classed_statics(
-            r, m, J.EncoderConfig(), masked_ranges=i > 0 and mask_covered)
+        masked = i > 0 and mask_covered
+        js = jm._classed_statics(r, m, J.EncoderConfig(), masked_ranges=masked)
+        assert tm._classed_statics(r, m, masked_ranges=masked)[4:] == js[4:]
+        *_, worst, p_cap, use_pairs = js
         fits.append(use_pairs and worst <= p_cap)
     cuda = torch.device("cuda")
-    assert tq._replays(side, side, T.EncoderConfig(), qcfg, cuda) == all(fits)
+    assert tq._replays(side, side, T.EncoderConfig(), qcfg, cuda)
     assert tq._replays(side, side, T.EncoderConfig(use_classifier=False), qcfg, cuda)
     assert not tq._replays(side, side, T.EncoderConfig(), qcfg, torch.device("cpu"))
     assert not tq._replays(side, side, T.EncoderConfig(backend="torch"), qcfg, cuda)
-    if side <= 2048:
-        assert all(fits)
+    assert all(fits) == (side <= 2048)
 
 
 def test_quadtree_predicate_counts_the_masked_row_bin(monkeypatch):
     """With the pair cap at 72, a 64^2 level fits its list unmasked (72
-    pairs at worst) but not with the reserved row bin (81): the predicate
-    takes the mask into account as the JAX route statics do."""
+    pairs at worst) but not with the reserved row bin (81), as the JAX route
+    statics count it: the masked level's route is the counted one, and the
+    pyramid replays either way."""
     monkeypatch.setattr(mk, "PAIR_CAP", 72)
     monkeypatch.setattr(jmp, "PAIR_CAP", 72)
     r, m = 256, uniform_grid(64, 64, 16, 8).num_items * 4
     for masked in (False, True):
-        *_, worst, p_cap, use_pairs = jm._classed_statics(r, m, J.EncoderConfig(),
-                                                          masked_ranges=masked)
-        assert tm.replays_graph(r, m, T.EncoderConfig(), "cuda",
-                                              masked_ranges=masked) == (worst <= p_cap)
-        assert worst == (81 if masked else 72)
+        js = jm._classed_statics(r, m, J.EncoderConfig(), masked_ranges=masked)
+        assert tm._classed_statics(r, m, masked_ranges=masked)[4:] == js[4:]
+        *_, worst, p_cap, use_pairs = js
+        assert (worst, worst <= p_cap) == ((81, False) if masked else (72, True))
+        assert tm.replays_graph(r, m, T.EncoderConfig(), "cuda")
+    plane = torch.from_numpy(random_plane(64, 18))
     cuda = torch.device("cuda")
-    assert not tq._replays(64, 64, T.EncoderConfig(), tq.QuadtreeConfig(), cuda)
-    assert tq._replays(64, 64, T.EncoderConfig(),
-                       tq.QuadtreeConfig(mask_covered=False), cuda)
+    for mask_covered in (True, False):
+        qcfg = tq.QuadtreeConfig(mask_covered=mask_covered)
+        assert tq._replays(64, 64, T.EncoderConfig(), qcfg, cuda)
+        routes = []
+        kernel = tm.classed_prep
+        monkeypatch.setattr(tm, "classed_prep", lambda *a, **k: (
+            lambda p: routes.append(p["route"]) or p)(kernel(*a, **k)))
+        tq._quadtree_arrays(plane, T.EncoderConfig(), qcfg)
+        monkeypatch.setattr(tm, "classed_prep", kernel)
+        # the 4 px level (worst 72 or 81 at 64^2) under the mask or not
+        assert routes[-1] == ("counted" if mask_covered else "search_classed")
 
 
 # the quadtree configs the graph takes, by CLI flags
