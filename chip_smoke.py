@@ -154,7 +154,19 @@ Phases, each of which must pass (any failure exits non-zero):
      one process and as two
      (gloo, localhost) for each strategy, whose checksums must agree; and
      dryrun_multichip on cuda:0 x 8.  No sharded path may run a plain search
-     on the card;
+     on the card.  Then the sharded forms on their step graphs
+     (parallel.sharded: one CUDA graph for each (step, config, shapes,
+     device), the shard index an input): the three strategies at 16 x 512^2
+     on (2, 4), the 2048^2 halo plane on (1, 4) by replicate and ring, and
+     the sharded decodes (flat, pyramid, the quadtree's pyramid), each eager
+     against graph in turns (host ms a frame, the graph's busy share, host
+     syncs a call:
+     the upload only for an encode, one read a call plus one a flat-loop
+     chunk for a decode), a warm graph call's graphs.calls by step (every
+     step a replay), the graphs held (a ring at most 4) and the K1 ls16 and
+     K3 masked launches on the replays (--noclassifier 'domains' and
+     --noclassifier --rms 10 'ring' too), and the card memory after the
+     phase and after graphs.clear();
  24. every range size the JAX CLI accepts (range_phase): the padded
      instances (n = 4, 36, 100: K = 16, 64, 256 over operands zero past n)
      and the K-slab form (n = 1024).  The quadtree from 32 px down to 2 px
@@ -1311,12 +1323,14 @@ def kernel_template(key):
     return f"{kernel}_kernel<{', '.join(args)}>"
 
 
-def timed_forms(name, frames_n, make, graph_syncs=1, rounds=7):
+def timed_forms(name, frames_n, make, graph_syncs=1, rounds=7, busy_forms=("eager", "graph")):
     """One form's eager and graph runs in turns (``make(graph)`` gives each,
     a function of no arguments; medians of ``rounds``): host ms a frame,
-    busy share, host syncs a frame with their lines; prints them and
-    returns {form: (host ms a frame, busy share, host syncs a call)}.  The
-    graph form syncs ``graph_syncs`` times a call at most."""
+    busy share (of the forms in ``busy_forms``: the profiler takes tens of
+    seconds over an eager call of tens of thousands of ops), host syncs a
+    frame with their lines; prints them and returns {form: (host ms a
+    frame, busy share, host syncs a call)}.  The graph form syncs
+    ``graph_syncs`` times a call at most."""
     import torch
 
     runs = {form: make(form == "graph") for form in ("eager", "graph")}
@@ -1332,7 +1346,7 @@ def timed_forms(name, frames_n, make, graph_syncs=1, rounds=7):
     line = [f"     {name}:"]
     out = {}
     for form, fn in runs.items():
-        busy, _ = device_busy(synced[form], reps=1)
+        busy = device_busy(synced[form], reps=1)[0] if form in busy_forms else None
         _, sites = host_syncs(fn)
         per = sum(sites.values()) / frames_n
         out[form] = (ms[form] / frames_n, busy, sum(sites.values()))
@@ -2260,11 +2274,15 @@ def hit_share(q, sa, sa2, c):
 
 @contextlib.contextmanager
 def recorded(module, name, calls):
-    """Calls of ``module.name`` appended to ``calls`` as (args, kwargs)."""
+    """Calls of ``module.name`` appended to ``calls`` as (args, kwargs),
+    but those a CUDA graph captures: their tensors hold no data."""
+    import torch
+
     fn = getattr(module, name)
 
     def record(*args, **kwargs):
-        calls.append((args, kwargs))
+        if not torch.cuda.is_current_stream_capturing():
+            calls.append((args, kwargs))
         return fn(*args, **kwargs)
 
     setattr(module, name, record)
@@ -2348,6 +2366,19 @@ def masked_parity(kernels, call, what, plain_reps=5):
         kernels.hits(key, share)
         print(f"      {share:.4f} of the rows hit; {pairs} pairs scanned up to each "
               "row's frontier")
+
+
+def eager_search_calls(frames, c, mesh):
+    """The K3 searches of a sharded 'domains' encode of ``frames`` under
+    config c, each shard's inputs, recorded from its eager steps (on the
+    graphs a replay makes no Python call): calls of ``sharded.search_dense``
+    as ``recorded`` lists them."""
+    from fractencode_tpu_torch.parallel import sharded as ts
+
+    calls = []
+    with no_plain_search(), recorded(ts, "search_dense", calls):
+        ts._encode_batch(frames, c, mesh, "domains", graph=False)
+    return calls
 
 
 def codebook_bytes(w: int, c, rows_per: int) -> int:
@@ -2449,6 +2480,11 @@ def shard_phase(kernels, cfg, planes, card="cuda:0"):
     mesh = lambda nd, ns: make_mesh(nd, ns, devices=[card] * (nd * ns))
     fields = ("domain_idx", "transform", "s", "o", "distance", "valid")
     variants = lambda c: {"": c, " --rms 10": dc.replace(c, rms_threshold=10.0)}
+    start = time.perf_counter()
+
+    def lap(what):
+        print(f"     ({what}: {time.perf_counter() - start:.1f} s into phase 23)")
+
     print("     every mesh here repeats cuda:0, so its shards share one card: host ms "
           "are the sharding's overhead, not its scaling (one warm run each)")
 
@@ -2469,11 +2505,10 @@ def shard_phase(kernels, cfg, planes, card="cuda:0"):
             for thr in (False, True):
                 c = k3_config(mode, k, thr)
                 name = f"{mode}{k}" + ("_thr" if thr else "")
-                calls = []
+                calls = eager_search_calls(small[None], c, m14)
                 _, res, _ = sharded(f"sharded domains 256 nocls {name}",
                                     [search_key(c, masked=True)],
-                                    lambda: encode_batch_sharded(small[None], c, m14, "domains"),
-                                    calls)
+                                    lambda: encode_batch_sharded(small[None], c, m14, "domains"))
                 single = encode_plane(small, c, device=card)
                 for f in fields:
                     check(bitwise(getattr(res[0], f), getattr(single, f)),
@@ -2482,6 +2517,7 @@ def shard_phase(kernels, cfg, planes, card="cuda:0"):
     print("     256^2 'domains' on (1, 4) without the classifier, every (key, K) plain "
           "and --rms 10: equal to encode_plane, each launching its masked K3 instance")
 
+    lap("the masked instances")
     # config 5: 16 distinct 512^2 frames (phase 20's) on (2, 4)
     frames = np.stack([natural_plane(512, SEED + 1000 + i) for i in range(16)])
     m24 = mesh(2, 4)
@@ -2522,6 +2558,7 @@ def shard_phase(kernels, cfg, planes, card="cuda:0"):
               f"MSE and iterations equal to decode_batch_stacked's; host ms a frame "
               f"{ms / 16:.3f} against {st_ms / 16:.3f}")
 
+    lap("the 16 x 512^2 batch and its decodes")
     # config 4: the halo-sharded plane on (1, 4)
     halo_calls = {}
     for n_px in (2048, 4096):
@@ -2557,6 +2594,7 @@ def shard_phase(kernels, cfg, planes, card="cuda:0"):
         masked_parity(kernels, call, f"2048^2 {name} halo band 0 (replicate: 4 gathered "
                       "bands)", plain_reps=1)
 
+    lap("the halo plane")
     # the quadtree pair on (4, 2): phase 20's 8 x 1024^2 frames
     qcfg = tq.QuadtreeConfig()
     qframes = np.stack([natural_plane(1024, SEED + 2000 + i) for i in range(8)])
@@ -2585,11 +2623,134 @@ def shard_phase(kernels, cfg, planes, card="cuda:0"):
           f"host ms a frame: encode {ms / 8:.3f} against {st_ms / 8:.3f}, decode "
           f"{d_sh / 8:.3f} against {d_st / 8:.3f}; launches {counts}")
 
+    lap("the quadtree pair")
+    shard_graphs(kernels, cfg, frames, base, qsh, planes[2048], card)
+    lap("the step graphs")
     pod_phase(card.type)
+    lap("encode_pod")
     buf = io.StringIO()
     with contextlib.redirect_stdout(buf):
         dryrun_multichip(8, devices=[card] * 8)
     print(f"     {buf.getvalue().strip()} (devices: cuda:0 x 8)")
+
+
+def shard_graph_form(kernels, name, frames_n, make, expect, graph_syncs=1, rounds=5):
+    """One sharded form on its step graphs (``make(graph)`` gives its eager
+    and graph calls, functions of no arguments), the graph cache cleared
+    first: a warm graph call with the launch counts zeroed before and read
+    after, in which every graph step must replay, then eager and graph in
+    turns (``timed_forms``).  Prints the warm call's graphs.calls by step,
+    the graphs the form holds, the card memory then and the launches;
+    returns (the timings, the graph keys held)."""
+    import torch
+
+    from fractencode_tpu_torch.utils import graphs
+
+    t0 = time.perf_counter()
+    graphs.clear()
+    run = make(True)
+    run()  # each key's first call runs eagerly, its second captures
+    torch.cuda.synchronize()
+    before = collections.Counter(graphs.calls)
+    kernels.zero()
+    with no_plain_search():
+        run()
+    torch.cuda.synchronize()
+    counts = kernels.read(f"{name}, graph", expect)
+    steps = dict(graphs.calls - before)
+    check(steps and all(form == "replay" for _, form in steps),
+          f"{name}: a warm graph call took {steps}, not replays only")
+    out = timed_forms(name, frames_n, make, graph_syncs, rounds, busy_forms=("graph",))
+    keys = list(graphs._GRAPHS)
+    print(f"       graphs.calls of a warm graph call by step: "
+          + ", ".join(f"{step} x{n}" for (step, _), n in sorted(steps.items()))
+          + f"; {len(keys)} graphs held ({', '.join(k[0] for k in keys)}), card memory "
+          f"allocated {torch.cuda.memory_allocated()}, reserved "
+          f"{torch.cuda.memory_reserved()} bytes; launches on the replays {counts} "
+          f"({time.perf_counter() - t0:.1f} s)")
+    return out, keys
+
+
+def shard_graphs(kernels, cfg, frames, results, qresults, big, card):
+    """Phase 23's sharded forms on their step graphs, eager against graph in
+    turns: the three strategies on phase 20's 16 x 512^2 ``frames`` on
+    (2, 4), the 2048^2 halo plane ``big`` on (1, 4) by replicate and ring,
+    the sharded decodes of ``results`` (flat and pyramid, (2, 4)) and of the
+    quadtree's ``qresults`` (pyramid, (4, 2)); then the K3 masked forms'
+    launches on the replays, and the card memory after the phase and after
+    graphs.clear()."""
+    import dataclasses as dc
+
+    import torch
+
+    from fractencode_tpu_torch import DecoderConfig, encode_batch_stacked
+    from fractencode_tpu_torch.decode import decoder as dec
+    from fractencode_tpu_torch.encode import quadtree as tq
+    from fractencode_tpu_torch.parallel import STRATEGIES, make_mesh
+    from fractencode_tpu_torch.parallel import sharded as ts
+    from fractencode_tpu_torch.utils import graphs
+
+    mesh = lambda nd, ns: make_mesh(nd, ns, devices=[card] * (nd * ns))  # noqa: E731
+    m24, m14, m42 = mesh(2, 4), mesh(1, 4), mesh(4, 2)
+    graphs.clear()
+    gc.collect()
+    torch.cuda.empty_cache()
+    graph_memory("graphs.clear() before the step graphs")
+    print("     the sharded forms on their step graphs (meshes of cuda:0: host overhead, "
+          "not scaling), eager and graph in turns (host clock, medians of 5; the graph "
+          "form's busy share by torch.profiler; host syncs by "
+          "torch.cuda.set_sync_debug_mode; card memory with the form's graphs):")
+    k1 = [search_key(cfg)]
+    for strategy in STRATEGIES:
+        _, keys = shard_graph_form(
+            kernels, f"encode_batch_sharded {strategy} 16 x 512^2 (2, 4)", 16,
+            lambda graph, st=strategy: lambda: ts._encode_batch(frames, cfg, m24, st, graph), k1)
+        check(strategy != "ring" or len(keys) <= 4,
+              f"ring at 16 x 512^2 holds {len(keys)} graph keys for 4 shards x 4 hops")
+    for codebook in ("replicate", "ring"):
+        shard_graph_form(kernels, f"encode_plane_sharded_image {codebook} 2048^2 (1, 4)", 1,
+                         lambda graph, cb=codebook: lambda: ts._encode_image(
+                             big, cfg, m14, cb, graph), k1)
+    nocls = dc.replace(cfg, use_classifier=False)
+    stacked = encode_batch_stacked(frames, nocls, device=card)
+    for strategy, c in (("domains", nocls), ("ring", dc.replace(nocls, rms_threshold=10.0))):
+        name = f"encode_batch_sharded {strategy} 16 x 512^2 (2, 4) --noclassifier" + (
+            " --rms 10" if c.rms_threshold else "")
+        kernels.zero()
+        with no_plain_search():
+            ts._encode_batch(frames, c, m24, strategy, True)
+            before = collections.Counter(graphs.calls)
+            kernels.zero()
+            res = ts._encode_batch(frames, c, m24, strategy, True)
+        counts = kernels.read(f"{name}, graph", [search_key(c, masked=True)])
+        steps = dict(graphs.calls - before)
+        check(all(form == "replay" for _, form in steps), f"{name}: took {steps}")
+        if not c.rms_threshold:
+            for i in range(16):
+                for f in ("domain_idx", "transform", "s", "o", "distance", "valid"):
+                    check(bitwise(getattr(res[i], f), getattr(stacked, f)[i]),
+                          f"{name} frame {i} {f} differs from encode_batch_stacked")
+        print(f"     {name}: a warm graph call replays every step "
+              f"({', '.join(f'{k} x{n}' for (k, _), n in sorted(steps.items()))}) "
+              f"and launches {counts}"
+              + ("" if c.rms_threshold else "; every frame equal to encode_batch_stacked"))
+    for pyramid in (False, True):
+        d = DecoderConfig(pyramid=pyramid)
+        _, iters, _ = ts._decode_batch(results, m24, d, True)
+        chunks = 0 if pyramid else int((-(-iters // dec._CHUNK)).sum())
+        shard_graph_form(kernels, f"decode_batch_sharded {'pyramid' if pyramid else 'flat'} "
+                         "16 x 512^2 (2, 4)", 16,
+                         lambda graph, d=d: lambda: ts._decode_batch(results, m24, d, graph),
+                         [], graph_syncs=1 + chunks)
+    qd = DecoderConfig(pyramid=True)
+    shard_graph_form(kernels, "decode_batch_quadtree_sharded pyramid 8 x 1024^2 (4, 2)", 8,
+                     lambda graph: lambda: tq._decode_batch_sharded(qresults, m42, qd, graph),
+                     [])
+    graph_memory(f"the sharded forms ({len(graphs._GRAPHS)} graphs held)")
+    graphs.clear()
+    gc.collect()
+    torch.cuda.empty_cache()
+    graph_memory("graphs.clear() and torch.cuda.empty_cache()")
 
 
 def range_phase(kernels, planes, k1_parity, k2_parity, k3_parity):
@@ -2618,7 +2779,6 @@ def range_phase(kernels, planes, k1_parity, k2_parity, k3_parity):
                                                        decode_plane_quadtree,
                                                        encode_plane_quadtree)
     from fractencode_tpu_torch.parallel import encode_batch_sharded, make_mesh
-    from fractencode_tpu_torch.parallel import sharded as ts
     from fractencode_tpu_torch.decode import decode_plane
     from fractencode_tpu_torch.encode import encode_plane
 
@@ -2727,9 +2887,9 @@ def range_phase(kernels, planes, k1_parity, k2_parity, k3_parity):
                 # K3 masked: a 'domains' path of the sharded batch encode
                 c = dc.replace(c, use_classifier=False)
                 frames = np.stack([crop(planes[256], target), crop(smooth[:256, :256], target)])
-                calls = []
+                calls = eager_search_calls(frames, c, mesh)
                 kernels.zero()
-                with no_plain_search(), recorded(ts, "search_dense", calls):
+                with no_plain_search():
                     res = encode_batch_sharded(frames, c, mesh, "domains")
                 name = f"sharded domains {frames.shape[1]} {mode}{width}" + ("_thr" if thr else "")
                 kernels.read(name, [search_key(c, masked=True)])

@@ -474,14 +474,14 @@ def _flat_decode(result: EncodeResult, dcfg: DecoderConfig, graph: bool,
                       graph, ran_steps)
 
 
-def _decode_core(result: EncodeResult, dcfg: DecoderConfig, ran_steps: bool = False):
+def _decode_core(result: EncodeResult, dcfg: DecoderConfig):
     """(image, iterations int, mse float): the pyramid decode eagerly, or
     the flat loop, its chunks on their CUDA graph on the card."""
     if _has_pyramid(result, dcfg):
         img, mse = _pyramid_decode(result, dcfg)
         return img, _full_steps(dcfg), float(mse)
     graph = result.s.device.type == "cuda"
-    img, it, mse = _flat_decode(result, dcfg, graph, ran_steps)
+    img, it, mse = _flat_decode(result, dcfg, graph)
     return (img.clone() if graph else img), int(it), float(mse)
 
 
@@ -525,6 +525,18 @@ def decode_batch_stacked(result: EncodeResult, dcfg: DecoderConfig = DecoderConf
 
 def _decode_batch(result: EncodeResult, dcfg: DecoderConfig, graph: bool):
     """``decode_batch_stacked``, its frames eager or through the graphs."""
+    outs, iters, mses = _decode_rows(result, dcfg, graph)
+    return (outs, *_read_back(iters, mses))
+
+
+def _decode_rows(result: EncodeResult, dcfg: DecoderConfig, graph: bool,
+                 ran_steps: bool = False):
+    """The frames of a stacked ``result`` decoded one after another on its
+    device, eager or through the graphs, each into its row of the
+    preallocated ([B, H, W] u8, [B] i32 iterations, [B] f32 mse), which
+    stay on the device: nothing is read back but the flat loop's exit flag
+    once a chunk.  Iterations as ``_flat_loop`` counts them
+    (``ran_steps``)."""
     b = result.domain_idx.shape[0]
     pyramid = _has_pyramid(result, dcfg)
     outs = iters = mses = None
@@ -536,17 +548,22 @@ def _decode_batch(result: EncodeResult, dcfg: DecoderConfig, graph: bool):
         if pyramid:
             (img, mse), it = _frame_decode(frame, dcfg, graph), None
         else:
-            img, it, mse = _flat_decode(frame, dcfg, graph)
+            img, it, mse = _flat_decode(frame, dcfg, graph, ran_steps)
         if outs is None:
             outs = img.new_empty((b, *img.shape))
-            iters = torch.empty((b,), dtype=torch.int32, device=img.device)
+            iters = torch.full((b,), _full_steps(dcfg), dtype=torch.int32, device=img.device)
             mses = mse.new_empty((b,))
         outs[i], mses[i] = img, mse
         if it is not None:
             iters[i] = it
-    if pyramid:
-        return outs, torch.full((b,), _full_steps(dcfg), dtype=torch.int32), mses.cpu()
-    return outs, iters.cpu(), mses.cpu()
+    return outs, iters, mses
+
+
+def _read_back(iters: torch.Tensor, mses: torch.Tensor):
+    """[B] i32 iterations and [B] f32 MSEs on the CPU, in one read from
+    their device: the iterations beside the MSEs' bits."""
+    both = torch.stack([iters, mses.view(torch.int32)]).cpu()
+    return both[0], both[1].view(torch.float32)
 
 
 def decode_steps_py(result: EncodeResult, dcfg: DecoderConfig = DecoderConfig(),

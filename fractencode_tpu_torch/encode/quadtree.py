@@ -440,16 +440,35 @@ def decode_batch_quadtree_sharded(results: list[QuadtreeResult], mesh,
                                   dcfg: DecoderConfig = DecoderConfig()):
     """Decode a batch of quadtree encodes data-parallel over the mesh's
     'data' axis: frame b with ``decode_plane_quadtree``'s loop and exits on
-    the first device of data shard b // (B / n_data).
+    the first device of data shard b // (B / n_data), on the card through
+    its graphs (``_decode``), into its row of the preallocated outputs.
 
     Returns ([B, H, W] u8 images on the mesh's first device, [B] i32
-    iterations, [B] f32 final mse), the last two on the CPU."""
+    iterations, [B] f32 final mse), the last two on the CPU, read back
+    once."""
+    return _decode_batch_sharded(results, mesh, dcfg)
+
+
+def _decode_batch_sharded(results: list[QuadtreeResult], mesh, dcfg: DecoderConfig,
+                          graph: bool | None = None):
+    """``decode_batch_quadtree_sharded``: through the graphs with ``graph``,
+    eagerly without; None: on the card."""
+    from ..decode.decoder import _read_back, _to_device
+
     home = mesh.devices[0][0]
-    outs, iters, mses = [], [], []
-    for res, devices in zip(results, mesh.frame_devices(len(results))):
-        out, it, mse = decode_plane_quadtree(res, dcfg, device=devices[0])
-        outs.append(out.to(home))
-        iters.append(it)
-        mses.append(mse)
-    return (torch.stack(outs), torch.tensor(iters, dtype=torch.int32),
-            torch.tensor(mses, dtype=torch.float32))
+    b = len(results)
+    outs = iters = mses = None
+    for i, (res, devices) in enumerate(zip(results, mesh.frame_devices(b))):
+        d = devices[0]
+        frame = dataclasses.replace(res, levels=[_to_device(l, d) for l in res.levels])
+        img, it, mse = _decode(frame, dcfg, d.type == "cuda" if graph is None else graph)
+        if outs is None:
+            outs = torch.empty((b, *img.shape), dtype=img.dtype, device=home)
+            iters = torch.empty((b,), dtype=torch.int32, device=home)
+            mses = torch.empty((b,), dtype=torch.float32, device=home)
+        outs[i], mses[i] = img, mse
+        if isinstance(it, int):  # the pyramid's fixed count
+            iters[i].fill_(it)
+        else:
+            iters[i] = it
+    return (outs, *_read_back(iters, mses))

@@ -11,8 +11,9 @@ controller, as ``shard_map`` drives every local device of a host:
 The collectives of the sharded functions are explicit tensor moves between
 these devices (``all_gather``: a concatenation of ``.to(device)`` copies in
 shard order; ``ppermute``: a rotation of the list of shard tensors).  A
-Python loop over the shards issues their launches asynchronously, so on
-several cards the shards overlap.  A device may appear more than once when
+Python loop over the shards enqueues their launches (on the card, their
+steps' graph replays, ``sharded.py``) asynchronously, so on several cards
+the shards overlap.  A device may appear more than once when
 the caller passes the list (``devices=[torch.device("cuda:0")] * 8``), the
 counterpart of the JAX package's virtual CPU devices: the shards then share
 it and run one after another.

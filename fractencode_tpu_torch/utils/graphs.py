@@ -1,8 +1,10 @@
 """CUDA graphs over the encode and the decode: the port's counterpart of the
 JAX package's jitted programs (``encode_plane``, ``encode_batch_stacked``,
 the quadtree pyramid, ``decode_plane``, ``decode_batch_stacked``,
-``decode_plane_quadtree``), each one device program, and of its
-``lax.while_loop`` (``while_loop``: the flat decode, the k-means).
+``decode_plane_quadtree``), each one device program, of its
+``lax.while_loop`` (``while_loop``: the flat decode, the k-means), and of
+the program ``shard_map`` runs on every device (``parallel.sharded``: a
+graph for each step, whatever the shard, its index an input).
 
 ``replay`` runs a function of CUDA tensors eagerly at the first call of a
 key (the function's name, its configuration and geometry, and its inputs'

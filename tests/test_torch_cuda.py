@@ -6,6 +6,7 @@ version against the JAX package).  Run on a machine with a card, where jax
 may be absent (tests/conftest.py imports it): ``python -m pytest
 tests/test_torch_cuda.py -q --noconftest``.
 """
+import collections
 import dataclasses
 import functools
 import os
@@ -1205,3 +1206,103 @@ def test_vq_graph_equals_eager_on_the_card(cuda, num_codes, limit):
     for res, want in zip(results + [cpu], [eager[0], eager[0], eager[1], eager[0]]):
         for f, y in zip(fields, want):
             assert_bitwise(getattr(res, f), y, f)
+
+
+# the sharded forms' configs on their CUDA graphs (parallel.sharded)
+SHARDED_CONFIGS = {"default": {}, "rms": dict(rms_threshold=10.0),
+                   "nocls": dict(use_classifier=False),
+                   "nocls_rms": dict(use_classifier=False, rms_threshold=10.0)}
+SHARDED_FORMS = ("ranges", "domains", "ring", "halo replicate", "halo ring")
+
+
+def _sharded_form(form, planes, cfg, graph, device):
+    """One sharded call of ``form`` on a mesh of ``device`` x 4: a list of
+    EncodeResults (the halo forms: of the first plane)."""
+    from fractencode_tpu_torch.parallel import make_mesh
+    from fractencode_tpu_torch.parallel import sharded as ts
+
+    mesh = make_mesh(1, 4, devices=[device] * 4)
+    if form.startswith("halo"):
+        return [ts._encode_image(planes[0], cfg, mesh, form.split()[1], graph)]
+    return ts._encode_batch(planes, cfg, mesh, form, graph)
+
+
+@pytest.mark.parametrize("config", list(SHARDED_CONFIGS))
+@pytest.mark.parametrize("form", SHARDED_FORMS)
+def test_sharded_graph_equals_eager_on_the_card(cuda, form, config):
+    """Each sharded form on cuda:0 x 4, through its step graphs: the first
+    call (eager, capture, replays) and the second (replays only, no host
+    sync: the planes are on the card) bitwise equal to the eager steps and
+    to encode_plane; a ring holds at most 4 graph keys."""
+    from fractencode_tpu_torch.utils import graphs
+
+    cfg = T.EncoderConfig(**SHARDED_CONFIGS[config])
+    planes = torch.from_numpy(np.stack([_smooth(128, 72), random_plane(128, 73)])).to(cuda)
+    graphs.clear()
+    eager = _sharded_form(form, planes, cfg, False, cuda)
+    first = _sharded_form(form, planes, cfg, None, cuda)
+    before = collections.Counter(graphs.calls)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        second = _sharded_form(form, planes, cfg, None, cuda)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    forms = {f for (name, f), n in (graphs.calls - before).items() if name.startswith("sharded_")}
+    assert forms == {"replay"}, graphs.calls - before
+    if "ring" in form:
+        assert len(graphs._GRAPHS) <= 4
+    for i, res in enumerate(second):
+        single = T.encode_plane(planes[i], cfg)
+        for f in ("domain_idx", "transform", "s", "o", "distance", "valid"):
+            for what, other in (("eager", eager[i]), ("first", first[i]), ("single", single)):
+                assert_bitwise(getattr(res, f), getattr(other, f), f"frame {i} {f} {what}")
+    graphs.clear()
+
+
+@pytest.mark.parametrize("pyramid", [False, True], ids=["flat", "pyramid"])
+def test_sharded_decodes_on_the_card(cuda, pyramid):
+    """decode_batch_sharded on (2, 2) x cuda:0, twice through its graphs:
+    pixels and MSEs equal decode_batch_stacked's and the eager form's, its
+    iterations the JAX package's sharded rule (every step run: the stacked
+    count plus the exit step); at most one host sync a call beside one a
+    flat-loop chunk.  decode_batch_quadtree_sharded equals
+    decode_plane_quadtree frame by frame."""
+    import warnings
+
+    from fractencode_tpu_torch.decode import decoder as dec
+    from fractencode_tpu_torch.encode import quadtree as tq
+    from fractencode_tpu_torch.parallel import decode_batch_sharded, make_mesh
+    from fractencode_tpu_torch.parallel import sharded as ts
+
+    frames = _distinct_frames(4, 128)
+    cfg, dcfg = T.EncoderConfig(), T.DecoderConfig(pyramid=pyramid)
+    stacked = T.encode_batch_stacked(frames, cfg, device=cuda)
+    results = T.encode_batch(frames, cfg, device=cuda)
+    mesh = make_mesh(2, 2, devices=[cuda] * 4)
+    so, si, sm = T.decode_batch_stacked(stacked, dcfg)
+    want = si if pyramid else (si + 1).clamp(max=dcfg.max_iterations)
+    eager = ts._decode_batch(results, mesh, dcfg, graph=False)
+    for _ in range(2):
+        torch.cuda.synchronize()
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                got = decode_batch_sharded(results, mesh, pyramid=pyramid)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+        syncs = sum("synchroniz" in str(w.message) and "prototype" not in str(w.message)
+                    for w in caught)
+        chunks = 0 if pyramid else int((-(-got[1] // dec._CHUNK)).sum())
+        assert syncs <= 1 + chunks, (syncs, chunks)
+        for a, b, c, what in zip(got, (so, want, sm), eager, ("pixels", "iterations", "mse")):
+            assert_bitwise(a, b, what)
+            assert_bitwise(a, c, f"{what} eager")
+    qcfg = tq.QuadtreeConfig()
+    qres = [tq.encode_plane_quadtree(f, cfg, qcfg, device=cuda) for f in frames]
+    outs, iters, mses = tq.decode_batch_quadtree_sharded(qres, mesh, dcfg)
+    for i, q in enumerate(qres):
+        out, it, mse = tq.decode_plane_quadtree(q, dcfg)
+        assert_bitwise(outs[i], out, f"quadtree frame {i}")
+        assert (int(iters[i]), float(mses[i])) == (it, float(np.float32(mse)))
