@@ -159,3 +159,42 @@ int launch(const void* ai, const void* ch, const void* cl, const void* sb,
 FE_SEARCH_CLASSED_ENTRIES(ls, fe::kLs)
 FE_SEARCH_CLASSED_ENTRIES(raw, fe::kRaw)
 FE_SEARCH_CLASSED_ENTRIES(general, fe::kGeneral)
+
+// The port's trace marks (utils/profiling.py): empty one-thread kernels whose
+// names show in a device trace where a graph body begins and ends and where
+// each encode stage starts.  They touch no memory; a stage runs from its mark
+// to the next one on the stream.  The order is profiling.py's MARKS.
+extern "C" __global__ void fractencode_mark_begin() {}
+extern "C" __global__ void fractencode_mark_end() {}
+extern "C" __global__ void fractencode_mark_inputs() {}
+extern "C" __global__ void fractencode_mark_prep() {}
+extern "C" __global__ void fractencode_mark_search() {}
+extern "C" __global__ void fractencode_mark_post() {}
+
+namespace {
+
+void (*const kMarks[])() = {fractencode_mark_begin,  fractencode_mark_end,
+                            fractencode_mark_inputs, fractencode_mark_prep,
+                            fractencode_mark_search, fractencode_mark_post};
+constexpr int kNumMarks = sizeof(kMarks) / sizeof(kMarks[0]);
+
+}  // namespace
+
+// Launches mark `which` on `stream`; returns cudaGetLastError() (0 on success).
+extern "C" int fe_mark(int which, void* stream) {
+  if (which < 0 || which >= kNumMarks) return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(cudaLaunchKernel(reinterpret_cast<const void*>(kMarks[which]),
+                                           dim3(1), dim3(1), nullptr, 0,
+                                           static_cast<cudaStream_t>(stream)));
+}
+
+// Loads every mark's code on the current device, so that the first launch,
+// which may fall inside a graph's capture, loads nothing (lazy loading).
+extern "C" int fe_mark_load() {
+  for (int i = 0; i < kNumMarks; ++i) {
+    cudaFuncAttributes attr;
+    const cudaError_t err = cudaFuncGetAttributes(&attr, reinterpret_cast<const void*>(kMarks[i]));
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  return 0;
+}

@@ -28,6 +28,7 @@ from ..core.transform import NUM_TRANSFORMS
 from ..encode.encoder import ARRAY_FIELDS, EncodeResult
 from ..params import DecoderConfig
 from ..utils import graphs
+from ..utils.profiling import entry_span
 from ..utils.tables import device_table
 
 __all__ = ["decode_plane", "decode_batch_stacked", "decode_steps_py",
@@ -496,6 +497,7 @@ def _to_device(result, device):
     return dataclasses.replace(result, **arrays)
 
 
+@entry_span
 def decode_plane(result: EncodeResult, dcfg: DecoderConfig = DecoderConfig(), *,
                  device: torch.device | str | None = None):
     """Decode to a fixed point on ``device`` (default: the result's).
@@ -512,6 +514,7 @@ def decode_plane(result: EncodeResult, dcfg: DecoderConfig = DecoderConfig(), *,
     return (img.clone() if graph else img), _full_steps(dcfg), float(mse)
 
 
+@entry_span
 def decode_batch_stacked(result: EncodeResult, dcfg: DecoderConfig = DecoderConfig()):
     """Decode a stacked batch (arrays with a leading [B] axis, as
     ``encode_batch_stacked`` gives them) on the result's device, frame after

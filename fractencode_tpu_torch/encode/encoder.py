@@ -27,6 +27,7 @@ from ..core.grid import Grid, uniform_grid
 from ..core.stats import block_sums_nonoverlapping, integral_image
 from ..params import EncoderConfig
 from ..utils import graphs
+from ..utils.profiling import entry_span, mark, span
 from ..utils.prng import prng_key
 from .codebook import build_codebook, extract_ranges, range_sums
 from .matcher import replays_graph, search_classed, search_dense
@@ -101,9 +102,10 @@ def plane_on_device(plane, device=None) -> torch.Tensor:
     if device is None and isinstance(plane, torch.Tensor):
         device = plane.device
     device = default_device(device)
-    if not isinstance(plane, torch.Tensor):
-        plane = torch.from_numpy(np.ascontiguousarray(plane, dtype=np.uint8))
-    return plane.to(device=device, dtype=torch.uint8)
+    with span("fractencode.upload"):
+        if not isinstance(plane, torch.Tensor):
+            plane = torch.from_numpy(np.ascontiguousarray(plane, dtype=np.uint8))
+        return plane.to(device=device, dtype=torch.uint8)
 
 
 # EncodeResult's per-range arrays
@@ -181,6 +183,7 @@ def _encode_arrays(plane: torch.Tensor, cfg: EncoderConfig, codebook=None) -> tu
     """The six per-range arrays (``ARRAY_FIELDS``) of one [H, W] u8 plane.
     With ``vq_classes``, ``codebook`` is the trained VQ codebook, or None to
     train it here."""
+    mark("inputs", plane)
     h, w = plane.shape
     cb, ranges, sum_a, sum_a2, sums2x2 = _inputs(plane, cfg)
     if cfg.vq_classes > 0:
@@ -240,6 +243,7 @@ def _check_aligned(h: int, w: int, cfg: EncoderConfig) -> None:
         raise ValueError("image not aligned to range grid")  # partition2.hpp:119
 
 
+@entry_span
 def encode_plane(plane, cfg: EncoderConfig | None = None, *,
                  device: torch.device | str | None = None) -> EncodeResult:
     """Encode one [H, W] u8 plane (numpy array or tensor) on ``device``
@@ -259,6 +263,7 @@ def encode_plane(plane, cfg: EncoderConfig | None = None, *,
     return _result(arrays, h, w, cfg)
 
 
+@entry_span
 def encode_batch_stacked(planes, cfg: EncoderConfig | None = None, *,
                          device: torch.device | str | None = None) -> EncodeResult:
     """Encode a [B, H, W] u8 batch (numpy array or tensor) on ``device``

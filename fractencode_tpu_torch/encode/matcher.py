@@ -49,6 +49,7 @@ from ..ops.matcher_kernels import (CT_BITS, DEFAULT_BM, DEFAULT_BR, INT8_MAX_K,
                                    search_classed_torch, search_dense_cuda,
                                    search_dense_torch)
 from ..params import EncoderConfig
+from ..utils.profiling import mark
 from .codebook import Codebook
 
 __all__ = ["SearchResult", "solve_so", "inv_norm", "select_best", "search", "classed_prep",
@@ -518,10 +519,13 @@ def search_classed(ranges, sum_a, sum_a2, cb: Codebook, range_classes,
     only same-class pairs compete, with the reference's tie-break order.
     ``force_no_pairs`` takes K2 whatever the route (``classed_prep``)."""
     k = ranges.shape[1]
+    mark("prep", ranges)
     prep = classed_prep(ranges, sum_a, sum_a2, cb, range_classes, domain_classes,
                         cfg, domain_mask=domain_mask, range_mask=range_mask,
                         block_r=block_r, block_m=block_m, force_no_pairs=force_no_pairs)
+    mark("search", ranges)
     q_s, idx_s = classed_kernel(prep, k, cb.grid.block_size ** 2, cfg)
+    mark("post", ranges)
     res = classed_post(q_s, idx_s, prep["rpos"], prep["inv_col"], ranges, sum_a,
                        sum_a2, cb, cfg, b4_cols=prep["b4_cols"],
                        inv_dom=prep["inv_dom"])
@@ -581,8 +585,11 @@ def search_dense(ranges, sum_a, sum_a2, cb: Codebook, range_classes,
     """
     k = ranges.shape[1]
     area = cb.grid.block_size ** 2
+    mark("prep", ranges)
     prep = dense_prep(ranges, sum_a, sum_a2, cb, range_classes, domain_classes, cfg)
+    mark("search", ranges)
     q, idx = dense_kernel(prep, k, area, cfg)
+    mark("post", ranges)
     dist = rank_to_dist(q, sum_a2, sum_a, criterion=cfg.criterion,
                         so_mode=cfg.so_mode, s_max=cfg.s_max,
                         inv_norm=inv_norm(cfg, k, area), n=float(k))

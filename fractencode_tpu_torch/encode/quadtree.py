@@ -33,6 +33,7 @@ from ..core.grid import uniform_grid
 from ..core.stats import block_sums_nonoverlapping, integral_image
 from ..params import DecoderConfig, EncoderConfig
 from ..utils import graphs
+from ..utils.profiling import entry_span, mark
 from .codebook import build_codebook, extract_ranges, range_sums
 from .encoder import plane_on_device
 from .matcher import mask_ranges_result, replays_graph, search_classed, search_dense
@@ -122,6 +123,7 @@ def _encode_level(plane, plane_f32, cfg: EncoderConfig, range_size: int,
     class-blocked search skips the ranges ``range_mask`` excludes; the dense
     search has no pair list to shrink, so it searches them all and masks
     them after, as the JAX package does."""
+    mark("inputs", plane)
     h, w = plane.shape
     domain_grid = uniform_grid(w, h, domain_size, domain_step)
     range_grid = uniform_grid(w, h, range_size, range_size)
@@ -235,6 +237,7 @@ def _check_aligned(h: int, w: int, qcfg: QuadtreeConfig) -> None:
         raise ValueError("image not aligned to the coarsest range size")
 
 
+@entry_span
 def encode_plane_quadtree(plane, cfg: EncoderConfig | None = None,
                           qcfg: QuadtreeConfig | None = None, reporter=None, *,
                           device: torch.device | str | None = None
@@ -263,6 +266,7 @@ def encode_plane_quadtree(plane, cfg: EncoderConfig | None = None,
     return _levels(arrays, h, w, cfg, qcfg)
 
 
+@entry_span
 def encode_batch_quadtree_stacked(planes, cfg: EncoderConfig | None = None,
                                   qcfg: QuadtreeConfig | None = None, *,
                                   device: torch.device | str | None = None

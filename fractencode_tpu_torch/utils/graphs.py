@@ -21,11 +21,12 @@ eager form.
 from __future__ import annotations
 
 import collections
+import contextlib
 import dataclasses
 
 import torch
 
-from . import tables
+from . import profiling, tables
 
 __all__ = ["replay", "while_loop", "calls", "clear"]
 
@@ -45,6 +46,10 @@ class _Graph:
     outputs: tuple  # static outputs, in the graph's memory pool
     launches: tuple  # (counter dict, key, launches) the capture recorded
     tables: dict  # the device tables the graph reads, kept alive with it
+    # (graph, outputs) of the traced twin: the same body from the same
+    # inputs with the device marks on (utils.profiling), replayed while a
+    # profiler records
+    twin: tuple
 
 
 _GRAPHS: collections.OrderedDict = collections.OrderedDict()
@@ -61,27 +66,52 @@ def _counters():
             mk.search_dense_cuda.launches)
 
 
+def _body(fn, inputs) -> tuple:
+    """``fn(*inputs)`` between the ``begin`` and ``end`` marks."""
+    profiling.mark("begin", inputs[0])
+    out = tuple(fn(*inputs))
+    profiling.mark("end", inputs[0])
+    return out
+
+
+@contextlib.contextmanager
+def _launches_taken_back():
+    """The kernel wrappers' launches counted inside the block, taken back
+    from their counters and listed as (counter, key, launches) in the
+    list the block gets."""
+    counters = _counters()
+    before = [dict(c) for c in counters]
+    taken = []
+    try:
+        yield taken
+    finally:
+        taken += [(c, k, n - b.get(k, 0)) for c, b in zip(counters, before)
+                  for k, n in c.items() if n != b.get(k, 0)]
+        for c, k, n in taken:
+            c[k] -= n
+
+
 def _capture(fn, inputs, used: dict) -> _Graph:
     """Capture ``fn`` on static copies of ``inputs``' layout (torch.cuda.
     graph: a side stream, the graph's own memory pool), the tables ``used``
-    by its eager run back in their cache.  The kernel wrappers count their
-    launches while they are captured; those counts are taken back and kept
-    for the replays."""
+    by its eager run back in their cache, twice: the plain graph with the
+    device marks off, and its traced twin with them on, from the same
+    static inputs and in the same memory pool.  The kernel wrappers count
+    their launches while they are captured; those counts are taken back,
+    and the plain capture's kept for the replays."""
     static = tuple(torch.empty_like(x, memory_format=torch.contiguous_format)
                    for x in inputs)
-    counters = _counters()
-    before = [dict(c) for c in counters]
-    graph = torch.cuda.CUDAGraph()
-    try:
-        with (tables.recorded(used) as read, torch.cuda.device(static[0].device),
+    device = static[0].device
+    profiling.load_marks(device)
+    graph, twin = torch.cuda.CUDAGraph(), torch.cuda.CUDAGraph()
+    with tables.recorded(used) as read, torch.cuda.device(device):
+        with (_launches_taken_back() as launches, profiling.forced_marks(False),
               torch.cuda.graph(graph)):
-            outputs = tuple(fn(*static))
-    finally:
-        launches = tuple((c, k, n - b.get(k, 0)) for c, b in zip(counters, before)
-                         for k, n in c.items() if n != b.get(k, 0))
-        for c, k, n in launches:
-            c[k] -= n
-    return _Graph(graph, static, outputs, launches, read)
+            outputs = _body(fn, static)
+        with (_launches_taken_back(), profiling.forced_marks(True),
+              torch.cuda.graph(twin, pool=graph.pool())):
+            twin_outputs = _body(fn, static)
+    return _Graph(graph, static, outputs, tuple(launches), read, (twin, twin_outputs))
 
 
 def replay(name: str, statics: tuple, fn, *inputs) -> tuple:
@@ -94,15 +124,19 @@ def replay(name: str, statics: tuple, fn, *inputs) -> tuple:
     run builds and loads the kernels and uploads the tables, the capture's
     warm-up.  The second call captures the graph; it and every later call
     copy ``inputs`` into the graph's static inputs and replay it on the
-    current stream.  A replay's result is the graph's own outputs, which the
-    next call of the key overwrites, so callers copy them out."""
+    current stream: the traced twin while a profiler records, else the
+    plain graph (``_capture``).  ``fn``'s body runs between the ``begin``
+    and ``end`` marks (``utils.profiling``: launched in the twin, and in the
+    eager call while a profiler records).  A replay's result is the graph's
+    own outputs, which the next call of the key overwrites, so callers copy
+    them out."""
     key = (name, statics, tuple((x.shape, x.dtype, x.device) for x in inputs))
     entry = _GRAPHS.get(key)
     if entry is None:
         used = _SEEN.pop(key, None)
         if used is None:
             with tables.recorded() as used:
-                out = tuple(fn(*inputs))
+                out = _body(fn, inputs)
             _SEEN[key] = used
             _drop(_SEEN)
             calls[name, "eager"] += 1
@@ -111,13 +145,15 @@ def replay(name: str, statics: tuple, fn, *inputs) -> tuple:
         _drop(_GRAPHS)
         calls[name, "capture"] += 1
     _GRAPHS.move_to_end(key)
-    for static, x in zip(entry.inputs, inputs):
-        static.copy_(x)
-    entry.graph.replay()
+    graph, outputs = entry.twin if profiling.recording() else (entry.graph, entry.outputs)
+    with profiling.span("fractencode.replay"):
+        for static, x in zip(entry.inputs, inputs):
+            static.copy_(x)
+        graph.replay()
     for counter, k, n in entry.launches:
         counter[k] += n
     calls[name, "replay"] += 1
-    return entry.outputs
+    return outputs
 
 
 def while_loop(name: str, statics: tuple, make_body, cond, consts: tuple, carry: tuple,
@@ -151,11 +187,12 @@ def while_loop(name: str, statics: tuple, make_body, cond, consts: tuple, carry:
 
 def _drop(cache: collections.OrderedDict, keep: int = _MAX_GRAPHS) -> None:
     """Drop ``cache``'s least recently used entries past ``keep``, each
-    graph's memory pool with it."""
+    graph and its twin with their memory pool."""
     while len(cache) > keep:
         entry = cache.popitem(last=False)[1]
         if isinstance(entry, _Graph):
             entry.graph.reset()
+            entry.twin[0].reset()
 
 
 def clear() -> None:

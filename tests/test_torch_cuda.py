@@ -1306,3 +1306,86 @@ def test_sharded_decodes_on_the_card(cuda, pyramid):
         out, it, mse = tq.decode_plane_quadtree(q, dcfg)
         assert_bitwise(outs[i], out, f"quadtree frame {i}")
         assert (int(iters[i]), float(mses[i])) == (it, float(np.float32(mse)))
+
+
+def _marks_and_replays(prof):
+    """(the device marks' names in stream order, for each the start of the
+    runtime call that launched it (CUPTI's correlation id), and the host
+    ``fractencode.replay`` spans as (start, end)) of a CUDA profile, in ns."""
+    events = list(prof.profiler.kineto_results.events())
+    launched = {e.correlation_id(): e.start_ns() for e in events
+                if e.name() == "cudaGraphLaunch" and str(e.device_type()).endswith("CPU")}
+    marks, replays = [], []
+    for e in events:
+        if e.name().startswith("fractencode_mark_"):
+            marks.append((e.start_ns(), e.name().removeprefix("fractencode_mark_"),
+                          launched.get(e.correlation_id())))
+        elif e.name() == "fractencode.replay" and str(e.device_type()).endswith("CPU"):
+            replays.append((e.start_ns(), e.end_ns()))
+    marks.sort()
+    return [m for _, m, _ in marks], [t for _, _, t in marks], sorted(replays)
+
+
+_STAGES = ["inputs", "prep", "search", "post"]
+
+
+@pytest.mark.parametrize("form", ["encode", "quadtree", "decode"])
+def test_traced_twin_on_the_card(cuda, form):
+    """Each entry's graph and its traced twin on the card: the twin's
+    outputs (a replay while torch.profiler records) are bitwise the plain
+    graph's and the eager call's; the CUPTI trace holds each frame's marks
+    in order, and no other; one capture a key; each body's ``begin`` mark
+    was launched from inside a ``fractencode.replay`` span: the graph launch
+    that ran it (CUPTI's correlation id) lies inside the span, one body a
+    span.  (Host spans and device records share
+    kineto's clock only to within its alignment, which read the device up
+    to 0.8 ms early on the card, so the launch, a host record, is what is
+    compared.)"""
+    from torch.profiler import ProfilerActivity, profile
+
+    from fractencode_tpu_torch.encode import quadtree
+    from fractencode_tpu_torch.utils import graphs
+
+    planes = torch.from_numpy(_distinct_frames(2, 512)).to(cuda)
+    dcfg = T.DecoderConfig(pyramid=True)
+    encoded = T.encode_batch_stacked(planes)
+    if form == "encode":
+        run = lambda: T.encode_plane(planes[0])  # noqa: E731
+        fields, frame = ("domain_idx", "transform", "s", "o", "distance", "valid"), 1
+        want = ["begin", *_STAGES, "end"]
+    elif form == "quadtree":
+        run = lambda: quadtree.encode_batch_quadtree_stacked(planes)  # noqa: E731
+        fields, frame = None, 2
+        want = ["begin", *_STAGES * 3, "end"] * 2
+    else:
+        run = lambda: T.decode_batch_stacked(encoded, dcfg)  # noqa: E731
+        fields, frame = None, 2
+        want = ["begin", "end"] * 2
+
+    def arrays(out):
+        if fields:
+            return [getattr(out, f).clone() for f in fields]
+        if form == "quadtree":
+            return [getattr(l, f).clone() for l in out.levels
+                    for f in ("domain_idx", "transform", "s", "o", "error", "accepted")]
+        return [x.clone() for x in out]
+
+    graphs.clear()
+    before = collections.Counter(graphs.calls)
+    eager = arrays(run())  # a batch's first call: its first frame eager, the next replayed
+    plain = arrays(run())
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        traced = arrays(run())
+        torch.cuda.synchronize()
+    again = arrays(run())
+    calls = graphs.calls - before
+    assert sum(n for (_, f), n in calls.items() if f == "capture") == 1
+    assert sum(n for (_, f), n in calls.items() if f == "replay") == 4 * frame - 1
+    for i, (a, b, c, d) in enumerate(zip(eager, plain, traced, again)):
+        for what, x in (("plain", b), ("twin", c), ("plain after the twin", d)):
+            assert_bitwise(x, a, f"{form} array {i}: {what}")
+    marks, launches, replays = _marks_and_replays(prof)
+    assert marks == want
+    begins = [t for m, t in zip(marks, launches) if m == "begin"]
+    assert len(replays) == len(begins) == frame
+    assert all(b0 <= t <= b1 for (b0, b1), t in zip(replays, begins)), (replays, begins)

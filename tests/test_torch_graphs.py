@@ -24,10 +24,10 @@ from fractencode_tpu_torch.core import classify, stats
 from fractencode_tpu_torch.core.grid import Grid, uniform_grid
 from fractencode_tpu_torch.core.sampler import all_tap_tables
 from fractencode_tpu_torch.decode import decoder as dec
-from fractencode_tpu_torch.encode import codebook, encoder
+from fractencode_tpu_torch.encode import codebook, encoder, quadtree
 from fractencode_tpu_torch.ops import matcher_kernels as mk
 from fractencode_tpu_torch.params import DecoderConfig, EncoderConfig
-from fractencode_tpu_torch.utils import graphs, tables
+from fractencode_tpu_torch.utils import graphs, profiling, tables
 from fractencode_tpu_torch.utils.tables import device_table
 
 aten = torch.ops.aten
@@ -375,13 +375,17 @@ class _StandInGraph:
     def reset(self):
         self.resets += 1
 
+    def pool(self):
+        return None
+
 
 @pytest.fixture
 def stand_in_graphs(monkeypatch):
     """utils.graphs with torch.cuda's graph capture stood in for (the
-    captured function runs once, as a capture traces it)."""
+    captured function runs once for each graph, the plain one and its
+    traced twin, as a capture traces it)."""
     monkeypatch.setattr(torch.cuda, "CUDAGraph", _StandInGraph)
-    monkeypatch.setattr(torch.cuda, "graph", lambda g: contextlib.nullcontext())
+    monkeypatch.setattr(torch.cuda, "graph", lambda g, pool=None: contextlib.nullcontext())
     monkeypatch.setattr(torch.cuda, "device", lambda d: contextlib.nullcontext())
     monkeypatch.setattr(mk.search_classed_cuda, "launches", collections.Counter())
     graphs.clear()
@@ -433,6 +437,79 @@ def test_graph_cache_is_bounded(stand_in_graphs):
         kept.append(graphs._GRAPHS[next(reversed(graphs._GRAPHS))])
     assert len(graphs._GRAPHS) == graphs._MAX_GRAPHS
     assert kept[0].graph.resets == 1 and all(g.graph.resets == 0 for g in kept[1:])
+    assert kept[0].twin[0].resets == 1 and all(g.twin[0].resets == 0 for g in kept[1:])
     for i in range(graphs._MAX_GRAPHS + 1):
         graphs.replay("g", (i,), lambda t: (t,), x)
     assert len(graphs._SEEN) == graphs._MAX_GRAPHS
+
+
+@pytest.fixture
+def recorded_marks(monkeypatch):
+    """The device marks launched, in order: a recording stand-in for the
+    mark launcher, which sees the marks of CPU tensors too."""
+    seen = []
+    monkeypatch.setattr(profiling, "_launch", lambda name, like: seen.append(name))
+    return seen
+
+
+def _cpu_profiler():
+    from torch.profiler import ProfilerActivity, profile
+
+    return profile(activities=[ProfilerActivity.CPU])
+
+
+def test_second_call_captures_a_traced_twin(stand_in_graphs, recorded_marks):
+    """A key's second call captures the plain graph with the marks off and
+    its twin with them on, from the same static inputs; a replay takes the
+    twin only while a profiler records; the calls count one capture and a
+    replay a call; clear() resets both graphs.  The eager first call
+    launches its marks only while a profiler records."""
+    fn = lambda t: (t + 1,)  # noqa: E731
+    x = torch.arange(4.0)
+    before = collections.Counter(graphs.calls)
+    graphs.replay("f", ("a",), fn, x)
+    assert recorded_marks == []
+    with _cpu_profiler():
+        graphs.replay("f", ("b",), fn, x)
+    assert recorded_marks == ["begin", "end"]
+    recorded_marks.clear()
+    graphs.replay("f", ("a",), fn, x)
+    assert recorded_marks == ["begin", "end"]  # the twin's capture alone
+    entry = graphs._GRAPHS[next(iter(graphs._GRAPHS))]
+    twin, twin_outputs = entry.twin
+    assert twin is not entry.graph and twin_outputs is not entry.outputs
+    assert (entry.graph.replays, twin.replays) == (1, 0)
+    with _cpu_profiler():
+        assert graphs.replay("f", ("a",), fn, x) is twin_outputs
+    assert graphs.replay("f", ("a",), fn, x) is entry.outputs
+    assert (entry.graph.replays, twin.replays) == (2, 1)
+    assert graphs.calls - before == collections.Counter(
+        {("f", "eager"): 2, ("f", "capture"): 1, ("f", "replay"): 3})
+    assert recorded_marks == ["begin", "end"]  # a replay launches nothing itself
+    graphs.clear()
+    assert (entry.graph.resets, twin.resets) == (1, 1)
+
+
+_BODY = ["inputs", "prep", "search", "post"]
+
+
+@pytest.mark.parametrize("form, marks", [
+    ("grid", ["begin", *_BODY, "end"]),
+    ("dense", ["begin", *_BODY, "end"]),
+    ("quadtree", ["begin", *_BODY * 3, "end"]),
+])
+def test_twin_marks_each_stage_in_order(form, marks, stand_in_graphs, recorded_marks):
+    """The traced twin of a grid frame (classed or dense) marks its body's
+    begin, the four stages' starts and its end; a quadtree frame of three
+    levels marks the four stages of each; the eager call and the plain
+    capture mark nothing."""
+    plane = torch.from_numpy(random_plane(64, 9))
+    cfg = EncoderConfig(use_classifier=form != "dense")
+    if form == "quadtree":
+        run = lambda: quadtree._frame_levels(plane, cfg, quadtree.QuadtreeConfig(), True)  # noqa: E731
+    else:
+        run = lambda: encoder._frame_arrays(plane, cfg, True)  # noqa: E731
+    run()
+    assert recorded_marks == []
+    run()
+    assert recorded_marks == marks

@@ -132,13 +132,15 @@ class _Rerun:
 
 @pytest.fixture
 def rerun_graphs(monkeypatch):
-    """utils.graphs with torch's capture stood in for by ``_Rerun``."""
+    """utils.graphs with torch's capture stood in for by ``_Rerun``, which
+    is its own traced twin."""
     def capture(fn, inputs, used):
         static = tuple(torch.empty_like(x) for x in inputs)
         for s, x in zip(static, inputs):
             s.copy_(x)
         outputs = tuple(fn(*static))
-        return graphs._Graph(_Rerun(fn, static, outputs), static, outputs, (), used)
+        graph = _Rerun(fn, static, outputs)
+        return graphs._Graph(graph, static, outputs, (), used, (graph, outputs))
 
     monkeypatch.setattr(graphs, "_capture", capture)
     graphs.clear()
