@@ -237,8 +237,14 @@ Phases, each of which must pass (any failure exits non-zero):
      preps; K2 ls16 on the 8192^2 prep with the width it picks on the
      device against the width its class counts give on the host (in turns,
      at most 1.05x).
+ 28. the decoder step's kernel (decode_step_phase; csrc/decode_step.cu)
+     against the plain torch step at the decode cell's shapes, the
+     pyramid's 1024^2 step (2 px ranges) and 2048^2 step (4 px ranges) on a
+     2048^2 encode's maps: bitwise, then in turns beside the byte bound
+     (the image read and written once, 16 B of maps a range, 3.35 TB/s).
 Every path is driven with the launch counts set to 0 just before it and
-read just after; each must launch the kernels it names.  A graph's capture
+read just after; each must launch the kernels it names, and each decode
+on the card the decoder step's (csrc/decode_step.cu).  A graph's capture
 launches nothing and counts nothing; each replay adds the launches its
 capture recorded (utils.graphs), so a call counts alike on either form, and
 phase 25 holds one replay's count against what torch.profiler saw run.  Each search
@@ -301,7 +307,8 @@ SEED = 20240611
 SOURCES = {"search_classed": "fractencode_tpu_torch/csrc/search_classed.cu",
            "search_classed2d": "fractencode_tpu_torch/csrc/search_classed2d.cu",
            "search_dense": "fractencode_tpu_torch/csrc/search_dense.cu",
-           "micro_step": "fractencode_tpu_torch/csrc/micro_step.cu"}
+           "micro_step": "fractencode_tpu_torch/csrc/micro_step.cu",
+           "decode_step": "fractencode_tpu_torch/csrc/decode_step.cu"}
 # the sources on the tensor-core mainloop (csrc/search_mma.cuh): phase 1
 # counts their SASS instructions, and --dp4a times them against the build
 # of the same source in DIR in turns; of these, the searches' SASS is also
@@ -442,7 +449,11 @@ def ptxas_report(text):
                 end = d.end() + int(d.group())
                 name, rest = rest[d.end():end], rest[end:]
             targs = re.findall(r"L(?:[ib]|N\w+?E)(\d+)E", rest)  # int, bool, enum
-            if targs and name.startswith("micro_step"):
+            if targs and name.startswith("decode_step"):
+                ts, mean = targs[:2]
+                name += (f" ts={'any' if ts == '0' else ts}"
+                         + (" o_is_mean" if mean == "1" else ""))
+            elif targs and name.startswith("micro_step"):
                 variant, transposed = targs[:2]
                 name += (f" {('full', 'noargpass', 'packed', 'matmul')[int(variant)]}"
                          + (" [K, M] layout" if transposed == "1" else ""))
@@ -654,10 +665,12 @@ def width_of(c):
 class Kernels:
     """The kernels' records and launch counts, by (kernel, mode, width,
     frontier) for the searches (width: K, or the padded and K-slab tags of
-    matcher_kernels.WIDTHS), with "masked" after K3's masked instances, and
-    ("micro_step", variant) for K4 and K5."""
+    matcher_kernels.WIDTHS), with "masked" after K3's masked instances,
+    ("micro_step", variant) for K4 and K5, and ("decode_step",) for the
+    decoder step (every range size and o_is_mean together)."""
 
     def __init__(self, dp4a=None):
+        from fractencode_tpu_torch.ops import decode_kernels as dk
         from fractencode_tpu_torch.ops import matcher_kernels as mk
         from fractencode_tpu_torch.ops import micro_kernels as mt
 
@@ -668,6 +681,7 @@ class Kernels:
                          "search_classed2d": mk.search_classed2d_cuda,
                          "search_dense": mk.search_dense_cuda}
         self.micro = mt.micro_step_cuda
+        self.decoder = dk.decode_step_cuda
         self.records = {}
         for kernel in self.wrappers:
             for mode, ks in mk.KERNEL_KEYS.items():
@@ -691,9 +705,14 @@ class Kernels:
                 route="cuda", source=SOURCES["micro_step"],
                 replaces=f"scripts/micro_kernel.py:{208 if variant == 'full_t' else 96}",
                 launches=0, max_abs_err=0.0, library_ms=None, launches_by_path={})
+        # the decoder step, which replaces no TPU kernel
+        self.records[("decode_step",)] = dict(
+            name="decode_step", route="cuda", source=SOURCES["decode_step"],
+            replaces="none (fractencode_tpu/decode/decoder.py:_decode_step, XLA-lowered)",
+            launches=0, max_abs_err=0.0, library_ms=None, launches_by_path={})
 
     def zero(self):
-        for w in (*self.wrappers.values(), self.micro):
+        for w in (*self.wrappers.values(), self.micro, self.decoder):
             for key in w.launches:
                 w.launches[key] = 0
 
@@ -703,6 +722,7 @@ class Kernels:
         counts = {record_key(kernel, key): n for kernel, w in self.wrappers.items()
                   for key, n in w.launches.items()}
         counts.update({("micro_step", v): n for v, n in self.micro.launches.items()})
+        counts[("decode_step",)] = sum(self.decoder.launches.values())
         for key in expect:
             check(counts[key] > 0, f"the {path} path launched no {self.records[key]['name']}")
         for key, n in counts.items():
@@ -826,13 +846,14 @@ def card_equals_cpu(img, argv, label):
 
 def drive(kernels, path, img, argv, expect, label):
     """One CLI path on the card (cli._encode_one), the launch counts set to 0
-    just before and read just after; (result, pixels, counts)."""
+    just before and read just after; besides ``expect`` its decode must
+    launch the decoder step's kernel; (result, pixels, counts)."""
     from fractencode_tpu_torch import cli
 
     args, cfg, dcfg = parse(["--device", "cuda", *argv])
     kernels.zero()
     res, out = cli._encode_one(img, args, cfg, dcfg, label=f" [{label}]")
-    return res, out, kernels.read(path, expect)
+    return res, out, kernels.read(path, [*expect, ("decode_step",)])
 
 
 def wall_times(encode, decode, reps=3):
@@ -1011,6 +1032,56 @@ def in_turns(runs, rounds=7):
         for key in order if r % 2 == 0 else order[::-1]:
             samples[key].append(cuda_ms(runs[key], reps=1)[0])
     return {key: statistics.median(v) for key, v in samples.items()}
+
+
+def decode_step_phase(kernels):
+    """Phase 28: the decoder step's kernel (csrc/decode_step.cu) against the
+    plain torch step at the decode cell's shapes, the pyramid's two steps of
+    a 2048^2 frame on a real encode's maps: 1024^2 with 2 px ranges and
+    2048^2 with 4 px ones.  Bitwise, then in turns (CUDA events, medians of
+    7 rounds, each the replay of a CUDA graph of 20 steps each way, so that
+    no host launch is timed), beside the byte bound: the u8 image read and
+    written once and 16 B of maps a range over 3.35 TB/s."""
+    import torch
+
+    from fractencode_tpu_torch.decode import decoder as dec
+    from fractencode_tpu_torch.encode import encode_plane
+
+    rec = kernels.records[("decode_step",)]
+    res = encode_plane(natural_plane(2048, SEED + 28), device="cuda")
+    s = torch.where(res.valid, res.s, 0.0)
+    o = torch.where(res.valid, res.o, 0.0)
+    reps = 20
+    for f in (2, 1):
+        n, ts = 2048 // f, res.target_size // f
+        geo = (res.domain_idx, res.transform, n, n, res.source_size // f, ts,
+               res.domain_step // f, res.num_transforms)
+        cells, plain_tables = dec._step_tables(*geo), dec.build_decode_tables(*geo)
+        img = torch.from_numpy(natural_plane(n, SEED + 28 + f)).cuda()
+        kernel = lambda: dec._decode_step(img, cells, s, o, n, n, ts)  # noqa: E731
+        plain = lambda: dec._decode_step_torch(img, plain_tables, s, o, n, n, ts)  # noqa: E731
+        kernels.zero()
+        check(bitwise(kernel(), plain()), f"the decode step's kernel differs at {n}^2")
+        counts = kernels.read(f"decode_step_phase {n}^2", [("decode_step",)])
+        check(counts == {"decode_step": 1}, f"the step at {n}^2 launched {counts}")
+        runs = {}
+        for name, fn in (("kernel", kernel), ("plain", plain)):
+            graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(graph):
+                for _ in range(reps):
+                    fn()
+            runs[name] = graph.replay
+        ms = in_turns(runs)
+        nbytes = 2 * n * n + 16 * s.numel()
+        bound_ms = nbytes / 3.35e12 * 1e3
+        print(f"    decode_step at {n}^2, {ts} px ranges: kernel {ms['kernel'] / reps:.4f} ms, "
+              f"plain {ms['plain'] / reps:.4f} ms, bound {bound_ms:.4f} ms "
+              f"({nbytes} bytes); bitwise equal, one launch")
+        key = "half" if f == 2 else "full"
+        rec.update({f"{key}_ms": ms["kernel"] / reps, f"{key}_plain_ms": ms["plain"] / reps,
+                    f"{key}_bound_ms": bound_ms})
+    rec.update(ms=rec["full_ms"], plain_ms=rec["full_plain_ms"], bound_ms=rec["full_bound_ms"],
+               bound_by="bytes")
 
 
 def micro_phase(kernels):
@@ -1221,11 +1292,15 @@ def batch_phase(kernels, cfg, dcfg):
         for f in fields:
             check(bitwise(getattr(stacked, f)[i], getattr(cpu, f)),
                   f"encode_batch_stacked frame {i} {f}: card differs from CPU")
+    kernels.zero()
     outs, iters, mses = decode_batch_stacked(stacked, dcfg)
+    kernels.read("batch16 decode_batch_stacked", [("decode_step",)])
+    kernels.zero()
     for i, res in enumerate(singles):
         out, it, mse = decode_plane(res, dcfg)
         check(bitwise(outs[i], out) and (int(iters[i]), float(mses[i])) == (it, mse),
               f"decode_batch_stacked frame {i} differs from decode_plane")
+    kernels.read("batch16 decode_plane", [("decode_step",)])
     print("     16 x 512^2 encode_batch_stacked and decode_batch_stacked: every frame "
           "bitwise equal to encode_plane and decode_plane (pixels, iterations, MSE) on "
           f"the card, frames 0 and 15 to the CPU's encode; K1 launches {batch} = 16 x 1")
@@ -1425,8 +1500,10 @@ def graph_phase(kernels):
         check(same(second, kept), f"{name} at {n}^2: a later call changed an earlier result")
         cpu = encode_plane(img, cfg, device="cpu") if n == 512 else None
         check(cpu is None or same(second, cpu), f"{name} at {n}^2: card differs from CPU")
+        kernels.zero()
         d_eager = dec._decode_core(second, pyramid)
         d_graph = [decode_plane(second, pyramid) for _ in range(2)]
+        kernels.read(f"graph {name} {n}^2 pyramid decode", [("decode_step",)])
         d_cpu = [decode_plane(cpu, pyramid)] if cpu is not None else []
         for out, it, mse in d_graph + d_cpu:
             check(bitwise(out, d_eager[0]) and (it, mse) == d_eager[1:],
@@ -1602,6 +1679,7 @@ def quadtree_graphs(kernels):
                   f"--quadtree {name} at {n}^2: card differs from CPU")
             decodes = []
             for d in dict.fromkeys((dcfg, flat_dcfg)):
+                kernels.zero()
                 img_e, it_e, mse_e = tq._decode(second, d, graph=False)
                 want_d = (int(it_e), float(mse_e))
                 outs = [tq.decode_plane_quadtree(second, d) for _ in range(3)]
@@ -1610,6 +1688,8 @@ def quadtree_graphs(kernels):
                     check(bitwise(out, img_e) and (it, mse) == want_d,
                           f"--quadtree {name} at {n}^2: decode_plane_quadtree "
                           f"(pyramid={d.pyramid}) differs from its eager form")
+                kernels.read(f"quadtree graph {name} {n}^2 decode pyramid={d.pyramid}",
+                             [("decode_step",)])
                 decodes.append(f"{'pyramid' if d.pyramid else 'flat'} {want_d[0]} steps, "
                                f"mse {want_d[1]:.6g}")
             print(f"     --quadtree {name} at {n}^2: graph (1 eager call, 1 capture, 2 "
@@ -1750,7 +1830,9 @@ def loop_phase(kernels):
     qres = tq.encode_plane_quadtree(big, cfg, qcfg, device="cuda")
     _, ccfg, flat = parse(["--device", "cuda", "--compat"])
     res = enc.encode_plane(big, ccfg, device="cuda")
+    kernels.zero()
     _, it, _ = decode_plane(res, flat)
+    kernels.read("decode_plane 2048 --compat (flat)", [("decode_step",)])
     _, vcfg, _ = parse(["--device", "cuda", "--vq-classes", "4"])
     p_big = torch.from_numpy(big).cuda()
     _, vq_steps = vq._kmeans(*enc._vq_start(p_big, vcfg), vq.MAX_STEPS, vq.EPSILON, graph=False)
@@ -2548,7 +2630,9 @@ def shard_phase(kernels, cfg, planes, card="cuda:0"):
     for pyramid in (False, True):
         d = DecoderConfig(pyramid=pyramid)
         st_ms, (so, si, sm) = timed(lambda: decode_batch_stacked(base_stacked, d))
-        ms, (ho, hi, hm) = timed(lambda: decode_batch_sharded(base, m24, pyramid=pyramid))
+        ms, (ho, hi, hm), _ = sharded(
+            f"decode_batch_sharded {'pyramid' if pyramid else 'flat'} 16x512", [("decode_step",)],
+            lambda: decode_batch_sharded(base, m24, pyramid=pyramid))
         # the flat loop counts the step that met its exit too (as the JAX
         # package's sharded decode does)
         want = si if pyramid else (si + 1).clamp(max=d.max_iterations)
@@ -2614,7 +2698,8 @@ def shard_phase(kernels, cfg, planes, card="cuda:0"):
                       f"sharded quadtree frame {i} {l1.range_size} px {f} differs")
     dcfg = DecoderConfig(pyramid=True)
     d_st, outs = timed(lambda: [tq.decode_plane_quadtree(q, dcfg) for q in singles])
-    d_sh, (ho, hi, hm) = timed(lambda: tq.decode_batch_quadtree_sharded(qsh, m42, dcfg))
+    d_sh, (ho, hi, hm), _ = sharded("decode_batch_quadtree_sharded 8x1024", [("decode_step",)],
+                                    lambda: tq.decode_batch_quadtree_sharded(qsh, m42, dcfg))
     for i, (out, it, mse) in enumerate(outs):
         check(bitwise(ho[i], out) and (int(hi[i]), float(hm[i])) == (it, float(np.float32(mse))),
               f"decode_batch_quadtree_sharded frame {i} differs")
@@ -2741,11 +2826,11 @@ def shard_graphs(kernels, cfg, frames, results, qresults, big, card):
         shard_graph_form(kernels, f"decode_batch_sharded {'pyramid' if pyramid else 'flat'} "
                          "16 x 512^2 (2, 4)", 16,
                          lambda graph, d=d: lambda: ts._decode_batch(results, m24, d, graph),
-                         [], graph_syncs=1 + chunks)
+                         [("decode_step",)], graph_syncs=1 + chunks)
     qd = DecoderConfig(pyramid=True)
     shard_graph_form(kernels, "decode_batch_quadtree_sharded pyramid 8 x 1024^2 (4, 2)", 8,
                      lambda graph: lambda: tq._decode_batch_sharded(qresults, m42, qd, graph),
-                     [])
+                     [("decode_step",)])
     graph_memory(f"the sharded forms ({len(graphs._GRAPHS)} graphs held)")
     graphs.clear()
     gc.collect()
@@ -3289,7 +3374,8 @@ def main(argv=None) -> int:
         kernels.zero()
         res = encode_plane(lenna, gcfg, device="cuda")
         out, _, _ = decode_plane(res)  # the reference's flat decode
-        kernels.read(f"golden {name}", [(kernel, "raw", 16, "--rms" in flags)])
+        kernels.read(f"golden {name}", [(kernel, "raw", 16, "--rms" in flags),
+                                        ("decode_step",)])
         dom = (dump[:, 5] // 8).astype(int) * nx + (dump[:, 4] // 8).astype(int)
         check(np.array_equal(res.domain_idx.cpu().numpy(), dom), f"{name}: domains")
         check(np.array_equal(res.transform.cpu().numpy(), dump[:, 8].astype(int)),
@@ -3336,7 +3422,7 @@ def main(argv=None) -> int:
         res, out, counts = drive(kernels, name, big, argv,
                                  [(kernel, mode, k, True) for kernel, mode, k in insts],
                                  f"2048 {name}")
-        plain = [n for n in counts if not n.endswith("_thr")]
+        plain = [n for n in counts if n.startswith("search") and not n.endswith("_thr")]
         check(not plain, f"{name} launched instances without the frontier: {plain}")
         args, c, dcfg_p = parse(["--device", "cuda", *argv])
         if args.quadtree:
@@ -3609,8 +3695,9 @@ def main(argv=None) -> int:
                                      [("search_classed2d", *expect),
                                       ("search_classed", *expect)], f"{name} cuda")
         check([r[:2] for r in routes] == [("counted", True)]
-              and counts == {kernels.records[(kern, *expect)]["name"]: 1
-                             for kern in ("search_classed", "search_classed2d")},
+              and {n: v for n, v in counts.items() if n != "decode_step"}
+              == {kernels.records[(kern, *expect)]["name"]: 1
+                  for kern in ("search_classed", "search_classed2d")},
               f"{name}: routes {routes}, launches {counts}, not K2 taken and K1 and "
               f"K2's {expect} once each")
         check_uniform(res, out, n8, f"{n8}^2 {name}")
@@ -3733,6 +3820,12 @@ def main(argv=None) -> int:
     counted_phase(kernels, planes)
     print(f"     phase 27 took {time.perf_counter() - t27:.1f} s")
 
+    # -- 28. the decoder step's kernel
+    print("[28] the decoder step's kernel against the plain step at the decode cell's shapes")
+    t28 = time.perf_counter()
+    decode_step_phase(kernels)
+    print(f"     phase 28 took {time.perf_counter() - t28:.1f} s")
+
     records = list(kernels.records.values())
     for rec in records:
         # K2 runs where the JAX package routes to it: at 8192^2 only its 'ls'
@@ -3740,7 +3833,7 @@ def main(argv=None) -> int:
         if not rec["name"].startswith("search_classed2d"):
             check(rec["launches"] > 0, f"{rec['name']} was launched by no path")
         check("ms" in rec and "bound_ms" in rec, f"{rec['name']} was not timed")
-    check(len(records) == 173, f"{len(records)} kernel records, not 173")
+    check(len(records) == 174, f"{len(records)} kernel records, not 174")
     print(json.dumps({"kernels": records}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -8,9 +8,12 @@ sample the isometry-mapped domain (2x2 average), apply ``s*v + o``, clamp to
 
 One step is a gather of every range's K domain samples through static tap
 tables, an affine map and a reshape; ranges tile the image, so there is no
-scatter.  The pyramid loop runs a fixed count, which on the card is one
-CUDA graph (``utils.graphs``; the counterpart of the JAX package's jitted
-``decode_plane``) whose MSE is read once.  The flat loop carries its exit
+scatter.  On the card a step is one launch of a hand-written kernel
+(``ops.decode_kernels``) that writes the next image and nothing else; on
+the CPU it is those torch ops (``_decode_step_torch``).  The pyramid loop
+runs a fixed count, which on the card is one CUDA graph (``utils.graphs``;
+the counterpart of the JAX package's jitted ``decode_plane``) whose MSE is
+read once.  The flat loop carries its exit
 tests on the device (``graphs.while_loop``, the counterpart of its
 ``lax.while_loop``): chunks of predicated steps, one CUDA graph on the
 card, the exit flag read once a chunk.
@@ -26,6 +29,7 @@ import torch
 from ..core.sampler import all_tap_tables
 from ..core.transform import NUM_TRANSFORMS
 from ..encode.encoder import ARRAY_FIELDS, EncodeResult
+from ..ops.decode_kernels import cell_corners, decode_step_cuda
 from ..params import DecoderConfig
 from ..utils import graphs
 from ..utils.profiling import entry_span
@@ -148,8 +152,24 @@ def build_decode_tables(domain_idx, transform, width, height, source_size,
     return "full", origin_flat[:, None, None] + taps[tr]
 
 
+def _step_tables(domain_idx, transform, width, height, source_size, target_size,
+                 domain_step, num_transforms: int = NUM_TRANSFORMS):
+    """The tables ``_decode_step`` reads, from ``build_decode_tables``'
+    arguments.  On the card the kernel's, ("cells", (domain_idx, transform,
+    the [8, K] tap-cell corners ``ops.decode_kernels.cell_corners`` on the
+    device, the domain grid's columns, the domain step)); elsewhere
+    ``build_decode_tables``'."""
+    if domain_idx.device.type != "cuda":
+        return build_decode_tables(domain_idx, transform, width, height, source_size,
+                                   target_size, domain_step, num_transforms)
+    cells = device_table(cell_corners, source_size, target_size, width,
+                         device=domain_idx.device, dtype=torch.int32)
+    domain_cols = (width - source_size) // domain_step + 1
+    return "cells", (domain_idx, transform, cells, domain_cols, domain_step)
+
+
 def _build_indices(result: EncodeResult):
-    return build_decode_tables(
+    return _step_tables(
         result.domain_idx, result.transform, result.width, result.height,
         result.source_size, result.target_size, result.domain_step,
         result.num_transforms)
@@ -209,10 +229,31 @@ def _affine_u8(s, v, o):
 
 
 def _decode_step(img_u8, tables, s, o, height, width, target_size, o_is_mean=False):
-    """One application of the full map set: u8 image -> u8 image."""
+    """One application of the full map set: u8 image -> u8 image.  On the
+    card one launch of the decoder step's kernel (``ops.decode_kernels``;
+    ``tables`` from ``_step_tables``), elsewhere the plain torch step."""
+    if img_u8.device.type != "cuda":
+        return _decode_step_torch(img_u8, tables, s, o, height, width, target_size,
+                                  o_is_mean)
+    kind, idx = tables
+    if kind != "cells":
+        raise ValueError(f"a decode step on the card reads _step_tables' tables, not {kind!r}")
+    dom, tr, cells, domain_cols, domain_step = idx
+    return decode_step_cuda(img_u8, dom, tr, s, o, cells,
+                            target_size=target_size, domain_cols=domain_cols,
+                            domain_step=domain_step, o_is_mean=o_is_mean)
+
+
+def _decode_step_torch(img_u8, tables, s, o, height, width, target_size, o_is_mean=False):
+    """``_decode_step`` in plain torch ops (any device), from
+    ``build_decode_tables``' tables.  The range mean of ``o_is_mean`` is
+    the JAX package's: the samples' sum (exact) times f32(1/K), as XLA:CPU
+    forms its division by the constant K (torch's CPU ``mean`` divides,
+    which differs where K is no power of two)."""
     samp = sample_domains(img_u8, tables)  # [R, K]
     if o_is_mean:
-        samp = samp - samp.mean(-1, keepdim=True)
+        recip = float(np.float32(1.0) / np.float32(samp.shape[-1]))
+        samp = samp - samp.sum(-1, keepdim=True) * recip
     out = _affine_u8(s[:, None], samp, o[:, None])
     ny = height // target_size
     nx = width // target_size
@@ -311,7 +352,7 @@ def _pyramid_init(result: EncodeResult, s, o, dcfg: DecoderConfig):
 
     def step_at(f):
         hf, wf, tsf = h // f, w // f, ts // f
-        tables = build_decode_tables(
+        tables = _step_tables(
             result.domain_idx, result.transform, wf, hf,
             result.source_size // f, tsf, result.domain_step // f,
             result.num_transforms)

@@ -343,12 +343,12 @@ def _quadtree_step_at(levels, h: int, w: int, f: int):
     """The composite decode step at scale 1/f (f = 1 is full resolution):
     each level's full image (the uniform decoder's step), each pixel taken
     from the level that holds its leaf."""
-    from ..decode.decoder import _decode_step, build_decode_tables
+    from ..decode.decoder import _decode_step, _step_tables
 
     hf, wf = h // f, w // f
-    tables = [build_decode_tables(l.domain_idx, l.transform, wf, hf,
-                                  l.domain_size // f, l.range_size // f,
-                                  l.domain_step // f, l.num_transforms)
+    tables = [_step_tables(l.domain_idx, l.transform, wf, hf,
+                           l.domain_size // f, l.range_size // f,
+                           l.domain_step // f, l.num_transforms)
               for l in levels]
     pixel_masks = [l.accepted.reshape(h // l.range_size, w // l.range_size)
                    .repeat_interleave(l.range_size // f, 0)

@@ -60,10 +60,11 @@ _SEEN: collections.OrderedDict = collections.OrderedDict()
 def _counters():
     """The kernel wrappers' launch counters, which count a replay's
     launches as an eager call's."""
+    from ..ops import decode_kernels as dk
     from ..ops import matcher_kernels as mk
 
     return (mk.search_classed_cuda.launches, mk.search_classed2d_cuda.launches,
-            mk.search_dense_cuda.launches)
+            mk.search_dense_cuda.launches, dk.decode_step_cuda.launches)
 
 
 def _body(fn, inputs) -> tuple:

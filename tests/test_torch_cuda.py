@@ -17,10 +17,13 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_parity import assert_bitwise, random_plane
+from _torch_parity import (DECODE_STEP_GEOMETRIES, assert_bitwise, decode_step_case, mean_maps,
+                           random_plane)
 
 import fractencode_tpu_torch as T
+from fractencode_tpu_torch.decode import decoder as dec
 from fractencode_tpu_torch.encode import matcher as tm
+from fractencode_tpu_torch.ops import decode_kernels as dk
 from fractencode_tpu_torch.ops import matcher_kernels as mk
 
 pytestmark = pytest.mark.gpu
@@ -1389,3 +1392,152 @@ def test_traced_twin_on_the_card(cuda, form):
     begins = [t for m, t in zip(marks, launches) if m == "begin"]
     assert len(replays) == len(begins) == frame
     assert all(b0 <= t <= b1 for (b0, b1), t in zip(replays, begins)), (replays, begins)
+
+
+# -- the decoder step's kernel (ops/decode_kernels.py, csrc/decode_step.cu)
+
+
+def _steps(geometry, case, o_is_mean, cuda, size=None):
+    """(the kernel's step on the card, the plain step on the CPU, the plain
+    step on the card) of the numpy ``case``; the kernel launched once."""
+    sw, ts, step, t_n, n = DECODE_STEP_GEOMETRIES[geometry]
+    n = size or n
+    img, dom, tr, s, o = (torch.from_numpy(a) for a in case)
+
+    def plain(device):
+        tables = dec.build_decode_tables(dom.to(device), tr.to(device), n, n, sw, ts, step, t_n)
+        return dec._decode_step_torch(img.to(device), tables, s.to(device), o.to(device),
+                                      n, n, ts, o_is_mean)
+
+    tables = dec._step_tables(dom.to(cuda), tr.to(cuda), n, n, sw, ts, step, t_n)
+    assert tables[0] == "cells"
+    key = (ts, o_is_mean)
+    launches = dk.decode_step_cuda.launches[key]
+    got = dec._decode_step(img.to(cuda), tables, s.to(cuda), o.to(cuda), n, n, ts, o_is_mean)
+    torch.cuda.synchronize()
+    assert dk.decode_step_cuda.launches[key] == launches + 1
+    return got, plain("cpu"), plain(cuda)
+
+
+@pytest.mark.parametrize("o_is_mean", [False, True], ids=["so", "mean"])
+@pytest.mark.parametrize("geometry", list(DECODE_STEP_GEOMETRIES))
+def test_decode_step_kernel_matches_plain(cuda, geometry, o_is_mean):
+    """One launch of the kernel, bitwise the plain step on the CPU and its
+    torch ops on the card, at every table kind, the grid's and the
+    quadtree's geometries at both scales, 3 to 32 px ranges, o_is_mean at
+    K = 4 to 1024, pixels past 0 and 255 and invalid ranges."""
+    got, cpu, card = _steps(geometry, decode_step_case(geometry, 21, o_is_mean), o_is_mean, cuda)
+    assert_bitwise(got, cpu, f"{geometry} against the CPU")
+    assert_bitwise(got, card, f"{geometry} against the card's torch ops")
+    if not o_is_mean:
+        assert bool((cpu == 0).any()) and bool((cpu == 255).any())
+
+
+@pytest.mark.parametrize("geometry", ["ts3", "grid", "ts5", "qt8"])
+def test_decode_step_kernel_sees_the_means_rounding(cuda, geometry):
+    """On ``mean_maps`` (a pixel one grey level lower wherever a mean is one
+    ulp off) the kernel's means are the plain step's, K = 9, 16, 25, 64."""
+    img, dom, tr, s, o = decode_step_case(geometry, 22, o_is_mean=True)
+    sw, ts, step, t_n, n = DECODE_STEP_GEOMETRIES[geometry]
+    tables = dec.build_decode_tables(torch.from_numpy(dom), torch.from_numpy(tr), n, n,
+                                     sw, ts, step, t_n)
+    s, o = mean_maps(dec.sample_domains(torch.from_numpy(img), tables))
+    got, cpu, card = _steps(geometry, (img, dom, tr, s, o), True, cuda)
+    assert_bitwise(got, cpu, geometry)
+    assert_bitwise(got, card, geometry)
+
+
+@pytest.mark.parametrize("geometry,size", [("grid_half", 1024), ("grid", 2048)])
+def test_decode_step_kernel_at_the_decode_cells_shapes(cuda, geometry, size):
+    """The pyramid decode's two steps of a 2048^2 frame: 1024^2 with 2 px
+    ranges and 2048^2 with 4 px ones."""
+    got, _, card = _steps(geometry, decode_step_case(geometry, 23, size=size), False, cuda, size)
+    assert_bitwise(got, card, f"{geometry} at {size}^2")
+
+
+def test_decode_step_is_one_kernel_on_the_card(cuda):
+    """A traced full-scale step runs one device operation, the kernel: no
+    [R, K] gather, cast, product or permute, no copy."""
+    from torch.profiler import ProfilerActivity, profile
+
+    sw, ts, step, t_n, _ = DECODE_STEP_GEOMETRIES["grid"]
+    img, dom, tr, s, o = (torch.from_numpy(a).to(cuda)
+                          for a in decode_step_case("grid", 24, size=512))
+    tables = dec._step_tables(dom, tr, 512, 512, sw, ts, step, t_n)
+    want = dec._decode_step(img, tables, s, o, 512, 512, ts)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        out = dec._decode_step(img, tables, s, o, 512, 512, ts)
+        torch.cuda.synchronize()
+    ops = [e.name() for e in prof.profiler.kineto_results.events()
+           if not str(e.device_type()).endswith("CPU")]
+    assert len(ops) == 1 and "decode_step_kernel" in ops[0], ops
+    assert_bitwise(out, want, "traced step")
+
+
+def test_pyramid_decode_launches_the_kernel_14_times_a_frame(cuda):
+    """decode_batch_stacked in the decode cell's pyramid (8 steps at half
+    scale, 6 at full) launches the kernel 14 times a frame on every call:
+    the eager first frame, the capture's taken back, and each replay's
+    through ``graphs._counters``; the frames equal the CPU's."""
+    from fractencode_tpu_torch.utils import graphs
+
+    encoded = T.encode_batch_stacked(torch.from_numpy(_distinct_frames(2, 256)).to(cuda))
+    dcfg = T.DecoderConfig(pyramid=True, pyramid_steps=8, pyramid_levels=1,
+                           pyramid_full_steps=6)
+    graphs.clear()
+    replays = graphs.calls["decode_plane", "replay"]
+    for _ in range(3):
+        before = collections.Counter(dk.decode_step_cuda.launches)
+        outs, iters, mses = T.decode_batch_stacked(encoded, dcfg)
+        assert dk.decode_step_cuda.launches - before == {(2, False): 16, (4, False): 12}
+    assert graphs.calls["decode_plane", "replay"] == replays + 5
+    cpu = T.decode_batch_stacked(dec._to_device(encoded, "cpu"), dcfg)
+    assert_bitwise(outs, cpu[0], "frames")
+    assert torch.equal(iters, cpu[1]) and torch.equal(mses, cpu[2])
+
+
+def _decode_forms(cuda):
+    """{form: a function that decodes on the card and returns its tensors}:
+    the pyramid decode_plane, decode_batch_stacked, the quadtree's pyramid
+    and flat decodes, the flat decode_plane and a file's (o_is_mean)."""
+    from fractencode_tpu_torch import codec
+    from fractencode_tpu_torch.encode import quadtree as tq
+
+    frames = _distinct_frames(2, 256)
+    encoded = T.encode_batch_stacked(torch.from_numpy(frames).to(cuda))
+    single = T.encode_plane(frames[0], device=cuda)
+    qres = tq.encode_plane_quadtree(frames[1], device=cuda)
+    ures = codec.unpack_result(codec.pack_result(single, plane=frames[0]), device=cuda)
+    pyr, flat = T.DecoderConfig(pyramid=True), T.DecoderConfig(max_iterations=40)
+    return {"plane": lambda: T.decode_plane(single, pyr)[:1],
+            "batch": lambda: T.decode_batch_stacked(encoded, pyr),
+            "quadtree": lambda: tq.decode_plane_quadtree(qres, pyr)[:1],
+            "quadtree_flat": lambda: tq.decode_plane_quadtree(qres, flat)[:1],
+            "flat": lambda: T.decode_plane(single, flat)[:1],
+            "file": lambda: T.decode_plane(ures, flat)[:1]}
+
+
+@pytest.mark.parametrize("form", ["plane", "batch", "quadtree", "quadtree_flat", "flat", "file"])
+def test_decodes_on_their_graphs_equal_the_plain_step(cuda, form, monkeypatch):
+    """Each decode form on the card, three calls through its graphs (eager,
+    capture and replay, replay), launching the kernel, bitwise equal to the
+    same form with the plain torch step on the card (``_step_tables`` and
+    ``_decode_step`` patched to the plain versions)."""
+    from fractencode_tpu_torch.utils import graphs
+
+    run = _decode_forms(cuda)[form]
+    graphs.clear()
+    before = sum(dk.decode_step_cuda.launches.values())
+    kernel = [[x.clone() for x in run()] for _ in range(3)]
+    assert sum(dk.decode_step_cuda.launches.values()) > before
+    monkeypatch.setattr(dec, "_step_tables", dec.build_decode_tables)
+    monkeypatch.setattr(dec, "_decode_step", dec._decode_step_torch)
+    graphs.clear()
+    launches = sum(dk.decode_step_cuda.launches.values())
+    plain = [x.clone() for x in run()]
+    assert sum(dk.decode_step_cuda.launches.values()) == launches
+    graphs.clear()
+    for out in kernel:
+        for x, y in zip(out, plain, strict=True):
+            assert_bitwise(x, y, form)

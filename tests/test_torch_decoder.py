@@ -11,8 +11,9 @@ import pytest
 import torch
 from PIL import Image
 
-from _torch_parity import (GOLDEN, RESULT_ARRAYS, assert_bitwise,
-                           jax_result_to_port, lenna128, random_plane)
+from _torch_parity import (DECODE_STEP_GEOMETRIES, GOLDEN, RESULT_ARRAYS, assert_bitwise,
+                           decode_step_case, jax_result_to_port, lenna128, mean_maps,
+                           random_plane)
 
 import fractencode_tpu as J
 import fractencode_tpu.decode.decoder as jdec
@@ -115,6 +116,26 @@ def test_decode_table_kinds(geom, kind):
     assert kind_j == kind_t == kind
     assert_bitwise(jdec.sample_domains(jax.numpy.asarray(img), (kind_j, idx_j)),
                    tdec.sample_domains(torch.from_numpy(img), (kind_t, idx_t)), kind)
+
+
+@pytest.mark.parametrize("geometry", ["ts3", "grid", "ts5"])
+def test_mean_step_matches_jax(geometry):
+    """The o_is_mean step against the JAX package's on ``mean_maps``, where a
+    pixel falls one grey level wherever a range's mean is one ulp off: the
+    JAX package's mean is the sum times f32(1/K) (XLA:CPU turns the division
+    by the constant K into that product), K = 9, 16, 25."""
+    sw, ts, step, t_n, n = DECODE_STEP_GEOMETRIES[geometry]
+    img, dom, tr, _, _ = decode_step_case(geometry, 31, o_is_mean=True)
+    tables = tdec.build_decode_tables(torch.from_numpy(dom), torch.from_numpy(tr), n, n,
+                                      sw, ts, step, t_n)
+    s, o = mean_maps(tdec.sample_domains(torch.from_numpy(img), tables))
+    step_j = jax.jit(lambda im, d, t, s_, o_: jdec._decode_step(
+        im, jdec.build_decode_tables(d, t, n, n, sw, ts, step, t_n), s_, o_, n, n, ts,
+        o_is_mean=True))
+    want = step_j(*map(jax.numpy.asarray, (img, dom, tr, s, o)))
+    got = tdec._decode_step(torch.from_numpy(img), tables, torch.from_numpy(s),
+                            torch.from_numpy(o), n, n, ts, True)
+    assert_bitwise(np.asarray(want), got, geometry)
 
 
 # --- the C++ reference goldens (tests/test_reference_parity.py), for the port
