@@ -22,6 +22,14 @@ Encode (grid, and each quadtree level over the ranges it searched):
     the program's float32 SumB2 at n = 64 moves it by up to ~1e-3 while the
     map moves by far less than a grey level.
 
+The classes are the configuration's: the brightness classes where
+``use_classifier`` is on (the default), and one class, 0, for every range
+and column where it is off (``reference.blocks.search_classes``).  Without
+the classifier a range's class is every column, so ``class_faults`` counts
+the ranges whose ``valid`` flag differs from the reference's (every range is
+valid) or whose winner lies outside the grid, and ``winner_gap`` is taken
+over every column, the first least error winning.
+
 Quadtree, besides: ``leaf_faults``, blocks whose leaf flag differs from the
 reference's (its least error against the threshold; a block whose least
 error lies within ``band`` of the threshold, over its variance + 1, is not
@@ -46,6 +54,23 @@ NUMBERS = {
                  "coverage_faults"),
     "decode": ("pixels_off",),
 }
+
+
+def unjudged(cfg) -> list[str]:
+    """The encoder settings of ``cfg`` (the program's ``EncoderConfig``) that
+    the plain reference does not implement, each with what it would need: a
+    run under any of them would be judged against another search than the
+    one the program makes."""
+    return [why for off, why in (
+        (cfg.rms_threshold != 0,
+         f"rms_threshold {cfg.rms_threshold} (the frontier's scan-order winner)"),
+        (cfg.s_max > 0, f"s_max {cfg.s_max} (the clamped 'general' fit)"),
+        (cfg.criterion != "affine", f"criterion {cfg.criterion!r} (only 'affine')"),
+        (cfg.so_mode != "ls", f"so_mode {cfg.so_mode!r} (only 'ls')"),
+        (cfg.vq_classes > 0, f"vq_classes {cfg.vq_classes} (the VQ bins as classes)"),
+    ) if off]
+
+
 def _max(x: torch.Tensor) -> float:
     return float(x.max()) if x.numel() else 0.0
 
@@ -98,7 +123,8 @@ def grid_frame(plane: torch.Tensor, out: dict, enc: dict, gap_rows=None) -> dict
     """The encode numbers of one grid-encoded plane (``out``: the six
     EncodeResult arrays)."""
     p = ref_encode.plane_inputs(plane, enc["source_size"], enc["target_size"],
-                                enc["source_size"] // enc["lattice"], enc["num_transforms"])
+                                enc["source_size"] // enc["lattice"], enc["num_transforms"],
+                                classed=enc.get("use_classifier", True))
     rows = torch.arange(p.ranges.shape[0], device=plane.device)
     nums, _, _ = _ranges_check(p, out, rows, gap_rows, out["valid"].bool())
     return nums
@@ -120,7 +146,8 @@ def quadtree_frame(plane: torch.Tensor, levels: list[dict], enc: dict, qt: dict,
     leaf_faults = 0.0
     for i, (rs, out) in enumerate(zip(sizes, levels)):
         ds = rs * qt["domain_ratio"]
-        p = ref_encode.plane_inputs(plane, ds, rs, ds // qt["lattice"], enc["num_transforms"])
+        p = ref_encode.plane_inputs(plane, ds, rs, ds // qt["lattice"], enc["num_transforms"],
+                                    classed=enc.get("use_classifier", True))
         accepted = out["accepted"].bool()
         rows = torch.nonzero(~covered.reshape(-1)).squeeze(1)
         out = dict(out, distance=out["error"])

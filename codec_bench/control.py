@@ -32,7 +32,7 @@ def _search(p: ref_encode.Plane, rows: torch.Tensor) -> dict:
 def grid(plane: torch.Tensor, enc: dict) -> dict:
     p = ref_encode.plane_inputs(plane, enc["source_size"], enc["target_size"],
                                 enc["source_size"] // enc["lattice"], enc["num_transforms"],
-                                dtype=LOW)
+                                dtype=LOW, classed=enc.get("use_classifier", True))
     return _search(p, torch.arange(p.ranges.shape[0], device=plane.device))
 
 
@@ -43,7 +43,7 @@ def quadtree(plane: torch.Tensor, enc: dict, qt: dict) -> list[dict]:
     while rs >= qt["min_size"]:
         ds = rs * qt["domain_ratio"]
         p = ref_encode.plane_inputs(plane, ds, rs, ds // qt["lattice"], enc["num_transforms"],
-                                    dtype=LOW)
+                                    dtype=LOW, classed=enc.get("use_classifier", True))
         r = p.ranges.shape[0]
         rows = torch.nonzero(~covered.reshape(-1)).squeeze(1)
         found = _search(p, rows)

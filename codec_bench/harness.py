@@ -107,6 +107,10 @@ class Entry:
         self.config, self.traffic = cell.config, cell.traffic
         self.enc = self.config["encoder"]
         self.cfg = T.EncoderConfig(**self.enc)
+        unjudged = check.unjudged(self.cfg)
+        if unjudged:
+            raise ValueError(f"{cell.name}: the plain reference cannot judge this "
+                             f"configuration: {'; '.join(unjudged)}")
         tr = self.traffic
         self.batch, self.size = tr["batch"], tr["size"]
         gen = planes.generator(seed, self.device)
@@ -148,7 +152,8 @@ class Entry:
         raise NotImplementedError
 
     def bound_s(self, i: int, host: dict) -> float:
-        """The least seconds of request ``i``'s searches."""
+        """The least seconds of request ``i``'s searches: ``arith.bound_s`` of
+        the pairs its classes need (rows x columns without the classifier)."""
         return 0.0
 
     def _plane(self, f: int) -> torch.Tensor:
@@ -199,10 +204,11 @@ class _GridEncode(Entry):
         total = 0.0
         tw, sw = self.enc["target_size"], self.enc["source_size"]
         n = tw * tw
+        classed = self.enc.get("use_classifier", True)
         for f in self.frames(i):
             plane = self._plane(f)
-            rcls = blocks.classes(plane, tw, tw)
-            dcls = blocks.classes(plane, sw, sw // self.enc["lattice"])
+            rcls = blocks.search_classes(plane, tw, tw, classed)
+            dcls = blocks.search_classes(plane, sw, sw // self.enc["lattice"], classed)
             ccls = dcls.repeat_interleave(self.enc["num_transforms"])
             nbytes = arith.search_bytes(rcls.numel(), ccls.numel(), arith.width(n), False)
             total += arith.bound_s(arith.needed_pairs(rcls, ccls), n, nbytes)
@@ -265,14 +271,15 @@ class QuadtreeBatch(Entry):
     def bound_s(self, i, host):
         total = 0.0
         t_count = self.enc["num_transforms"]
+        classed = self.enc.get("use_classifier", True)
         for j, f in enumerate(self.frames(i)):
             plane = self._plane(f)
             covered = None
             for l, level in enumerate(host["levels"]):
                 rs = self.qt["max_size"] >> l
                 ds = rs * self.qt["domain_ratio"]
-                rcls = blocks.classes(plane, rs, rs)
-                dcls = blocks.classes(plane, ds, ds // self.qt["lattice"])
+                rcls = blocks.search_classes(plane, rs, rs, classed)
+                dcls = blocks.search_classes(plane, ds, ds // self.qt["lattice"], classed)
                 ccls = dcls.repeat_interleave(t_count)
                 rows = rcls if covered is None else rcls[~covered.reshape(-1)]
                 acc = level["accepted"][j].to(self.device).reshape(

@@ -48,14 +48,16 @@ def natural_planes(count: int, size: int, gen: torch.Generator, device) -> torch
 def searched_maps(plane: torch.Tensor, enc: dict, block: int = 2048) -> dict:
     """A grid encoding of ``plane`` for the decode, made by the plain
     reference: each range's winner is the first least-squares best of the
-    class-pruned search over every domain of the plane (``reference.encode.
-    best``, in float32 on the plane's device), with that pair's
+    class-pruned search over every domain of the plane (the full search
+    without the classifier; ``reference.encode.best``, in float32 on the
+    plane's device), with that pair's
     least-squares (s, o) rounded to float32.  The winners are a real
     encoding's, scattered over the plane as the search finds them, and the
     decode's reference takes nothing the program made.  A range whose class
     has no domain is invalid, with s = o = 0, as the program marks it."""
     sw, tw, t_count = enc["source_size"], enc["target_size"], enc["num_transforms"]
-    p = ref_encode.plane_inputs(plane, sw, tw, sw // enc["lattice"], t_count, torch.float32)
+    p = ref_encode.plane_inputs(plane, sw, tw, sw // enc["lattice"], t_count, torch.float32,
+                                classed=enc.get("use_classifier", True))
     _, col = ref_encode.best(p, torch.arange(p.ranges.shape[0], device=plane.device), block)
     valid = col >= 0
     m = col.clamp_min(0)

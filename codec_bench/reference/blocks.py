@@ -80,6 +80,17 @@ def classes(plane: torch.Tensor, size: int, step: int) -> torch.Tensor:
     return cls
 
 
+def search_classes(plane: torch.Tensor, size: int, step: int, classed: bool) -> torch.Tensor:
+    """[N] int64 class of every block of the grid as the search prunes by it:
+    the brightness classes where the configuration's ``use_classifier`` is
+    on, and class 0 for every block where it is off, so that one class holds
+    every range and every column (the full search)."""
+    if classed:
+        return classes(plane, size, step)
+    ox, _ = grid_origins(plane.shape[1], plane.shape[0], size, step)
+    return torch.zeros(ox.shape, dtype=torch.int64, device=plane.device)
+
+
 def range_blocks(plane: torch.Tensor, tw: int, dtype=torch.float64) -> torch.Tensor:
     """[R, tw*tw] range blocks, r = ry * (W // tw) + rx, pixels row-major."""
     h, w = plane.shape

@@ -1,6 +1,9 @@
 """Plain reference of the encode's search and fit: for each range, the
 least-squares error of every same-class (domain, isometry) pair, its best,
-and the (s, o) of a given pair.
+and the (s, o) of a given pair.  The classes are the brightness classes
+where the configuration's ``use_classifier`` is on; where it is off, every
+range and column is in class 0, so a range's class is every column (the
+full search: rows x columns pairs).
 
 The pairs are scored from centred vectors: with A' = A - mean(A) and
 B' = B - mean(B), the least-squares map A ~ s*B + o has s = <A', B'> / |B'|^2,
@@ -38,15 +41,17 @@ class Plane:
 
 
 def plane_inputs(plane: torch.Tensor, source: int, target: int, step: int, t_count: int,
-                 dtype=torch.float64) -> Plane:
+                 dtype=torch.float64, classed: bool = True) -> Plane:
     """The encode inputs of an [H, W] u8 plane for ranges of ``target`` px and
-    domains of ``source`` px at ``step``, under ``t_count`` isometries."""
+    domains of ``source`` px at ``step``, under ``t_count`` isometries; the
+    classes by ``blocks.search_classes`` (``classed``: the configuration's
+    ``use_classifier``; without it every range and column is in class 0)."""
     dv = blocks.domain_vectors(plane, source, step, target, t_count, dtype)
     d = dv.shape[0]
     columns = dv.flip(1).reshape(d * t_count, -1)
-    dcls = blocks.classes(plane, source, step)
+    dcls = blocks.search_classes(plane, source, step, classed)
     return Plane(ranges=blocks.range_blocks(plane, target, dtype), columns=columns,
-                 range_class=blocks.classes(plane, target, target),
+                 range_class=blocks.search_classes(plane, target, target, classed),
                  column_class=dcls.repeat_interleave(t_count), t_count=t_count)
 
 
@@ -71,8 +76,9 @@ def fit(a: torch.Tensor, b: torch.Tensor):
 
 def best(p: Plane, rows: torch.Tensor, block: int = 256):
     """(least error, search-order column of its first occurrence) of each
-    range in ``rows`` over the columns of its class, each [len(rows)];
-    error +inf and column -1 where the class has no column."""
+    range in ``rows`` over the columns of its class (every column without
+    the classifier), each [len(rows)]; error +inf and column -1 where the
+    class has no column."""
     dev = p.ranges.device
     err = torch.full((rows.shape[0],), float("inf"), dtype=p.ranges.dtype, device=dev)
     col = torch.full((rows.shape[0],), -1, dtype=torch.int64, device=dev)
